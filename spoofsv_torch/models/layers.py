@@ -1,0 +1,154 @@
+"""Core network blocks: gated highway convolutions with incremental decoding.
+
+Port of :mod:`spoofsv_tpu.models.layers`. Layout is time-major ``(B, T, C)``;
+parameters follow the reference torch ``state_dict`` schema that
+``spoofsv_tpu.utils.torch_export`` emits (``Conv1d`` weights ``(out, in, k)``,
+LayerNorm ``weight``/``bias``).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+LN_EPS = 1e-5   # torch.nn.LayerNorm default epsilon
+
+
+def functional_dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
+    if not training or rate <= 0.0:
+        return x
+    return F.dropout(x, rate, training=True)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis with flax's fast-variance form.
+
+    ``var = max(E[x²] − μ², 0)``, eps 1e-5, statistics in f32 — what flax
+    ``nn.LayerNorm`` and the decode kernel compute. ``F.layer_norm``'s
+    two-pass variance differs at the ulp level, which an AR loop amplifies.
+    """
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        mean = x32.mean(-1, keepdim=True)
+        mean2 = (x32 * x32).mean(-1, keepdim=True)
+        var = (mean2 - mean * mean).clamp_min(0.0)
+        mul = torch.rsqrt(var + LN_EPS) * self.weight.float()
+        return ((x32 - mean) * mul + self.bias.float()).to(x.dtype)
+
+
+class Conv1x1(nn.Module):
+    """``Conv1d(k=1)`` applied in ``(..., C)`` layout: a dense layer whose
+    weight keeps the reference's ``(out, in, 1)`` shape."""
+
+    def __init__(self, in_dim: int, out_dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_dim, in_dim, 1))
+        self.bias = nn.Parameter(torch.zeros(out_dim))
+        nn.init.kaiming_normal_(self.weight, nonlinearity="relu")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight[..., 0], self.bias)
+
+
+class HighwayConv(nn.Module):
+    """Gated ("highway") 1-D convolution.
+
+    ``y = σ(LN1(h1))·LN2(h2) + (1−σ(LN1(h1)))·x`` where ``[h1, h2]`` is a
+    width-``2·dim`` conv of the input. The causal variant left-pads
+    ``dilation·(kernel_size−1)`` zeros.
+    """
+
+    def __init__(self, dim: int, kernel_size: int = 3, dilation: int = 1,
+                 causal: bool = False, dropout_rate: float = 0.0):
+        super().__init__()
+        self.dim = dim
+        self.kernel_size = kernel_size
+        self.dilation = dilation
+        self.causal = causal
+        self.dropout_rate = dropout_rate
+        self.conv = nn.Conv1d(dim, 2 * dim, kernel_size, dilation=dilation)
+        nn.init.kaiming_normal_(self.conv.weight, nonlinearity="relu")
+        nn.init.zeros_(self.conv.bias)
+        self.ln1 = LayerNorm(dim)
+        self.ln2 = LayerNorm(dim)
+
+    @property
+    def pad(self) -> int:
+        return self.dilation * (self.kernel_size - 1)
+
+    def _gate(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        h1, h2 = h.chunk(2, dim=-1)
+        g = torch.sigmoid(self.ln1(h1))
+        return g * self.ln2(h2) + (1.0 - g) * x
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Full-sequence forward; ``x``: (B, T, C)."""
+        left = self.pad if self.causal else self.pad // 2
+        inp = F.pad(x.transpose(1, 2), (left, self.pad - left))
+        h = F.conv1d(inp, self.conv.weight, self.conv.bias,
+                     dilation=self.dilation).transpose(1, 2)
+        out = self._gate(h, x)
+        return functional_dropout(out, self.dropout_rate, self.training)
+
+    # -- incremental decoding ------------------------------------------------
+    def init_cache(self, batch: int, device=None, dtype=None) -> torch.Tensor:
+        """Buffer of the last ``pad`` inputs; zeros == left zero-padding."""
+        assert self.causal, "cache only makes sense for causal convs"
+        return torch.zeros(batch, max(self.pad, 1), self.dim, device=device,
+                           dtype=dtype or self.conv.weight.dtype)
+
+    def step(self, x_t: torch.Tensor, cache: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One causal step; ``x_t``: (B, C), cache: (B, pad, C) of past inputs.
+
+        The k taps are concatenated into one (B, k·C) row so the conv is a
+        single matmul against the ``(k·C, 2C)`` kernel.
+        """
+        k, d, c = self.kernel_size, self.dilation, self.dim
+        taps = [cache[:, i * d, :] for i in range(k - 1)] + [x_t]
+        stacked = torch.cat(taps, dim=-1)
+        w = self.conv.weight.permute(2, 1, 0).reshape(k * c, 2 * c)
+        h = stacked @ w + self.conv.bias
+        out = self._gate(h, x_t)
+        if self.pad > 0:
+            cache = torch.cat([cache[:, 1:, :], x_t[:, None, :]], dim=1)
+        return out, cache
+
+
+class HighwayDilationStack(nn.Module):
+    """Four stacked k=3 highway convs, dilations 1/3/9/27."""
+
+    DILATIONS = (1, 3, 9, 27)
+
+    def __init__(self, dim: int, causal: bool = False, dropout_rate: float = 0.0):
+        super().__init__()
+        for i, d in enumerate(self.DILATIONS):
+            setattr(self, f"hc{i + 1}", HighwayConv(dim, 3, d, causal, dropout_rate))
+
+    @property
+    def blocks(self):
+        return [self.hc1, self.hc2, self.hc3, self.hc4]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for blk in self.blocks:
+            x = blk(x)
+        return x
+
+    def init_cache(self, batch: int, device=None, dtype=None):
+        return tuple(b.init_cache(batch, device, dtype) for b in self.blocks)
+
+    def step(self, x_t: torch.Tensor, caches):
+        new = []
+        for blk, c in zip(self.blocks, caches):
+            x_t, c2 = blk.step(x_t, c)
+            new.append(c2)
+        return x_t, tuple(new)

@@ -1,0 +1,61 @@
+"""spoofsv_torch imports no jax, and its kernel wrappers never fall back.
+
+A CUDA request with no card raises; a non-CPU tensor reaches the kernel path
+(where it launches or raises), never the plain version.
+"""
+
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import spoofsv_torch
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(spoofsv_torch.__path__, "spoofsv_torch."))
+
+
+def test_port_imports_no_jax():
+    mods = _port_modules()
+    assert "spoofsv_torch.ops.decode_kernel" in mods and "spoofsv_torch.ops.gl_kernel" in mods
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax')))\n"
+            "assert not bad, bad\n"
+            "print('ok', len(sys.modules))\n")
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=str(REPO), timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.startswith("ok")
+
+
+def test_cuda_request_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError):
+        spoofsv_torch.resolve_device("cuda")
+    assert spoofsv_torch.resolve_device(None) == torch.device("cpu")
+
+
+def test_wrappers_take_the_kernel_path_for_non_cpu_tensors():
+    """Meta tensors are not CPU tensors: each wrapper goes to its kernel path
+    and raises there (no card, or not a CUDA tensor) instead of falling back."""
+    from spoofsv_torch.ops import decode_kernel, gl_kernel
+
+    mag = torch.empty(1, 8, 513, device="meta")
+    with pytest.raises((RuntimeError, ValueError)):
+        gl_kernel.gl_init_angles(mag, 1024, 256, "advance")
+    with pytest.raises((RuntimeError, ValueError)):
+        gl_kernel.griffin_lim_fused(mag, 1024, 256, n_iter=1,
+                                    init_angles=(torch.empty_like(mag), torch.empty_like(mag)))
+    K = torch.empty(2, 5, 32, device="meta")
+    with pytest.raises((RuntimeError, ValueError)):
+        decode_kernel.decode_fused({}, K, K, None, None, n_frames=3, freq_bins=16)
