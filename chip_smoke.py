@@ -14,7 +14,15 @@ Phases (any failure raises and exits non-zero):
   5. the main path: ``Synthesizer`` at full width in bf16, B=64, N=100,
      T=325, GL12 from the SPSI init, then ``finalize_audio``; launch counts
      reset just before and read just after; plus a small f32 end-to-end
-     comparison of the CUDA path against the CPU path.
+     comparison of the CUDA path against the CPU path;
+  6. K4/K5/K6 (highway kernels) vs their plain versions in f32 at the
+     training path's shapes (B=16): max |d|, gradients through each
+     ``autograd.Function`` against plain autograd, kernel and plain ms;
+  7. the ordinary training path: ``Trainer`` for Text2Mel and SSRN at full
+     width, f32, B=16, N=186, T=325 (lin 1300 frames), 5 iterations from the
+     same seed-0 weights under each highway impl, one validation (Text2Mel
+     through K1) and one checkpoint round trip each; launch counts reset
+     just before each run and read just after.
 Prints the card line and a kernels JSON line, then the ``{"ok": true, ...}``
 line last.
 """
@@ -22,8 +30,10 @@ line last.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -52,6 +62,190 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def highway_kernel_phase(dev, cuda_ms, kernels: dict) -> None:
+    """Phase 6: K6, K4 and K5 against their plain versions in f32 at the
+    training path's shapes (B=16), then gradients through each
+    autograd.Function."""
+    import torch
+
+    from spoofsv_torch.ops import gate_kernel, hconv_kernel
+
+    def rand(shape, seed: int) -> torch.Tensor:
+        return torch.randn(*shape, generator=torch.Generator().manual_seed(seed)).to(dev)
+
+    def hw_params(C: int, K: int, seed: int) -> list:
+        """Conv weight (2C, C, K) at the models' Kaiming scale, bias, LN params."""
+        g = torch.Generator().manual_seed(seed)
+        w = torch.randn(2 * C, C, K, generator=g) * (2.0 / (K * C)) ** 0.5
+        b = torch.randn(2 * C, generator=g) * 0.1
+        lns = [torch.randn(C, generator=g) * 0.2 + (1.0 if i % 2 == 0 else 0.0) for i in range(4)]
+        return [t.to(dev) for t in (w, b, *lns)]
+
+    def gate_case(rows: int, C: int, seed: int):
+        args = (rand((16, rows, 2 * C), seed), rand((16, rows, C), seed + 1),
+                *hw_params(C, 1, seed + 2)[2:])
+        return (lambda: gate_kernel.fused_highway_gate(*args),
+                lambda: gate_kernel.highway_gate_plain(*args))
+
+    def conv_case(T: int, C: int, dil: int, causal: bool, seed: int):
+        x, p = rand((16, T, C), seed), hw_params(C, 3, seed + 1)
+        return (lambda: hconv_kernel.fused_highway_conv(x, *p, dil, causal),
+                lambda: hconv_kernel.highway_conv_plain(x, *p, dil, causal))
+
+    def pair_case(T: int, C: int, da: int, db: int, causal: bool, seed: int):
+        x, pa, pb = rand((16, T, C), seed), hw_params(C, 3, seed + 1), hw_params(C, 3, seed + 2)
+        return (lambda: hconv_kernel.fused_highway_conv_pair(x, *pa, *pb, da, db, causal),
+                lambda: hconv_kernel.highway_pair_plain(x, *pa, *pb, da, db, causal))
+
+    # f32 sums of up to K·C = 1536 products in another order, then LayerNorm
+    tol = 1e-4
+    cases = {   # name -> (TPU kernel, [(case, builder)]); the first case is the JSON's
+        "highway_gate": ("spoofsv_tpu/ops/pallas_ops.py:40", [
+            ("audio encoder 16x325 rows C=256", lambda: gate_case(325, 256, 30)),
+            ("text encoder 16x186 rows C=512", lambda: gate_case(186, 512, 33))]),
+        "highway_conv": ("spoofsv_tpu/ops/pallas_conv.py:57", [
+            ("SSRN hc3 T=1300 C=512 d=1 SAME", lambda: conv_case(1300, 512, 1, False, 40)),
+            ("audio encoder T=325 C=256 d=27 causal", lambda: conv_case(325, 256, 27, True, 42))]),
+        "highway_conv_pair": ("spoofsv_tpu/ops/pallas_conv.py:204", [
+            ("SSRN hc3->hc4 T=1300 C=512 (1,1)", lambda: pair_case(1300, 512, 1, 1, False, 50)),
+            ("ups2 pair T=1300 C=256 (1,3)", lambda: pair_case(1300, 256, 1, 3, False, 53)),
+            ("causal (9,27) T=325 C=256", lambda: pair_case(325, 256, 9, 27, True, 56)),
+            ("text encoder (9,27) SAME N=186 C=512",
+             lambda: pair_case(186, 512, 9, 27, False, 59))]),
+    }
+    for name, (replaces, named) in cases.items():
+        errs, times = [], []
+        for label, build_case in named:
+            fused, plain = build_case()
+            got, ref = fused(), plain()
+            errs.append(float((got - ref).abs().max()))
+            times.append((cuda_ms(fused, reps=5), cuda_ms(plain, reps=5)))
+            log(f"[{name}] {label}: max|d| {errs[-1]:.3g} (gate {tol}); kernel "
+                f"{times[-1][0]:.3f} ms, plain {times[-1][1]:.3f} ms")
+            gate(errs[-1] <= tol, (name, label, errs[-1]))
+            del fused, plain, got, ref
+        kernels[name] = dict(name=name, route="cuda", source="spoofsv_torch/csrc/highway.cu",
+                             replaces=replaces, max_abs_err=max(errs), ms=times[0][0],
+                             plain_ms=times[0][1])
+
+    # gradients through each autograd.Function (the plain version recomputed
+    # from the saved inputs) against autograd of the plain version
+    C, T = 256, 64
+    grad_cases = {
+        "highway_gate": (gate_kernel.fused_highway_gate, gate_kernel.highway_gate_plain,
+                         [rand((2, T, 2 * C), 60), rand((2, T, C), 61)]
+                         + hw_params(C, 1, 62)[2:], ()),
+        "highway_conv": (hconv_kernel.fused_highway_conv, hconv_kernel.highway_conv_plain,
+                         [rand((2, T, C), 63)] + hw_params(C, 3, 64), (3, True)),
+        "highway_conv_pair": (hconv_kernel.fused_highway_conv_pair,
+                              hconv_kernel.highway_pair_plain,
+                              [rand((2, T, C), 65)] + hw_params(C, 3, 66) + hw_params(C, 3, 67),
+                              (1, 3, False)),
+    }
+    for name, (fused, plain, ins, static) in grad_cases.items():
+        grads = []
+        for fn in (fused, plain):
+            ts = [t.clone().requires_grad_(True) for t in ins]
+            (fn(*ts, *static) ** 2).sum().backward()
+            grads.append([t.grad for t in ts])
+        excess = max(float(((g - r).abs() - (5e-4 + 1e-4 * r.abs())).max())
+                     for g, r in zip(*grads))
+        worst = max(float((g - r).abs().max()) for g, r in zip(*grads))
+        log(f"[{name}] grads vs plain autograd B=2 T={T} C={C}: max|d| {worst:.3g} "
+            f"(gate atol 5e-4 + rtol 1e-4)")
+        gate(excess <= 0.0, (name, worst))
+
+
+def training_phase(cfg, dev, counters: dict, B: int, N: int, T: int):
+    """Phase 7: the ordinary training path. For each train kind and highway
+    impl, a ``Trainer`` takes 5 steps on one synthetic batch (B utterances,
+    N text ids, T mel frames, 4T lin frames) from the same seed-0 weights,
+    validates once and checkpoints; the checkpoint is reloaded and resumed.
+    Launch counts are reset just before each run and read just after.
+    Returns (K4/K5/K6 launches summed over the runs, step ms per run)."""
+    import torch
+
+    from spoofsv_torch.cli.main import build_models
+    from spoofsv_torch.models.layers import GATE_IMPLS, gate_impl
+    from spoofsv_torch.train import Trainer
+    from spoofsv_torch.weights import load_reference_checkpoint, load_state
+
+    rng = np.random.default_rng(2)
+    batch = {"text": rng.integers(1, cfg.vocab_len - 1, (B, N)).astype(np.int32),
+             "mel": rng.uniform(0.05, 0.95, (B, T, cfg.mel.freq_bins)).astype(np.float32),
+             "lin": rng.uniform(0.05, 0.95, (B, 4 * T, cfg.lin_bins)).astype(np.float32),
+             "spk": rng.normal(size=(B, cfg.spk_emb_dim)).astype(np.float32)}
+    torch.manual_seed(0)
+    models = dict(zip(("train_text2mel", "train_ssrn"), build_models(cfg, device=dev)))
+    init_sd = {k: {n: v.detach().clone() for n, v in m.state_dict().items()}
+               for k, m in models.items()}
+    impl_kernel = {"pallas": "highway_gate", "fused_conv": "highway_conv",
+                   "fused_pair": "highway_conv_pair"}
+    hw_launches = dict.fromkeys(impl_kernel.values(), 0)
+    ckpt_keys = {"epoch", "iteration", "model_state_dict", "optimizer_state_dict",
+                 "loss_val_log"}
+    step_ms = {}
+    with tempfile.TemporaryDirectory() as root:
+        tcfg = cfg.replace(src_root_dir=root + "/", val_every_iter=5)
+        for kind, model in models.items():
+            first_loss = {}
+            for impl in GATE_IMPLS:
+                load_state(model, init_sd[kind])
+                trainer = Trainer(tcfg, model, kind, ctime=f"{kind}-{impl}")
+                for c in counters.values():
+                    c.launches = 0
+                torch.cuda.synchronize()
+                with gate_impl(impl):
+                    trainer.fit(lambda: [batch] * 5, lambda: [batch], max_iterations=5)
+                torch.cuda.synchronize()
+                n = {k: c.launches for k, c in counters.items()}
+                trainer.close()
+                with open(os.path.join(trainer.ckpt.base, "metrics.jsonl")) as f:
+                    recs = [json.loads(ln) for ln in f]
+                losses = [r["loss"] for r in recs if r["split"] == "train"]
+                secs = [r["sec_per_iter"] for r in recs if r["split"] == "train"]
+                val = [r["loss"] for r in recs if r["split"] == "validate"]
+                step_ms[f"{kind[6:]}/{impl}"] = round(1e3 * float(np.median(secs[1:])), 2)
+                first_loss[impl] = losses[0]
+                for k in hw_launches:
+                    hw_launches[k] += n[k]
+                log(f"[train] {kind} {impl}: losses {[round(v, 6) for v in losses]}; validation "
+                    f"{val}; step ms (iters 2-5) {[round(1e3 * v, 2) for v in secs[1:]]}; "
+                    f"launches {n}")
+                gate(len(losses) == 5 and len(val) == 1, (kind, impl, losses, val))
+                gate(bool(np.isfinite(losses + val).all()), (kind, impl, losses, val))
+                gate(losses[-1] < losses[0], (kind, impl, "loss did not fall", losses))
+                gate(abs(losses[0] - first_loss["xla"]) <= 1e-4 * abs(first_loss["xla"]),
+                     (kind, impl, "step-1 loss vs xla", losses[0], first_loss["xla"]))
+                # only the impl's own kernels ran (fused_pair runs K4 on unpaired blocks)
+                own = {impl_kernel.get(impl)}
+                if impl == "fused_pair":
+                    own.add("highway_conv")
+                gate(all(n[k] == 0 for k in hw_launches if k not in own),
+                     (kind, impl, "a kernel of another impl ran", n))
+                if impl in impl_kernel:
+                    gate(n[impl_kernel[impl]] > 0, (kind, impl, "kernel not launched", n))
+                if kind == "train_text2mel":
+                    gate(n["decode"] > 0, (kind, impl, "validation did not run K1", n))
+                # checkpoint round trip: reference schema, reload, resume
+                path = trainer.ckpt.latest()
+                ck = torch.load(path, map_location="cpu", weights_only=True)
+                gate(set(ck) == ckpt_keys and ck["iteration"] == 5
+                     and len(ck["optimizer_state_dict"]["state"]) == len(list(model.parameters())),
+                     (kind, impl, sorted(ck), ck["iteration"]))
+                fresh = build_models(cfg, device=dev)[0 if kind == "train_text2mel" else 1]
+                load_reference_checkpoint(fresh, path)
+                same = all(torch.equal(fresh.state_dict()[k], v)
+                           for k, v in model.state_dict().items())
+                again = Trainer(tcfg, fresh, kind, ctime=f"{kind}-{impl}")
+                again.resume(path)
+                again.close()
+                gate(same and again.iteration == 5 and again.state.step == 5,
+                     (kind, impl, "checkpoint round trip", same, again.iteration))
+                del fresh, again, ck
+    return hw_launches, step_ms
+
+
 def main() -> None:
     import torch
 
@@ -71,7 +265,7 @@ def main() -> None:
     from spoofsv_torch.infer.decode import make_decoder
     from spoofsv_torch.infer.synthesize import Synthesizer, finalize_audio
     from spoofsv_torch.models import SSRN, MelSyn
-    from spoofsv_torch.ops import _build, decode_kernel, gl_kernel
+    from spoofsv_torch.ops import _build, decode_kernel, gate_kernel, gl_kernel, hconv_kernel
 
     dev = torch.device("cuda:0")
 
@@ -337,6 +531,25 @@ def main() -> None:
     log(f"[main] f32 B=2 T=24 GL4, CUDA vs CPU: mel max|d| {mel_s:.3g} (gate 1e-3), "
         f"audio rel-L2 {rel_s:.3g} (gate 0.03), onsets {ons_s}")
     gate(min(ons_s) == 24 and mel_s <= 1e-3 and rel_s < 0.03, (ons_s, mel_s, rel_s))
+
+    del m_c, s_c, m_h, s_h, a_c, a_h, mel_c, mel_h, att_c, att_h
+
+    # ---- phase 6: K4/K5/K6 vs their plain versions -----------------------------
+    t0 = time.perf_counter()
+    highway_kernel_phase(dev, cuda_ms, kernels)
+    log(f"[time] phase 6 {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 7: the ordinary training path at full width --------------------
+    counters.update({"highway_gate": gate_kernel.gate_kernel,
+                     "highway_conv": hconv_kernel.hconv_kernel,
+                     "highway_conv_pair": hconv_kernel.hconv_pair_kernel})
+    t0 = time.perf_counter()
+    hw_launches, step_ms = training_phase(cfg, dev, counters, B=16, N=186, T=325)
+    log(f"[time] phase 7 {time.perf_counter() - t0:.1f} s")
+    for k, v in hw_launches.items():
+        kernels[k]["launches"] = v
+    log(f"[train] step ms per impl, B=16 N=186 T=325 f32 (median of iterations 2-5): "
+        f"{step_ms} on [{smi}]")
 
     out = {"kernels": list(kernels.values())}
     log(json.dumps(out))

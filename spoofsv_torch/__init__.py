@@ -1,9 +1,9 @@
 """spoofsv_torch: the PyTorch/CUDA port of :mod:`spoofsv_tpu`.
 
-Same layout and names as the JAX package (``models/``, ``infer/``, ``dsp/``,
-``ops/``, ``data/``), so each module's counterpart is easy to find. Public
-functions keep the JAX layouts: time-major ``(B, T, C)``, attention
-``(B, N, T)``, audio ``(B, hop·(T-1))``.
+Same layout and names as the JAX package (``models/``, ``infer/``, ``train/``,
+``dsp/``, ``ops/``, ``data/``, ``cli/``), so each module's counterpart is easy
+to find. Public functions keep the JAX layouts: time-major ``(B, T, C)``,
+attention ``(B, N, T)``, audio ``(B, hop·(T-1))``.
 
 The port imports ``torch`` and never ``jax``. Its only imports from the JAX
 package are the two jax-free modules ``spoofsv_tpu.config`` and

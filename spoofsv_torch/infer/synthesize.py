@@ -81,7 +81,10 @@ class Synthesizer:
 
     The models' parameters fix the device and compute dtype; inputs are moved
     there. Stages are exposed separately (:attr:`decode`, :meth:`ssrn_apply`,
-    :attr:`vocode`) so callers can time them.
+    :attr:`vocode`) so callers can time them. The text encoder and SSRN run
+    the process-wide highway implementation, which
+    ``spoofsv_torch.cli.main.apply_runtime_knobs(cfg, infer=True)`` sets from
+    ``cfg.tpu.highway_infer_impl`` ("xla" by default).
     """
 
     def __init__(self, cfg: Config, melsyn: MelSyn, ssrn: SSRN,

@@ -4,17 +4,56 @@ Port of :mod:`spoofsv_tpu.models.layers`. Layout is time-major ``(B, T, C)``;
 parameters follow the reference torch ``state_dict`` schema that
 ``spoofsv_tpu.utils.torch_export`` emits (``Conv1d`` weights ``(out, in, k)``,
 LayerNorm ``weight``/``bias``).
+
+The full-sequence highway block has four implementations, chosen
+process-wide as in the JAX package (``set_default_gate_impl``, or the
+:func:`gate_impl` context manager): ``"xla"`` (plain PyTorch), ``"pallas"``
+(the conv in PyTorch, then the gate kernel K6), ``"fused_conv"`` (the whole
+block in kernel K4) and ``"fused_pair"`` (:func:`highway_pair` runs two
+consecutive blocks in kernel K5; a block without a fusable partner runs K4).
+The names are the JAX package's. CPU tensors take each kernel's plain version.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+from typing import Iterator, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from spoofsv_torch.ops.gate_kernel import fused_highway_gate
+from spoofsv_torch.ops.hconv_kernel import (fused_highway_conv, fused_highway_conv_pair,
+                                            pad_left)
+
 LN_EPS = 1e-5   # torch.nn.LayerNorm default epsilon
+GATE_IMPLS = ("xla", "pallas", "fused_conv", "fused_pair")
+PALLAS_BLOCK_T = 256   # the JAX kernels' frame tile, which decides what they fuse
+_default_gate_impl = "xla"
+
+
+def set_default_gate_impl(impl: str) -> None:
+    """Select the full-sequence highway implementation for the whole process."""
+    global _default_gate_impl
+    if impl not in GATE_IMPLS:
+        raise ValueError(f"highway impl must be one of {GATE_IMPLS}, got {impl!r}")
+    _default_gate_impl = impl
+
+
+def get_default_gate_impl() -> str:
+    return _default_gate_impl
+
+
+@contextlib.contextmanager
+def gate_impl(impl: str) -> Iterator[None]:
+    """Run a block of code under ``impl``, restoring the previous one after."""
+    before = get_default_gate_impl()
+    set_default_gate_impl(impl)
+    try:
+        yield
+    finally:
+        set_default_gate_impl(before)
 
 
 def functional_dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
@@ -90,13 +129,27 @@ class HighwayConv(nn.Module):
         g = torch.sigmoid(self.ln1(h1))
         return g * self.ln2(h2) + (1.0 - g) * x
 
+    def ln_params(self) -> Tuple[torch.Tensor, ...]:
+        return self.ln1.weight, self.ln1.bias, self.ln2.weight, self.ln2.bias
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Full-sequence forward; ``x``: (B, T, C)."""
-        left = self.pad if self.causal else self.pad // 2
+        impl = _default_gate_impl
+        if impl in ("fused_conv", "fused_pair") and self.pad <= min(PALLAS_BLOCK_T, x.shape[1]):
+            # whole block in K4 (a "fused_pair" block with no fusable partner
+            # lands here too); shorter inputs than the conv's halo take the
+            # plain block, as in the JAX package
+            out = fused_highway_conv(x, self.conv.weight, self.conv.bias, *self.ln_params(),
+                                     self.dilation, self.causal)
+            return functional_dropout(out, self.dropout_rate, self.training)
+        left = pad_left(self.kernel_size, self.dilation, self.causal)
         inp = F.pad(x.transpose(1, 2), (left, self.pad - left))
         h = F.conv1d(inp, self.conv.weight, self.conv.bias,
                      dilation=self.dilation).transpose(1, 2)
-        out = self._gate(h, x)
+        if impl == "pallas":
+            out = fused_highway_gate(h, x, *self.ln_params())
+        else:
+            out = self._gate(h, x)
         return functional_dropout(out, self.dropout_rate, self.training)
 
     # -- incremental decoding ------------------------------------------------
@@ -124,6 +177,35 @@ class HighwayConv(nn.Module):
         return out, cache
 
 
+def pair_fusable(a: HighwayConv, b: HighwayConv, T: int, deterministic: bool) -> bool:
+    """Whether the JAX package's ``highway_pair`` fuses blocks ``a`` → ``b``
+    over ``T`` frames: same width, causality and kernel size; no dropout
+    between them in training; and the combined halo within the JAX kernel's
+    frame tile ``min(256, max(8, T))`` on each side. The CUDA kernel takes
+    any such pair whatever its own tile."""
+    span_a, span_b = a.pad, b.pad
+    block_t = min(PALLAS_BLOCK_T, max(8, T))
+    pa_l = pad_left(a.kernel_size, a.dilation, a.causal)
+    pb_l = pad_left(b.kernel_size, b.dilation, b.causal)
+    return (a.dim == b.dim and a.causal == b.causal and a.kernel_size == b.kernel_size
+            and (deterministic or (a.dropout_rate == 0.0 and b.dropout_rate == 0.0))
+            and pa_l + pb_l <= block_t
+            and (span_a - pa_l) + (span_b - pb_l) <= block_t)
+
+
+def highway_pair(a: HighwayConv, b: HighwayConv, x: torch.Tensor) -> torch.Tensor:
+    """``b(a(x))``; under ``"fused_pair"`` one K5 pass where the JAX package
+    fuses the pair (:func:`pair_fusable`)."""
+    if (_default_gate_impl == "fused_pair"
+            and pair_fusable(a, b, x.shape[1], deterministic=not a.training)):
+        out = fused_highway_conv_pair(x, a.conv.weight, a.conv.bias, *a.ln_params(),
+                                      b.conv.weight, b.conv.bias, *b.ln_params(),
+                                      a.dilation, b.dilation, a.causal)
+        out = functional_dropout(out, a.dropout_rate, a.training)
+        return functional_dropout(out, b.dropout_rate, b.training)
+    return b(a(x))
+
+
 class HighwayDilationStack(nn.Module):
     """Four stacked k=3 highway convs, dilations 1/3/9/27."""
 
@@ -139,9 +221,9 @@ class HighwayDilationStack(nn.Module):
         return [self.hc1, self.hc2, self.hc3, self.hc4]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for blk in self.blocks:
-            x = blk(x)
-        return x
+        # under "fused_pair" the (1, 3) and (9, 27) blocks fuse two by two
+        x = highway_pair(self.hc1, self.hc2, x)
+        return highway_pair(self.hc3, self.hc4, x)
 
     def init_cache(self, batch: int, device=None, dtype=None):
         return tuple(b.init_cache(batch, device, dtype) for b in self.blocks)

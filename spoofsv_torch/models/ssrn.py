@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from spoofsv_torch.models.layers import Conv1x1, HighwayConv, LayerNorm
+from spoofsv_torch.models.layers import Conv1x1, HighwayConv, LayerNorm, highway_pair
 
 
 class Upsample2x(nn.Module):
@@ -27,7 +27,7 @@ class Upsample2x(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.conv_transpose1d(x.transpose(1, 2), self.deconv.weight,
                                self.deconv.bias, stride=2).transpose(1, 2)
-        return self.hc2(self.hc1(x))
+        return highway_pair(self.hc1, self.hc2, x)
 
 
 class SSRN(nn.Module):
@@ -61,10 +61,10 @@ class SSRN(nn.Module):
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         x = self._drop(self._ln_dense(mel, 1))
-        x = self.hc2(self.hc1(x))
+        x = highway_pair(self.hc1, self.hc2, x)
         x = self.ups2(self.ups1(x))
         x = self._drop(self._ln_dense(x, 2))
-        x = self.hc4(self.hc3(x))
+        x = highway_pair(self.hc3, self.hc4, x)
         x = self._drop(self._ln_dense(x, 3))
         x = self._drop(torch.relu(self._ln_dense(x, 4)))
         x = torch.relu(self._ln_dense(x, 5))

@@ -16,7 +16,7 @@ from torch import nn
 
 from spoofsv_torch.models.layers import (Conv1x1, HighwayConv,
                                          HighwayDilationStack, LayerNorm,
-                                         functional_dropout)
+                                         functional_dropout, highway_pair)
 
 ATT_MASK_VALUE = -2.0 ** 32  # reference models/TTSModel.py:284,286
 
@@ -62,7 +62,8 @@ class TextEncoder(nn.Module):
         x = functional_dropout(x, p, tr)
         x = functional_dropout(self.ln2(self.conv2(x)), p, tr)
         x = self.hci2(self.hci1(x))
-        x = self.hc4(self.hc3(self.hc2(self.hc1(x))))
+        x = highway_pair(self.hc1, self.hc2, x)
+        x = highway_pair(self.hc3, self.hc4, x)
         K, V = x.chunk(2, dim=-1)
         return K, V
 
@@ -114,7 +115,7 @@ class AudioEncoder(nn.Module):
         """``mel``: (B, T, freq_bins); ``spk``: (B, spk_emb_dim) → Q (B, T, h)."""
         x = self._front(mel, spk, self.training)
         x = self.hci2(self.hci1(x))
-        return self.hc2(self.hc1(x))
+        return highway_pair(self.hc1, self.hc2, x)
 
     def init_cache(self, batch: int, device=None, dtype=None):
         return (self.hci1.init_cache(batch, device, dtype),
@@ -170,7 +171,7 @@ class AudioDecoder(nn.Module):
         """``rq``: (B, T, 2h) → (B, T, freq_bins) in (0, 1)."""
         x = self.ln1(self.conv1(rq))
         x = functional_dropout(x, self.dropout_rate, self.training)
-        x = self.hc2(self.hc1(self.hci(x)))
+        x = highway_pair(self.hc1, self.hc2, self.hci(x))
         return self._tail(x, self.training)
 
     def init_cache(self, batch: int, device=None, dtype=None):

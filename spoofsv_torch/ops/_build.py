@@ -3,6 +3,7 @@
 Each source becomes a shared library with a plain C interface, compiled for
 ``sm_90a``, in ``spoofsv_torch/_build/`` (listed in ``.gitignore``). The file
 name carries a hash of the source and flags, so an edited source rebuilds.
+:func:`build_all` starts one ``nvcc`` per source at once.
 Pointers and the stream pass as ``c_void_p``; each launch function returns
 ``cudaGetLastError()``, which :func:`check` raises on.
 """
@@ -16,7 +17,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -43,7 +44,16 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         "spoofsv_gl_run": (_I, [_P] * 10 + [_I] * 6 + [_F, _P]),
         "spoofsv_gl_error_string": (ctypes.c_char_p, [_I]),
     },
+    "highway": {
+        "spoofsv_highway_gate_launch": (_I, [_I, _P, _P, _P, _P, _I, _I, _F, _P]),
+        "spoofsv_hconv_launch": (_I, [_I] + [_P] * 5 + [_I] * 6 + [_F, _P]),
+        "spoofsv_hconv_pair_launch": (_I, [_I] + [_P] * 8 + [_I] * 8 + [_F, _P]),
+        "spoofsv_highway_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
+
+# the kernels' storage-type argument
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, dict] = {}
@@ -66,25 +76,36 @@ def nvcc() -> str:
     return found
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; returns the bound library."""
-    if name in _LIBS:
-        return _LIBS[name]
+def _target(name: str) -> Tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}_{digest}.so"
-    info = {"source": str(src.relative_to(PKG.parent)), "cached": out.exists()}
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
+    return src, BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def _start(name: str) -> Optional[Tuple[subprocess.Popen, Path, float]]:
+    """Start ``nvcc`` for ``name`` unless its library is built; returns the
+    process, its temporary output and its start time."""
+    src, out = _target(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    return proc, tmp, time.perf_counter()
+
+
+def _finish(name: str, started: Optional[Tuple[subprocess.Popen, Path, float]]) -> ctypes.CDLL:
+    """Wait for the build of ``name`` (if one was started), then load and bind it."""
+    src, out = _target(name)
+    info = {"source": str(src.relative_to(PKG.parent)), "cached": started is None}
+    if started is not None:
+        proc, tmp, t0 = started
+        _, stderr = proc.communicate()
         info["seconds"] = time.perf_counter() - t0
-        info["ptxas"] = [ln for ln in proc.stderr.splitlines()
-                         if "registers" in ln or "spill" in ln]
+        info["ptxas"] = [ln for ln in stderr.splitlines() if "registers" in ln or "spill" in ln]
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr[-4000:]}")
+            raise RuntimeError(f"nvcc failed for {src}:\n{stderr[-4000:]}")
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     for fn, (restype, argtypes) in SIGNATURES[name].items():
@@ -96,10 +117,25 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``; returns the bound library."""
+    if name in _LIBS:
+        return _LIBS[name]
+    return _finish(name, _start(name))
+
+
 def build_all() -> Dict[str, dict]:
-    """Build and load every kernel library; returns the build log."""
-    for name in SIGNATURES:
-        load(name)
+    """Build every kernel library, one ``nvcc`` per source started together,
+    and load them; returns the build log."""
+    started = {name: _start(name) for name in SIGNATURES if name not in _LIBS}
+    try:
+        for name, proc in started.items():
+            _finish(name, proc)
+    finally:   # a failed build leaves no compiler running
+        for s in started.values():
+            if s is not None and s[0].poll() is None:
+                s[0].kill()
+                s[0].wait()
     return dict(BUILD_LOG)
 
 

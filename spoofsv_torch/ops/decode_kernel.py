@@ -30,7 +30,6 @@ HW_DILATIONS = (1, 3, 9, 27, 1, 3, 9, 27, 3, 3, 1, 3, 9, 27, 1, 1)
 WEIGHT_NAMES = ("hw_w", "hw_b", "hw_ln", "sq_w", "sq_b", "misc_ln", "enc_w1", "enc_b1",
                 "dec_w1", "dec_b1", "tail_w5", "tail_b5", "ln5_s", "ln5_b")
 MATRIX_NAMES = ("hw_w", "sq_w", "enc_w1", "dec_w1", "tail_w5")   # in the compute dtype
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 decode_kernel = _build.LaunchCounter()   # K1
@@ -202,7 +201,7 @@ def decode_fused(packed: Dict[str, torch.Tensor], K: torch.Tensor, V: torch.Tens
         raise ValueError("the decode kernel implements monotonic attention only")
     B, N, C = K.shape
     dt = K.dtype
-    if dt not in _DTYPE_CODES:
+    if dt not in _build.DTYPE_CODES:
         raise ValueError(f"decode kernel takes float32 or bfloat16, got {dt}")
     if C % 32:
         raise ValueError(f"decode kernel needs hidden % 32 == 0, got {C}")
@@ -228,7 +227,7 @@ def decode_fused(packed: Dict[str, torch.Tensor], K: torch.Tensor, V: torch.Tens
     tensors = ins + weights + [rings, y, a, pma]
     _build.require_cuda(*tensors)
     ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
-    err = lib.spoofsv_decode_launch(_DTYPE_CODES[dt], ptrs, rows, Bp, n_frames, N, freq_bins,
+    err = lib.spoofsv_decode_launch(_build.DTYPE_CODES[dt], ptrs, rows, Bp, n_frames, N, freq_bins,
                                     packed["tail_w5"].shape[1], C, int(condition),
                                     _build.stream_ptr(dev))
     _build.check(lib, "decode", err, "decode_kernel")

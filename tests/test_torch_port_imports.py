@@ -24,7 +24,9 @@ def _port_modules():
 
 def test_port_imports_no_jax():
     mods = _port_modules()
-    assert "spoofsv_torch.ops.decode_kernel" in mods and "spoofsv_torch.ops.gl_kernel" in mods
+    for m in ("ops.decode_kernel", "ops.gl_kernel", "ops.gate_kernel", "ops.hconv_kernel",
+              "train.losses", "train.state", "train.steps", "train.loop", "cli.main"):
+        assert f"spoofsv_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax')))\n"
@@ -59,3 +61,16 @@ def test_wrappers_take_the_kernel_path_for_non_cpu_tensors():
     K = torch.empty(2, 5, 32, device="meta")
     with pytest.raises((RuntimeError, ValueError)):
         decode_kernel.decode_fused({}, K, K, None, None, n_frames=3, freq_bins=16)
+
+    from spoofsv_torch.ops import gate_kernel, hconv_kernel
+
+    x = torch.empty(2, 9, 32, device="meta")
+    w, v, v2 = (torch.empty(*s, device="meta") for s in ((64, 32, 3), (32,), (64,)))
+    with pytest.raises((RuntimeError, ValueError)):
+        gate_kernel.fused_highway_gate(torch.empty(2, 9, 64, device="meta"), x, v, v, v, v)
+    with pytest.raises((RuntimeError, ValueError)):
+        hconv_kernel.fused_highway_conv(x, w, v2, v, v, v, v, 1, False)
+    with pytest.raises((RuntimeError, ValueError)):
+        hconv_kernel.fused_highway_conv_pair(x, w, v2, v, v, v, v, w, v2, v, v, v, v, 1, 3, False)
+    assert (gate_kernel.gate_kernel.launches, hconv_kernel.hconv_kernel.launches,
+            hconv_kernel.hconv_pair_kernel.launches) == (0, 0, 0)

@@ -16,7 +16,7 @@ from spoofsv_torch import reference_precision
 from spoofsv_torch.dsp import torchdsp
 from spoofsv_torch.infer.decode import make_decoder
 from spoofsv_torch.models import MelSyn
-from spoofsv_torch.ops import decode_kernel, gl_kernel
+from spoofsv_torch.ops import decode_kernel, gate_kernel, gl_kernel, hconv_kernel
 
 NFFT, HOP = 1024, 256
 pytestmark = pytest.mark.cuda
@@ -121,3 +121,115 @@ def test_decode_kernel_rows_per_block_bit_identical(dev):
                                        rows=rows) for rows in (1, 2, 4)]
     for out in outs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(outs[0], out))
+
+
+# ---------------------------------------------------------------------------
+# K4/K5/K6: highway kernels vs their plain versions. f32: atol/rtol 1e-4 (sums
+# of up to K·C = 1536 products in another order, then LayerNorm); bf16: the
+# same f32 arithmetic on bf16 operands, outputs within a few bf16 ulps.
+# ---------------------------------------------------------------------------
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+
+
+def _hw_params(C, K, dev, seed, dtype=torch.float32):
+    g = torch.Generator().manual_seed(seed)
+    w = (torch.randn(2 * C, C, K, generator=g) * (2.0 / (K * C)) ** 0.5).to(dev, dtype)
+    b = (torch.randn(2 * C, generator=g) * 0.1).to(dev, dtype)
+    lns = [(torch.randn(C, generator=g) * 0.2 + (1.0 if i % 2 == 0 else 0.0)).to(dev, dtype)
+           for i in range(4)]
+    return [w, b, *lns]
+
+
+def _x(B, T, C, dev, seed, dtype=torch.float32):
+    return torch.randn(B, T, C, generator=torch.Generator().manual_seed(seed)).to(dev, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [32, 256, 512])
+def test_gate_kernel_matches_plain(dev, C, dtype):
+    """K6 on a ragged row count."""
+    h = _x(3, 37, 2 * C, dev, 1, dtype)
+    x = _x(3, 37, C, dev, 2, dtype)
+    lns = _hw_params(C, 1, dev, 3, dtype)[2:]
+    before = gate_kernel.gate_kernel.launches
+    got = gate_kernel.fused_highway_gate(h, x, *lns)
+    assert gate_kernel.gate_kernel.launches == before + 1
+    ref = gate_kernel.highway_gate_plain(h, x, *lns)
+    torch.testing.assert_close(got.float(), ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,T,dil,causal,K", [
+    (64, 37, 3, False, 3), (256, 300, 27, True, 3), (512, 50, 1, False, 1),
+    (16, 9, 1, False, 3), (512, 186, 27, False, 3)])
+def test_hconv_kernel_matches_plain(dev, C, T, dil, causal, K, dtype):
+    """K4: SAME and causal halos, K=1, a sequence shorter than one tile."""
+    x = _x(2, T, C, dev, 4, dtype)
+    p = _hw_params(C, K, dev, 5, dtype)
+    before = hconv_kernel.hconv_kernel.launches
+    got = hconv_kernel.fused_highway_conv(x, *p, dil, causal)
+    assert hconv_kernel.hconv_kernel.launches == before + 1
+    ref = hconv_kernel.highway_conv_plain(x, *p, dil, causal)
+    torch.testing.assert_close(got.float(), ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,T,da,db,causal", [
+    (256, 70, 1, 3, False), (256, 300, 9, 27, True), (512, 186, 9, 27, False),
+    (512, 37, 1, 1, False), (64, 33, 3, 3, True), (32, 8, 1, 1, False)])
+def test_hconv_pair_kernel_matches_plain_and_chained(dev, C, T, da, db, causal, dtype):
+    """K5 against the chained plain blocks and against two chained K4 launches."""
+    x = _x(2, T, C, dev, 6, dtype)
+    pa, pb = _hw_params(C, 3, dev, 7, dtype), _hw_params(C, 3, dev, 8, dtype)
+    before = hconv_kernel.hconv_pair_kernel.launches
+    got = hconv_kernel.fused_highway_conv_pair(x, *pa, *pb, da, db, causal)
+    assert hconv_kernel.hconv_pair_kernel.launches == before + 1
+    ref = hconv_kernel.highway_pair_plain(x, *pa, *pb, da, db, causal)
+    torch.testing.assert_close(got.float(), ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    chained = hconv_kernel.fused_highway_conv(
+        hconv_kernel.fused_highway_conv(x, *pa, da, causal), *pb, db, causal)
+    torch.testing.assert_close(got.float(), chained.float(), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_highway_kernel_grads_match_plain_autograd(dev):
+    """Backward through each autograd.Function (the plain version recomputed)
+    against autograd of the plain version itself."""
+    C, T = 64, 40
+    cases = [
+        (gate_kernel.fused_highway_gate, gate_kernel.highway_gate_plain,
+         [_x(2, T, 2 * C, dev, 9), _x(2, T, C, dev, 10)] + _hw_params(C, 1, dev, 11)[2:], ()),
+        (hconv_kernel.fused_highway_conv, hconv_kernel.highway_conv_plain,
+         [_x(2, T, C, dev, 12)] + _hw_params(C, 3, dev, 13), (3, True)),
+        (hconv_kernel.fused_highway_conv_pair, hconv_kernel.highway_pair_plain,
+         [_x(2, T, C, dev, 14)] + _hw_params(C, 3, dev, 15) + _hw_params(C, 3, dev, 16),
+         (1, 3, False)),
+    ]
+    for fused, plain, ins, static in cases:
+        grads = []
+        for fn in (fused, plain):
+            ts = [t.clone().requires_grad_(True) for t in ins]
+            (fn(*ts, *static) ** 2).sum().backward()
+            grads.append([t.grad for t in ts])
+        for g, r in zip(*grads):
+            torch.testing.assert_close(g, r, atol=5e-4, rtol=1e-4)
+
+
+def test_highway_launch_failure_raises(dev):
+    """A launch the card refuses (K5's y1 tile at C=1024 with a 54-frame halo
+    needs more than 227 KB of shared memory) raises: no plain fallback, no count."""
+    C = 1024
+    x = _x(1, 64, C, dev, 17)
+    pa, pb = _hw_params(C, 3, dev, 18), _hw_params(C, 3, dev, 19)
+    before = hconv_kernel.hconv_pair_kernel.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        hconv_kernel.fused_highway_conv_pair(x, *pa, *pb, 9, 27, False)
+    assert hconv_kernel.hconv_pair_kernel.launches == before
+    with pytest.raises(ValueError):
+        hconv_kernel.fused_highway_conv(_x(1, 8, 48, dev, 20), *_hw_params(48, 3, dev, 21),
+                                        1, False)
+    # the card is still usable after the refused launch
+    y = hconv_kernel.fused_highway_conv(x[..., :512].contiguous(), *_hw_params(512, 3, dev, 22),
+                                        1, False)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all())
