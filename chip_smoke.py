@@ -16,8 +16,11 @@ Phases (any failure raises and exits non-zero):
      reset just before and read just after; plus a small f32 end-to-end
      comparison of the CUDA path against the CPU path;
   6. K4/K5/K6 (highway kernels) vs their plain versions in f32 at the
-     training path's shapes (B=16): max |d|, gradients through each
-     ``autograd.Function`` against plain autograd, kernel and plain ms;
+     training path's shapes (B=16), and K5 in bf16 at the synthesis batch
+     (B=64): max |d|, kernel and plain ms, for K5 the executed/useful row
+     ratio, the TFLOP/s achieved and the ptxas registers and spills of
+     each instantiation (spills fail the run); gradients through each
+     ``autograd.Function`` against plain autograd;
   7. the ordinary training path: ``Trainer`` for Text2Mel and SSRN at full
      width, f32, B=16, N=186, T=325 (lin 1300 frames), 5 iterations from the
      same seed-0 weights under each highway impl, one validation (Text2Mel
@@ -64,22 +67,35 @@ def log(msg: str) -> None:
 
 def highway_kernel_phase(dev, cuda_ms, kernels: dict) -> None:
     """Phase 6: K6, K4 and K5 against their plain versions in f32 at the
-    training path's shapes (B=16), then gradients through each
-    autograd.Function."""
+    training path's shapes (B=16), K5 also in bf16 at the synthesis batch
+    (B=64), then gradients through each autograd.Function."""
+    import re
+
     import torch
 
-    from spoofsv_torch.ops import gate_kernel, hconv_kernel
+    from spoofsv_torch.ops import _build, gate_kernel, hconv_kernel
 
-    def rand(shape, seed: int) -> torch.Tensor:
-        return torch.randn(*shape, generator=torch.Generator().manual_seed(seed)).to(dev)
+    def rand(shape, seed: int, dtype=torch.float32) -> torch.Tensor:
+        return torch.randn(*shape, generator=torch.Generator().manual_seed(seed)).to(dev, dtype)
 
-    def hw_params(C: int, K: int, seed: int) -> list:
+    def hw_params(C: int, K: int, seed: int, dtype=torch.float32) -> list:
         """Conv weight (2C, C, K) at the models' Kaiming scale, bias, LN params."""
         g = torch.Generator().manual_seed(seed)
         w = torch.randn(2 * C, C, K, generator=g) * (2.0 / (K * C)) ** 0.5
         b = torch.randn(2 * C, generator=g) * 0.1
         lns = [torch.randn(C, generator=g) * 0.2 + (1.0 if i % 2 == 0 else 0.0) for i in range(4)]
-        return [t.to(dev) for t in (w, b, *lns)]
+        return [t.to(dev, dtype) for t in (w, b, *lns)]
+
+    # K5's ptxas lines, one instantiation (storage type, channels per CTA) each
+    info = _build.BUILD_LOG["hconv_pair"].get("ptxas", [])
+    for i, ln in enumerate(info):
+        inst = re.search(r"hconv_pair_kernelI(f|13__nv_bfloat16)Li(\d)E", ln)
+        if inst and i + 2 < len(info):
+            log(f"[highway_conv_pair] ptxas <{'f32' if inst[1] == 'f' else 'bf16'}, "
+                f"{32 * int(inst[2])} channels per CTA>: {info[i + 2].split(':', 1)[-1].strip()}; "
+                f"{info[i + 1].strip()}")
+            gate(info[i + 1].strip().startswith("0 bytes stack frame, 0 bytes spill stores"),
+                 ("K5 spills", info[i + 1]))
 
     def gate_case(rows: int, C: int, seed: int):
         args = (rand((16, rows, 2 * C), seed), rand((16, rows, C), seed + 1),
@@ -92,13 +108,19 @@ def highway_kernel_phase(dev, cuda_ms, kernels: dict) -> None:
         return (lambda: hconv_kernel.fused_highway_conv(x, *p, dil, causal),
                 lambda: hconv_kernel.highway_conv_plain(x, *p, dil, causal))
 
-    def pair_case(T: int, C: int, da: int, db: int, causal: bool, seed: int):
-        x, pa, pb = rand((16, T, C), seed), hw_params(C, 3, seed + 1), hw_params(C, 3, seed + 2)
+    def pair_case(T: int, C: int, da: int, db: int, causal: bool, seed: int, B: int = 16,
+                  dtype=torch.float32):
+        x = rand((B, T, C), seed, dtype)
+        pa, pb = hw_params(C, 3, seed + 1, dtype), hw_params(C, 3, seed + 2, dtype)
+        plan = hconv_kernel.pair_tile_plan(C, 3, db, T, dtype)
+        flop = 2 * (2 * B * T * 3 * C * 2 * C)   # two layers of (B·T, K·C) × (K·C, 2C)
         return (lambda: hconv_kernel.fused_highway_conv_pair(x, *pa, *pb, da, db, causal),
-                lambda: hconv_kernel.highway_pair_plain(x, *pa, *pb, da, db, causal))
+                lambda: hconv_kernel.highway_pair_plain(x, *pa, *pb, da, db, causal),
+                (plan.executed_over_useful(T), flop))
 
-    # f32 sums of up to K·C = 1536 products in another order, then LayerNorm
-    tol = 1e-4
+    # f32: sums of up to K·C = 1536 products in another order, then LayerNorm;
+    # bf16: outputs within a few bf16 ulps (the card tests' gate)
+    tols = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
     cases = {   # name -> (TPU kernel, [(case, builder)]); the first case is the JSON's
         "highway_gate": ("spoofsv_tpu/ops/pallas_ops.py:40", [
             ("audio encoder 16x325 rows C=256", lambda: gate_case(325, 256, 30)),
@@ -111,20 +133,32 @@ def highway_kernel_phase(dev, cuda_ms, kernels: dict) -> None:
             ("ups2 pair T=1300 C=256 (1,3)", lambda: pair_case(1300, 256, 1, 3, False, 53)),
             ("causal (9,27) T=325 C=256", lambda: pair_case(325, 256, 9, 27, True, 56)),
             ("text encoder (9,27) SAME N=186 C=512",
-             lambda: pair_case(186, 512, 9, 27, False, 59))]),
+             lambda: pair_case(186, 512, 9, 27, False, 59)),
+            ("bf16 SSRN hc3->hc4 B=64 T=1300 C=512 (1,1)",
+             lambda: pair_case(1300, 512, 1, 1, False, 62, B=64, dtype=torch.bfloat16))]),
     }
+    sources = {"highway_conv_pair": "spoofsv_torch/csrc/hconv_pair.cu"}
     for name, (replaces, named) in cases.items():
         errs, times = [], []
         for label, build_case in named:
-            fused, plain = build_case()
+            fused, plain, *work = build_case()
             got, ref = fused(), plain()
-            errs.append(float((got - ref).abs().max()))
+            err = float((got.float() - ref.float()).abs().max())
+            tol = tols[got.dtype]
+            if got.dtype == torch.float32:
+                errs.append(err)
             times.append((cuda_ms(fused, reps=5), cuda_ms(plain, reps=5)))
-            log(f"[{name}] {label}: max|d| {errs[-1]:.3g} (gate {tol}); kernel "
-                f"{times[-1][0]:.3f} ms, plain {times[-1][1]:.3f} ms")
-            gate(errs[-1] <= tol, (name, label, errs[-1]))
+            extra = ""
+            if work:   # K5: executed/useful rows, useful FLOPs over the kernel's time
+                ratio, flop = work[0]
+                extra = (f"; executed/useful rows {ratio:.3f}, "
+                         f"{flop / (times[-1][0] * 1e-3) / 1e12:.1f} TFLOP/s")
+            log(f"[{name}] {label}: max|d| {err:.3g} (gate {tol}); kernel "
+                f"{times[-1][0]:.3f} ms, plain {times[-1][1]:.3f} ms{extra}")
+            gate(err <= tol, (name, label, err))
             del fused, plain, got, ref
-        kernels[name] = dict(name=name, route="cuda", source="spoofsv_torch/csrc/highway.cu",
+        kernels[name] = dict(name=name, route="cuda",
+                             source=sources.get(name, "spoofsv_torch/csrc/highway.cu"),
                              replaces=replaces, max_abs_err=max(errs), ms=times[0][0],
                              plain_ms=times[0][1])
 

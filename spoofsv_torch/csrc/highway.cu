@@ -1,5 +1,5 @@
-// K4 (whole highway block), K5 (two highway blocks in one pass) and K6
-// (highway gate) for sm_90a, in f32 or bf16 storage with f32 arithmetic.
+// K4 (whole highway block) and K6 (highway gate) for sm_90a, in f32 or
+// bf16 storage with f32 arithmetic.
 //
 // A highway block computes, per frame t of x (B, T, C):
 //   [h1, h2] = conv(x)[t] + bias             (K taps at dilation d, 2C wide)
@@ -24,19 +24,8 @@
 // tap, read from L2 at its shifted frames, so x costs a few KB of shared
 // memory against the MB of weight each block streams. Bound: the weight
 // stream from L2 (each block reads the whole (K·C, 2C) weight once) and
-// CUDA-core FMAs; tensor cores (wgmma) are a later step.
-//
-// K5 replaces spoofsv_tpu/ops/pallas_conv.py::_hconv_pair_kernel. Layer A
-// runs over BM + span_b frames (span_b = d_b·(K−1)) in sub-tiles of BM, its
-// output y1 kept in shared memory in the storage type (rounded as two chained
-// K4 launches would round it through device memory) and zeroed outside
-// [0, T), then layer B runs over the BM output frames reading y1 from shared
-// memory. x is never staged whole: layer A's operand is staged per reduction
-// chunk from L2, as in K4. That leaves y1 as the only large buffer, so the
-// text encoder's (9, 27) SAME pair at C = 512 fits: BM = 16 gives
-// (16 + 54)·512·4 B = 140 KB of y1 plus 64 KB of weight chunk (206 KB of the
-// 227 KB a block may use). The price is layer A's recompute over the halo:
-// ceil((BM + span_b)/BM) sub-tiles against one for layer B.
+// CUDA-core FMAs; tensor cores (wgmma) are a later step. K5, the pair of
+// blocks, is csrc/hconv_pair.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,8 +33,8 @@
 
 namespace {
 
-constexpr int TPB = 256;       // K4/K5 threads per block
-constexpr int RPT = 8;         // K4/K5 frames per thread
+constexpr int TPB = 256;       // K4 threads per block
+constexpr int RPT = 8;         // K4 frames per thread
 constexpr int BK = 16;         // reduction rows per shared-memory chunk
 constexpr int GATE_WARPS = 8;  // K6 rows per block (one warp per row)
 constexpr int GATE_MAXV = 32;  // K6 values per lane per half: C <= 1024
@@ -142,7 +131,7 @@ gate_kernel(const T* __restrict__ h, const T* __restrict__ x, const float* __res
 }
 
 // ---------------------------------------------------------------------------
-// K4/K5 building blocks. Thread layout of a block: G = C/4 column groups,
+// K4 building blocks. Thread layout of a block: G = C/4 column groups,
 // R = TPB/G row groups, BM = R·RPT frames. Thread t owns column group
 // cg = t % G (h1 columns 4cg..4cg+3 in acc[i][0..3], the same h2 columns in
 // acc[i][4..7]) and frames r0..r0+RPT-1 of the tile, r0 = (t / G)·RPT.
@@ -328,86 +317,6 @@ hconv_kernel(const T* __restrict__ x, const T* __restrict__ W, const float* __re
   }
 }
 
-// ---------------------------------------------------------------------------
-// K5: grid (ceil(T/BM), B). y1 row r1 ∈ [0, BM + span_b) is frame
-// t0 − pb_left + r1; layer A's tap k for it reads x at that frame − pa_left
-// + k·dil_a; layer B's output row r, tap k reads y1 row r + k·dil_b.
-// ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(TPB, 2)
-hconv_pair_kernel(const T* __restrict__ x, const T* __restrict__ Wa,
-                  const float* __restrict__ bias_a, const float* __restrict__ ln_a,
-                  const T* __restrict__ Wb, const float* __restrict__ bias_b,
-                  const float* __restrict__ ln_b, T* __restrict__ out, int T_, int C, int K,
-                  int dil_a, int dil_b, int pa_left, int pb_left, float eps) {
-  extern __shared__ float4 smem4[];
-  const Layout L(C);
-  float* Ws = reinterpret_cast<float*>(smem4);
-  float* As = Ws + align16(sizeof(float) * BK * 2 * C) / sizeof(float);
-  float* red = As + align16(sizeof(float) * BK * (L.BM + 4)) / sizeof(float);
-  T* y1 = reinterpret_cast<T*>(reinterpret_cast<char*>(smem4) + tile_smem(C));
-  const int H1 = L.BM + dil_b * (K - 1);
-  const int t0 = blockIdx.x * L.BM;
-  const T* xb = x + (size_t)blockIdx.y * T_ * C;
-  T* yb = out + (size_t)blockIdx.y * T_ * C;
-  const int c = 4 * L.cg;
-  float acc[RPT][8];
-  float res[RPT][4];
-
-  // layer A, BM rows of y1 at a time
-  for (int s0 = 0; s0 < H1; s0 += L.BM) {
-    const int f0 = t0 - pb_left + s0;  // frame of sub-tile row 0
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    auto operand_a = [&](int r, int tap, int cc) -> float {
-      const int g = f0 + r - pa_left + tap * dil_a;
-      return (g >= 0 && g < T_) ? to_f(xb[(size_t)g * C + cc]) : 0.f;
-    };
-    conv_tile(acc, L, K, operand_a, Wa, Ws, As);
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const float4 v = frame4(xb, f0 + L.r0 + i, T_, C, c);
-      res[i][0] = v.x, res[i][1] = v.y, res[i][2] = v.z, res[i][3] = v.w;
-    }
-    highway_epilogue(acc, res, L, bias_a, ln_a, eps, red);
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r1 = s0 + L.r0 + i, g = f0 + L.r0 + i;
-      if (r1 < H1) {
-        // conv_b's zero padding sees zeros, not the gate of a zero input
-        const bool in = g >= 0 && g < T_;
-        store4(y1 + (size_t)r1 * C + c,
-               in ? make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3])
-                  : make_float4(0.f, 0.f, 0.f, 0.f));
-      }
-    }
-  }
-  __syncthreads();
-
-  // layer B over the BM output frames
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  auto operand_b = [&](int r, int tap, int cc) -> float {
-    return to_f(y1[(size_t)(r + tap * dil_b) * C + cc]);
-  };
-  conv_tile(acc, L, K, operand_b, Wb, Ws, As);
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const float4 v = load4(y1 + (size_t)(L.r0 + i + pb_left) * C + c);
-    res[i][0] = v.x, res[i][1] = v.y, res[i][2] = v.z, res[i][3] = v.w;
-  }
-  highway_epilogue(acc, res, L, bias_b, ln_b, eps, red);
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int g = t0 + L.r0 + i;
-    if (g < T_) store4(yb + (size_t)g * C + c, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
-  }
-}
-
 // C a power of two in [16, 1024]: C/4 column groups tile the block's 256
 // threads, and BK divides C so a reduction chunk never straddles two taps.
 bool tile_geometry_ok(int C) { return C >= 16 && C <= 1024 && (C & (C - 1)) == 0; }
@@ -430,25 +339,6 @@ int hconv_launch(const void* x, const void* w, const float* bias, const float* l
   dim3 grid((T_ + BM - 1) / BM, B);
   hconv_kernel<T><<<grid, TPB, smem, s>>>((const T*)x, (const T*)w, bias, ln, (T*)out, T_, C, K,
                                           dil, pad_left, eps);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int hconv_pair_launch(const void* x, const void* wa, const float* bias_a, const float* ln_a,
-                      const void* wb, const float* bias_b, const float* ln_b, void* out, int B,
-                      int T_, int C, int K, int dil_a, int dil_b, int pa_left, int pb_left,
-                      float eps, cudaStream_t s) {
-  const int BM = (TPB / (C / 4)) * RPT;
-  const size_t smem = tile_smem(C) + align16(sizeof(T) * (size_t)(BM + dil_b * (K - 1)) * C);
-  // a width/dilation whose y1 does not fit fails here, at the attribute call
-  // (over the card's 227 KB), and the wrapper raises on the returned error
-  cudaError_t e = cudaFuncSetAttribute(hconv_pair_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return clear_and_return(e);
-  dim3 grid((T_ + BM - 1) / BM, B);
-  hconv_pair_kernel<T><<<grid, TPB, smem, s>>>(
-      (const T*)x, (const T*)wa, bias_a, ln_a, (const T*)wb, bias_b, ln_b, (T*)out, T_, C, K,
-      dil_a, dil_b, pa_left, pb_left, eps);
   return (int)cudaGetLastError();
 }
 
@@ -483,24 +373,6 @@ int spoofsv_hconv_launch(int dtype, const void* x, const void* w, const float* b
   cudaStream_t s = (cudaStream_t)stream;
   return dtype == 0 ? hconv_launch<float>(x, w, bias, ln, out, B, T, C, K, dil, pad_left, eps, s)
                     : hconv_launch<bf16>(x, w, bias, ln, out, B, T, C, K, dil, pad_left, eps, s);
-}
-
-// K5. As K4, with layer A's (w_a, bias_a, ln_a) and layer B's (w_b, bias_b, ln_b).
-int spoofsv_hconv_pair_launch(int dtype, const void* x, const void* wa, const float* bias_a,
-                              const float* ln_a, const void* wb, const float* bias_b,
-                              const float* ln_b, void* out, int B, int T, int C, int K,
-                              int dil_a, int dil_b, int pa_left, int pb_left, float eps,
-                              void* stream) {
-  if (dtype < 0 || dtype > 1 || !tile_geometry_ok(C) || K < 1 || dil_a < 1 || dil_b < 1 ||
-      B < 0 || T < 0)
-    return (int)cudaErrorInvalidValue;
-  if (B == 0 || T == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  return dtype == 0
-             ? hconv_pair_launch<float>(x, wa, bias_a, ln_a, wb, bias_b, ln_b, out, B, T, C, K,
-                                        dil_a, dil_b, pa_left, pb_left, eps, s)
-             : hconv_pair_launch<bf16>(x, wa, bias_a, ln_a, wb, bias_b, ln_b, out, B, T, C, K,
-                                       dil_a, dil_b, pa_left, pb_left, eps, s);
 }
 
 const char* spoofsv_highway_error_string(int err) {

@@ -47,8 +47,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
     "highway": {
         "spoofsv_highway_gate_launch": (_I, [_I, _P, _P, _P, _P, _I, _I, _F, _P]),
         "spoofsv_hconv_launch": (_I, [_I] + [_P] * 5 + [_I] * 6 + [_F, _P]),
-        "spoofsv_hconv_pair_launch": (_I, [_I] + [_P] * 8 + [_I] * 8 + [_F, _P]),
         "spoofsv_highway_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "hconv_pair": {
+        "spoofsv_hconv_pair_launch": (_I, [_I] + [_P] * 11 + [_I] * 10 + [_F, _P]),
+        "spoofsv_hconv_pair_smem": (_I, [_I, _I]),
+        "spoofsv_hconv_pair_error_string": (ctypes.c_char_p, [_I]),
     },
 }
 
@@ -103,7 +107,8 @@ def _finish(name: str, started: Optional[Tuple[subprocess.Popen, Path, float]]) 
         proc, tmp, t0 = started
         _, stderr = proc.communicate()
         info["seconds"] = time.perf_counter() - t0
-        info["ptxas"] = [ln for ln in stderr.splitlines() if "registers" in ln or "spill" in ln]
+        info["ptxas"] = [ln for ln in stderr.splitlines()
+                         if "Function properties" in ln or "registers" in ln or "spill" in ln]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {src}:\n{stderr[-4000:]}")
         os.replace(tmp, out)

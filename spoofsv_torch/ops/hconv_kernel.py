@@ -2,13 +2,15 @@
 
 Port of :mod:`spoofsv_tpu.ops.pallas_conv`. K4 (``_hconv_kernel`` →
 ``csrc/highway.cu::hconv_kernel``) runs one block; K5
-(``_hconv_pair_kernel`` → ``csrc/highway.cu::hconv_pair_kernel``) runs two
-consecutive blocks with the activation between them kept on chip.
-:func:`highway_conv_plain` ports ``highway_conv_reference`` and
+(``_hconv_pair_kernel`` → ``csrc/hconv_pair.cu``) runs two consecutive
+blocks in one launch, the activation between them in an L2-resident
+scratch tile. :func:`highway_conv_plain` ports ``highway_conv_reference`` and
 :func:`highway_pair_plain` the chained pair reference.
 
-The conv weight is the reference schema ``(2C, C, K)`` (``Conv1d``); the
-kernels take it as ``(K·C, 2C)``, reshaped once per call here. Both wrappers
+The conv weight is the reference schema ``(2C, C, K)`` (``Conv1d``). K4
+takes it as ``(K·C, 2C)``; K5 as one ``(2·CH, K·C)`` slice per CTA of its
+cluster (:func:`pair_weight_operand`), split into TF32 hi and lo parts for
+f32 (:func:`tf32_split`), both prepared once per call here. Both wrappers
 are differentiable: the forward launches the kernel for CUDA tensors (the
 plain version for CPU tensors) and the backward is the gradient of the plain
 version recomputed from the saved inputs, as ``fused_highway_conv_ad`` and
@@ -18,6 +20,7 @@ version recomputed from the saved inputs, as ``fused_highway_conv_ad`` and
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -65,6 +68,68 @@ def _kernel_operand(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return aligned(weight.detach().permute(2, 1, 0).reshape(k * c, two_c).to(dtype))
 
 
+# K5's tile (csrc/hconv_pair.cu): layer A runs over PAIR_ROWS rows of y1 and
+# layer B over the PAIR_ROWS - d_b·(K-1) output frames they cover; a CTA owns
+# PAIR_CHANNELS channels of h1 and h2 (fewer when C is smaller)
+PAIR_ROWS = 128
+PAIR_CHANNELS = 128
+
+
+class PairPlan(NamedTuple):
+    """K5's tiling of one call."""
+    rows_a: int          # layer A's rows per tile (y1 rows)
+    rows_out: int        # output frames per tile
+    rows_b: int          # layer B's rows per tile: rows_out rounded up to a warpgroup's 64
+    tiles: int           # tiles per utterance
+    cluster: int         # CTAs per tile, along the channels
+    channels: int        # channels of h1 (and of h2) per CTA
+    stages: int          # depth of the operand ring
+    smem_bytes: int      # dynamic shared memory per CTA
+
+    def executed_over_useful(self, T: int) -> float:
+        """Rows the two layers compute over the rows the pair needs (2·T)."""
+        return self.tiles * (self.rows_a + self.rows_b) / (2 * T)
+
+
+def pair_tile_plan(C: int, K: int, dilation_b: int, T: int, dtype: torch.dtype) -> PairPlan:
+    """K5's tile plan, as ``csrc/hconv_pair.cu`` lays it out. A halo that
+    leaves layer B no row (``d_b·(K-1) >= 128``) gives ``rows_out < 1``,
+    which the kernel refuses at launch."""
+    ch = min(C, PAIR_CHANNELS)
+    rows_out = PAIR_ROWS - dilation_b * (K - 1)
+    split = dtype == torch.float32           # 3xTF32: weight hi and lo
+    stages = 5 if split else 8
+    # per stage: 64 bytes of each operand row and of each of the 2·ch weight rows
+    ring = stages * (PAIR_ROWS * 64 + (2 if split else 1) * 2 * ch * 64)
+    cluster = C // ch
+    # + alignment slack, the cluster's row-sum exchange and a barrier per stage
+    smem = 1024 + ring + 4 * 2 * cluster * PAIR_ROWS * 2 + 8 * stages
+    return PairPlan(PAIR_ROWS, rows_out, PAIR_ROWS if rows_out > 64 else 64,
+                    -(-T // max(rows_out, 1)), cluster, ch, stages, smem)
+
+
+def tf32_split(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 ``t`` → (hi, lo), both TF32 (the low 13 mantissa bits zero): hi is
+    ``t`` rounded to the nearest TF32, ties away from zero (as the kernel's
+    ``cvt.rna`` rounds its operand), lo is ``t - hi`` rounded likewise, so
+    hi + lo is ``t`` to 2⁻²² relative and hi·w_hi + hi·w_lo + lo·w_hi
+    (3xTF32) holds an f32 product to about that."""
+    def round_tf32(v: torch.Tensor) -> torch.Tensor:
+        return ((v.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+    t = t.float()
+    hi = round_tf32(t)
+    return hi, round_tf32(t - hi)
+
+
+def pair_weight_operand(weight: torch.Tensor, cluster: int) -> torch.Tensor:
+    """(..., 2C, C, K) → K5's (..., cluster, 2·CH, K·C), CH = C / cluster: CTA
+    r's row j < CH is h1 column r·CH + j, row CH + j is h2 column
+    C + r·CH + j, and column k·C + i holds ``weight[..., o, i, k]``."""
+    *lead, two_c, c, k = weight.shape
+    w = weight.detach().transpose(-1, -2).reshape(*lead, 2, cluster, c // cluster, k * c)
+    return w.transpose(-4, -3).reshape(*lead, cluster, two_c // cluster, k * c)
+
+
 def _check(x: torch.Tensor, *weights: torch.Tensor) -> int:
     B, T, C = x.shape
     if x.dtype not in _build.DTYPE_CODES:
@@ -103,22 +168,29 @@ def hconv_pair_launch(x, wa, ba, s1a, b1a, s2a, b2a, wb, bb, s1b, b1b, s2b, b2b,
                       dilation_a: int, dilation_b: int, causal: bool,
                       eps: float = LN_EPS) -> torch.Tensor:
     """Launch K5 on CUDA tensors; raises on anything the kernel does not take
-    (including a y₁ tile too large for the card's shared memory)."""
+    (including a layer-B halo that leaves its tile no output row)."""
     K = _check(x, wa, wb)
-    lib = _build.load("highway")
     B, T, C = x.shape
+    if C < 32:
+        raise ValueError(f"K5 needs C >= 32 (one CTA's channel tile), got {C}")
+    lib = _build.load("hconv_pair")
+    plan = pair_tile_plan(C, K, dilation_b, T, x.dtype)
     x = aligned(x)
-    ops = [x, _kernel_operand(wa, x.dtype), ba.detach().float().contiguous(),
-           pack_ln(s1a, b1a, s2a, b2a).detach(), _kernel_operand(wb, x.dtype),
-           bb.detach().float().contiguous(), pack_ln(s1b, b1b, s2b, b2b).detach()]
+    # both layers' weights in one pass; bf16 has no lo part and passes hi twice
+    w = pair_weight_operand(torch.stack([wa, wb]), plan.cluster)
+    hi, lo = tf32_split(w) if x.dtype == torch.float32 else (w.to(x.dtype),) * 2
+    ops = [x, hi[0], lo[0], ba.detach().float().contiguous(),
+           pack_ln(s1a, b1a, s2a, b2a).detach(), hi[1], lo[1],
+           bb.detach().float().contiguous(), pack_ln(s1b, b1b, s2b, b2b).detach(),
+           torch.empty(B, plan.tiles, plan.rows_a, C, dtype=x.dtype, device=x.device)]
     out = torch.empty_like(x)
     _build.require_cuda(*ops, out)
     ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (*ops, out)]
     err = lib.spoofsv_hconv_pair_launch(_build.DTYPE_CODES[x.dtype], *ptrs, B, T, C, K,
                                         dilation_a, dilation_b, pad_left(K, dilation_a, causal),
-                                        pad_left(K, dilation_b, causal), eps,
-                                        _build.stream_ptr(x.device))
-    _build.check(lib, "highway", err, "hconv_pair_kernel")
+                                        pad_left(K, dilation_b, causal), plan.rows_out,
+                                        plan.tiles, eps, _build.stream_ptr(x.device))
+    _build.check(lib, "hconv_pair", err, "hconv_pair_kernel")
     hconv_pair_kernel.launches += 1
     return out
 

@@ -16,7 +16,7 @@ from spoofsv_torch import reference_precision
 from spoofsv_torch.dsp import torchdsp
 from spoofsv_torch.infer.decode import make_decoder
 from spoofsv_torch.models import MelSyn
-from spoofsv_torch.ops import decode_kernel, gate_kernel, gl_kernel, hconv_kernel
+from spoofsv_torch.ops import _build, decode_kernel, gate_kernel, gl_kernel, hconv_kernel
 
 NFFT, HOP = 1024, 256
 pytestmark = pytest.mark.cuda
@@ -175,13 +175,21 @@ def test_hconv_kernel_matches_plain(dev, C, T, dil, causal, K, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("C,T,da,db,causal", [
-    (256, 70, 1, 3, False), (256, 300, 9, 27, True), (512, 186, 9, 27, False),
-    (512, 37, 1, 1, False), (64, 33, 3, 3, True), (32, 8, 1, 1, False)])
-def test_hconv_pair_kernel_matches_plain_and_chained(dev, C, T, da, db, causal, dtype):
+@pytest.mark.parametrize("C,T,da,db,causal,K,B", [
+    (256, 70, 1, 3, False, 3, 2), (256, 300, 9, 27, True, 3, 2), (512, 186, 9, 27, False, 3, 2),
+    (512, 37, 1, 1, False, 3, 2), (64, 33, 3, 3, True, 3, 2), (32, 8, 1, 1, False, 3, 2),
+    # K5's tile: 126 output frames for a (1, 1) pair, 74 for (9, 27)
+    (256, 125, 1, 1, False, 3, 2), (256, 127, 1, 1, False, 3, 2), (512, 253, 1, 1, False, 3, 2),
+    (512, 150, 9, 27, False, 3, 2), (256, 149, 9, 27, True, 3, 2),   # halo straddles tiles
+    (256, 20, 9, 27, False, 3, 2),                                     # shorter than a tile
+    (512, 186, 1, 1, False, 1, 2), (256, 100, 1, 1, True, 1, 2),       # K = 1
+    (512, 300, 1, 1, False, 3, 1), (256, 325, 1, 3, False, 3, 64),     # B = 1, B = 64
+    (256, 100, 1, 50, False, 3, 2),    # 28 output rows: layer B's second warpgroup idles
+    (1024, 64, 9, 27, False, 3, 1)])                                   # a cluster of 8
+def test_hconv_pair_kernel_matches_plain_and_chained(dev, C, T, da, db, causal, K, B, dtype):
     """K5 against the chained plain blocks and against two chained K4 launches."""
-    x = _x(2, T, C, dev, 6, dtype)
-    pa, pb = _hw_params(C, 3, dev, 7, dtype), _hw_params(C, 3, dev, 8, dtype)
+    x = _x(B, T, C, dev, 6, dtype)
+    pa, pb = _hw_params(C, K, dev, 7, dtype), _hw_params(C, K, dev, 8, dtype)
     before = hconv_kernel.hconv_pair_kernel.launches
     got = hconv_kernel.fused_highway_conv_pair(x, *pa, *pb, da, db, causal)
     assert hconv_kernel.hconv_pair_kernel.launches == before + 1
@@ -190,6 +198,15 @@ def test_hconv_pair_kernel_matches_plain_and_chained(dev, C, T, da, db, causal, 
     chained = hconv_kernel.fused_highway_conv(
         hconv_kernel.fused_highway_conv(x, *pa, da, causal), *pb, db, causal)
     torch.testing.assert_close(got.float(), chained.float(), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hconv_pair_smem_matches_plan(dev, dtype):
+    """The kernel's shared memory per CTA is the wrapper's tile plan's."""
+    lib = _build.load("hconv_pair")
+    for C in (32, 64, 128, 256, 512, 1024):
+        plan = hconv_kernel.pair_tile_plan(C, 3, 1, 100, dtype)
+        assert lib.spoofsv_hconv_pair_smem(_build.DTYPE_CODES[dtype], C) == plan.smem_bytes
 
 
 def test_highway_kernel_grads_match_plain_autograd(dev):
@@ -216,20 +233,20 @@ def test_highway_kernel_grads_match_plain_autograd(dev):
 
 
 def test_highway_launch_failure_raises(dev):
-    """A launch the card refuses (K5's y1 tile at C=1024 with a 54-frame halo
-    needs more than 227 KB of shared memory) raises: no plain fallback, no count."""
-    C = 1024
+    """A launch the kernel refuses (K5 with a layer-B halo of 128 rows, d_b = 64,
+    which leaves its 128-row tile no output frame) raises: no plain fallback,
+    no count."""
+    C = 256
     x = _x(1, 64, C, dev, 17)
     pa, pb = _hw_params(C, 3, dev, 18), _hw_params(C, 3, dev, 19)
     before = hconv_kernel.hconv_pair_kernel.launches
     with pytest.raises(RuntimeError, match="CUDA error"):
-        hconv_kernel.fused_highway_conv_pair(x, *pa, *pb, 9, 27, False)
+        hconv_kernel.fused_highway_conv_pair(x, *pa, *pb, 1, 64, False)
     assert hconv_kernel.hconv_pair_kernel.launches == before
     with pytest.raises(ValueError):
         hconv_kernel.fused_highway_conv(_x(1, 8, 48, dev, 20), *_hw_params(48, 3, dev, 21),
                                         1, False)
     # the card is still usable after the refused launch
-    y = hconv_kernel.fused_highway_conv(x[..., :512].contiguous(), *_hw_params(512, 3, dev, 22),
-                                        1, False)
+    y = hconv_kernel.fused_highway_conv(x, *_hw_params(C, 3, dev, 22), 1, False)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(y).all())
