@@ -5,9 +5,9 @@ Same layout and names as the JAX package (``models/``, ``infer/``, ``train/``,
 to find. Public functions keep the JAX layouts: time-major ``(B, T, C)``,
 attention ``(B, N, T)``, audio ``(B, hop·(T-1))``.
 
-The port imports ``torch`` and never ``jax``. Its only imports from the JAX
-package are the two jax-free modules ``spoofsv_tpu.config`` and
-``spoofsv_tpu.utils.torch_export``.
+The port imports ``torch`` and never ``jax``, and nothing of the JAX package:
+what it needs from there (the configuration dataclasses, the parameter-tree
+export) it keeps as its own copies (``config.py``, ``export.py``).
 
 Kernels (``ops/``) are hand-written CUDA C++ for ``sm_90a`` (``csrc/``), built
 with ``nvcc`` at first use. Each wrapper runs its plain PyTorch version only

@@ -1,21 +1,22 @@
-// K1: the whole autoregressive Text2Mel decode in one launch (sm_90a).
+// K1 in f32: the whole autoregressive Text2Mel decode in one launch (sm_90a).
 //
-// Replaces the Pallas TPU kernel spoofsv_tpu/ops/pallas_decode.py::_decode_kernel.
+// Replaces the Pallas TPU kernel spoofsv_tpu/ops/pallas_decode.py::_decode_kernel
+// for f32 inputs; bf16 runs csrc/decode_cluster.cu.
 // One block runs the full T-frame rollout for R batch rows: per frame the
 // audio-encoder front, 10 encoder highway steps, monotonic attention over K
 // (window [pma, pma+2]) and r = A·V, the [r; q] dense, 6 decoder highway
 // steps, 3x dense-LN-relu and the 80-bin dense + LN + sigmoid.
 //
 // What bounds it on the H100: every frame each block streams all decode
-// weights (~13 MB in bf16, 16 highway kernels of 768x512 plus the denses)
+// weights (~27 MB in f32, 16 highway kernels of 768x512 plus the denses)
 // from L2, so the per-SM L2 read rate bounds a frame; the products are
 // f32-accumulated FMAs on the CUDA cores (~7 MFMA per row per frame).
 // What the design does about it: the weights are read once per frame per
-// block and used for R rows at a time; the weights (13 MB) stay resident
+// block and used for R rows at a time; the weights (27 MB) stay resident
 // in the 50 MB L2 across blocks and frames; the row activations live in
 // shared memory; the 16 causal-conv caches are rings in global memory
 // addressed at slot t mod 2d, so no cache data moves between frames.
-// Tensor-core products (mma.sync / wgmma) are later work.
+// Tensor-core products in f32 (3xTF32) are later work.
 //
 // Layouts (row-major, as spoofsv_torch.ops.decode_kernel.pack_decode_weights):
 //   K, V (Bp, N, C) T;  s1, s2 (Bp, C) T
@@ -27,7 +28,6 @@
 //   outputs: Y (Bp, T, F) T; A (Bp, N, T) T; pma (Bp) int32 (in-loop f32 argmax)
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
@@ -43,12 +43,8 @@ __constant__ int c_slot0[N_HW] = {0, 2, 8, 26, 80, 82, 88, 106, 160, 166, 172, 1
 constexpr int RING_SLOTS = 256;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 // value as the working type T would hold it
 template <typename T> __device__ __forceinline__ float round_t(float x) { return to_f(from_f<T>(x)); }
 
@@ -79,19 +75,6 @@ template <> struct Pack<float> {
   __device__ __forceinline__ static void load(const float* p, float* w) {
     const float4 v = *reinterpret_cast<const float4*>(p);
     w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-  }
-};
-template <> struct Pack<__nv_bfloat16> {
-  static constexpr int VEC = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* w) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      w[2 * i] = f.x;
-      w[2 * i + 1] = f.y;
-    }
   }
 };
 // floats of split-K partial sums a block needs: R x THREADS x VEC
@@ -362,18 +345,17 @@ extern "C" {
 
 int spoofsv_decode_ring_slots() { return RING_SLOTS; }
 
-// ptrs: the 22 device pointers in DecodeArgs order. dtype 0 = f32, 1 = bf16.
-// rows: batch rows per block (1, 2 or 4); Bp must be a multiple of it.
+// ptrs: the 22 device pointers in DecodeArgs order. dtype must be 0 (f32):
+// bf16 is csrc/decode_cluster.cu's. rows: batch rows per block (1, 2 or 4);
+// Bp must be a multiple of it.
 int spoofsv_decode_launch(int dtype, const void* const* ptrs, int rows, int Bp, int T_frames,
                           int N, int F, int fpad, int C, int condition, void* stream) {
   // dense() needs every output width (2C, C, F) a multiple of 8 and 2C/4 <= THREADS
-  if (rows < 1 || Bp % rows != 0 || C % 32 != 0 || C > 512 || F % 8 != 0 || N < 1 ||
-      F > fpad)
+  if (dtype != 0 || rows < 1 || Bp % rows != 0 || C % 32 != 0 || C > 512 || F % 8 != 0 ||
+      N < 1 || F > fpad)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  return dtype == 1
-             ? launch_rows<__nv_bfloat16>(ptrs, rows, Bp, T_frames, N, F, fpad, C, condition, s)
-             : launch_rows<float>(ptrs, rows, Bp, T_frames, N, F, fpad, C, condition, s);
+  return launch_rows<float>(ptrs, rows, Bp, T_frames, N, F, fpad, C, condition,
+                            (cudaStream_t)stream);
 }
 
 const char* spoofsv_decode_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

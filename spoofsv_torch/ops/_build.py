@@ -38,6 +38,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         "spoofsv_decode_launch": (_I, [_I, _P] + [_I] * 8 + [_P]),
         "spoofsv_decode_error_string": (ctypes.c_char_p, [_I]),
     },
+    "decode_cluster": {
+        "spoofsv_decode_cluster_launch": (_I, [_P] + [_I] * 11 + [_P]),
+        "spoofsv_decode_cluster_smem": (_I, [_I] * 6),
+        "spoofsv_decode_cluster_max_active": (_I, [_I] * 6),
+        "spoofsv_decode_cluster_error_string": (ctypes.c_char_p, [_I]),
+    },
     "gl": {
         "spoofsv_gl_init_launch": (_I, [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                         _F, _F, _F, _F, _F, _P]),

@@ -1,9 +1,13 @@
 """K1: the whole autoregressive Text2Mel decode in one CUDA launch.
 
-Port of :mod:`spoofsv_tpu.ops.pallas_decode` (``_decode_kernel``). The kernel
-is ``csrc/decode.cu``; :func:`decode_plain` is the same computation in plain
-PyTorch on the packed weights, and :func:`spoofsv_torch.infer.decode.make_decoder`
-is the module-level eager loop both are held against.
+Port of :mod:`spoofsv_tpu.ops.pallas_decode` (``_decode_kernel``). bf16 runs
+``csrc/decode_cluster.cu`` (a cluster of CTAs per tile of batch rows, each
+CTA a column slice of every layer, tensor-core products, a bulk-copy weight
+stream); f32 runs ``csrc/decode.cu``. :func:`decode_plain` is the same
+computation in plain PyTorch on the packed weights,
+:func:`decode_cluster_emulate` the cluster kernel's decomposition of it, and
+:func:`spoofsv_torch.infer.decode.make_decoder` the module-level eager loop
+they are all held against.
 
 ``pma`` is the in-loop f32 argmax (the decode contract of ``make_decoder``);
 the TPU kernel instead re-derives it from the attention after its cast to
@@ -13,8 +17,9 @@ the kernel dtype.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,7 +37,7 @@ WEIGHT_NAMES = ("hw_w", "hw_b", "hw_ln", "sq_w", "sq_b", "misc_ln", "enc_w1", "e
 MATRIX_NAMES = ("hw_w", "sq_w", "enc_w1", "dec_w1", "tail_w5")   # in the compute dtype
 
 
-decode_kernel = _build.LaunchCounter()   # K1
+decode_kernel = _build.LaunchCounter()   # K1, both sources
 
 
 def _round_up(x: int, m: int) -> int:
@@ -169,6 +174,320 @@ def decode_plain(packed: Dict[str, torch.Tensor], K: torch.Tensor, V: torch.Tens
     return torch.stack(ys, dim=1), torch.stack(atts, dim=2), pma
 
 
+# ---------------------------------------------------------------------------
+# bf16 K1: the cluster design (csrc/decode_cluster.cu). Host pieces: the plan,
+# the per-CTA weight stream in mma.sync fragment order, and the cluster's
+# decomposition emulated in plain torch (the CPU tests' yardstick).
+# ---------------------------------------------------------------------------
+
+CLUSTER_THREADS = 256          # 8 warps a CTA
+CLUSTER_CHUNK = 16384          # bytes of weight stream per ring stage
+CLUSTER_STAGES = 4
+SMEM_LIMIT = 232448            # dynamic shared memory one block may use (H100)
+H100_SMS = 132
+RING_SLOTS = 256               # Σ 2d over HW_DILATIONS, as csrc/decode.cu
+# the frame's products in execution order: (matrix, index, kind); kind "c" has
+# C output columns, "hw" the highway's [h1 | h2] 2C, "f" the fpad-wide tail
+CLUSTER_LAYERS = tuple(
+    [("enc_w1", None, "c"), ("sq_w", 0, "c"), ("sq_w", 1, "c")]
+    + [("hw_w", i, "hw") for i in range(10)]
+    + [("dec_w1", None, "c")]
+    + [("hw_w", i, "hw") for i in range(10, 16)]
+    + [("sq_w", i, "c") for i in (2, 3, 4)]
+    + [("tail_w5", None, "f")])
+_LAYER_K = {"enc_w1": lambda C, fp: fp, "sq_w": lambda C, fp: C, "hw_w": lambda C, fp: 3 * C,
+            "dec_w1": lambda C, fp: 2 * C, "tail_w5": lambda C, fp: C}
+
+
+def _pow2(v: int) -> bool:
+    return v > 0 and v & (v - 1) == 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterPlan:
+    """How ``decode_cluster.cu`` runs a batch: ``tiles`` clusters of
+    ``cluster`` CTAs, each cluster ``rows`` batch rows, each CTA ``ch`` =
+    C/cluster channels of every C-wide activation (``ft`` columns of the
+    tail). The weight stream is read in ``chunk_bytes`` pieces (whole 32-deep
+    k rows of a layer) through a ring of ``stages``."""
+    batch: int
+    C: int
+    freq_bins: int
+    fpad: int
+    cluster: int
+    rows: int
+    tiles: int
+    chunk_bytes: int = CLUSTER_CHUNK
+    stages: int = CLUSTER_STAGES
+
+    @property
+    def ch(self) -> int:
+        return self.C // self.cluster
+
+    @property
+    def ft(self) -> int:
+        return self.fpad // self.cluster
+
+    @property
+    def bp(self) -> int:
+        return self.tiles * self.rows
+
+    @property
+    def layers(self) -> Tuple[Tuple[int, int], ...]:
+        """(reduction depth K, n8 column blocks per CTA) of each product."""
+        ncol = {"c": self.ch // 8, "hw": 2 * self.ch // 8, "f": self.ft // 8}
+        return tuple((_LAYER_K[m](self.C, self.fpad), ncol[kind]) for m, _, kind in CLUSTER_LAYERS)
+
+    def warp_split(self, ncol: int) -> Tuple[int, int]:
+        """(k splits, n8 blocks per warp) of a product with ``ncol`` blocks:
+        8/MT warps share each 16-row m tile, first over columns, then over k."""
+        wpm = CLUSTER_THREADS // 32 // (self.rows // 16)
+        return (wpm // ncol, 1) if ncol < wpm else (1, ncol // wpm)
+
+    @property
+    def cta_elems(self) -> int:
+        return sum(K * ncol * 8 for K, ncol in self.layers)
+
+    @property
+    def chunks_per_frame(self) -> int:
+        return sum(-(-(K // 32) // max(1, self.chunk_bytes // (ncol * 512)))
+                   for K, ncol in self.layers)
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of one CTA (``spoofsv_decode_cluster_smem``)."""
+        lda = max(3 * self.C, self.fpad) + 8
+        hbuf = max(self.warp_split(ncol)[0] * self.rows * ncol * 8 for _, ncol in self.layers)
+        return (128 + self.stages * self.chunk_bytes + self.rows * lda * 2
+                + self.rows * self.ch * 4 + hbuf * 4 + 2 * self.cluster * self.rows * 16
+                + self.rows * 16 + self.rows * 24 + self.stages * 8)
+
+    @property
+    def l2_bytes_per_frame(self) -> int:
+        """Bytes every CTA reads from L2 in a frame, summed over the grid: its
+        weight stream (bf16) and the 16 highways' two full-width ring taps."""
+        taps = 16 * self.rows * 2 * self.C * 2
+        return self.tiles * self.cluster * (2 * self.cta_elems + taps)
+
+    def refusal(self) -> Optional[str]:
+        """Why the kernel cannot take this plan, or None."""
+        n, C = self.cluster, self.C
+        if not _pow2(n) or n > 16:
+            return f"cluster {n} is not a power of two ≤ 16"
+        if self.rows not in (16, 32, 64):
+            return f"rows per tile {self.rows} not in (16, 32, 64)"
+        if C % n or not _pow2(self.ch // 8) or self.ch % 8:
+            return f"C/cluster = {C}/{n} is not 8·2^k channels"
+        if self.fpad % n or self.ft % 8 or not _pow2(self.ft // 8):
+            return f"fpad/cluster = {self.fpad}/{n} is not 8·2^k columns"
+        if any(self.warp_split(ncol)[1] > 4 for _, ncol in self.layers):
+            return "more than 4 n8 column blocks per warp"
+        if self.chunk_bytes < max(ncol * 512 for _, ncol in self.layers) or self.chunk_bytes % 16:
+            return f"chunk of {self.chunk_bytes} bytes holds no whole k row"
+        if self.smem_bytes > SMEM_LIMIT:
+            return f"{self.smem_bytes} bytes of shared memory > {SMEM_LIMIT}"
+        if self.bp < self.batch:
+            return "tiles do not cover the batch"
+        return None
+
+
+def decode_cluster_plan(batch: int, C: int, freq_bins: int = 80, *,
+                        cluster: Optional[int] = None, rows: Optional[int] = None
+                        ) -> ClusterPlan:
+    """The cluster kernel's plan for ``batch`` rows of width ``C``.
+
+    Default: the largest cluster (16, 8, ...) and the fewest rows per tile
+    (16, 32, 64) whose grid fits the card's 132 SMs in one wave; failing
+    that, the largest valid cluster and rows. ``cluster`` / ``rows`` force
+    a choice. Raises ``ValueError`` when the kernel cannot take the shapes."""
+    if batch < 1:
+        raise ValueError(f"batch must be ≥ 1, got {batch}")
+    if C % 32 or C < 32:
+        raise ValueError(f"the cluster decode needs hidden % 32 == 0, got {C}")
+    if freq_bins % 2 or freq_bins < 2:
+        raise ValueError(f"the cluster decode needs an even number of mel bins, got {freq_bins}")
+    fpad = _round_up(freq_bins, 128)
+
+    def make(n: int, r: int) -> ClusterPlan:
+        return ClusterPlan(batch, C, freq_bins, fpad, n, r, -(-batch // r))
+
+    cands = [make(n, r) for n in ([cluster] if cluster else [16, 8, 4, 2, 1])
+             for r in ([rows] if rows else [16, 32, 64])]
+    valid = [p for p in cands if p.refusal() is None]
+    if not valid:
+        raise ValueError(f"no cluster plan for B={batch} C={C}: {cands[0].refusal()}")
+    one_wave = [p for p in valid if p.tiles * p.cluster <= H100_SMS]
+    if one_wave:
+        return one_wave[0]
+    top = max(p.cluster for p in valid)
+    return max((p for p in valid if p.cluster == top), key=lambda p: p.rows)
+
+
+def _layer_columns(kind: str, rank: int, plan: ClusterPlan) -> torch.Tensor:
+    """The output columns that CTA ``rank`` computes in a product of ``kind``."""
+    ch, ft = plan.ch, plan.ft
+    own = torch.arange(rank * ch, (rank + 1) * ch)
+    if kind == "hw":
+        return torch.cat([own, plan.C + own])
+    return torch.arange(rank * ft, (rank + 1) * ft) if kind == "f" else own
+
+
+def _matrix(packed, name, idx):
+    return packed[name] if idx is None else packed[name][idx]
+
+
+def pack_decode_stream(packed: Dict[str, torch.Tensor], plan: ClusterPlan) -> torch.Tensor:
+    """``packed`` (:func:`pack_decode_weights`) → the per-CTA weight stream
+    (cluster, cta_elems) in the matrices' dtype: for each CTA, every product
+    of a frame in execution order, each its column slice in mma.sync's B
+    fragment order. Within a layer, block (kp, j) (32 k rows × 8 columns,
+    512 bytes in bf16) follows row-major over (k/32, column block); lane
+    l = 4g + t of it holds columns 8j + g, k rows 2t, 2t+1, 2t+8, 2t+9 of the
+    first 16 and the same of the next 16: one 16-byte load feeds two
+    m16n8k16 products."""
+    n = plan.cluster
+    out = []
+    for (name, idx, kind), (K, ncol) in zip(CLUSTER_LAYERS, plan.layers):
+        w = _matrix(packed, name, idx)
+        cols = torch.stack([_layer_columns(kind, r, plan) for r in range(n)]).to(w.device)
+        wr = w[:, cols].permute(1, 0, 2)                 # (n, K, ncol·8)
+        # k = 32kp + 16ks + 8kh + 2t + e, column = 8j + g
+        wr = wr.reshape(n, K // 32, 2, 2, 4, 2, ncol, 8)   # n kp ks kh t e j g
+        out.append(wr.permute(0, 1, 6, 7, 4, 2, 3, 5).reshape(n, -1))
+    return torch.cat(out, dim=1).contiguous()
+
+
+def _layer_slices(stream: torch.Tensor, plan: ClusterPlan) -> List[torch.Tensor]:
+    """The stream → per layer the CTAs' column slices (cluster, K, ncol·8)."""
+    n, off, out = plan.cluster, 0, []
+    for K, ncol in plan.layers:
+        size = K * ncol * 8
+        blk = stream[:, off:off + size].reshape(n, K // 32, ncol, 8, 4, 2, 2, 2)  # n kp j g t ks kh e
+        out.append(blk.permute(0, 1, 5, 6, 4, 7, 2, 3).reshape(n, K, ncol * 8))
+        off += size
+    return out
+
+
+def unpack_decode_stream(stream: torch.Tensor, plan: ClusterPlan) -> Dict[str, torch.Tensor]:
+    """Inverse of :func:`pack_decode_stream`: the five weight matrices."""
+    C, fp = plan.C, plan.fpad
+    mats = {"hw_w": stream.new_zeros(16, 3 * C, 2 * C), "sq_w": stream.new_zeros(5, C, C),
+            "enc_w1": stream.new_zeros(fp, C), "dec_w1": stream.new_zeros(2 * C, C),
+            "tail_w5": stream.new_zeros(C, fp)}
+    for (name, idx, kind), sl in zip(CLUSTER_LAYERS, _layer_slices(stream, plan)):
+        w = _matrix(mats, name, idx)
+        for r in range(plan.cluster):
+            w[:, _layer_columns(kind, r, plan).to(w.device)] = sl[r]
+    return mats
+
+
+@torch.no_grad()
+def decode_cluster_emulate(packed: Dict[str, torch.Tensor], K: torch.Tensor, V: torch.Tensor,
+                           s1: Optional[torch.Tensor], s2: Optional[torch.Tensor],
+                           plan: ClusterPlan, n_frames: int, condition: bool = True
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The cluster kernel's decomposition of :func:`decode_plain` in plain
+    torch: each CTA's products from its slice of the unpacked stream, the
+    LayerNorm statistics (Σh, Σh²) summed from per-CTA partials in rank
+    order, the all-gather as a concatenation, the attention scores summed
+    from per-CTA partial dot products, the 3-wide window's softmax. Same
+    outputs as :func:`decode_plain`."""
+    B, N, C = K.shape
+    dt, n, ch, F = K.dtype, plan.cluster, plan.ch, plan.freq_bins
+    ws = [w.float() for w in _layer_slices(pack_decode_stream(packed, plan), plan)]
+    p = {k: v.float() for k, v in packed.items()}
+    ml = p["misc_ln"]
+    rings = [K.new_zeros(B, 2 * d, C) for d in HW_DILATIONS]
+    K32, V32 = K.float(), V.float()
+    rows = torch.arange(B, device=K.device)[:, None]
+    scale = 1.0 / math.sqrt(C)
+    if s1 is None:
+        s1 = s2 = K.new_zeros(B, C)
+    s1, s2 = s1.float(), s2.float()
+
+    def rnd(x):
+        return x.to(dt).float()
+
+    def own(v, r, w=ch):
+        return v[..., r * w:(r + 1) * w]
+
+    def rank_sum(parts):
+        tot = parts[0]
+        for q in parts[1:]:
+            tot = tot + q
+        return tot
+
+    def norm(h, s, q, width, sc, b):
+        mean = s / width
+        var = (q / width - mean * mean).clamp_min(0.0)
+        return (h - mean[:, None]) * torch.rsqrt(var + LN_EPS)[:, None] * sc + b
+
+    def stats(hs, mask=None):
+        m = [h if mask is None else h * mask[r] for r, h in enumerate(hs)]
+        return rank_sum([h.sum(-1) for h in m]), rank_sum([(h * h).sum(-1) for h in m])
+
+    def dense(li, op, bias, ln, relu, add=None):
+        hs = [op @ ws[li][r] + own(bias, r) + (0.0 if add is None else own(add, r))
+              for r in range(n)]
+        s, q = stats(hs)
+        out = torch.cat([norm(h, s, q, C, own(ln[0], r), own(ln[1], r))
+                         for r, h in enumerate(hs)], dim=-1)
+        return torch.relu(out) if relu else out
+
+    def highway(li, j, t, x):
+        d = HW_DILATIONS[j]
+        i0, i1 = t % (2 * d), (t + d) % (2 * d)
+        op = torch.cat([rings[j][:, i0], rings[j][:, i1], x.to(dt)], dim=-1).float()
+        b, ln = p["hw_b"][j], p["hw_ln"][j]
+        hs = [op @ ws[li][r] + torch.cat([own(b[:C], r), own(b[C:], r)]) for r in range(n)]
+        s1_, q1_ = stats([h[:, :ch] for h in hs])
+        s2_, q2_ = stats([h[:, ch:] for h in hs])
+        out = []
+        for r, h in enumerate(hs):
+            g = torch.sigmoid(norm(h[:, :ch], s1_, q1_, C, own(ln[0], r), own(ln[1], r)))
+            nrm = norm(h[:, ch:], s2_, q2_, C, own(ln[2], r), own(ln[3], r))
+            out.append(g * nrm + (1.0 - g) * own(x, r))
+        rings[j][:, i0] = x.to(dt)
+        return torch.cat(out, dim=-1)
+
+    y = K.new_zeros(B, plan.fpad).float()
+    pma = torch.zeros(B, dtype=torch.long, device=K.device)
+    ys, atts = [], []
+    for t in range(n_frames):
+        x = dense(0, rnd(y), p["enc_b1"][0], ml[0], True, s1 if condition else None)
+        x = dense(1, rnd(x), p["sq_b"][0], ml[1], True)
+        x = dense(2, rnd(x), p["sq_b"][1], ml[2], False, s2 if condition else None)
+        for j in range(10):
+            x = highway(3 + j, j, t, x)
+        # monotonic attention over the window [pma, pma + 2]
+        pos = pma[:, None] + torch.arange(3, device=K.device)
+        valid = pos < N
+        posc = pos.clamp(max=N - 1)
+        kw = K32[rows, posc]                                     # (B, 3, C)
+        sc = rank_sum([(own(kw, r) * own(x, r)[:, None]).sum(-1) for r in range(n)]) * scale
+        pw = torch.softmax(sc.masked_fill(~valid, float("-inf")), dim=-1)
+        a = torch.zeros(B, N, device=K.device).scatter_add_(1, posc, pw)
+        r_vec = (pw[..., None] * V32[rows, posc]).sum(1)
+        pma = pma + torch.argmax(pw, dim=-1)
+        x = dense(13, torch.cat([rnd(r_vec), rnd(x)], dim=-1), p["dec_b1"][0], ml[3], False)
+        for j in range(10, 16):
+            x = highway(4 + j, j, t, x)
+        for i in range(2, 5):
+            x = dense(18 + i, rnd(x), p["sq_b"][i], ml[i + 2], True)
+        ft = plan.ft
+        hs = [rnd(x) @ ws[23][r] + own(p["tail_b5"][0], r, ft) for r in range(n)]
+        mask = [(torch.arange(r * ft, (r + 1) * ft, device=K.device) < F).float()
+                for r in range(n)]
+        s, q = stats(hs, mask)
+        y = torch.cat([torch.sigmoid(norm(h, s, q, F, own(p["ln5_s"][0], r, ft),
+                                          own(p["ln5_b"][0], r, ft))) * mask[r]
+                       for r, h in enumerate(hs)], dim=-1)
+        y = rnd(y)
+        ys.append(y[:, :F].to(dt))
+        atts.append(a.to(dt))
+    return torch.stack(ys, dim=1), torch.stack(atts, dim=2), pma
+
+
 def rows_per_block(batch: int, device: torch.device) -> int:
     """Most rows per block (4, 2, 1) that still gives every SM a block.
 
@@ -185,23 +504,29 @@ def rows_per_block(batch: int, device: torch.device) -> int:
 def decode_fused(packed: Dict[str, torch.Tensor], K: torch.Tensor, V: torch.Tensor,
                  s1: Optional[torch.Tensor], s2: Optional[torch.Tensor], *,
                  n_frames: int, freq_bins: int, condition: bool = True,
-                 monotonic: bool = True, rows: Optional[int] = None
+                 monotonic: bool = True, rows: Optional[int] = None,
+                 plan: Optional[ClusterPlan] = None, stream: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run the rollout. ``K``/``V``: (B, N, C) in f32 or bf16; ``s1``/``s2``:
     (B, C) speaker projections (None when unconditioned). Returns
     (Y (B, T, freq_bins), A (B, N, T), pma (B,)) in K's dtype.
 
-    CPU tensors run :func:`decode_plain`; CUDA tensors launch the kernel with
-    ``rows`` batch rows per block (1, 2 or 4; default :func:`rows_per_block`).
-    The row count changes speed only: each row's arithmetic is the same."""
+    CPU tensors run :func:`decode_plain`. CUDA tensors launch a kernel: bf16
+    ``csrc/decode_cluster.cu`` with ``plan`` (default
+    :func:`decode_cluster_plan`) and the weight ``stream`` of
+    :func:`pack_decode_stream` (built here when not given); f32
+    ``csrc/decode.cu`` with ``rows`` batch rows per block (1, 2 or 4;
+    default :func:`rows_per_block`). Plan and row count change speed only."""
     if K.device.type == "cpu":
         return decode_plain(packed, K, V, s1, s2, n_frames=n_frames, freq_bins=freq_bins,
                             condition=condition, monotonic=monotonic)
     if not monotonic:
         raise ValueError("the decode kernel implements monotonic attention only")
+    if K.dtype == torch.bfloat16:
+        return _decode_cluster(packed, K, V, s1, s2, n_frames, freq_bins, condition, plan, stream)
     B, N, C = K.shape
     dt = K.dtype
-    if dt not in _build.DTYPE_CODES:
+    if dt != torch.float32:
         raise ValueError(f"decode kernel takes float32 or bfloat16, got {dt}")
     if C % 32:
         raise ValueError(f"decode kernel needs hidden % 32 == 0, got {C}")
@@ -235,10 +560,62 @@ def decode_fused(packed: Dict[str, torch.Tensor], K: torch.Tensor, V: torch.Tens
     return y[:B], a[:B], pma[:B].long()
 
 
+# the f32 vectors of the packed weights, in decode_cluster.cu's argument order
+CLUSTER_VECTORS = ("hw_b", "hw_ln", "sq_b", "misc_ln", "enc_b1", "dec_b1", "tail_b5",
+                   "ln5_s", "ln5_b")
+
+
+def _decode_cluster(packed, K, V, s1, s2, n_frames, freq_bins, condition, plan, stream):
+    """bf16 K1 through ``csrc/decode_cluster.cu`` (see :func:`decode_fused`)."""
+    B, N, C = K.shape
+    dev, dt = K.device, K.dtype
+    plan = plan or decode_cluster_plan(B, C, freq_bins)
+    if (plan.batch, plan.C, plan.freq_bins) != (B, C, freq_bins):
+        raise ValueError(f"plan for B={plan.batch} C={plan.C} F={plan.freq_bins}, "
+                         f"inputs B={B} C={C} F={freq_bins}")
+    why = plan.refusal()
+    if why:
+        raise ValueError(f"cluster decode plan refused: {why}")
+    if packed["tail_w5"].shape[1] != plan.fpad:
+        raise ValueError(f"packed tail width {packed['tail_w5'].shape[1]} != fpad {plan.fpad}")
+    lib = _build.load("decode_cluster")
+    if stream is None:
+        stream = pack_decode_stream({k: packed[k].to(dev) for k in MATRIX_NAMES}, plan)
+    if stream.dtype != dt or tuple(stream.shape) != (plan.cluster, plan.cta_elems):
+        raise ValueError(f"weight stream {tuple(stream.shape)} {stream.dtype} does not fit the "
+                         f"plan ({plan.cluster}, {plan.cta_elems}) {dt}")
+    Bp = plan.bp
+
+    def rowpad(x):
+        return F.pad(x.to(dt), (0, 0) * (x.dim() - 1) + (0, Bp - B)).contiguous()
+
+    if s1 is None:
+        s1 = s2 = K.new_zeros(B, C)
+    vecs = [packed[k].to(dev) for k in CLUSTER_VECTORS]
+    if any(v.dtype != torch.float32 for v in vecs):
+        raise ValueError("packed biases and LayerNorm parameters must be float32")
+    rings = torch.zeros(RING_SLOTS, Bp, C, device=dev, dtype=dt)
+    y = torch.empty(Bp, n_frames, freq_bins, device=dev, dtype=dt)
+    a = torch.zeros(Bp, N, n_frames, device=dev, dtype=dt)   # the kernel writes the window
+    pma = torch.empty(Bp, device=dev, dtype=torch.int32)
+    tensors = [rowpad(K), rowpad(V), rowpad(s1), rowpad(s2), stream] + vecs + [rings, y, a, pma]
+    _build.require_cuda(*tensors)
+    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    err = lib.spoofsv_decode_cluster_launch(ptrs, plan.cluster, plan.rows, plan.tiles, n_frames,
+                                            N, freq_bins, plan.fpad, C, int(condition),
+                                            plan.chunk_bytes, plan.stages,
+                                            _build.stream_ptr(dev))
+    _build.check(lib, "decode_cluster", err, "decode_cluster_kernel")
+    decode_kernel.launches += 1
+    return y[:B], a[:B], pma[:B].long()
+
+
 def make_fused_decoder(model: MelSyn, n_frames: int, monotonic: bool = True):
     """Same contract as :func:`spoofsv_torch.infer.decode.make_decoder`,
-    backed by :func:`decode_fused`. Weights are packed on the first call."""
+    backed by :func:`decode_fused`. Weights are packed on the first call, and
+    the bf16 kernel's weight stream once per cluster size."""
     packed: Dict[str, torch.Tensor] = {}
+    streams: Dict[Tuple[int, torch.device], torch.Tensor] = {}
 
     @torch.no_grad()
     def decode(text_ids: torch.Tensor, spk_emb: Optional[torch.Tensor],
@@ -253,8 +630,16 @@ def make_fused_decoder(model: MelSyn, n_frames: int, monotonic: bool = True):
             spk = spk_emb.to(K.dtype)
             s1 = model.audio_encoder.fc1(spk)
             s2 = model.audio_encoder.fc2(spk)
+        plan = stream = None
+        if K.dtype == torch.bfloat16 and K.device.type == "cuda":
+            plan = decode_cluster_plan(K.shape[0], K.shape[2], model.freq_bins)
+            key = (plan.cluster, K.device)
+            if key not in streams:
+                streams[key] = pack_decode_stream(
+                    {k: packed[k].to(K.device) for k in MATRIX_NAMES}, plan)
+            stream = streams[key]
         return decode_fused(packed, K, V, s1, s2, n_frames=n_frames,
                             freq_bins=model.freq_bins, condition=model.condition,
-                            monotonic=monotonic)
+                            monotonic=monotonic, plan=plan, stream=stream)
 
     return decode

@@ -9,8 +9,8 @@ training:
   * checkpoints keep the directory contract
     ``<src_root>/checkpoints/<pattern>/not_adversarial/<ctime>/<tag>.tar.pth``
     (tag ``{text2mel|ssrn}_iteration_N`` or ``*_best_model``) and the
-    reference ``.tar.pth`` schema that
-    ``spoofsv_tpu.utils.torch_export.save_reference_checkpoint`` writes:
+    reference ``.tar.pth`` schema (``train/ordinary.py:271-284`` of the
+    reference, written here by the port's own code):
     ``model_state_dict``, ``optimizer_state_dict`` (here with the real Adam
     moments), ``iteration``, ``epoch``, ``loss_val_log``;
   * JSONL metrics.

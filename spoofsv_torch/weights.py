@@ -1,8 +1,8 @@
 """Weight bridge: JAX params or reference checkpoints → the port's modules.
 
-JAX params go ``spoofsv_tpu.utils.torch_export.export_*`` (numpy, jax-free)
-→ ``load_state_dict(strict=True)``; a reference ``*.tar.pth`` goes through
-the same loader, so both sources must match the reference schema exactly.
+JAX parameter trees go through :mod:`spoofsv_torch.export` (numpy) →
+``load_state_dict(strict=True)``; a reference ``*.tar.pth`` goes through the
+same loader, so both sources must match the reference schema exactly.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from spoofsv_tpu.utils.torch_export import export_melsyn, export_ssrn
+from spoofsv_torch.export import export_melsyn, export_ssrn
 
 StateLike = Mapping[str, Union[np.ndarray, torch.Tensor]]
 

@@ -4,6 +4,7 @@ A CUDA request with no card raises; a non-CPU tensor reaches the kernel path
 (where it launches or raises), never the plain version.
 """
 
+import ast
 import os
 import pkgutil
 import subprocess
@@ -25,18 +26,38 @@ def _port_modules():
 def test_port_imports_no_jax():
     mods = _port_modules()
     for m in ("ops.decode_kernel", "ops.gl_kernel", "ops.gate_kernel", "ops.hconv_kernel",
-              "train.losses", "train.state", "train.steps", "train.loop", "cli.main"):
+              "train.losses", "train.state", "train.steps", "train.loop", "cli.main",
+              "config", "export", "weights"):
         assert f"spoofsv_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax')))\n"
             "assert not bad, bad\n"
+            "ref = sorted(m for m in sys.modules if m.startswith('spoofsv_tpu'))\n"
+            "assert not ref, ref\n"
             "print('ok', len(sys.modules))\n")
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, cwd=str(REPO), timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.startswith("ok")
+
+
+def test_chip_smoke_imports_nothing_of_the_jax_package():
+    """chip_smoke.py imports neither jax/flax nor spoofsv_tpu, at any depth."""
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "import_module"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            names.append(str(node.args[0].value))
+    assert "spoofsv_torch.ops" in names
+    bad = [n for n in names if n.split(".")[0] in ("spoofsv_tpu", "jax", "flax")]
+    assert not bad, bad
 
 
 def test_cuda_request_without_card_raises():

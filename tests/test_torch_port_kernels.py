@@ -8,6 +8,8 @@ The file imports no jax, so it also runs on a machine without it:
 (``--noconftest``: the suite's conftest.py configures jax.)
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -107,13 +109,13 @@ def test_decode_kernel_matches_eager(dev, dtype):
 
 
 def test_decode_kernel_rows_per_block_bit_identical(dev):
-    """1, 2 and 4 batch rows per block give the same bits."""
+    """1, 2 and 4 batch rows per block of the f32 kernel give the same bits."""
     torch.manual_seed(2)
-    model = MelSyn(34, True, 10, 16, 16, 64).to(dev, torch.bfloat16).eval()
+    model = MelSyn(34, True, 10, 16, 16, 64).to(dev, torch.float32).eval()
     packed = decode_kernel.pack_decode_weights(model)
     g = torch.Generator().manual_seed(3)
     text = torch.randint(1, 33, (5, 12), generator=g).to(dev)
-    spk = torch.randn(5, 10, generator=g).to(dev, torch.bfloat16)
+    spk = torch.randn(5, 10, generator=g).to(dev, torch.float32)
     with torch.no_grad():
         K, V = model.encode_text(text)
         s1, s2 = model.audio_encoder.fc1(spk), model.audio_encoder.fc2(spk)
@@ -121,6 +123,78 @@ def test_decode_kernel_rows_per_block_bit_identical(dev):
                                        rows=rows) for rows in (1, 2, 4)]
     for out in outs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(outs[0], out))
+
+
+def _cluster_case(dev, B, N, C, freq, seed, condition=True):
+    torch.manual_seed(seed)
+    model = MelSyn(34, condition, 10, 16, freq, C).to(dev, torch.bfloat16).eval()
+    g = torch.Generator().manual_seed(seed + 1)
+    text = torch.randint(1, 33, (B, N), generator=g).to(dev)
+    spk = torch.randn(B, 10, generator=g).to(dev, torch.bfloat16)
+    with torch.no_grad():
+        K, V = model.encode_text(text)
+        s1 = s2 = None
+        if condition:
+            s1, s2 = model.audio_encoder.fc1(spk), model.audio_encoder.fc2(spk)
+    return decode_kernel.pack_decode_weights(model), K, V, s1, s2
+
+
+@pytest.mark.parametrize("B,N,C,freq,cluster,rows,condition", [
+    (6, 12, 64, 16, 8, 16, True), (6, 12, 64, 16, 4, 32, False), (5, 9, 32, 16, 4, 16, True),
+    (3, 4, 32, 80, 2, 64, True),                        # text shorter than the window's reach
+    (64, 100, 256, 80, 16, 16, True), (64, 100, 256, 80, 8, 64, True),
+    (40, 30, 256, 80, 16, 32, True), (70, 20, 256, 80, 8, 32, True)])   # ragged last tile
+def test_decode_cluster_matches_plain(dev, B, N, C, freq, cluster, rows, condition):
+    """bf16 K1 (decode_cluster.cu) against decode_plain over frames 0-1 (the
+    gates of chip_smoke.py: mel 0.05, attention 0.02) and against the
+    cluster's emulation in bf16 over the same frames, pma in range."""
+    packed, K, V, s1, s2 = _cluster_case(dev, B, N, C, freq, seed=B + C, condition=condition)
+    plan = decode_kernel.decode_cluster_plan(B, C, freq, cluster=cluster, rows=rows)
+    before = decode_kernel.decode_kernel.launches
+    y, a, p = decode_kernel.decode_fused(packed, K, V, s1, s2, n_frames=12, freq_bins=freq,
+                                         condition=condition, plan=plan)
+    torch.cuda.synchronize()
+    assert decode_kernel.decode_kernel.launches == before + 1
+    assert y.shape == (B, 12, freq) and a.shape == (B, N, 12) and y.dtype == torch.bfloat16
+    assert bool(torch.isfinite(y.float()).all()) and bool(((p >= 0) & (p < N)).all())
+    yq, aq, _ = decode_kernel.decode_plain(packed, K, V, s1, s2, n_frames=2, freq_bins=freq,
+                                           condition=condition)
+    assert float((y[:, :2].float() - yq.float()).abs().max()) <= 0.05
+    assert float((a[:, :, :2].float() - aq.float()).abs().max()) <= 0.02
+    ye, ae, _ = decode_kernel.decode_cluster_emulate(packed, K, V, s1, s2, plan, 2,
+                                                     condition=condition)
+    assert float((y[:, :2].float() - ye.float()).abs().max()) <= 0.05
+    # each frame's attention is one window of three probabilities summing to 1
+    torch.testing.assert_close(a.float().sum(1), torch.ones(B, 12, device=dev), atol=2e-2,
+                               rtol=0)
+
+
+def test_decode_cluster_smem_matches_plan(dev):
+    lib = _build.load("decode_cluster")
+    for B, C, cluster in [(64, 256, 16), (64, 256, 8), (768, 256, 8), (4, 64, 8), (4, 32, 4)]:
+        for rows in (16, 32, 64):
+            plan = decode_kernel.decode_cluster_plan(B, C, 80, cluster=cluster, rows=rows)
+            assert lib.spoofsv_decode_cluster_smem(C, plan.fpad, cluster, rows, plan.chunk_bytes,
+                                                   plan.stages) == plan.smem_bytes
+
+
+def test_decode_cluster_launch_refusal(dev):
+    """A plan the kernel cannot take raises before any launch, the library
+    refuses it too, and the card stays usable: no fallback, no count."""
+    packed, K, V, s1, s2 = _cluster_case(dev, 4, 8, 64, 16, seed=9)
+    before = decode_kernel.decode_kernel.launches
+    bad = decode_kernel.ClusterPlan(4, 64, 16, 128, 16, 16, 1)   # 4 channels a CTA
+    with pytest.raises(ValueError, match="cluster decode plan refused"):
+        decode_kernel.decode_fused(packed, K, V, s1, s2, n_frames=2, freq_bins=16, plan=bad)
+    lib = _build.load("decode_cluster")
+    ptrs = (ctypes.c_void_p * 18)(*([K.data_ptr()] * 18))
+    err = lib.spoofsv_decode_cluster_launch(ptrs, 16, 16, 1, 2, 8, 16, 128, 64, 1, 16384, 4,
+                                            _build.stream_ptr(dev))
+    assert err != 0
+    assert decode_kernel.decode_kernel.launches == before
+    y, _, _ = decode_kernel.decode_fused(packed, K, V, s1, s2, n_frames=2, freq_bins=16)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y.float()).all())
 
 
 # ---------------------------------------------------------------------------
