@@ -8,9 +8,12 @@ Phases (any failure raises and exits non-zero):
   1. card name/power limit; build the kernels from ``spoofsv_torch/csrc/``;
   2. K2 (GL phase init) vs its plain version at the main path's B=64, T=1300;
   3. K3 (Griffin-Lim) vs plain torch GL at B=64, T=1300, same init;
-  4. K1 (decode) at the main path's B=64, N=100, T=325: f32 vs the plain
-     eager decode, and bf16 vs ``decode_plain`` (the kernel's arithmetic in
-     plain torch);
+  4. K1 (decode) at the main path's B=64, N=100, T=325: f32
+     (``csrc/decode.cu``) vs the plain eager decode, and bf16
+     (``csrc/decode_cluster.cu``) vs ``decode_plain`` (the kernel's
+     arithmetic in plain torch) at B=64 and B=768 over frames 0-1; the
+     cluster kernel's ptxas lines (spills fail), its plan, and its CUDA-event
+     times for each cluster size and tile height with the L2 bytes a frame;
   5. the main path: ``Synthesizer`` at full width in bf16, B=64, N=100,
      T=325, GL12 from the SPSI init, then ``finalize_audio``; launch counts
      reset just before and read just after; plus a small f32 end-to-end
@@ -26,8 +29,9 @@ Phases (any failure raises and exits non-zero):
      same seed-0 weights under each highway impl, one validation (Text2Mel
      through K1) and one checkpoint round trip each; launch counts reset
      just before each run and read just after.
-Prints the card line and a kernels JSON line, then the ``{"ok": true, ...}``
-line last.
+Prints a kernels JSON line (each kernel's time, plain time, launches on
+the main path and bound), the card line, then the ``{"ok": true, ...}`` line
+last.
 """
 
 from __future__ import annotations
@@ -138,6 +142,17 @@ def highway_kernel_phase(dev, cuda_ms, kernels: dict) -> None:
              lambda: pair_case(1300, 512, 1, 1, False, 62, B=64, dtype=torch.bfloat16))]),
     }
     sources = {"highway_conv_pair": "spoofsv_torch/csrc/hconv_pair.cu"}
+    # bounds of each JSON case: (operations, bytes, peak for their type). K6:
+    # 16·325 rows of h (2C) and x (C) in, out (C), ~10 operations an element;
+    # K4: the f32 conv on the CUDA cores (67 TFLOP/s); K5: both layers' convs
+    # as 3xTF32 tensor-core products (3 passes at 495 TFLOP/s)
+    rows6, conv_mac = 16 * 325, 16 * 1300 * 3 * 512 * 2 * 512
+    io = 4 * 2 * 16 * 1300 * 512
+    bounds = {
+        "highway_gate": (10 * rows6 * 2 * 256, 4 * (rows6 * 4 * 256 + 4 * 256), 67e12),
+        "highway_conv": (2 * conv_mac, io + 4 * (1536 * 1024 + 6 * 512), 67e12),
+        "highway_conv_pair": (3 * 2 * 2 * conv_mac, io + 4 * (2 * 1536 * 1024 + 12 * 512), 495e12),
+    }
     for name, (replaces, named) in cases.items():
         errs, times = [], []
         for label, build_case in named:
@@ -157,10 +172,13 @@ def highway_kernel_phase(dev, cuda_ms, kernels: dict) -> None:
                 f"{times[-1][0]:.3f} ms, plain {times[-1][1]:.3f} ms{extra}")
             gate(err <= tol, (name, label, err))
             del fused, plain, got, ref
+        b_ms, b_by = bound_ms(*bounds[name])
         kernels[name] = dict(name=name, route="cuda",
                              source=sources.get(name, "spoofsv_torch/csrc/highway.cu"),
                              replaces=replaces, max_abs_err=max(errs), ms=times[0][0],
-                             plain_ms=times[0][1])
+                             plain_ms=times[0][1], bound_ms=b_ms, bound_by=b_by,
+                             library_ms=None)
+        log(f"[{name}] bound of the first case {b_ms:.4f} ms ({b_by})")
 
     # gradients through each autograd.Function (the plain version recomputed
     # from the saved inputs) against autograd of the plain version
@@ -188,6 +206,138 @@ def highway_kernel_phase(dev, cuda_ms, kernels: dict) -> None:
         log(f"[{name}] grads vs plain autograd B=2 T={T} C={C}: max|d| {worst:.3g} "
             f"(gate atol 5e-4 + rtol 1e-4)")
         gate(excess <= 0.0, (name, worst))
+
+
+def bound_ms(flop: float, nbytes: float, peak_flops: float) -> tuple:
+    """(least ms the card could take, "bytes" or "operations"): the larger of
+    the bytes over 3.35 TB/s and the operations over ``peak_flops``."""
+    t_bytes, t_ops = nbytes / 3.35e12, flop / peak_flops
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def cluster_phase(dev, cuda_ms, mbf, packed, kv, cfg, T: int, smi: str) -> dict:
+    """Phase 4, bf16 K1 (csrc/decode_cluster.cu): its ptxas lines (spills
+    fail), the plan chosen, the kernel against decode_plain over frames 0-1 at
+    B=768 (B=64 is gated by the caller), and CUDA-event times at B=64 and
+    B=768 for each cluster size and tile height, with the L2 bytes a frame
+    the plan reads. Returns the JSON entry's numbers at B=64."""
+    import torch
+
+    from spoofsv_torch.data.text import encode_texts
+    from spoofsv_torch.ops import _build, decode_kernel
+
+    info = _build.BUILD_LOG["decode_cluster"].get("ptxas", [])
+    for ln in info:
+        log(f"[K1 cluster] ptxas: {ln.strip()}")
+    spills = [ln for ln in info if "spill" in ln]
+    gate(bool(spills) and all("0 bytes spill stores, 0 bytes spill loads" in ln for ln in spills),
+         ("decode_cluster spills", spills))
+    lib = _build.load("decode_cluster")
+    F = cfg.mel.freq_bins
+    streams = {}
+
+    def run(plan, ins):
+        if plan.cluster not in streams:
+            streams[plan.cluster] = decode_kernel.pack_decode_stream(
+                {k: packed[k] for k in decode_kernel.MATRIX_NAMES}, plan)
+        return decode_kernel.decode_fused(packed, *ins, n_frames=T, freq_bins=F, plan=plan,
+                                          stream=streams[plan.cluster])
+
+    def sweep(B, ins, default):
+        out = {}
+        for n in (16, 8):
+            for rows in (16, 32, 64):
+                plan = decode_kernel.decode_cluster_plan(B, cfg.hidden_dim, F, cluster=n, rows=rows)
+                active = lib.spoofsv_decode_cluster_max_active(
+                    plan.C, plan.fpad, n, rows, plan.chunk_bytes, plan.stages)
+                ms = cuda_ms(lambda: run(plan, ins), reps=3)
+                out[(n, rows)] = ms
+                log(f"[K1 cluster] B={B} cluster {n} rows {rows}: {plan.tiles} tiles, "
+                    f"{plan.tiles * n} CTAs, {active} clusters fit at once, smem "
+                    f"{plan.smem_bytes} B; {ms:.3f} ms = {1e3 * ms / T:.2f} us a frame; L2 "
+                    f"{plan.l2_bytes_per_frame / 1e6:.2f} MB a frame = "
+                    f"{plan.l2_bytes_per_frame * T / (ms * 1e-3) / 1e12:.3f} TB/s"
+                    f"{' (default plan)' if plan == default else ''} on [{smi}]")
+        return out
+
+    # B=64: the main path's batch
+    B = kv[0].shape[0]
+    plan64 = decode_kernel.decode_cluster_plan(B, cfg.hidden_dim, F)
+    log(f"[K1 cluster] plan B={B}: {plan64}; {plan64.chunks_per_frame} chunks of the weight "
+        f"stream a frame, {2 * plan64.cta_elems} bytes a CTA a frame")
+    times64 = sweep(B, kv, plan64)
+    ms64 = times64[(plan64.cluster, plan64.rows)]
+
+    def profile(plan, ins):
+        """The kernel's phase profile (one CTA's warp 0), as shares."""
+        prof = torch.zeros(len(decode_kernel.CLUSTER_PHASES), dtype=torch.int64, device=dev)
+        decode_kernel.decode_fused(packed, *ins, n_frames=T, freq_bins=F, plan=plan,
+                                   stream=streams[plan.cluster], profile=prof)
+        cyc = prof.cpu().numpy().astype(float)
+        log(f"[K1 cluster] B={ins[0].shape[0]} phase profile ({cyc.sum() / T:.0f} cycles a frame): "
+            + ", ".join(f"{k} {100 * v / cyc.sum():.1f} %"
+                        for k, v in zip(decode_kernel.CLUSTER_PHASES, cyc)))
+
+    profile(plan64, kv)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    decode_kernel.decode_plain(packed, *kv, n_frames=T, freq_bins=F)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+
+    # B=768: the bench batch, frames 0-1 against decode_plain
+    texts = encode_texts([SENTENCES[i % len(SENTENCES)] for i in range(768)],
+                         cfg.vocabulary, max_len=100)
+    spk = np.random.default_rng(5).normal(size=(768, cfg.spk_emb_dim)).astype(np.float32)
+    with torch.no_grad():
+        K, V = mbf.encode_text(torch.from_numpy(texts).to(dev))
+        sb = torch.from_numpy(spk).to(dev, torch.bfloat16)
+        kv768 = (K, V, mbf.audio_encoder.fc1(sb), mbf.audio_encoder.fc2(sb))
+    plan768 = decode_kernel.decode_cluster_plan(768, cfg.hidden_dim, F)
+    y, a, p = run(plan768, kv768)
+    yq, aq, _ = decode_kernel.decode_plain(packed, *kv768, n_frames=2, freq_bins=F)
+    dy = (y[:, :2].float() - yq.float()).abs().amax(2)          # (B, 2)
+    da = (a[:, :, :2].float() - aq.float()).abs().amax(1)       # (B, 2)
+    mel2, att2 = float(dy.max()), float(da.max())
+    flip = (a[:, :, 0].float().argmax(1) != aq[:, :, 0].float().argmax(1))
+    top2 = aq[:, :, 0].float().topk(2, dim=1).values
+    bad = ((dy > 0.05) | (da > 0.02)).any(1)
+    log(f"[K1 cluster] bf16 B=768 vs decode_plain: frames 0-1 mel max|d| {mel2:.3g} (gate 0.05), "
+        f"attention max|d| {att2:.3g} (gate 0.02); frame 0 alone mel {float(dy[:, 0].max()):.3g} "
+        f"attention {float(da[:, 0].max()):.3g}; rows over a gate {int(bad.sum())} "
+        f"{bad.nonzero().flatten().tolist()[:16]}; frame-0 argmax flips {int(flip.sum())}, their "
+        f"frame-0 top-2 gaps {(top2[flip, 0] - top2[flip, 1]).tolist()[:16]}; plan {plan768}")
+    # An ulp flips a near-tied argmax (as in the onsets at B=64): a row whose
+    # frame-0 argmax differs on a tie within 2 bf16 ulps at 0.5 (2^-8) reads
+    # another window at frame 1. Frame 0 is held on every row, frames 0-1 on
+    # the others, and such rows may be at most 1 % of the batch.
+    gap = top2[flip, 0] - top2[flip, 1]
+    keep = ~flip
+    ok768 = (float(dy[:, 0].max()) <= 0.05 and float(da[:, 0].max()) <= 0.02
+             and float(dy[keep].max()) <= 0.05 and float(da[keep].max()) <= 0.02
+             and bool((gap <= 2.0 ** -8).all()) and int(flip.sum()) <= 768 // 100
+             and bool(torch.isfinite(y.float()).all()))
+    log(f"[K1 cluster] B=768 gate: frame 0 on all rows, frames 0-1 on the {int(keep.sum())} "
+        f"rows without a frame-0 near-tie flip: mel {float(dy[keep].max()):.3g}, attention "
+        f"{float(da[keep].max()):.3g} -> {'pass' if ok768 else 'FAIL'}")
+    del y, a, p, yq, aq
+    times768 = sweep(768, kv768, plan768)
+    profile(plan768, kv768)
+    gate(ok768, ("B=768", mel2, att2))
+    del kv768, K, V
+
+    # the bound at B=64: the products (bf16, 989 TFLOP/s) against the bytes
+    C, N = cfg.hidden_dim, kv[0].shape[1]
+    macs_row = 16 * 3 * C * 2 * C + 5 * C * C + 2 * C * C + F * C + C * F
+    flop = 2.0 * macs_row * B * T
+    nbytes = 2.0 * (macs_row + 2 * B * N * C + 2 * B * C + B * T * F + B * N * T)
+    b_ms, b_by = bound_ms(flop, nbytes, 989e12)
+    log(f"[K1 cluster] B={B} T={T}: kernel {ms64:.3f} ms, decode_plain {plain_ms:.1f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}: {flop / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); B=768 default "
+        f"{times768[(plan768.cluster, plan768.rows)]:.3f} ms on [{smi}]")
+    return dict(ms=ms64, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
 def training_phase(cfg, dev, counters: dict, B: int, N: int, T: int):
@@ -370,10 +520,14 @@ def main() -> None:
     k2_ms = cuda_ms(lambda: gl_kernel.gl_init_angles(mag, NFFT, HOP, "spsi"))
     k2_plain = cuda_ms(lambda: gl_kernel.init_angles_plain(mag, NFFT, HOP, "spsi"))
     log(f"[K2] B=64 T=1300 spsi: kernel {k2_ms:.3f} ms, plain {k2_plain:.3f} ms")
+    # bound: |S| in, the two angle planes out (f32); ~30 operations a bin
+    bins = mag.numel()
+    b_ms, b_by = bound_ms(30.0 * bins, 3 * 4.0 * bins, 67e12)
+    log(f"[K2] bound {b_ms:.4f} ms ({b_by})")
     kernels["gl_init"] = dict(
         name="gl_init", route="cuda", source="spoofsv_torch/csrc/gl.cu",
         replaces="spoofsv_tpu/ops/pallas_gl.py:618", max_abs_err=spsi_err, ms=k2_ms,
-        plain_ms=k2_plain)
+        plain_ms=k2_plain, bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
     # ---- phase 3: K3 vs plain torch GL -----------------------------------------
     init = (p_re, p_im)
@@ -395,10 +549,18 @@ def main() -> None:
     k3_plain = cuda_ms(lambda: torchdsp.griffin_lim(mag, NFFT, HOP, n_iter=12,
                                                     init_angles=init))
     log(f"[K3] B=64 T=1300 GL12: kernel {k3_ms:.3f} ms, plain {k3_plain:.3f} ms")
+    # bound: 12 iterations of an inverse and a forward real FFT per frame
+    # (2.5·n·log2 n operations each, f32 at 67 TFLOP/s) against |S| and the
+    # initial angles in, the audio out (f32)
+    Bm, Tm = mag.shape[0], mag.shape[1]
+    gl_flop = 12 * Bm * Tm * (2 * 2.5 * NFFT * np.log2(NFFT) + 10 * mag.shape[2])
+    gl_bytes = 4.0 * (3 * mag.numel() + Bm * HOP * (Tm - 1))
+    b_ms, b_by = bound_ms(gl_flop, gl_bytes, 67e12)
+    log(f"[K3] bound {b_ms:.4f} ms ({b_by}: {gl_flop / 1e9:.1f} GFLOP, {gl_bytes / 1e9:.3f} GB)")
     kernels["griffin_lim"] = dict(
         name="griffin_lim", route="cuda", source="spoofsv_torch/csrc/gl.cu",
         replaces="spoofsv_tpu/ops/pallas_gl.py:122", max_abs_err=gl_err, ms=k3_ms,
-        plain_ms=k3_plain)
+        plain_ms=k3_plain, bound_ms=b_ms, bound_by=b_by, library_ms=None)
     del mag, init, g1, r1, g12, r12, k_re, k_im, p_re, p_im, h_re, h_im, q_re, q_im
 
     # ---- phase 4: K1 vs the plain eager decode --------------------------------
@@ -463,8 +625,9 @@ def main() -> None:
         K, V = mbf.encode_text(text_d)
         spk_b = spk_d.to(torch.bfloat16)
         s1, s2 = mbf.audio_encoder.fc1(spk_b), mbf.audio_encoder.fc2(spk_b)
-    yq, aq, _ = decode_kernel.decode_plain(decode_kernel.pack_decode_weights(mbf), K, V, s1, s2,
-                                           n_frames=T, freq_bins=cfg.mel.freq_bins)
+    packed_bf = decode_kernel.pack_decode_weights(mbf)
+    yq, aq, _ = decode_kernel.decode_plain(packed_bf, K, V, s1, s2, n_frames=T,
+                                           freq_bins=cfg.mel.freq_bins)
     mel2 = float((yk[:, :2].float() - yq[:, :2].float()).abs().max())
     att2 = float((ak[:, :, :2].float() - aq[:, :, :2].float()).abs().max())
     ons_q = onsets(ak, aq)
@@ -475,21 +638,24 @@ def main() -> None:
         f"median {int(np.median(ons_q))}; vs eager bf16 onset min {min(ons_bf)} median "
         f"{int(np.median(ons_bf))} (context)")
     gate(mel2 <= 0.05 and att2 <= 0.02, (mel2, att2))
-    del K, V, s1, s2, yk, ak, yq, aq, yp, ap
+    del yk, ak, yq, aq, yp, ap
     k1_ms = cuda_ms(lambda: fused_bf(text_d, spk_d), reps=2)
     k1_plain = cuda_ms(lambda: plain_bf(text_d, spk_d), reps=1)
     log(f"[K1] bf16 B=64 N=100 T=325 decode (incl. text encoder): kernel {k1_ms:.3f} ms, "
         f"plain eager {k1_plain:.3f} ms")
+    k1 = cluster_phase(dev, cuda_ms, mbf, packed_bf, (K, V, s1, s2), cfg, T, smi)
     kernels["decode"] = dict(
-        name="decode", route="cuda", source="spoofsv_torch/csrc/decode.cu",
-        replaces="spoofsv_tpu/ops/pallas_decode.py:144", max_abs_err=mel_err, ms=k1_ms,
-        plain_ms=k1_plain)
+        name="decode", route="cuda",
+        source="spoofsv_torch/csrc/decode_cluster.cu (bf16); spoofsv_torch/csrc/decode.cu (f32)",
+        replaces="spoofsv_tpu/ops/pallas_decode.py:144", max_abs_err=mel2, **k1)
+    del K, V, s1, s2, packed_bf
 
     # ---- phase 5: the main path ----------------------------------------------
     syn = Synthesizer(cfg, mbf, sbf, n_frames=cfg.max_frame_num,
                       gl_iters=cfg.tpu.griffin_lim_iters)
     counters = {"decode": decode_kernel.decode_kernel, "gl_init": gl_kernel.init_kernel,
                 "griffin_lim": gl_kernel.gl_kernel}
+    cluster = decode_kernel.cluster_kernel   # the bf16 K1 source alone
 
     def drive() -> dict:
         torch.cuda.synchronize()
@@ -508,7 +674,7 @@ def main() -> None:
                                "vocoder": 1e3 * (t[3] - t[2])})
 
     # the main path as a user calls it, with the launch counts reset around it
-    for c in counters.values():
+    for c in [*counters.values(), cluster]:
         c.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -517,8 +683,11 @@ def main() -> None:
     first_s = time.perf_counter() - t0
     launches = {k: c.launches for k, c in counters.items()}
     B, L = audio.shape
-    log(f"[main] launches {launches}; audio {tuple(audio.shape)}; first call {first_s:.3f} s")
+    log(f"[main] launches {launches}, of which decode_cluster.cu {cluster.launches}; audio "
+        f"{tuple(audio.shape)}; first call {first_s:.3f} s")
     gate(all(n > 0 for n in launches.values()), launches)
+    gate(launches["decode"] == 1 and cluster.launches == 1,
+         ("the main path's K1 did not run decode_cluster.cu once", launches, cluster.launches))
     gate((B, L) == (64, HOP * (4 * cfg.max_frame_num - 1)), audio.shape)
     gate(mel.shape == (64, cfg.max_frame_num, cfg.mel.freq_bins)
          and attn.shape == (64, 100, cfg.max_frame_num), (mel.shape, attn.shape))

@@ -33,11 +33,14 @@
 //   order, into one stream), so a lane loads two products' fragments with
 //   one 16-byte load.
 // - The weight stream runs ahead: thread 0 feeds a ring of mbarrier stages
-//   with 1-D cp.async.bulk copies of whole 32-deep k rows, refilling each
-//   stage as soon as the CTA is done with it. It never waits on
-//   activations, so the next layer's weights arrive while this layer's
-//   LayerNorm exchange runs, and it wraps from frame t's tail to frame
-//   t+1's first layer.
+//   (16 KB each, 8 where shared memory allows) with 1-D cp.async.bulk copies
+//   of whole 32-deep k rows, refilling at the start of each layer's product
+//   every stage the earlier layers freed (a layer longer than the ring
+//   refills as it goes). It never waits on activations, so the next layers'
+//   weights arrive while this layer's LayerNorm exchange runs, and it wraps
+//   from frame t's tail to frame t+1's first layer.
+// - Each layer's bias and LayerNorm vectors for the CTA's columns sit in a
+//   shared-memory table, loaded once; the shapes are template parameters.
 // - LayerNorm across the cluster: each CTA writes per-row partial (Σh, Σh²)
 //   into every CTA's shared memory (st.shared::cluster), then one cluster
 //   barrier; every CTA sums the n partials in rank order, so all hold the
@@ -67,6 +70,11 @@ constexpr int N_HW = 16;
 constexpr int N_LAYERS = 24;
 constexpr int RING_SLOTS = 256;
 constexpr float LN_EPS = 1e-5f;
+// phases of the optional profile: waiting for weight chunks, the rest of the
+// products, row partials, first cluster barrier, LayerNorm and all-gather,
+// score partials, second barrier (with the taps' copies), attention and r
+constexpr int kPhases = 8;
+constexpr int CHUNK = 16384;  // bytes of weight stream a ring stage holds
 
 typedef __nv_bfloat16 bf16;
 
@@ -83,7 +91,8 @@ struct Args {
   bf16* y_out;
   bf16* a_out;
   int* pma_out;
-  int Bp, T, N, F, fpad, C, condition, n, rows, chunk, stages;
+  long long* prof;  // null, or kPhases clock64 sums of CTA (0, 0)'s warp 0
+  int Bp, T, N, F, fpad, C, condition, n, rows, stages;
   long long cta_elems;
 };
 
@@ -123,9 +132,16 @@ __host__ __device__ inline size_t cluster_smem(int C, int fpad, int n, int rows,
     const size_t h = (size_t)S * rows * ncol * 8;
     hbuf = h > hbuf ? h : hbuf;
   }
+  size_t prm = 0;  // per layer its bias and LayerNorm vectors: 3 floats a column
+  for (int l = 0; l < N_LAYERS; ++l) {
+    int K, ncol;
+    layer_shape(l, C, fpad, n, K, ncol);
+    prm += 3 * ncol * 8;
+  }
+  const int wide = (C / n > fpad / n ? C / n : fpad / n);
   return 128 + (size_t)stages * chunk + (size_t)rows * lda * 2 + (size_t)rows * (C / n) * 4 +
-         hbuf * 4 + 2 * (size_t)n * rows * 16 + (size_t)rows * 16 + (size_t)rows * 24 +
-         (size_t)stages * 8;
+         hbuf * 4 + prm * 4 + 2 * (size_t)n * rows * 16 + (size_t)rows * 16 +
+         (size_t)rows * 24 + (size_t)rows * wide * 2 + (size_t)stages * 8;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -165,9 +181,11 @@ __device__ __forceinline__ void cp_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
+// not .aligned: loops whose trip count differs by lane may leave a warp
+// diverged here
 __device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n"
-               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.arrive.release;\n"
+               "barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 __device__ __forceinline__ uint32_t remote(uint32_t local, int rank) {
   uint32_t r;
@@ -182,8 +200,10 @@ __device__ __forceinline__ void st_remote_v4(uint32_t addr, float a, float b, fl
 __device__ __forceinline__ void st_remote_f32(uint32_t addr, float a) {
   asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(a) : "memory");
 }
-__device__ __forceinline__ void st_remote_b32(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared::cluster.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+__device__ __forceinline__ void st_remote_v4b(uint32_t addr, uint4 v) {
+  asm volatile("st.shared::cluster.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x),
+               "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -215,47 +235,89 @@ struct Feed {
   unsigned g;     // chunks issued
 };
 
-// One epilogue: what the product's columns become.
+// What a layer's product becomes: a LayerNorm over C columns (relu or not),
+// a highway step (two LayerNorms, gate, residual), or the tail (LN5 over F,
+// sigmoid).
 enum Kind { DENSE = 0, HIGHWAY = 1, TAIL = 2 };
-struct Epi {
-  int kind;
-  const float* bias;  // this CTA's columns start at bias + col_base (see below)
-  const bf16* add;    // (Bp, C) speaker projection added before the LayerNorm, or null
-  const float* ln;    // DENSE: scale, then bias at +C; HIGHWAY: 4 vectors of C; TAIL: ln5_s
-  const float* ln_b;  // TAIL: ln5_b
-  bool relu;
-  int hw;             // HIGHWAY: ring index
-};
+__device__ __forceinline__ int layer_kind(int l) {
+  return l == 23 ? TAIL : ((l >= 3 && l <= 12) || (l >= 14 && l <= 19)) ? HIGHWAY : DENSE;
+}
+__device__ __forceinline__ bool layer_relu(int l) { return l <= 1 || (l >= 20 && l <= 22); }
+__device__ __forceinline__ int layer_hw(int l) { return l <= 12 ? l - 3 : l - 4; }
+// Where layer l's vectors start in the parameter table: 3 floats a column of
+// every earlier layer (the dense layers 0-2, 13, 20-22 have nb blocks of 8
+// columns, the highway steps 2·nb; the tail, layer 23, comes last).
+__device__ __forceinline__ int prm_offset(int l, int nb) {
+  const int dense = (l < 3 ? l : 3) + (l > 13 ? 1 : 0) + (l > 20 ? l - 20 : 0);
+  return 24 * nb * (2 * l - dense);
+}
 
+// Layer l's bias and LayerNorm vectors in global memory: bias (its full
+// width), ln[v] the v-th LayerNorm vector (scale, bias[, scale 2, bias 2]).
+__device__ void layer_vectors(const Args& a, int l, const float*& bias, const float* (&ln)[4]) {
+  const int C = a.C;
+  const float* ml = a.misc_ln;
+  const float* lnb = nullptr;  // LayerNorm block of (scale, bias[, scale, bias]) of C each
+  if (layer_kind(l) == HIGHWAY) {
+    const int j = layer_hw(l);
+    bias = a.hw_b + (size_t)j * 2 * C, lnb = a.hw_ln + (size_t)j * 4 * C;
+  } else if (l == 23) {
+    bias = a.tail_b5, ln[0] = a.ln5_s, ln[1] = a.ln5_b, ln[2] = ln[3] = nullptr;
+    return;
+  } else if (l == 0) {
+    bias = a.enc_b1, lnb = ml;
+  } else if (l == 13) {
+    bias = a.dec_b1, lnb = ml + 6 * C;
+  } else {
+    const int i = l <= 2 ? l - 1 : l - 18;  // sq_w index
+    bias = a.sq_b + (size_t)i * C, lnb = ml + (size_t)2 * (l <= 2 ? l : i + 2) * C;
+  }
+  for (int v = 0; v < 4; ++v) ln[v] = lnb + (size_t)v * C;
+}
+
+// CT, FPT, NT, RT: C, fpad, the cluster size and the rows per tile, fixed at
+// compile time (pick() lists the instantiations), so that their divisions
+// fold into shifts and constants. (0 would read them from the arguments; that
+// build faulted on the card with an illegal instruction and is not used.)
+template <int CT, int FPT, int NT, int RT>
 __global__ void __launch_bounds__(THREADS, 1) decode_cluster_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((128 - (smem_addr(smem_raw) & 127)) & 127);
-  const int C = a.C, n = a.n, rows = a.rows, CH = C / n, FT = a.fpad / n;
-  const int lda = (3 * C > a.fpad ? 3 * C : a.fpad) + 8;
+  const int C = CT ? CT : a.C, fpad = FPT ? FPT : fpad, n = NT ? NT : a.n;
+  const int rows = RT ? RT : a.rows, CH = C / n, FT = fpad / n;
+  const int lda = (3 * C > fpad ? 3 * C : fpad) + 8;
+  // ring stages are a power of two: stage = count & smask, phase = count >> sshift
+  const unsigned smask = a.stages - 1, sshift = __ffs(a.stages) - 1;
   const int rank = blockIdx.x, tile = blockIdx.y, b0 = tile * rows;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
   const int TPR = THREADS / rows;  // threads per row in the row-statistics pass
 
   // ---- shared memory (cluster_smem) ----
   unsigned char* ring = smem;
-  bf16* op = reinterpret_cast<bf16*>(ring + (size_t)a.stages * a.chunk);  // [rows][lda]
+  bf16* op = reinterpret_cast<bf16*>(ring + (size_t)a.stages * CHUNK);  // [rows][lda]
   float* xown = reinterpret_cast<float*>(op + (size_t)rows * lda);        // [rows][CH]
   float* hbuf = xown + rows * CH;
   size_t hfl = 0;
   for (int l = 0; l < N_LAYERS; ++l) {
     int K, ncol, S, nbw;
-    layer_shape(l, C, a.fpad, n, K, ncol);
+    layer_shape(l, C, fpad, n, K, ncol);
     warp_split(rows, ncol, S, nbw);
     const size_t h = (size_t)S * rows * ncol * 8;
     hfl = h > hfl ? h : hfl;
   }
-  float* xch = hbuf + hfl;                 // [n][rows][4] LayerNorm partials
+  const int NB = CH / 8, prm_n = prm_offset(N_LAYERS - 1, NB) + 3 * FT;
+  // prm: per layer its columns' bias, then its LayerNorm vectors over this
+  // CTA's channels (v-th vector at ncols + v·width)
+  float* prm = hbuf + hfl;
+  float* xch = prm + prm_n;                // [n][rows][4] LayerNorm partials
   float* sxch = xch + n * rows * 4;        // [n][rows][4] attention-score partials
   float* rowstat = sxch + n * rows * 4;    // [rows][4] mean1, rstd1, mean2, rstd2
   float* patt = rowstat + rows * 4;        // [rows][4] window probabilities
   int* spma = reinterpret_cast<int*>(patt + rows * 4);  // [rows]
   int* wbase = spma + rows;                             // [rows] window start of this frame
-  const uint32_t bars = smem_addr(wbase + rows);        // [stages] mbarriers
+  const int wide = CH > FT ? CH : FT;
+  bf16* xsend = reinterpret_cast<bf16*>(wbase + rows);  // [rows][wide] this CTA's new slice
+  const uint32_t bars = smem_addr(xsend + rows * wide);  // [stages] mbarriers
   const uint32_t ring_s = smem_addr(ring), op_s = smem_addr(op);
   const unsigned char* my_stream =
       reinterpret_cast<const unsigned char*>(a.stream) + (size_t)rank * a.cta_elems * 2;
@@ -263,24 +325,34 @@ __global__ void __launch_bounds__(THREADS, 1) decode_cluster_kernel(Args a) {
   for (int i = tid; i < rows * lda / 2; i += THREADS) reinterpret_cast<uint32_t*>(op)[i] = 0u;
   for (int i = tid; i < rows * CH; i += THREADS) xown[i] = 0.f;
   if (tid < rows) spma[tid] = 0;
+  for (int l = 0; l < N_LAYERS; ++l) {
+    const float* bias;
+    const float* ln[4];
+    layer_vectors(a, l, bias, ln);
+    const int kind = layer_kind(l), w = kind == TAIL ? FT : CH, ncols = kind == HIGHWAY ? 2 * CH : w;
+    const int base = kind == TAIL ? rank * FT : rank * CH, nvec = kind == HIGHWAY ? 4 : 2;
+    float* p = prm + prm_offset(l, NB);
+    for (int i = tid; i < ncols; i += THREADS)
+      p[i] = bias[(i >= w ? C : 0) + base + i % w];
+    for (int i = tid; i < nvec * w; i += THREADS) p[ncols + i] = ln[i / w][base + i % w];
+  }
   if (tid == 0) {
     for (int s = 0; s < a.stages; ++s) mbar_init(bars + 8 * s);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cluster_sync();  // every CTA runs before any remote store; barriers ready
+  cluster_sync();  // every CTA runs before any remote store; barriers and prm ready
 
   Feed feed = {0, 0, 0, 0, 0};
   auto issue_next = [&]() {  // thread 0 only
-    if (feed.frame >= a.T) return;
     int K, ncol;
-    layer_shape(feed.layer, C, a.fpad, n, K, ncol);
-    const int KP = K / 32, rpc = rows_per_chunk(a.chunk, ncol);
+    layer_shape(feed.layer, C, fpad, n, K, ncol);
+    const int KP = K / 32, rpc = rows_per_chunk(CHUNK, ncol);
     const int nch = (KP + rpc - 1) / rpc;
     const int kps = min(rpc, KP - feed.c * rpc);
     const uint32_t bytes = (uint32_t)kps * ncol * 512;
-    const int s = feed.g % a.stages;
+    const int s = feed.g & smask;
     mbar_expect_tx(bars + 8 * s, bytes);
-    bulk_copy(ring_s + s * a.chunk, my_stream + feed.off, bytes, bars + 8 * s);
+    bulk_copy(ring_s + s * CHUNK, my_stream + feed.off, bytes, bars + 8 * s);
     feed.off += bytes;
     ++feed.g;
     if (++feed.c == nch) {
@@ -288,35 +360,63 @@ __global__ void __launch_bounds__(THREADS, 1) decode_cluster_kernel(Args a) {
       if (++feed.layer == N_LAYERS) feed.layer = 0, feed.off = 0, ++feed.frame;
     }
   };
-  if (tid == 0)
-    for (int s = 0; s < a.stages; ++s) issue_next();
 
   unsigned gc = 0;  // chunks consumed (the same count in every thread)
-  int cur_ncols = 0;
+  // the profile is warp 0's (its lanes take the same branches: no divergence)
+  const bool profiling = a.prof != nullptr && warp == 0 && rank == 0 && tile == 0;
+  long long prof[kPhases] = {0, 0, 0, 0, 0, 0, 0, 0};
+  long long t_mark = clock64();
+  auto mark = [&](int phase) {  // time since the last mark to `phase`
+    if (profiling) {
+      const long long now = clock64();
+      prof[phase] += now - t_mark;
+      t_mark = now;
+    }
+  };
 
   // ---- the product of layer l: operand columns [col0, col0 + K) of the rows
-  // times this CTA's weight slice, into hbuf [S][rows][ncol·8] (f32)
+  // times this CTA's weight slice, plus bias (and speaker projection), into
+  // hbuf [S][rows][ncol·8] (f32; split 0 carries the bias)
   auto product = [&](int l, int col0) {
     int K, ncol, S, nbw;
-    layer_shape(l, C, a.fpad, n, K, ncol);
+    layer_shape(l, C, fpad, n, K, ncol);
     warp_split(rows, ncol, S, nbw);
-    const int KP = K / 32, rpc = rows_per_chunk(a.chunk, ncol), nch = (KP + rpc - 1) / rpc;
+    const int KP = K / 32, rpc = rows_per_chunk(CHUNK, ncol), nch = (KP + rpc - 1) / rpc;
     const int wpm = WARPS / (rows / 16), mt = warp / wpm, wi = warp % wpm;
     const int split = S > 1 ? wi / ncol : 0, nb0 = S > 1 ? wi % ncol : wi;
-    float acc[4][4];
+    // Every thread is past the stages of earlier layers (a cluster barrier
+    // or __syncthreads precedes each product): thread 0 refills them all, so
+    // the stream runs a ring ahead and a layer that fits the ring needs no
+    // further synchronisation.
+    if (tid == 0)
+      while (feed.g < gc + a.stages && feed.frame < a.T) issue_next();
+    unsigned avail = gc + a.stages;  // chunks issued, as every thread reckons
+    float acc[2][4][4];  // two sets: consecutive k rows do not wait on each other
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int u = 0; u < 2; ++u)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[u][i][e] = 0.f;
     // this lane's ldmatrix row address: row mt·16 + lane % 16, column + 8·(lane / 16)
     const uint32_t a_row = op_s + (uint32_t)(((mt * 16 + (lane & 15)) * lda + col0 + 8 * (lane >> 4)) * 2);
     for (int c = 0; c < nch; ++c, ++gc) {
-      const int st = gc % a.stages;
-      mbar_wait(bars + 8 * st, (gc / a.stages) & 1);
-      const unsigned char* w = ring + (size_t)st * a.chunk;
+      if (gc == avail) {  // a layer longer than the ring: refill as chunks free
+        __syncthreads();
+        if (tid == 0) issue_next();
+        ++avail;
+      }
+      const int st = gc & smask;
+      mark(1);
+      mbar_wait(bars + 8 * st, (gc >> sshift) & 1);
+      mark(0);
+      __syncwarp();  // ldmatrix and mma.sync need the warp converged
+      const unsigned char* w = ring + (size_t)st * CHUNK;
       const int kp0 = c * rpc, kp1 = min(KP, kp0 + rpc);
-      for (int kp = kp0 + split; kp < kp1; kp += S) {
+      int u = 0;
+      for (int kp = kp0 + split; kp < kp1; kp += S, u ^= 1) {
         uint32_t f0[4], f1[4];
+        __syncwarp();
         ldmatrix_x4(f0, a_row + kp * 64);
         ldmatrix_x4(f1, a_row + kp * 64 + 32);
 #pragma unroll
@@ -324,26 +424,44 @@ __global__ void __launch_bounds__(THREADS, 1) decode_cluster_kernel(Args a) {
           if (i < nbw) {
             const int nb = nb0 + wpm * i;
             const uint4 bv = *reinterpret_cast<const uint4*>(w + ((kp - kp0) * ncol + nb) * 512 + lane * 16);
-            mma16816(acc[i], f0, bv.x, bv.y);
-            mma16816(acc[i], f1, bv.z, bv.w);
+            if (u) {
+              mma16816(acc[1][i], f0, bv.x, bv.y);
+              mma16816(acc[1][i], f1, bv.z, bv.w);
+            } else {
+              mma16816(acc[0][i], f0, bv.x, bv.y);
+              mma16816(acc[0][i], f1, bv.z, bv.w);
+            }
           }
         }
       }
-      __syncthreads();  // every warp is done with stage st
-      if (tid == 0) issue_next();
     }
     const int ncols = ncol * 8;
+    const float* bias = prm + prm_offset(l, NB);
+    const bf16* add = !a.condition ? nullptr : l == 0 ? a.s1 : l == 2 ? a.s2 : nullptr;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       if (i < nbw) {
-        const int col = (nb0 + wpm * i) * 8 + 2 * t4, r = mt * 16 + g;
-        float* h = hbuf + ((size_t)split * rows + r) * ncols + col;
-        *reinterpret_cast<float2*>(h) = make_float2(acc[i][0], acc[i][1]);
-        *reinterpret_cast<float2*>(h + 8 * ncols) = make_float2(acc[i][2], acc[i][3]);
+        const int col = (nb0 + wpm * i) * 8 + 2 * t4;
+#pragma unroll
+        for (int h8 = 0; h8 < 2; ++h8) {
+          const int r = mt * 16 + g + 8 * h8;
+          float v0 = acc[0][i][2 * h8] + acc[1][i][2 * h8];
+          float v1 = acc[0][i][2 * h8 + 1] + acc[1][i][2 * h8 + 1];
+          if (split == 0) {
+            v0 += bias[col], v1 += bias[col + 1];
+            if (add) {
+              const float2 s2 = unpack_bf2(*reinterpret_cast<const uint32_t*>(
+                  add + (size_t)(b0 + r) * C + rank * CH + col));
+              v0 += s2.x, v1 += s2.y;
+            }
+          }
+          *reinterpret_cast<float2*>(hbuf + ((size_t)split * rows + r) * ncols + col) =
+              make_float2(v0, v1);
+        }
       }
     }
-    cur_ncols = ncols;
     __syncthreads();
+    mark(1);
   };
 
   // ---- the taps of highway j for frame t into operand columns [0, 2C)
@@ -358,33 +476,20 @@ __global__ void __launch_bounds__(THREADS, 1) decode_cluster_kernel(Args a) {
     }
   };
 
-  // ---- row statistics of the product (+ bias, + speaker projection) to
-  // every CTA of the cluster
-  auto row_partials = [&](const Epi& e) {
-    int S_ = 1, nbw;
-    {
-      int ncol = cur_ncols / 8;
-      warp_split(rows, ncol, S_, nbw);
-    }
-    const int ncols = cur_ncols, r = tid / TPR, sub = tid % TPR, b = b0 + r;
+  // ---- per-row partial (Σh, Σh²) of this CTA's columns (h1 and h2 apart)
+  // to every CTA of the cluster; the TPR lanes of a row share the stores
+  auto row_partials = [&](int l) {
+    int K, ncol, S, nbw;
+    layer_shape(l, C, fpad, n, K, ncol);
+    warp_split(rows, ncol, S, nbw);
+    const int kind = layer_kind(l), ncols = ncol * 8, r = tid / TPR, sub = tid % TPR;
     float s1 = 0.f, q1 = 0.f, s2 = 0.f, q2 = 0.f;
     for (int c = sub; c < ncols; c += TPR) {
-      float v = 0.f;
-      for (int s = 0; s < S_; ++s) v += hbuf[((size_t)s * rows + r) * ncols + c];
-      bool second = false, counted = true;
-      if (e.kind == HIGHWAY) {
-        second = c >= CH;
-        v += e.bias[(second ? C : 0) + rank * CH + c - (second ? CH : 0)];
-      } else if (e.kind == TAIL) {
-        v += e.bias[rank * FT + c];
-        counted = rank * FT + c < a.F;
-      } else {
-        v += e.bias[rank * CH + c];
-        if (e.add) v += __bfloat162float(e.add[(size_t)b * C + rank * CH + c]);
-      }
-      hbuf[(size_t)r * ncols + c] = v;
-      if (!counted) continue;
-      if (second) s2 += v, q2 += v * v;
+      float v = hbuf[(size_t)r * ncols + c];
+      for (int s = 1; s < S; ++s) v += hbuf[((size_t)s * rows + r) * ncols + c];
+      if (S > 1) hbuf[(size_t)r * ncols + c] = v;
+      if (kind == TAIL && rank * FT + c >= a.F) continue;
+      if (kind == HIGHWAY && c >= CH) s2 += v, q2 += v * v;
       else s1 += v, q1 += v * v;
     }
     for (int o = TPR / 2; o > 0; o >>= 1) {
@@ -393,10 +498,8 @@ __global__ void __launch_bounds__(THREADS, 1) decode_cluster_kernel(Args a) {
       s2 += __shfl_xor_sync(0xffffffffu, s2, o);
       q2 += __shfl_xor_sync(0xffffffffu, q2, o);
     }
-    if (sub == 0) {
-      const uint32_t dst = smem_addr(xch + ((size_t)rank * rows + r) * 4);
-      for (int q = 0; q < n; ++q) st_remote_v4(remote(dst, q), s1, q1, s2, q2);
-    }
+    const uint32_t dst = smem_addr(xch + ((size_t)rank * rows + r) * 4);
+    for (int q = sub; q < n; q += TPR) st_remote_v4(remote(dst, q), s1, q1, s2, q2);
   };
 
   // ---- the cluster's statistics (summed in rank order) → mean and rstd
@@ -418,68 +521,74 @@ __global__ void __launch_bounds__(THREADS, 1) decode_cluster_kernel(Args a) {
 
   // ---- LayerNorm, gate / relu / sigmoid over this CTA's channels; the new x
   // (or y) to every CTA's operand rows
-  auto finish = [&](const Epi& e, int t) {
-    const int ncols = cur_ncols;
-    const int pairs = (e.kind == TAIL ? FT : CH) / 2;
+  auto finish = [&](int l, int t) {
+    const int kind = layer_kind(l), ncols = kind == HIGHWAY ? 2 * CH : kind == TAIL ? FT : CH;
+    const int w = kind == TAIL ? FT : CH, pairs = w / 2;
+    const float* p = prm + prm_offset(l, NB) + ncols;  // LayerNorm vector v at p + v·w
+    const bool relu = layer_relu(l);
     for (int i = tid; i < rows * pairs; i += THREADS) {
       const int r = i / pairs, c = 2 * (i % pairs), b = b0 + r;
       const float* st = rowstat + r * 4;
       const float* h = hbuf + (size_t)r * ncols;
       float v[2];
-      int dcol;  // operand column of channel c
-      if (e.kind == TAIL) {
+      if (kind == TAIL) {
         const int col = rank * FT + c;
         for (int k = 0; k < 2; ++k)
-          v[k] = col + k < a.F
-                     ? sigmoid((h[c + k] - st[0]) * st[1] * e.ln[col + k] + e.ln_b[col + k])
-                     : 0.f;
+          v[k] = col + k < a.F ? sigmoid((h[c + k] - st[0]) * st[1] * p[c + k] + p[w + c + k]) : 0.f;
         const uint32_t yb = pack_bf2(v[0], v[1]);
-        const float2 yr = unpack_bf2(yb);
         bf16* yo = a.y_out + ((size_t)b * a.T + t) * a.F;
-        if (col < a.F) yo[col] = __float2bfloat16_rn(yr.x);
-        if (col + 1 < a.F) yo[col + 1] = __float2bfloat16_rn(yr.y);
-        dcol = col;
-        const uint32_t dst = op_s + (uint32_t)((r * lda + dcol) * 2);
-        for (int q = 0; q < n; ++q) st_remote_b32(remote(dst, q), yb);
+        if (col + 1 < a.F) *reinterpret_cast<uint32_t*>(yo + col) = yb;
+        else if (col < a.F) yo[col] = __float2bfloat16_rn(v[0]);
+        *reinterpret_cast<uint32_t*>(xsend + r * wide + c) = yb;
         continue;
       }
-      const int ch = rank * CH + c;
       float* xo = xown + r * CH + c;
-      if (e.kind == HIGHWAY) {
-        const int j = e.hw, d = c_dil[j], i0 = t % (2 * d);
+      if (kind == HIGHWAY) {
+        const int j = layer_hw(l), d = c_dil[j], i0 = t % (2 * d);
         // x(t) into its ring slot (every CTA has fetched this layer's taps)
-        *reinterpret_cast<uint32_t*>(a.rings + ((size_t)(c_slot0[j] + i0) * a.Bp + b) * C + ch) =
-            pack_bf2(xo[0], xo[1]);
+        *reinterpret_cast<uint32_t*>(a.rings + ((size_t)(c_slot0[j] + i0) * a.Bp + b) * C +
+                                     rank * CH + c) = pack_bf2(xo[0], xo[1]);
         for (int k = 0; k < 2; ++k) {
-          const float gt = sigmoid((h[c + k] - st[0]) * st[1] * e.ln[ch + k] + e.ln[C + ch + k]);
-          const float nv =
-              (h[CH + c + k] - st[2]) * st[3] * e.ln[2 * C + ch + k] + e.ln[3 * C + ch + k];
+          const float gt = sigmoid((h[c + k] - st[0]) * st[1] * p[c + k] + p[w + c + k]);
+          const float nv = (h[CH + c + k] - st[2]) * st[3] * p[2 * w + c + k] + p[3 * w + c + k];
           v[k] = gt * nv + (1.f - gt) * xo[k];
         }
       } else {
         for (int k = 0; k < 2; ++k) {
-          const float x = (h[c + k] - st[0]) * st[1] * e.ln[ch + k] + e.ln[C + ch + k];
-          v[k] = e.relu ? fmaxf(x, 0.f) : x;
+          const float x = (h[c + k] - st[0]) * st[1] * p[c + k] + p[w + c + k];
+          v[k] = relu ? fmaxf(x, 0.f) : x;
         }
       }
       xo[0] = v[0], xo[1] = v[1];
-      dcol = 2 * C + ch;
-      const uint32_t dst = op_s + (uint32_t)((r * lda + dcol) * 2);
-      const uint32_t xb = pack_bf2(v[0], v[1]);
-      for (int q = 0; q < n; ++q) st_remote_b32(remote(dst, q), xb);
+      *reinterpret_cast<uint32_t*>(xsend + r * wide + c) = pack_bf2(v[0], v[1]);
+    }
+    __syncthreads();
+    // the slice to every CTA's operand rows, 16 bytes a store
+    const int segs = w / 8;
+    const int col0 = kind == TAIL ? rank * FT : 2 * C + rank * CH;
+    for (int i = tid; i < rows * segs * n; i += THREADS) {
+      const int q = i % n, rs = i / n, r = rs / segs, sg = rs % segs;
+      const uint4 v = *reinterpret_cast<const uint4*>(xsend + r * wide + 8 * sg);
+      st_remote_v4b(remote(op_s + (uint32_t)((r * lda + col0 + 8 * sg) * 2), q), v);
     }
   };
 
   // one whole layer: product, then the two exchanges; the next highway's
   // taps are fetched while the exchanges run
-  auto layer = [&](int l, int col0, const Epi& e, int t, int next_hw, bool scores) {
+  auto layer = [&](int l, int col0, int t) {
+    const int kind = layer_kind(l);
+    const int next_hw = l == 2 ? 0 : l == 13 ? 10 : (kind == HIGHWAY && l != 12 && l != 19)
+                                                        ? layer_hw(l) + 1 : -1;
     product(l, col0);
     if (next_hw >= 0) fetch_taps(next_hw, t);
-    row_partials(e);
+    row_partials(l);
+    mark(2);
     cluster_sync();
-    row_stats(e.kind == TAIL ? a.F : C);
-    finish(e, t);
-    if (scores) {
+    mark(3);
+    row_stats(kind == TAIL ? a.F : C);
+    finish(l, t);
+    mark(4);
+    if (l == 12) {
       // partial q·K over this CTA's channels for the window [pma, pma + 2]
       __syncthreads();
       const float scale = rsqrtf((float)C);
@@ -488,29 +597,27 @@ __global__ void __launch_bounds__(THREADS, 1) decode_cluster_kernel(Args a) {
         float s = 0.f;
         if (pos < a.N) {
           const bf16* kr = a.K + ((size_t)(b0 + r) * a.N + pos) * C + rank * CH;
-          for (int c = 0; c < CH; ++c) s = fmaf(__bfloat162float(kr[c]), xown[r * CH + c], s);
+          for (int c = 0; c < CH; c += 2) {
+            const float2 k2 = unpack_bf2(*reinterpret_cast<const uint32_t*>(kr + c));
+            s = fmaf(k2.x, xown[r * CH + c], s);
+            s = fmaf(k2.y, xown[r * CH + c + 1], s);
+          }
         }
         const uint32_t dst = smem_addr(sxch + ((size_t)rank * rows + r) * 4 + w);
         for (int q = 0; q < n; ++q) st_remote_f32(remote(dst, q), s * scale);
       }
+      mark(5);
     }
     cp_wait_all();  // this thread's tap copies have landed
     cluster_sync();
+    mark(6);
   };
 
-  const float* ml = a.misc_ln;
   for (int t = 0; t < a.T; ++t) {
-    // ---- audio-encoder front
-    layer(0, 0, Epi{DENSE, a.enc_b1, a.condition ? a.s1 : nullptr, ml, nullptr, true, 0}, t, -1,
-          false);
-    layer(1, 2 * C, Epi{DENSE, a.sq_b, nullptr, ml + 2 * C, nullptr, true, 0}, t, -1, false);
-    layer(2, 2 * C, Epi{DENSE, a.sq_b + C, a.condition ? a.s2 : nullptr, ml + 4 * C, nullptr, false, 0},
-          t, 0, false);
-    for (int j = 0; j < 10; ++j)
-      layer(3 + j, 0,
-            Epi{HIGHWAY, a.hw_b + (size_t)j * 2 * C, nullptr, a.hw_ln + (size_t)j * 4 * C, nullptr,
-                false, j},
-            t, j < 9 ? j + 1 : -1, j == 9);
+    // ---- audio-encoder front and the 10 encoder highway steps
+    layer(0, 0, t);
+    for (int l = 1; l <= 2; ++l) layer(l, 2 * C, t);
+    for (int l = 3; l <= 12; ++l) layer(l, 0, t);
 
     // ---- monotonic attention (the same in every CTA), r = A·V
     if (tid < rows) {
@@ -556,21 +663,16 @@ __global__ void __launch_bounds__(THREADS, 1) decode_cluster_kernel(Args a) {
       *reinterpret_cast<uint32_t*>(op + (size_t)r * lda + C + c) = pack_bf2(r0, r1);
     }
     __syncthreads();
+    mark(7);
 
-    // ---- audio decoder
-    layer(13, C, Epi{DENSE, a.dec_b1, nullptr, ml + 6 * C, nullptr, false, 0}, t, 10, false);
-    for (int j = 10; j < N_HW; ++j)
-      layer(4 + j, 0,
-            Epi{HIGHWAY, a.hw_b + (size_t)j * 2 * C, nullptr, a.hw_ln + (size_t)j * 4 * C, nullptr,
-                false, j},
-            t, j < N_HW - 1 ? j + 1 : -1, false);
-    for (int i = 2; i < 5; ++i)
-      layer(18 + i, 2 * C,
-            Epi{DENSE, a.sq_b + (size_t)i * C, nullptr, ml + (size_t)(2 * i + 4) * C, nullptr, true, 0},
-            t, -1, false);
-    layer(23, 2 * C, Epi{TAIL, a.tail_b5, nullptr, a.ln5_s, a.ln5_b, false, 0}, t, -1, false);
+    // ---- audio decoder: dec_w1 on [r | q], 6 highway steps, 3 dense, tail
+    layer(13, C, t);
+    for (int l = 14; l <= 19; ++l) layer(l, 0, t);
+    for (int l = 20; l <= 23; ++l) layer(l, 2 * C, t);
   }
   if (rank == 0 && tid < rows) a.pma_out[b0 + tid] = spma[tid];
+  if (profiling && lane == 0)
+    for (int k = 0; k < kPhases; ++k) a.prof[k] = prof[k];
 }
 
 bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
@@ -580,7 +682,7 @@ bool plan_ok(int C, int fpad, int n, int rows, int chunk, int stages) {
   if (!pow2(n) || n > 16 || (rows != 16 && rows != 32 && rows != 64)) return false;
   if (C < 32 || C % 32 || C % n || (C / n) % 8 || !pow2(C / n / 8)) return false;
   if (fpad < 128 || fpad % 128 || fpad % n || (fpad / n) % 8 || !pow2(fpad / n / 8)) return false;
-  if (stages < 2 || chunk % 16) return false;
+  if (stages < 2 || !pow2(stages) || chunk != CHUNK) return false;
   for (int l = 0; l < N_LAYERS; ++l) {
     int K, ncol, S, nbw;
     layer_shape(l, C, fpad, n, K, ncol);
@@ -595,12 +697,25 @@ int clear_and_return(cudaError_t e) {
   return (int)e;
 }
 
-int configure(int n, size_t smem) {
-  cudaError_t e = cudaFuncSetAttribute(decode_cluster_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+typedef void (*KernelFn)(Args);
+
+// The instantiation for a plan, or null: the main path's plans (C = 256,
+// clusters of 16 or 8, 16-64 rows) and four small-width ones for the tests.
+// decode_kernel.CLUSTER_KERNELS lists the same.
+KernelFn pick(int C, int fpad, int n, int rows) {
+#define SPOOFSV_K(C_, N_, R_) \
+  if (C == C_ && fpad == 128 && n == N_ && rows == R_) return decode_cluster_kernel<C_, 128, N_, R_>
+  SPOOFSV_K(256, 16, 16); SPOOFSV_K(256, 16, 32); SPOOFSV_K(256, 16, 64);
+  SPOOFSV_K(256, 8, 16); SPOOFSV_K(256, 8, 32); SPOOFSV_K(256, 8, 64);
+  SPOOFSV_K(64, 8, 16); SPOOFSV_K(64, 4, 32); SPOOFSV_K(32, 4, 16); SPOOFSV_K(32, 2, 64);
+#undef SPOOFSV_K
+  return nullptr;
+}
+
+int configure(KernelFn fn, int n, size_t smem) {
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess && n > 8)
-    e = cudaFuncSetAttribute(decode_cluster_kernel,
-                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   return e == cudaSuccess ? 0 : clear_and_return(e);
 }
 
@@ -626,7 +741,8 @@ extern "C" {
 // ptrs: K, V, s1, s2 (Bp, N|-, C) bf16; the weight stream (n, cta_elems) bf16;
 // hw_b, hw_ln, sq_b, misc_ln, enc_b1, dec_b1, tail_b5, ln5_s, ln5_b f32;
 // rings (256, Bp, C) bf16 zeroed; Y (Bp, T, F) bf16; A (Bp, N, T) bf16
-// zeroed (the kernel writes the window); pma (Bp) int32. Bp = tiles·rows.
+// zeroed (the kernel writes the window); pma (Bp) int32; prof null or
+// kPhases int64 (a phase profile of one CTA's warp 0). Bp = tiles·rows.
 int spoofsv_decode_cluster_launch(const void* const* p, int n, int rows, int tiles, int T, int N,
                                   int F, int fpad, int C, int condition, int chunk, int stages,
                                   void* stream) {
@@ -641,8 +757,9 @@ int spoofsv_decode_cluster_launch(const void* const* p, int n, int rows, int til
   a.misc_ln = (const float*)p[8]; a.enc_b1 = (const float*)p[9]; a.dec_b1 = (const float*)p[10];
   a.tail_b5 = (const float*)p[11]; a.ln5_s = (const float*)p[12]; a.ln5_b = (const float*)p[13];
   a.rings = (bf16*)p[14]; a.y_out = (bf16*)p[15]; a.a_out = (bf16*)p[16]; a.pma_out = (int*)p[17];
+  a.prof = (long long*)p[18];
   a.Bp = tiles * rows; a.T = T; a.N = N; a.F = F; a.fpad = fpad; a.C = C;
-  a.condition = condition; a.n = n; a.rows = rows; a.chunk = chunk; a.stages = stages;
+  a.condition = condition; a.n = n; a.rows = rows; a.stages = stages;
   a.cta_elems = 0;
   for (int l = 0; l < N_LAYERS; ++l) {
     int K, ncol;
@@ -650,12 +767,14 @@ int spoofsv_decode_cluster_launch(const void* const* p, int n, int rows, int til
     a.cta_elems += (long long)K * ncol * 8;
   }
   const size_t smem = cluster_smem(C, fpad, n, rows, chunk, stages);
-  int err = configure(n, smem);
+  const KernelFn fn = pick(C, fpad, n, rows);
+  if (!fn) return (int)cudaErrorInvalidValue;
+  int err = configure(fn, n, smem);
   if (err) return err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   fill_config(cfg, attr, n, tiles, smem, (cudaStream_t)stream);
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, decode_cluster_kernel, a);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, fn, a);
   if (e != cudaSuccess) return clear_and_return(e);
   return (int)cudaGetLastError();
 }
@@ -670,16 +789,20 @@ int spoofsv_decode_cluster_smem(int C, int fpad, int n, int rows, int chunk, int
 int spoofsv_decode_cluster_max_active(int C, int fpad, int n, int rows, int chunk, int stages) {
   if (!plan_ok(C, fpad, n, rows, chunk, stages)) return -(int)cudaErrorInvalidValue;
   const size_t smem = cluster_smem(C, fpad, n, rows, chunk, stages);
-  int err = configure(n, smem);
+  const KernelFn fn = pick(C, fpad, n, rows);
+  if (!fn) return -(int)cudaErrorInvalidValue;
+  int err = configure(fn, n, smem);
   if (err) return -err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   fill_config(cfg, attr, n, 1, smem, 0);
   int count = 0;
-  const cudaError_t e = cudaOccupancyMaxActiveClusters(&count, decode_cluster_kernel, &cfg);
+  const cudaError_t e = cudaOccupancyMaxActiveClusters(&count, fn, &cfg);
   if (e != cudaSuccess) return -clear_and_return(e);
   return count;
 }
+
+int spoofsv_decode_cluster_phases() { return kPhases; }
 
 const char* spoofsv_decode_cluster_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -42,6 +42,7 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         "spoofsv_decode_cluster_launch": (_I, [_P] + [_I] * 11 + [_P]),
         "spoofsv_decode_cluster_smem": (_I, [_I] * 6),
         "spoofsv_decode_cluster_max_active": (_I, [_I] * 6),
+        "spoofsv_decode_cluster_phases": (_I, []),
         "spoofsv_decode_cluster_error_string": (ctypes.c_char_p, [_I]),
     },
     "gl": {
@@ -109,15 +110,17 @@ def _finish(name: str, started: Optional[Tuple[subprocess.Popen, Path, float]]) 
     """Wait for the build of ``name`` (if one was started), then load and bind it."""
     src, out = _target(name)
     info = {"source": str(src.relative_to(PKG.parent)), "cached": started is None}
+    log = out.with_suffix(".ptxas")   # the build's ptxas lines, kept beside the library
     if started is not None:
         proc, tmp, t0 = started
         _, stderr = proc.communicate()
         info["seconds"] = time.perf_counter() - t0
-        info["ptxas"] = [ln for ln in stderr.splitlines()
-                         if "Function properties" in ln or "registers" in ln or "spill" in ln]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {src}:\n{stderr[-4000:]}")
+        log.write_text("\n".join(ln for ln in stderr.splitlines() if "Function properties" in ln
+                                 or "registers" in ln or "spill" in ln))
         os.replace(tmp, out)
+    info["ptxas"] = log.read_text().splitlines() if log.exists() else []
     lib = ctypes.CDLL(str(out))
     for fn, (restype, argtypes) in SIGNATURES[name].items():
         f = getattr(lib, fn)

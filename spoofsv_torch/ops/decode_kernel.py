@@ -38,6 +38,7 @@ MATRIX_NAMES = ("hw_w", "sq_w", "enc_w1", "dec_w1", "tail_w5")   # in the comput
 
 
 decode_kernel = _build.LaunchCounter()   # K1, both sources
+cluster_kernel = _build.LaunchCounter()  # K1's bf16 source, decode_cluster.cu, alone
 
 
 def _round_up(x: int, m: int) -> int:
@@ -182,10 +183,15 @@ def decode_plain(packed: Dict[str, torch.Tensor], K: torch.Tensor, V: torch.Tens
 
 CLUSTER_THREADS = 256          # 8 warps a CTA
 CLUSTER_CHUNK = 16384          # bytes of weight stream per ring stage
-CLUSTER_STAGES = 4
+CLUSTER_STAGES = 8            # ring stages (8, else 4 or 2 where memory is short)
 SMEM_LIMIT = 232448            # dynamic shared memory one block may use (H100)
 H100_SMS = 132
 RING_SLOTS = 256               # Σ 2d over HW_DILATIONS, as csrc/decode.cu
+# (C, fpad, cluster, rows) the kernel is compiled for (decode_cluster.cu's
+# pick()): the main path's plans and four small-width ones for the tests
+CLUSTER_KERNELS = frozenset(
+    [(256, 128, n, r) for n in (16, 8) for r in (16, 32, 64)]
+    + [(64, 128, 8, 16), (64, 128, 4, 32), (32, 128, 4, 16), (32, 128, 2, 64)])
 # the frame's products in execution order: (matrix, index, kind); kind "c" has
 # C output columns, "hw" the highway's [h1 | h2] 2C, "f" the fpad-wide tail
 CLUSTER_LAYERS = tuple(
@@ -258,9 +264,11 @@ class ClusterPlan:
         """Dynamic shared memory of one CTA (``spoofsv_decode_cluster_smem``)."""
         lda = max(3 * self.C, self.fpad) + 8
         hbuf = max(self.warp_split(ncol)[0] * self.rows * ncol * 8 for _, ncol in self.layers)
+        prm = sum(3 * ncol * 8 for _, ncol in self.layers)   # biases and LayerNorm vectors
         return (128 + self.stages * self.chunk_bytes + self.rows * lda * 2
-                + self.rows * self.ch * 4 + hbuf * 4 + 2 * self.cluster * self.rows * 16
-                + self.rows * 16 + self.rows * 24 + self.stages * 8)
+                + self.rows * self.ch * 4 + hbuf * 4 + prm * 4 + 2 * self.cluster * self.rows * 16
+                + self.rows * 16 + self.rows * 24 + self.rows * max(self.ch, self.ft) * 2
+                + self.stages * 8)
 
     @property
     def l2_bytes_per_frame(self) -> int:
@@ -282,7 +290,11 @@ class ClusterPlan:
             return f"fpad/cluster = {self.fpad}/{n} is not 8·2^k columns"
         if any(self.warp_split(ncol)[1] > 4 for _, ncol in self.layers):
             return "more than 4 n8 column blocks per warp"
-        if self.chunk_bytes < max(ncol * 512 for _, ncol in self.layers) or self.chunk_bytes % 16:
+        if self.stages < 2 or not _pow2(self.stages):
+            return f"{self.stages} ring stages (a power of two ≥ 2)"
+        if self.chunk_bytes != CLUSTER_CHUNK:
+            return f"the kernel's chunk is {CLUSTER_CHUNK} bytes, not {self.chunk_bytes}"
+        if self.chunk_bytes < max(ncol * 512 for _, ncol in self.layers):
             return f"chunk of {self.chunk_bytes} bytes holds no whole k row"
         if self.smem_bytes > SMEM_LIMIT:
             return f"{self.smem_bytes} bytes of shared memory > {SMEM_LIMIT}"
@@ -298,8 +310,8 @@ def decode_cluster_plan(batch: int, C: int, freq_bins: int = 80, *,
 
     Default: the largest cluster (16, 8, ...) and the fewest rows per tile
     (16, 32, 64) whose grid fits the card's 132 SMs in one wave; failing
-    that, the largest valid cluster and rows. ``cluster`` / ``rows`` force
-    a choice. Raises ``ValueError`` when the kernel cannot take the shapes."""
+    that, the largest valid cluster and rows; the deepest ring of weight
+    chunks that fits. ``cluster`` / ``rows`` force a choice. Raises ``ValueError`` when the kernel cannot take the shapes."""
     if batch < 1:
         raise ValueError(f"batch must be ≥ 1, got {batch}")
     if C % 32 or C < 32:
@@ -309,11 +321,17 @@ def decode_cluster_plan(batch: int, C: int, freq_bins: int = 80, *,
     fpad = _round_up(freq_bins, 128)
 
     def make(n: int, r: int) -> ClusterPlan:
-        return ClusterPlan(batch, C, freq_bins, fpad, n, r, -(-batch // r))
+        """The deepest ring of 8, 4 or 2 stages that fits shared memory."""
+        plans = [ClusterPlan(batch, C, freq_bins, fpad, n, r, -(-batch // r), stages=s)
+                 for s in (8, 4, 2)]
+        return next((p for p in plans if p.refusal() is None), plans[-1])
 
     cands = [make(n, r) for n in ([cluster] if cluster else [16, 8, 4, 2, 1])
              for r in ([rows] if rows else [16, 32, 64])]
     valid = [p for p in cands if p.refusal() is None]
+    # a compiled shape first, where there is one
+    compiled = [p for p in valid if (C, fpad, p.cluster, p.rows) in CLUSTER_KERNELS]
+    valid = compiled or valid
     if not valid:
         raise ValueError(f"no cluster plan for B={batch} C={C}: {cands[0].refusal()}")
     one_wave = [p for p in valid if p.tiles * p.cluster <= H100_SMS]
@@ -505,7 +523,8 @@ def decode_fused(packed: Dict[str, torch.Tensor], K: torch.Tensor, V: torch.Tens
                  s1: Optional[torch.Tensor], s2: Optional[torch.Tensor], *,
                  n_frames: int, freq_bins: int, condition: bool = True,
                  monotonic: bool = True, rows: Optional[int] = None,
-                 plan: Optional[ClusterPlan] = None, stream: Optional[torch.Tensor] = None
+                 plan: Optional[ClusterPlan] = None, stream: Optional[torch.Tensor] = None,
+                 profile: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run the rollout. ``K``/``V``: (B, N, C) in f32 or bf16; ``s1``/``s2``:
     (B, C) speaker projections (None when unconditioned). Returns
@@ -516,14 +535,18 @@ def decode_fused(packed: Dict[str, torch.Tensor], K: torch.Tensor, V: torch.Tens
     :func:`decode_cluster_plan`) and the weight ``stream`` of
     :func:`pack_decode_stream` (built here when not given); f32
     ``csrc/decode.cu`` with ``rows`` batch rows per block (1, 2 or 4;
-    default :func:`rows_per_block`). Plan and row count change speed only."""
+    default :func:`rows_per_block`). Plan and row count change speed only.
+    ``profile``, an int64 CUDA tensor of ``len(CLUSTER_PHASES)`` entries,
+    receives the bf16 kernel's phase profile (clock cycles of one CTA's
+    warp 0)."""
     if K.device.type == "cpu":
         return decode_plain(packed, K, V, s1, s2, n_frames=n_frames, freq_bins=freq_bins,
                             condition=condition, monotonic=monotonic)
     if not monotonic:
         raise ValueError("the decode kernel implements monotonic attention only")
     if K.dtype == torch.bfloat16:
-        return _decode_cluster(packed, K, V, s1, s2, n_frames, freq_bins, condition, plan, stream)
+        return _decode_cluster(packed, K, V, s1, s2, n_frames, freq_bins, condition, plan, stream,
+                               profile)
     B, N, C = K.shape
     dt = K.dtype
     if dt != torch.float32:
@@ -563,9 +586,13 @@ def decode_fused(packed: Dict[str, torch.Tensor], K: torch.Tensor, V: torch.Tens
 # the f32 vectors of the packed weights, in decode_cluster.cu's argument order
 CLUSTER_VECTORS = ("hw_b", "hw_ln", "sq_b", "misc_ln", "enc_b1", "dec_b1", "tail_b5",
                    "ln5_s", "ln5_b")
+# the kernel's profile phases, in its order (kPhases)
+CLUSTER_PHASES = ("chunk wait", "products", "row partials", "barrier 1", "norm + gather",
+                  "scores", "barrier 2 + taps", "attention")
 
 
-def _decode_cluster(packed, K, V, s1, s2, n_frames, freq_bins, condition, plan, stream):
+def _decode_cluster(packed, K, V, s1, s2, n_frames, freq_bins, condition, plan, stream,
+                    profile=None):
     """bf16 K1 through ``csrc/decode_cluster.cu`` (see :func:`decode_fused`)."""
     B, N, C = K.shape
     dev, dt = K.device, K.dtype
@@ -574,6 +601,8 @@ def _decode_cluster(packed, K, V, s1, s2, n_frames, freq_bins, condition, plan, 
         raise ValueError(f"plan for B={plan.batch} C={plan.C} F={plan.freq_bins}, "
                          f"inputs B={B} C={C} F={freq_bins}")
     why = plan.refusal()
+    if not why and (C, plan.fpad, plan.cluster, plan.rows) not in CLUSTER_KERNELS:
+        why = "the kernel is not compiled for this shape (CLUSTER_KERNELS)"
     if why:
         raise ValueError(f"cluster decode plan refused: {why}")
     if packed["tail_w5"].shape[1] != plan.fpad:
@@ -599,14 +628,19 @@ def _decode_cluster(packed, K, V, s1, s2, n_frames, freq_bins, condition, plan, 
     a = torch.zeros(Bp, N, n_frames, device=dev, dtype=dt)   # the kernel writes the window
     pma = torch.empty(Bp, device=dev, dtype=torch.int32)
     tensors = [rowpad(K), rowpad(V), rowpad(s1), rowpad(s2), stream] + vecs + [rings, y, a, pma]
+    if profile is not None:
+        if profile.dtype != torch.int64 or profile.numel() != len(CLUSTER_PHASES):
+            raise ValueError(f"profile must be int64 of {len(CLUSTER_PHASES)} entries")
+        tensors.append(profile)
     _build.require_cuda(*tensors)
-    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    ptrs = (ctypes.c_void_p * 19)(*[t.data_ptr() for t in tensors])   # no profile: null
     err = lib.spoofsv_decode_cluster_launch(ptrs, plan.cluster, plan.rows, plan.tiles, n_frames,
                                             N, freq_bins, plan.fpad, C, int(condition),
                                             plan.chunk_bytes, plan.stages,
                                             _build.stream_ptr(dev))
     _build.check(lib, "decode_cluster", err, "decode_cluster_kernel")
     decode_kernel.launches += 1
+    cluster_kernel.launches += 1
     return y[:B], a[:B], pma[:B].long()
 
 

@@ -171,8 +171,8 @@ def test_decode_cluster_matches_plain(dev, B, N, C, freq, cluster, rows, conditi
 
 def test_decode_cluster_smem_matches_plan(dev):
     lib = _build.load("decode_cluster")
-    for B, C, cluster in [(64, 256, 16), (64, 256, 8), (768, 256, 8), (4, 64, 8), (4, 32, 4)]:
-        for rows in (16, 32, 64):
+    for C, fpad, cluster, rows in sorted(decode_kernel.CLUSTER_KERNELS):
+        for B in (4, 768):
             plan = decode_kernel.decode_cluster_plan(B, C, 80, cluster=cluster, rows=rows)
             assert lib.spoofsv_decode_cluster_smem(C, plan.fpad, cluster, rows, plan.chunk_bytes,
                                                    plan.stages) == plan.smem_bytes
@@ -187,7 +187,7 @@ def test_decode_cluster_launch_refusal(dev):
     with pytest.raises(ValueError, match="cluster decode plan refused"):
         decode_kernel.decode_fused(packed, K, V, s1, s2, n_frames=2, freq_bins=16, plan=bad)
     lib = _build.load("decode_cluster")
-    ptrs = (ctypes.c_void_p * 18)(*([K.data_ptr()] * 18))
+    ptrs = (ctypes.c_void_p * 19)(*([K.data_ptr()] * 18))
     err = lib.spoofsv_decode_cluster_launch(ptrs, 16, 16, 1, 2, 8, 16, 128, 64, 1, 16384, 4,
                                             _build.stream_ptr(dev))
     assert err != 0
