@@ -247,7 +247,12 @@ def cluster_phase(dev, cuda_ms, mbf, packed, kv, cfg, T: int, smi: str) -> dict:
         out = {}
         for n in (16, 8):
             for rows in (16, 32, 64):
-                plan = decode_kernel.decode_cluster_plan(B, cfg.hidden_dim, F, cluster=n, rows=rows)
+                try:
+                    plan = decode_kernel.decode_cluster_plan(B, cfg.hidden_dim, F, cluster=n,
+                                                             rows=rows)
+                except ValueError as e:   # e.g. no room in shared memory
+                    log(f"[K1 cluster] B={B} cluster {n} rows {rows}: {e}")
+                    continue
                 active = lib.spoofsv_decode_cluster_max_active(
                     plan.C, plan.fpad, n, rows, plan.chunk_bytes, plan.stages)
                 ms = cuda_ms(lambda: run(plan, ins), reps=3)

@@ -34,9 +34,9 @@
 //   one 16-byte load.
 // - The weight stream runs ahead: thread 0 feeds a ring of mbarrier stages
 //   (16 KB each, 8 where shared memory allows) with 1-D cp.async.bulk copies
-//   of whole 32-deep k rows, refilling at the start of each layer's product
-//   every stage the earlier layers freed (a layer longer than the ring
-//   refills as it goes). It never waits on activations, so the next layers'
+//   of whole 32-deep k rows, refilling at the end of each layer's product
+//   every stage that layer freed (a layer longer than the ring refills as it
+//   goes). It never waits on activations, so the next layers'
 //   weights arrive while this layer's LayerNorm exchange runs, and it wraps
 //   from frame t's tail to frame t+1's first layer.
 // - Each layer's bias and LayerNorm vectors for the CTA's columns sit in a
@@ -64,8 +64,9 @@
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;  // the consumer warps: products, LayerNorm, exchanges
 constexpr int WARPS = THREADS / 32;
+constexpr int BLOCK = THREADS + 32;  // and one producer warp feeding the weight ring
 constexpr int N_HW = 16;
 constexpr int N_LAYERS = 24;
 constexpr int RING_SLOTS = 256;
@@ -73,7 +74,7 @@ constexpr float LN_EPS = 1e-5f;
 // phases of the optional profile: waiting for weight chunks, the rest of the
 // products, row partials, first cluster barrier, LayerNorm and all-gather,
 // score partials, second barrier (with the taps' copies), attention and r
-constexpr int kPhases = 8;
+constexpr int kPhases = 10;
 constexpr int CHUNK = 16384;  // bytes of weight stream a ring stage holds
 
 typedef __nv_bfloat16 bf16;
@@ -123,7 +124,7 @@ __host__ __device__ inline void warp_split(int rows, int ncol, int& S, int& nbw)
 // the same (ClusterPlan.smem_bytes).
 __host__ __device__ inline size_t cluster_smem(int C, int fpad, int n, int rows, int chunk,
                                                int stages) {
-  const int lda = (3 * C > fpad ? 3 * C : fpad) + 8;
+  const int ldt = 2 * C + 8, sx = C / n + 8, sy = fpad / n + 8, ss = sx > sy ? sx : sy;
   size_t hbuf = 0;
   for (int l = 0; l < N_LAYERS; ++l) {
     int K, ncol, S, nbw;
@@ -138,19 +139,19 @@ __host__ __device__ inline size_t cluster_smem(int C, int fpad, int n, int rows,
     layer_shape(l, C, fpad, n, K, ncol);
     prm += 3 * ncol * 8;
   }
-  const int wide = (C / n > fpad / n ? C / n : fpad / n);
-  return 128 + (size_t)stages * chunk + (size_t)rows * lda * 2 + (size_t)rows * (C / n) * 4 +
-         hbuf * 4 + prm * 4 + 2 * (size_t)n * rows * 16 + (size_t)rows * 16 +
-         (size_t)rows * 24 + (size_t)rows * wide * 2 + (size_t)stages * 8;
+  return 128 + (size_t)stages * chunk + (size_t)rows * (ldt + (size_t)n * ss) * 2 +
+         (size_t)rows * (C / n) * 4 + hbuf * 4 + prm * 4 + 2 * (size_t)n * rows * 16 +
+         (size_t)rows * 16 + (size_t)rows * 8 + 2 * N_HW * 4 + (size_t)(2 * stages + 2) * 8;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
-__device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
+// the fast exponential and division: bf16 outputs, f32 inside
+__device__ __forceinline__ float sigmoid(float v) { return __fdividef(1.f, 1.f + __expf(-v)); }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
@@ -172,6 +173,14 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_
                "l"(src), "r"(bytes), "r"(bar)
                : "memory");
 }
+// mbar_wait, acquiring at cluster scope what st.async's completions released
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  asm volatile("{\n.reg .pred p;\nWAIT:\n"
+               "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], %1;\n"
+               "@!p bra WAIT;\n}\n" ::"r"(bar),
+               "r"(parity)
+               : "memory");
+}
 // 16 bytes global → shared through L2 (.cg: not L1, which other SMs' stores
 // do not update)
 __device__ __forceinline__ void cp16(uint32_t dst, const void* src) {
@@ -187,25 +196,41 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release;\n"
                "barrier.cluster.wait.acquire;\n" ::: "memory");
 }
+// the consumer warps' CTA barrier (the producer warp does not take part)
+__device__ __forceinline__ void csync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(THREADS) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
 __device__ __forceinline__ uint32_t remote(uint32_t local, int rank) {
   uint32_t r;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(local), "r"(rank));
   return r;
 }
-__device__ __forceinline__ void st_remote_v4(uint32_t addr, float a, float b, float c, float d) {
-  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(a), "f"(b),
-               "f"(c), "f"(d)
+// Asynchronous stores into a cluster CTA's shared memory (addresses from
+// mapa), each completing its bytes on that CTA's barrier `bar` with release
+// semantics at cluster scope: the receiver, having expected the bytes, waits
+// on its barrier and needs no further fence.
+__device__ __forceinline__ void st_async_v4f(uint32_t addr, float a, float b, float c, float d,
+                                             uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 "
+               "[%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(addr), "f"(a), "f"(b), "f"(c), "f"(d),
+               "r"(bar)
                : "memory");
 }
-__device__ __forceinline__ void st_remote_f32(uint32_t addr, float a) {
-  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(a) : "memory");
-}
-__device__ __forceinline__ void st_remote_v4b(uint32_t addr, uint4 v) {
-  asm volatile("st.shared::cluster.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x),
-               "r"(v.y), "r"(v.z), "r"(v.w)
+__device__ __forceinline__ void st_async_f32(uint32_t addr, float a, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];\n" ::"r"(
+                   addr),
+               "f"(a), "r"(bar)
                : "memory");
 }
-
+__device__ __forceinline__ void st_async_v4b(uint32_t addr, uint4 v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 "
+               "[%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(addr), "r"(v.x), "r"(v.y), "r"(v.z),
+               "r"(v.w), "r"(bar)
+               : "memory");
+}
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -226,14 +251,6 @@ __device__ __forceinline__ uint32_t pack_bf2(float a, float b) {
 __device__ __forceinline__ float2 unpack_bf2(uint32_t u) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
 }
-
-// Thread 0's walk over the weight stream: chunk by chunk, layer by layer,
-// frame by frame.
-struct Feed {
-  int layer, c, frame;
-  long long off;  // bytes into this CTA's stream
-  unsigned g;     // chunks issued
-};
 
 // What a layer's product becomes: a LayerNorm over C columns (relu or not),
 // a highway step (two LayerNorms, gate, residual), or the tail (LN5 over F,
@@ -276,16 +293,17 @@ __device__ void layer_vectors(const Args& a, int l, const float*& bias, const fl
 }
 
 // CT, FPT, NT, RT: C, fpad, the cluster size and the rows per tile, fixed at
-// compile time (pick() lists the instantiations), so that their divisions
-// fold into shifts and constants. (0 would read them from the arguments; that
-// build faulted on the card with an illegal instruction and is not used.)
+// compile time for the main path's plans so that their divisions fold into
+// shifts and constants (0: read from the arguments; pick() chooses).
 template <int CT, int FPT, int NT, int RT>
-__global__ void __launch_bounds__(THREADS, 1) decode_cluster_kernel(Args a) {
+__global__ void __launch_bounds__(BLOCK, 1) decode_cluster_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((128 - (smem_addr(smem_raw) & 127)) & 127);
-  const int C = CT ? CT : a.C, fpad = FPT ? FPT : fpad, n = NT ? NT : a.n;
+  const int C = CT ? CT : a.C, fpad = FPT ? FPT : a.fpad, n = NT ? NT : a.n;
   const int rows = RT ? RT : a.rows, CH = C / n, FT = fpad / n;
-  const int lda = (3 * C > fpad ? 3 * C : fpad) + 8;
+  // rows of the taps buffer; rows of one CTA's slice of x and of y, padded
+  // by 16 bytes so that ldmatrix's eight rows fall in different banks
+  const int ldt = 2 * C + 8, SX = CH + 8, SY = FT + 8, SS = SX > SY ? SX : SY;
   // ring stages are a power of two: stage = count & smask, phase = count >> sshift
   const unsigned smask = a.stages - 1, sshift = __ffs(a.stages) - 1;
   const int rank = blockIdx.x, tile = blockIdx.y, b0 = tile * rows;
@@ -293,9 +311,17 @@ __global__ void __launch_bounds__(THREADS, 1) decode_cluster_kernel(Args a) {
   const int TPR = THREADS / rows;  // threads per row in the row-statistics pass
 
   // ---- shared memory (cluster_smem) ----
+  // The products' operands: taps [rows][ldt] (x(t−2d) | x(t−d) of a highway
+  // step, or r in columns [C, 2C)); xbuf, the gathered x as [n][rows][SX] or
+  // the gathered y as [n][rows][SY], CTA q's slice at q (so a slice arrives
+  // as one contiguous bulk copy, and this CTA writes its own in place). y
+  // and x share it: every CTA has finished the tail's product, the last
+  // reader of x, before any y slice is written, and the first encoder
+  // product, the only reader of y, before any x slice.
   unsigned char* ring = smem;
-  bf16* op = reinterpret_cast<bf16*>(ring + (size_t)a.stages * CHUNK);  // [rows][lda]
-  float* xown = reinterpret_cast<float*>(op + (size_t)rows * lda);        // [rows][CH]
+  bf16* taps = reinterpret_cast<bf16*>(ring + (size_t)a.stages * CHUNK);
+  bf16* xbuf = taps + rows * ldt;
+  float* xown = reinterpret_cast<float*>(xbuf + n * rows * SS);  // [rows][CH]
   float* hbuf = xown + rows * CH;
   size_t hfl = 0;
   for (int l = 0; l < N_LAYERS; ++l) {
@@ -309,62 +335,84 @@ __global__ void __launch_bounds__(THREADS, 1) decode_cluster_kernel(Args a) {
   // prm: per layer its columns' bias, then its LayerNorm vectors over this
   // CTA's channels (v-th vector at ncols + v·width)
   float* prm = hbuf + hfl;
+  // CTA q's partials at q (this CTA writes its own in place)
   float* xch = prm + prm_n;                // [n][rows][4] LayerNorm partials
   float* sxch = xch + n * rows * 4;        // [n][rows][4] attention-score partials
-  float* rowstat = sxch + n * rows * 4;    // [rows][4] mean1, rstd1, mean2, rstd2
-  float* patt = rowstat + rows * 4;        // [rows][4] window probabilities
+  float* patt = sxch + n * rows * 4;       // [rows][4] window probabilities
   int* spma = reinterpret_cast<int*>(patt + rows * 4);  // [rows]
   int* wbase = spma + rows;                             // [rows] window start of this frame
-  const int wide = CH > FT ? CH : FT;
-  bf16* xsend = reinterpret_cast<bf16*>(wbase + rows);  // [rows][wide] this CTA's new slice
-  const uint32_t bars = smem_addr(xsend + rows * wide);  // [stages] mbarriers
-  const uint32_t ring_s = smem_addr(ring), op_s = smem_addr(op);
+  // [N_HW][2] this frame's ring slots: x(t−2d) (also where x(t) goes), x(t−d)
+  int* slots = wbase + rows;
+  // mbarriers: the ring's stages full, the partials' and the slices'
+  // arrival, the ring's stages empty
+  const uint32_t bars = smem_addr(slots + 2 * N_HW);
+  const uint32_t bar_part = bars + 8 * a.stages, bar_x = bar_part + 8, empties = bar_x + 8;
+  const uint32_t ring_s = smem_addr(ring), taps_s = smem_addr(taps);
+  const uint32_t xbuf_s = smem_addr(xbuf);
   const unsigned char* my_stream =
       reinterpret_cast<const unsigned char*>(a.stream) + (size_t)rank * a.cta_elems * 2;
 
-  for (int i = tid; i < rows * lda / 2; i += THREADS) reinterpret_cast<uint32_t*>(op)[i] = 0u;
-  for (int i = tid; i < rows * CH; i += THREADS) xown[i] = 0.f;
-  if (tid < rows) spma[tid] = 0;
-  for (int l = 0; l < N_LAYERS; ++l) {
-    const float* bias;
-    const float* ln[4];
-    layer_vectors(a, l, bias, ln);
-    const int kind = layer_kind(l), w = kind == TAIL ? FT : CH, ncols = kind == HIGHWAY ? 2 * CH : w;
-    const int base = kind == TAIL ? rank * FT : rank * CH, nvec = kind == HIGHWAY ? 4 : 2;
-    float* p = prm + prm_offset(l, NB);
-    for (int i = tid; i < ncols; i += THREADS)
-      p[i] = bias[(i >= w ? C : 0) + base + i % w];
-    for (int i = tid; i < nvec * w; i += THREADS) p[ncols + i] = ln[i / w][base + i % w];
+  if (tid < THREADS) {
+    for (int i = tid; i < rows * (ldt + n * SS) / 2; i += THREADS)
+      reinterpret_cast<uint32_t*>(taps)[i] = 0u;   // taps and x (frame 0's y is 0)
+    for (int i = tid; i < rows * CH; i += THREADS) xown[i] = 0.f;
+    if (tid < rows) spma[tid] = 0;
+    for (int l = 0; l < N_LAYERS; ++l) {
+      const float* bias;
+      const float* ln[4];
+      layer_vectors(a, l, bias, ln);
+      const int kind = layer_kind(l), w = kind == TAIL ? FT : CH;
+      const int ncols = kind == HIGHWAY ? 2 * CH : w;
+      const int base = kind == TAIL ? rank * FT : rank * CH, nvec = kind == HIGHWAY ? 4 : 2;
+      float* p = prm + prm_offset(l, NB);
+      for (int i = tid; i < ncols; i += THREADS)
+        p[i] = bias[(i >= w ? C : 0) + base + i % w];
+      for (int i = tid; i < nvec * w; i += THREADS) p[ncols + i] = ln[i / w][base + i % w];
+    }
   }
   if (tid == 0) {
-    for (int s = 0; s < a.stages; ++s) mbar_init(bars + 8 * s);
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(bars + 8 * s, 1);              // the producer's expect_tx
+      mbar_init(empties + 8 * s, WARPS);       // each consumer warp done with it
+    }
+    mbar_init(bar_part, 1);  // this CTA's expect_tx; the bytes from st.async
+    mbar_init(bar_x, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cluster_sync();  // every CTA runs before any remote store; barriers and prm ready
+  cluster_sync();  // every CTA runs before any remote store reaches it; barriers and prm ready
 
-  Feed feed = {0, 0, 0, 0, 0};
-  auto issue_next = [&]() {  // thread 0 only
-    int K, ncol;
-    layer_shape(feed.layer, C, fpad, n, K, ncol);
-    const int KP = K / 32, rpc = rows_per_chunk(CHUNK, ncol);
-    const int nch = (KP + rpc - 1) / rpc;
-    const int kps = min(rpc, KP - feed.c * rpc);
-    const uint32_t bytes = (uint32_t)kps * ncol * 512;
-    const int s = feed.g & smask;
-    mbar_expect_tx(bars + 8 * s, bytes);
-    bulk_copy(ring_s + s * CHUNK, my_stream + feed.off, bytes, bars + 8 * s);
-    feed.off += bytes;
-    ++feed.g;
-    if (++feed.c == nch) {
-      feed.c = 0;
-      if (++feed.layer == N_LAYERS) feed.layer = 0, feed.off = 0, ++feed.frame;
+  if (warp == WARPS) {
+    // ---- the producer warp: lane 0 walks this CTA's weight stream chunk by
+    // chunk, layer by layer, frame by frame, into the ring's stages as the
+    // consumers free them. It never waits on activations, so the stream runs
+    // a ring ahead of the products, across layers and frames.
+    if (lane == 0) {
+      long long off = 0;  // bytes into this CTA's stream
+      unsigned gi = 0;    // chunks issued
+      for (int t = 0; t < a.T; ++t, off = 0)
+        for (int l = 0; l < N_LAYERS; ++l) {
+          int K, ncol;
+          layer_shape(l, C, fpad, n, K, ncol);
+          const int KP = K / 32, rpc = rows_per_chunk(CHUNK, ncol);
+          for (int kp = 0; kp < KP; kp += rpc, ++gi) {
+            const uint32_t bytes = (uint32_t)min(rpc, KP - kp) * ncol * 512;
+            const int s = gi & smask;
+            if (gi >= (unsigned)a.stages) mbar_wait(empties + 8 * s, ((gi >> sshift) - 1) & 1);
+            mbar_expect_tx(bars + 8 * s, bytes);
+            bulk_copy(ring_s + s * CHUNK, my_stream + off, bytes, bars + 8 * s);
+            off += bytes;
+          }
+        }
     }
-  };
+    __syncwarp();
+    cluster_sync();  // the consumers' final one
+    return;
+  }
 
-  unsigned gc = 0;  // chunks consumed (the same count in every thread)
+  unsigned gc = 0;  // chunks consumed (the same count in every consumer thread)
   // the profile is warp 0's (its lanes take the same branches: no divergence)
   const bool profiling = a.prof != nullptr && warp == 0 && rank == 0 && tile == 0;
-  long long prof[kPhases] = {0, 0, 0, 0, 0, 0, 0, 0};
+  long long prof[kPhases] = {};
   long long t_mark = clock64();
   auto mark = [&](int phase) {  // time since the last mark to `phase`
     if (profiling) {
@@ -374,67 +422,88 @@ __global__ void __launch_bounds__(THREADS, 1) decode_cluster_kernel(Args a) {
     }
   };
 
-  // ---- the product of layer l: operand columns [col0, col0 + K) of the rows
-  // times this CTA's weight slice, plus bias (and speaker projection), into
-  // hbuf [S][rows][ncol·8] (f32; split 0 carries the bias)
-  auto product = [&](int l, int col0) {
-    int K, ncol, S, nbw;
+  // ---- the product of layer l: its operand rows (K columns: the taps or r
+  // from `taps`, then x from xbuf; y from xbuf for enc_w1) times this CTA's
+  // weight slice, plus bias (and speaker projection), into hbuf
+  // [S][rows][ncol·8] (f32; split 0 carries the bias)
+  auto product = [&](int l) {
+    int K, ncol;
     layer_shape(l, C, fpad, n, K, ncol);
-    warp_split(rows, ncol, S, nbw);
-    const int KP = K / 32, rpc = rows_per_chunk(CHUNK, ncol), nch = (KP + rpc - 1) / rpc;
-    const int wpm = WARPS / (rows / 16), mt = warp / wpm, wi = warp % wpm;
-    const int split = S > 1 ? wi / ncol : 0, nb0 = S > 1 ? wi % ncol : wi;
-    // Every thread is past the stages of earlier layers (a cluster barrier
-    // or __syncthreads precedes each product): thread 0 refills them all, so
-    // the stream runs a ring ahead and a layer that fits the ring needs no
-    // further synchronisation.
-    if (tid == 0)
-      while (feed.g < gc + a.stages && feed.frame < a.T) issue_next();
-    unsigned avail = gc + a.stages;  // chunks issued, as every thread reckons
-    float acc[2][4][4];  // two sets: consecutive k rows do not wait on each other
+    // ncol, the warps an m tile has and the k rows a chunk holds are powers
+    // of two: shifts, not divisions (warp_split and rows_per_chunk)
+    constexpr int LG_CHUNK = 14;
+    static_assert(CHUNK == 1 << LG_CHUNK, "CHUNK is 2^LG_CHUNK");
+    const int lg = __ffs(ncol) - 1, wpm = WARPS / (rows / 16), lwpm = __ffs(wpm) - 1;
+    const int S = ncol < wpm ? wpm >> lg : 1, nbw = ncol < wpm ? 1 : ncol >> lwpm;
+    const int KP = K >> 5, lrpc = max(LG_CHUNK - 9 - lg, 0), rpc = 1 << lrpc;
+    const int nch = (KP + rpc - 1) >> lrpc;
+    const int mt = warp >> lwpm, wi = warp & (wpm - 1);
+    const int split = S > 1 ? wi >> lg : 0, nb0 = S > 1 ? wi & (ncol - 1) : wi;
+    float acc[2][4][4];  // two sets: the first and second 16 of each 32-deep k row
 #pragma unroll
     for (int u = 0; u < 2; ++u)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[u][i][e] = 0.f;
-    // this lane's ldmatrix row address: row mt·16 + lane % 16, column + 8·(lane / 16)
-    const uint32_t a_row = op_s + (uint32_t)(((mt * 16 + (lane & 15)) * lda + col0 + 8 * (lane >> 4)) * 2);
+    // this lane's ldmatrix row address for the k-step at k0: row mt·16 +
+    // lane % 16, column k0 + 8·(lane / 16)
+    // (slices are W = CH or FT columns wide, a power of two: shifts, not divisions)
+    const int tcols = layer_kind(l) == HIGHWAY ? 2 * C : l == 13 ? C : 0;
+    const int W = l == 0 ? FT : CH, SW = l == 0 ? SY : SX, lw = __ffs(W) - 1;
+    const int ar = mt * 16 + (lane & 15), c8 = 8 * (lane >> 4);
+    const uint32_t t_row = taps_s + (uint32_t)((ar * ldt + (l == 13 ? C : 0) + c8) * 2);
+    auto a_addr = [&](int k0) -> uint32_t {
+      if (k0 < tcols) return t_row + k0 * 2;
+      const int c = k0 - tcols + c8;
+      return xbuf_s + (uint32_t)((((c >> lw) * rows + ar) * SW + (c & (W - 1))) * 2);
+    };
     for (int c = 0; c < nch; ++c, ++gc) {
-      if (gc == avail) {  // a layer longer than the ring: refill as chunks free
-        __syncthreads();
-        if (tid == 0) issue_next();
-        ++avail;
-      }
       const int st = gc & smask;
-      mark(1);
+      mark(c == 0 ? 9 : 1);
       mbar_wait(bars + 8 * st, (gc >> sshift) & 1);
       mark(0);
       __syncwarp();  // ldmatrix and mma.sync need the warp converged
       const unsigned char* w = ring + (size_t)st * CHUNK;
       const int kp0 = c * rpc, kp1 = min(KP, kp0 + rpc);
-      int u = 0;
-      for (int kp = kp0 + split; kp < kp1; kp += S, u ^= 1) {
-        uint32_t f0[4], f1[4];
-        __syncwarp();
-        ldmatrix_x4(f0, a_row + kp * 64);
-        ldmatrix_x4(f1, a_row + kp * 64 + 32);
+      // a 32-deep k row's operands: two ldmatrix A fragments (k halves) and
+      // the weight fragments of this warp's n8 blocks
+      auto load = [&](int kp, uint32_t(&f0)[4], uint32_t(&f1)[4], uint4(&b)[4]) {
+        ldmatrix_x4(f0, a_addr(32 * kp));
+        ldmatrix_x4(f1, a_addr(32 * kp + 16));
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < 4; ++i)
+          if (i < nbw)
+            b[i] = *reinterpret_cast<const uint4*>(w + ((kp - kp0) * ncol + nb0 + wpm * i) * 512 +
+                                                   lane * 16);
+      };
+      // the k halves into the two accumulator sets: no mma waits on the other
+      auto mmas = [&](const uint32_t(&f0)[4], const uint32_t(&f1)[4], const uint4(&b)[4]) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
           if (i < nbw) {
-            const int nb = nb0 + wpm * i;
-            const uint4 bv = *reinterpret_cast<const uint4*>(w + ((kp - kp0) * ncol + nb) * 512 + lane * 16);
-            if (u) {
-              mma16816(acc[1][i], f0, bv.x, bv.y);
-              mma16816(acc[1][i], f1, bv.z, bv.w);
-            } else {
-              mma16816(acc[0][i], f0, bv.x, bv.y);
-              mma16816(acc[0][i], f1, bv.z, bv.w);
-            }
+            mma16816(acc[0][i], f0, b[i].x, b[i].y);
+            mma16816(acc[1][i], f1, b[i].z, b[i].w);
           }
-        }
+      };
+      // two buffers: the next k row's operands load while this one's mmas run
+      uint32_t fa0[4], fa1[4], fb0[4], fb1[4];
+      uint4 ba[4], bb[4];
+      int kp = kp0 + split;
+      if (kp < kp1) load(kp, fa0, fa1, ba);
+      while (kp < kp1) {
+        const int k1 = kp + S, k2 = k1 + S;
+        if (k1 < kp1) load(k1, fb0, fb1, bb);
+        mmas(fa0, fa1, ba);
+        if (k1 >= kp1) break;
+        if (k2 < kp1) load(k2, fa0, fa1, ba);
+        mmas(fb0, fb1, bb);
+        kp = k2;
       }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empties + 8 * st);  // this warp is done with the stage
     }
+    mark(1);
     const int ncols = ncol * 8;
     const float* bias = prm + prm_offset(l, NB);
     const bf16* add = !a.condition ? nullptr : l == 0 ? a.s1 : l == 2 ? a.s2 : nullptr;
@@ -460,24 +529,24 @@ __global__ void __launch_bounds__(THREADS, 1) decode_cluster_kernel(Args a) {
         }
       }
     }
-    __syncthreads();
-    mark(1);
+    csync();
+    mark(8);
   };
 
-  // ---- the taps of highway j for frame t into operand columns [0, 2C)
+  // ---- the taps of highway j for frame t into `taps`
   auto fetch_taps = [&](int j, int t) {
-    const int d = c_dil[j], i0 = t % (2 * d), i1 = (t + d) % (2 * d);
     const int seg = C / 8;  // 16-byte pieces of a C-wide row
     for (int i = tid; i < rows * 2 * seg; i += THREADS) {
       const int r = i / (2 * seg), k = i % (2 * seg), half = k / seg, s = k % seg;
-      const int slot = c_slot0[j] + (half ? i1 : i0);
-      cp16(op_s + (uint32_t)((r * lda + half * C + 8 * s) * 2),
+      const int slot = slots[2 * j + half];
+      cp16(taps_s + (uint32_t)((r * ldt + half * C + 8 * s) * 2),
            a.rings + ((size_t)slot * a.Bp + b0 + r) * C + 8 * s);
     }
   };
 
   // ---- per-row partial (Σh, Σh²) of this CTA's columns (h1 and h2 apart)
-  // to every CTA of the cluster; the TPR lanes of a row share the stores
+  // into this CTA's place in every CTA's xch, completing on its bar_part;
+  // the TPR lanes of a row share the stores
   auto row_partials = [&](int l) {
     int K, ncol, S, nbw;
     layer_shape(l, C, fpad, n, K, ncol);
@@ -499,98 +568,107 @@ __global__ void __launch_bounds__(THREADS, 1) decode_cluster_kernel(Args a) {
       q2 += __shfl_xor_sync(0xffffffffu, q2, o);
     }
     const uint32_t dst = smem_addr(xch + ((size_t)rank * rows + r) * 4);
-    for (int q = sub; q < n; q += TPR) st_remote_v4(remote(dst, q), s1, q1, s2, q2);
+    for (int q = sub; q < n; q += TPR)
+      st_async_v4f(remote(dst, q), s1, q1, s2, q2, remote(bar_part, q));
   };
 
-  // ---- the cluster's statistics (summed in rank order) → mean and rstd
-  auto row_stats = [&](int width) {
-    if (tid < rows) {
+
+  // ---- LayerNorm (statistics from the cluster's partials, summed in rank
+  // order, so every CTA holds the same), gate / relu / sigmoid over this
+  // CTA's channels, 2 a thread: the new x (or y) slice into this CTA's place
+  // in xbuf and into the same place in every other CTA's, completing on its
+  // bar_x (the 4 lanes of 8 channels gather them for one 16-byte st.async)
+  auto finish = [&](int l, int t) {
+    const int kind = layer_kind(l), w = kind == TAIL ? FT : CH;
+    const int ncols = kind == HIGHWAY ? 2 * w : w, sw = kind == TAIL ? SY : SX;
+    const int width = kind == TAIL ? a.F : C;
+    // pairs of channels a row, a power of two ≥ 4: rows·pairs is a multiple
+    // of 32, so whole warps take part in the shuffles
+    const int lp = __ffs(w) - 2, pairs = 1 << lp;
+    bf16* mine = xbuf + (size_t)rank * rows * sw;
+    const uint32_t mine_s = smem_addr(mine);
+    const float* p = prm + prm_offset(l, NB) + ncols;  // LayerNorm vector v at p + v·w
+    const bool relu = layer_relu(l);
+    for (int i = tid; i < rows << lp; i += THREADS) {
+      const int r = i >> lp, c = 2 * (i & (pairs - 1)), b = b0 + r;
       float s1 = 0.f, q1 = 0.f, s2 = 0.f, q2 = 0.f;
       for (int q = 0; q < n; ++q) {
-        const float4 v = *reinterpret_cast<const float4*>(xch + ((size_t)q * rows + tid) * 4);
+        const float4 v = *reinterpret_cast<const float4*>(xch + ((size_t)q * rows + r) * 4);
         s1 += v.x, q1 += v.y, s2 += v.z, q2 += v.w;
       }
       const float m1 = s1 / width, m2 = s2 / width;
-      rowstat[tid * 4 + 0] = m1;
-      rowstat[tid * 4 + 1] = rsqrtf(fmaxf(q1 / width - m1 * m1, 0.f) + LN_EPS);
-      rowstat[tid * 4 + 2] = m2;
-      rowstat[tid * 4 + 3] = rsqrtf(fmaxf(q2 / width - m2 * m2, 0.f) + LN_EPS);
-    }
-    __syncthreads();
-  };
-
-  // ---- LayerNorm, gate / relu / sigmoid over this CTA's channels; the new x
-  // (or y) to every CTA's operand rows
-  auto finish = [&](int l, int t) {
-    const int kind = layer_kind(l), ncols = kind == HIGHWAY ? 2 * CH : kind == TAIL ? FT : CH;
-    const int w = kind == TAIL ? FT : CH, pairs = w / 2;
-    const float* p = prm + prm_offset(l, NB) + ncols;  // LayerNorm vector v at p + v·w
-    const bool relu = layer_relu(l);
-    for (int i = tid; i < rows * pairs; i += THREADS) {
-      const int r = i / pairs, c = 2 * (i % pairs), b = b0 + r;
-      const float* st = rowstat + r * 4;
-      const float* h = hbuf + (size_t)r * ncols;
+      const float r1 = rsqrtf(fmaxf(q1 / width - m1 * m1, 0.f) + LN_EPS);
+      const float r2 = rsqrtf(fmaxf(q2 / width - m2 * m2, 0.f) + LN_EPS);
+      const float* h = hbuf + (size_t)r * ncols + c;
+      const float* pv = p + c;
       float v[2];
       if (kind == TAIL) {
         const int col = rank * FT + c;
         for (int k = 0; k < 2; ++k)
-          v[k] = col + k < a.F ? sigmoid((h[c + k] - st[0]) * st[1] * p[c + k] + p[w + c + k]) : 0.f;
-        const uint32_t yb = pack_bf2(v[0], v[1]);
-        bf16* yo = a.y_out + ((size_t)b * a.T + t) * a.F;
-        if (col + 1 < a.F) *reinterpret_cast<uint32_t*>(yo + col) = yb;
-        else if (col < a.F) yo[col] = __float2bfloat16_rn(v[0]);
-        *reinterpret_cast<uint32_t*>(xsend + r * wide + c) = yb;
-        continue;
-      }
-      float* xo = xown + r * CH + c;
-      if (kind == HIGHWAY) {
-        const int j = layer_hw(l), d = c_dil[j], i0 = t % (2 * d);
-        // x(t) into its ring slot (every CTA has fetched this layer's taps)
-        *reinterpret_cast<uint32_t*>(a.rings + ((size_t)(c_slot0[j] + i0) * a.Bp + b) * C +
-                                     rank * CH + c) = pack_bf2(xo[0], xo[1]);
-        for (int k = 0; k < 2; ++k) {
-          const float gt = sigmoid((h[c + k] - st[0]) * st[1] * p[c + k] + p[w + c + k]);
-          const float nv = (h[CH + c + k] - st[2]) * st[3] * p[2 * w + c + k] + p[3 * w + c + k];
-          v[k] = gt * nv + (1.f - gt) * xo[k];
-        }
+          v[k] = col + k < a.F ? sigmoid((h[k] - m1) * r1 * pv[k] + pv[w + k]) : 0.f;
+        bf16* yo = a.y_out + ((size_t)b * a.T + t) * a.F + col;
+        if (col + 1 < a.F) *reinterpret_cast<uint32_t*>(yo) = pack_bf2(v[0], v[1]);
+        else if (col < a.F) yo[0] = __float2bfloat16_rn(v[0]);
       } else {
-        for (int k = 0; k < 2; ++k) {
-          const float x = (h[c + k] - st[0]) * st[1] * p[c + k] + p[w + c + k];
-          v[k] = relu ? fmaxf(x, 0.f) : x;
+        float* xo = xown + r * CH + c;
+        if (kind == HIGHWAY) {
+          // x(t) into its ring slot (every CTA has fetched this layer's taps)
+          *reinterpret_cast<uint32_t*>(a.rings + ((size_t)slots[2 * layer_hw(l)] * a.Bp + b) * C +
+                                       rank * CH + c) = pack_bf2(xo[0], xo[1]);
+          for (int k = 0; k < 2; ++k) {
+            const float gt = sigmoid((h[k] - m1) * r1 * pv[k] + pv[w + k]);
+            const float nv = (h[CH + k] - m2) * r2 * pv[2 * w + k] + pv[3 * w + k];
+            v[k] = gt * nv + (1.f - gt) * xo[k];
+          }
+        } else {
+          for (int k = 0; k < 2; ++k) {
+            const float x = (h[k] - m1) * r1 * pv[k] + pv[w + k];
+            v[k] = relu ? fmaxf(x, 0.f) : x;
+          }
         }
+        xo[0] = v[0], xo[1] = v[1];
       }
-      xo[0] = v[0], xo[1] = v[1];
-      *reinterpret_cast<uint32_t*>(xsend + r * wide + c) = pack_bf2(v[0], v[1]);
-    }
-    __syncthreads();
-    // the slice to every CTA's operand rows, 16 bytes a store
-    const int segs = w / 8;
-    const int col0 = kind == TAIL ? rank * FT : 2 * C + rank * CH;
-    for (int i = tid; i < rows * segs * n; i += THREADS) {
-      const int q = i % n, rs = i / n, r = rs / segs, sg = rs % segs;
-      const uint4 v = *reinterpret_cast<const uint4*>(xsend + r * wide + 8 * sg);
-      st_remote_v4b(remote(op_s + (uint32_t)((r * lda + col0 + 8 * sg) * 2), q), v);
+      const uint32_t u = pack_bf2(v[0], v[1]);
+      const uint32_t u1 = __shfl_down_sync(0xffffffffu, u, 1);
+      const uint32_t u2 = __shfl_down_sync(0xffffffffu, u, 2);
+      const uint32_t u3 = __shfl_down_sync(0xffffffffu, u, 3);
+      if ((lane & 3) == 0) {
+        const uint4 piece = make_uint4(u, u1, u2, u3);
+        *reinterpret_cast<uint4*>(mine + r * sw + c) = piece;
+        const uint32_t dst = mine_s + (uint32_t)((r * sw + c) * 2);
+        for (int q = 0; q < n; ++q)
+          if (q != rank) st_async_v4b(remote(dst, q), piece, remote(bar_x, q));
+      }
     }
   };
 
-  // one whole layer: product, then the two exchanges; the next highway's
-  // taps are fetched while the exchanges run
-  auto layer = [&](int l, int col0, int t) {
+  // One whole layer: the product, then two exchanges, each st.async stores
+  // from every CTA to every CTA that complete on the receiver's mbarrier,
+  // which expects their bytes (no cluster barrier, no fence: a CTA waits only
+  // for the data it needs). The next highway's taps are fetched meanwhile. Why a buffer is
+  // free when the next stores into it land: CTA q stores layer l+1's partials
+  // after its product l+1, which needed this CTA's slice of layer l, sent
+  // after this CTA had read layer l's partials; q stores its slice of layer
+  // l+1 after reading layer l+1's partials, which this CTA sent after its
+  // product l+1 had read xbuf. The same order makes each barrier's phases
+  // follow one another.
+  unsigned ph = 0;  // exchanges done: the barriers' phase parity
+  auto layer = [&](int l, int t) {
     const int kind = layer_kind(l);
     const int next_hw = l == 2 ? 0 : l == 13 ? 10 : (kind == HIGHWAY && l != 12 && l != 19)
                                                         ? layer_hw(l) + 1 : -1;
-    product(l, col0);
-    if (next_hw >= 0) fetch_taps(next_hw, t);
+    product(l);
     row_partials(l);
+    if (tid == 0) mbar_expect_tx(bar_part, n * rows * 16);
+    if (next_hw >= 0) fetch_taps(next_hw, t);  // while the partials travel
     mark(2);
-    cluster_sync();
+    mbar_wait_cluster(bar_part, ph & 1);
     mark(3);
-    row_stats(kind == TAIL ? a.F : C);
     finish(l, t);
     mark(4);
     if (l == 12) {
+      csync();  // every thread's xown
       // partial q·K over this CTA's channels for the window [pma, pma + 2]
-      __syncthreads();
       const float scale = rsqrtf((float)C);
       for (int i = tid; i < rows * 3; i += THREADS) {
         const int r = i / 3, w = i % 3, pos = spma[r] + w;
@@ -604,22 +682,23 @@ __global__ void __launch_bounds__(THREADS, 1) decode_cluster_kernel(Args a) {
           }
         }
         const uint32_t dst = smem_addr(sxch + ((size_t)rank * rows + r) * 4 + w);
-        for (int q = 0; q < n; ++q) st_remote_f32(remote(dst, q), s * scale);
+        for (int q = 0; q < n; ++q) st_async_f32(remote(dst, q), s * scale, remote(bar_x, q));
       }
       mark(5);
     }
+    if (tid == 0)   // the other CTAs' slices (and every CTA's score partials)
+      mbar_expect_tx(bar_x, (n - 1) * rows * (kind == TAIL ? FT : CH) * 2 +
+                                (l == 12 ? n * rows * 12 : 0));
     cp_wait_all();  // this thread's tap copies have landed
-    cluster_sync();
+    mbar_wait_cluster(bar_x, ph & 1);
+    ++ph;
+    csync();  // every thread's tap copies too
     mark(6);
   };
 
-  for (int t = 0; t < a.T; ++t) {
-    // ---- audio-encoder front and the 10 encoder highway steps
-    layer(0, 0, t);
-    for (int l = 1; l <= 2; ++l) layer(l, 2 * C, t);
-    for (int l = 3; l <= 12; ++l) layer(l, 0, t);
-
-    // ---- monotonic attention (the same in every CTA), r = A·V
+  // ---- monotonic attention over the window [pma, pma + 2] (the same in
+  // every CTA, from the summed score partials), r = A·V into the taps' r columns
+  auto attention = [&](int t) {
     if (tid < rows) {
       const int r = tid, b = b0 + r, pma = spma[r];
       float sc[3], m = -3.0e38f;
@@ -649,7 +728,7 @@ __global__ void __launch_bounds__(THREADS, 1) decode_cluster_kernel(Args a) {
       wbase[r] = pma;
       spma[r] = arg;
     }
-    __syncthreads();
+    csync();
     for (int i = tid; i < rows * (C / 2); i += THREADS) {
       const int r = i / (C / 2), c = 2 * (i % (C / 2)), b = b0 + r, pma = wbase[r];
       float r0 = 0.f, r1 = 0.f;
@@ -660,19 +739,30 @@ __global__ void __launch_bounds__(THREADS, 1) decode_cluster_kernel(Args a) {
           r0 = fmaf(patt[r * 4 + w], v.x, r0);
           r1 = fmaf(patt[r * 4 + w], v.y, r1);
         }
-      *reinterpret_cast<uint32_t*>(op + (size_t)r * lda + C + c) = pack_bf2(r0, r1);
+      *reinterpret_cast<uint32_t*>(taps + (size_t)r * ldt + C + c) = pack_bf2(r0, r1);
     }
-    __syncthreads();
+    csync();
     mark(7);
+  };
 
-    // ---- audio decoder: dec_w1 on [r | q], 6 highway steps, 3 dense, tail
-    layer(13, C, t);
-    for (int l = 14; l <= 19; ++l) layer(l, 0, t);
-    for (int l = 20; l <= 23; ++l) layer(l, 2 * C, t);
+  // Per frame: the audio-encoder front (layers 0-2) and the 10 encoder
+  // highway steps (3-12), the attention, then the audio decoder: dec_w1 on
+  // [r | q] (13), 6 highway steps, 3 dense, the tail. (Two loops: one loop
+  // over all 24 layers measured slower on the card.)
+  for (int t = 0; t < a.T; ++t) {
+    if (tid < N_HW) {  // read from layer 2 on, after the first product's CTA barrier
+      const int d = c_dil[tid];
+      slots[2 * tid] = c_slot0[tid] + t % (2 * d);
+      slots[2 * tid + 1] = c_slot0[tid] + (t + d) % (2 * d);
+    }
+    for (int l = 0; l <= 12; ++l) layer(l, t);
+    attention(t);
+    for (int l = 13; l < N_LAYERS; ++l) layer(l, t);
   }
   if (rank == 0 && tid < rows) a.pma_out[b0 + tid] = spma[tid];
   if (profiling && lane == 0)
     for (int k = 0; k < kPhases; ++k) a.prof[k] = prof[k];
+  cluster_sync();  // no CTA leaves while another may still store into it
 }
 
 bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
@@ -699,17 +789,16 @@ int clear_and_return(cudaError_t e) {
 
 typedef void (*KernelFn)(Args);
 
-// The instantiation for a plan, or null: the main path's plans (C = 256,
-// clusters of 16 or 8, 16-64 rows) and four small-width ones for the tests.
-// decode_kernel.CLUSTER_KERNELS lists the same.
+// The instantiation for a plan: the main path's plans (C = 256, fpad = 128,
+// clusters of 16 or 8, 16-64 rows) with their shapes fixed, any other with
+// them read at run time.
 KernelFn pick(int C, int fpad, int n, int rows) {
-#define SPOOFSV_K(C_, N_, R_) \
-  if (C == C_ && fpad == 128 && n == N_ && rows == R_) return decode_cluster_kernel<C_, 128, N_, R_>
-  SPOOFSV_K(256, 16, 16); SPOOFSV_K(256, 16, 32); SPOOFSV_K(256, 16, 64);
-  SPOOFSV_K(256, 8, 16); SPOOFSV_K(256, 8, 32); SPOOFSV_K(256, 8, 64);
-  SPOOFSV_K(64, 8, 16); SPOOFSV_K(64, 4, 32); SPOOFSV_K(32, 4, 16); SPOOFSV_K(32, 2, 64);
+#define SPOOFSV_K(N_, R_) \
+  if (C == 256 && fpad == 128 && n == N_ && rows == R_) return decode_cluster_kernel<256, 128, N_, R_>
+  SPOOFSV_K(16, 16); SPOOFSV_K(16, 32); SPOOFSV_K(16, 64);
+  SPOOFSV_K(8, 16); SPOOFSV_K(8, 32); SPOOFSV_K(8, 64);
 #undef SPOOFSV_K
-  return nullptr;
+  return decode_cluster_kernel<0, 0, 0, 0>;
 }
 
 int configure(KernelFn fn, int n, size_t smem) {
@@ -723,7 +812,7 @@ void fill_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, int n, int 
                  cudaStream_t s) {
   cfg = {};
   cfg.gridDim = dim3(n, tiles, 1);
-  cfg.blockDim = dim3(THREADS);
+  cfg.blockDim = dim3(BLOCK);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -768,7 +857,6 @@ int spoofsv_decode_cluster_launch(const void* const* p, int n, int rows, int til
   }
   const size_t smem = cluster_smem(C, fpad, n, rows, chunk, stages);
   const KernelFn fn = pick(C, fpad, n, rows);
-  if (!fn) return (int)cudaErrorInvalidValue;
   int err = configure(fn, n, smem);
   if (err) return err;
   cudaLaunchConfig_t cfg;
@@ -790,7 +878,6 @@ int spoofsv_decode_cluster_max_active(int C, int fpad, int n, int rows, int chun
   if (!plan_ok(C, fpad, n, rows, chunk, stages)) return -(int)cudaErrorInvalidValue;
   const size_t smem = cluster_smem(C, fpad, n, rows, chunk, stages);
   const KernelFn fn = pick(C, fpad, n, rows);
-  if (!fn) return -(int)cudaErrorInvalidValue;
   int err = configure(fn, n, smem);
   if (err) return -err;
   cudaLaunchConfig_t cfg;

@@ -187,11 +187,6 @@ CLUSTER_STAGES = 8            # ring stages (8, else 4 or 2 where memory is shor
 SMEM_LIMIT = 232448            # dynamic shared memory one block may use (H100)
 H100_SMS = 132
 RING_SLOTS = 256               # Σ 2d over HW_DILATIONS, as csrc/decode.cu
-# (C, fpad, cluster, rows) the kernel is compiled for (decode_cluster.cu's
-# pick()): the main path's plans and four small-width ones for the tests
-CLUSTER_KERNELS = frozenset(
-    [(256, 128, n, r) for n in (16, 8) for r in (16, 32, 64)]
-    + [(64, 128, 8, 16), (64, 128, 4, 32), (32, 128, 4, 16), (32, 128, 2, 64)])
 # the frame's products in execution order: (matrix, index, kind); kind "c" has
 # C output columns, "hw" the highway's [h1 | h2] 2C, "f" the fpad-wide tail
 CLUSTER_LAYERS = tuple(
@@ -262,13 +257,14 @@ class ClusterPlan:
     @property
     def smem_bytes(self) -> int:
         """Dynamic shared memory of one CTA (``spoofsv_decode_cluster_smem``)."""
-        lda = max(3 * self.C, self.fpad) + 8
-        hbuf = max(self.warp_split(ncol)[0] * self.rows * ncol * 8 for _, ncol in self.layers)
+        n, rows = self.cluster, self.rows
+        # operand rows: taps (2C), then the gathered x or y slices (one buffer)
+        ldt, ss = 2 * self.C + 8, max(self.ch, self.ft) + 8
+        hbuf = max(self.warp_split(ncol)[0] * rows * ncol * 8 for _, ncol in self.layers)
         prm = sum(3 * ncol * 8 for _, ncol in self.layers)   # biases and LayerNorm vectors
-        return (128 + self.stages * self.chunk_bytes + self.rows * lda * 2
-                + self.rows * self.ch * 4 + hbuf * 4 + prm * 4 + 2 * self.cluster * self.rows * 16
-                + self.rows * 16 + self.rows * 24 + self.rows * max(self.ch, self.ft) * 2
-                + self.stages * 8)
+        return (128 + self.stages * self.chunk_bytes + rows * (ldt + n * ss) * 2
+                + rows * self.ch * 4 + hbuf * 4 + prm * 4 + 2 * n * rows * 16 + rows * 16
+                + rows * 8 + 2 * 16 * 4 + (2 * self.stages + 2) * 8)
 
     @property
     def l2_bytes_per_frame(self) -> int:
@@ -329,9 +325,6 @@ def decode_cluster_plan(batch: int, C: int, freq_bins: int = 80, *,
     cands = [make(n, r) for n in ([cluster] if cluster else [16, 8, 4, 2, 1])
              for r in ([rows] if rows else [16, 32, 64])]
     valid = [p for p in cands if p.refusal() is None]
-    # a compiled shape first, where there is one
-    compiled = [p for p in valid if (C, fpad, p.cluster, p.rows) in CLUSTER_KERNELS]
-    valid = compiled or valid
     if not valid:
         raise ValueError(f"no cluster plan for B={batch} C={C}: {cands[0].refusal()}")
     one_wave = [p for p in valid if p.tiles * p.cluster <= H100_SMS]
@@ -587,8 +580,8 @@ def decode_fused(packed: Dict[str, torch.Tensor], K: torch.Tensor, V: torch.Tens
 CLUSTER_VECTORS = ("hw_b", "hw_ln", "sq_b", "misc_ln", "enc_b1", "dec_b1", "tail_b5",
                    "ln5_s", "ln5_b")
 # the kernel's profile phases, in its order (kPhases)
-CLUSTER_PHASES = ("chunk wait", "products", "row partials", "barrier 1", "norm + gather",
-                  "scores", "barrier 2 + taps", "attention")
+CLUSTER_PHASES = ("chunk wait", "products", "row partials", "partials exchange", "norm",
+                  "scores", "slice exchange + taps", "attention", "product epilogue + barrier", "product entry")
 
 
 def _decode_cluster(packed, K, V, s1, s2, n_frames, freq_bins, condition, plan, stream,
@@ -601,8 +594,6 @@ def _decode_cluster(packed, K, V, s1, s2, n_frames, freq_bins, condition, plan, 
         raise ValueError(f"plan for B={plan.batch} C={plan.C} F={plan.freq_bins}, "
                          f"inputs B={B} C={C} F={freq_bins}")
     why = plan.refusal()
-    if not why and (C, plan.fpad, plan.cluster, plan.rows) not in CLUSTER_KERNELS:
-        why = "the kernel is not compiled for this shape (CLUSTER_KERNELS)"
     if why:
         raise ValueError(f"cluster decode plan refused: {why}")
     if packed["tail_w5"].shape[1] != plan.fpad:

@@ -171,11 +171,11 @@ def test_decode_cluster_matches_plain(dev, B, N, C, freq, cluster, rows, conditi
 
 def test_decode_cluster_smem_matches_plan(dev):
     lib = _build.load("decode_cluster")
-    for C, fpad, cluster, rows in sorted(decode_kernel.CLUSTER_KERNELS):
-        for B in (4, 768):
-            plan = decode_kernel.decode_cluster_plan(B, C, 80, cluster=cluster, rows=rows)
-            assert lib.spoofsv_decode_cluster_smem(C, plan.fpad, cluster, rows, plan.chunk_bytes,
-                                                   plan.stages) == plan.smem_bytes
+    for C, cluster, rows, B in [(256, 16, 16, 64), (256, 16, 32, 4), (256, 8, 64, 768),
+                                (64, 8, 16, 4), (64, 4, 32, 768), (32, 4, 16, 4), (32, 2, 64, 9)]:
+        plan = decode_kernel.decode_cluster_plan(B, C, 80, cluster=cluster, rows=rows)
+        assert lib.spoofsv_decode_cluster_smem(C, plan.fpad, cluster, rows, plan.chunk_bytes,
+                                               plan.stages) == plan.smem_bytes
 
 
 def test_decode_cluster_launch_refusal(dev):
