@@ -32,10 +32,15 @@ Phases (any failure raises and exits non-zero):
 Prints a kernels JSON line (each kernel's time, plain time, launches on
 the main path and bound), the card line, then the ``{"ok": true, ...}`` line
 last.
+
+``python3 chip_smoke.py --k1`` runs phase 1 and phase 4's bf16 K1 part alone
+(ptxas lines, the B=768 gate, the plan sweep, the phase profiles), for
+iterating on ``csrc/decode_cluster.cu``; it prints no result line.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -236,12 +241,12 @@ def cluster_phase(dev, cuda_ms, mbf, packed, kv, cfg, T: int, smi: str) -> dict:
     F = cfg.mel.freq_bins
     streams = {}
 
-    def run(plan, ins):
+    def run(plan, ins, n_frames=T):
         if plan.cluster not in streams:
             streams[plan.cluster] = decode_kernel.pack_decode_stream(
                 {k: packed[k] for k in decode_kernel.MATRIX_NAMES}, plan)
-        return decode_kernel.decode_fused(packed, *ins, n_frames=T, freq_bins=F, plan=plan,
-                                          stream=streams[plan.cluster])
+        return decode_kernel.decode_fused(packed, *ins, n_frames=n_frames, freq_bins=F,
+                                          plan=plan, stream=streams[plan.cluster])
 
     def sweep(B, ins, default):
         out = {}
@@ -279,11 +284,24 @@ def cluster_phase(dev, cuda_ms, mbf, packed, kv, cfg, T: int, smi: str) -> dict:
         decode_kernel.decode_fused(packed, *ins, n_frames=T, freq_bins=F, plan=plan,
                                    stream=streams[plan.cluster], profile=prof)
         cyc = prof.cpu().numpy().astype(float)
-        log(f"[K1 cluster] B={ins[0].shape[0]} phase profile ({cyc.sum() / T:.0f} cycles a frame): "
-            + ", ".join(f"{k} {100 * v / cyc.sum():.1f} %"
+        layers = T * len(decode_kernel.CLUSTER_LAYERS)
+        log(f"[K1 cluster] B={ins[0].shape[0]} phase profile, plan {plan.cluster}x{plan.rows} "
+            f"({cyc.sum() / T:.0f} cycles a frame): "
+            + ", ".join(f"{k} {100 * v / cyc.sum():.1f} % ({v / layers:.0f} cycles a layer)"
                         for k, v in zip(decode_kernel.CLUSTER_PHASES, cyc)))
 
     profile(plan64, kv)
+    # One text position: the window cannot move, so no argmax flip parts the
+    # rollouts; 64 frames pass the first wrap of every ring (2d ≤ 54), and a
+    # stale cache tap moves the mel by more than the gate.
+    k1, v1 = kv[0][:, :1].contiguous(), kv[1][:, :1].contiguous()
+    y, _, _ = run(plan64, (k1, v1, *kv[2:]), n_frames=64)
+    yq, _, _ = decode_kernel.decode_plain(packed, k1, v1, *kv[2:], n_frames=64, freq_bins=F)
+    long_err = float((y.float() - yq.float()).abs().max())
+    log(f"[K1 cluster] B={B} N=1 over 64 frames vs decode_plain: mel max|d| {long_err:.3g} "
+        f"(gate 0.05)")
+    gate(long_err <= 0.05, ("K1 long rollout", long_err))
+    del y, yq
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -343,6 +361,31 @@ def cluster_phase(dev, cuda_ms, mbf, packed, kv, cfg, T: int, smi: str) -> dict:
         f"{b_ms:.4f} ms ({b_by}: {flop / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); B=768 default "
         f"{times768[(plan768.cluster, plan768.rows)]:.3f} ms on [{smi}]")
     return dict(ms=ms64, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def k1_alone(dev, cuda_ms, smi: str) -> None:
+    """``--k1``: the bf16 K1 part of phase 4 on phase 4's model and inputs
+    (seed-0 weights, the B=64 sentences and speakers)."""
+    import torch
+
+    from spoofsv_torch.config import Config
+    from spoofsv_torch.data.text import encode_texts
+    from spoofsv_torch.models import MelSyn
+    from spoofsv_torch.ops import decode_kernel
+
+    cfg = Config()
+    torch.manual_seed(0)
+    mbf = MelSyn(cfg.vocab_len, True, cfg.spk_emb_dim, cfg.text_emb_dim, cfg.mel.freq_bins,
+                 cfg.hidden_dim).to(dev, torch.bfloat16).eval()
+    texts = encode_texts([SENTENCES[i % len(SENTENCES)] for i in range(64)],
+                         cfg.vocabulary, max_len=100)
+    spk = np.random.default_rng(0).normal(size=(64, cfg.spk_emb_dim)).astype(np.float32)
+    with torch.no_grad():
+        K, V = mbf.encode_text(torch.from_numpy(texts).to(dev))
+        sb = torch.from_numpy(spk).to(dev, torch.bfloat16)
+        kv = (K, V, mbf.audio_encoder.fc1(sb), mbf.audio_encoder.fc2(sb))
+    cluster_phase(dev, cuda_ms, mbf, decode_kernel.pack_decode_weights(mbf), kv, cfg,
+                  cfg.max_frame_num, smi)
 
 
 def training_phase(cfg, dev, counters: dict, B: int, N: int, T: int):
@@ -436,6 +479,10 @@ def training_phase(cfg, dev, counters: dict, B: int, N: int, T: int):
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--k1", action="store_true",
+                        help="build, then only phase 4's bf16 K1 part; no result line")
+    args = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -482,6 +529,10 @@ def main() -> None:
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
+
+    if args.k1:
+        k1_alone(dev, cuda_ms, smi)
+        return
 
     def test_mag(B: int, T: int, seed: int) -> torch.Tensor:
         """|STFT| of harmonic test signals (realistic structure for GL)."""

@@ -32,31 +32,34 @@
 //   (the host packs each CTA's column slice of every layer, in execution
 //   order, into one stream), so a lane loads two products' fragments with
 //   one 16-byte load.
-// - The weight stream runs ahead: thread 0 feeds a ring of mbarrier stages
-//   (16 KB each, 8 where shared memory allows) with 1-D cp.async.bulk copies
-//   of whole 32-deep k rows, refilling at the end of each layer's product
-//   every stage that layer freed (a layer longer than the ring refills as it
-//   goes). It never waits on activations, so the next layers'
-//   weights arrive while this layer's LayerNorm exchange runs, and it wraps
-//   from frame t's tail to frame t+1's first layer.
+// - The weight stream runs ahead: a producer warp (one lane) feeds a ring of
+//   mbarrier stages (16 KB each, 8 where shared memory allows) with 1-D
+//   cp.async.bulk copies of whole 32-deep k rows, taking each stage back
+//   when every consumer warp has arrived on its "empty" barrier. It never
+//   waits on activations, so the next layers' weights arrive while this
+//   layer's LayerNorm exchange runs, and it wraps from frame t's tail to
+//   frame t+1's first layer.
 // - Each layer's bias and LayerNorm vectors for the CTA's columns sit in a
-//   shared-memory table, loaded once; the shapes are template parameters.
-// - LayerNorm across the cluster: each CTA writes per-row partial (Σh, Σh²)
-//   into every CTA's shared memory (st.shared::cluster), then one cluster
-//   barrier; every CTA sums the n partials in rank order, so all hold the
-//   same statistics. The new x is all-gathered the same way into every CTA's
-//   operand rows (bf16), with a second barrier: two barriers a layer.
+//   shared-memory table, loaded once. The main path's shapes are template
+//   parameters (pick()); other shapes are read at run time.
+// - LayerNorm across the cluster: each CTA sends its per-row partial (Σh,
+//   Σh²) into every CTA's shared memory with st.async, which completes on
+//   the receiver's mbarrier (release/acquire at cluster scope); every CTA
+//   sums the n partials in rank order, so all hold the same statistics. The
+//   new x is all-gathered the same way (16-byte pieces) into every CTA's
+//   operand rows (bf16). Two exchanges a layer, no cluster barrier: a CTA
+//   waits only for the bytes it needs.
 // - Attention: each CTA's partial q·K dot products over its channels go out
 //   with the all-gather of the last encoder step; every CTA sums them in
 //   rank order and computes the softmax, pma and r = A·V for its tile's
-//   rows (3 dot products of C a row, no extra barrier). Rank 0 writes A and
+//   rows (3 dot products of C a row, no extra exchange). Rank 0 writes A and
 //   pma.
 // - The 16 causal-conv caches are rings in global memory (slot t mod 2d,
 //   as decode.cu). Each CTA writes its own channels of x(t) with plain
-//   stores after the exchange that follows the layer's products (every CTA
-//   has read its taps by then) and reads the full-width taps of later frames
-//   with cp.async.cg (L2, not the incoherent L1), issued while the previous
-//   layer's LayerNorm exchange runs. Cluster barriers order the two.
+//   stores once the layer's partials have arrived (every CTA has read its
+//   taps by then) and reads the full-width taps of later frames with
+//   cp.async.cg (L2, not the incoherent L1), issued while the previous
+//   layer's partials travel. The exchanges' barriers order the two.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,9 +74,11 @@ constexpr int N_HW = 16;
 constexpr int N_LAYERS = 24;
 constexpr int RING_SLOTS = 256;
 constexpr float LN_EPS = 1e-5f;
-// phases of the optional profile: waiting for weight chunks, the rest of the
-// products, row partials, first cluster barrier, LayerNorm and all-gather,
-// score partials, second barrier (with the taps' copies), attention and r
+// phases of the optional profile (decode_kernel.CLUSTER_PHASES): waiting for
+// weight chunks, the rest of the products, row partials (with the taps'
+// copies issued), waiting for the partials, LayerNorm and the slice's
+// stores, score partials, waiting for the slices and taps, attention and r,
+// the products' epilogue and CTA barrier, a product's set-up
 constexpr int kPhases = 10;
 constexpr int CHUNK = 16384;  // bytes of weight stream a ring stage holds
 
@@ -789,13 +794,15 @@ int clear_and_return(cudaError_t e) {
 
 typedef void (*KernelFn)(Args);
 
-// The instantiation for a plan: the main path's plans (C = 256, fpad = 128,
-// clusters of 16 or 8, 16-64 rows) with their shapes fixed, any other with
-// them read at run time.
+// The instantiation for a plan: the main path's plans at C = 256, fpad = 128
+// (clusters of 16 with 16 rows, of 8 with 16-64 rows) with their shapes
+// fixed, any other with them read at run time. (Clusters of 16 with 32 or 64
+// rows spill with their shapes fixed: 168 registers is the most a thread of
+// 9 warps gets.)
 KernelFn pick(int C, int fpad, int n, int rows) {
 #define SPOOFSV_K(N_, R_) \
   if (C == 256 && fpad == 128 && n == N_ && rows == R_) return decode_cluster_kernel<256, 128, N_, R_>
-  SPOOFSV_K(16, 16); SPOOFSV_K(16, 32); SPOOFSV_K(16, 64);
+  SPOOFSV_K(16, 16);
   SPOOFSV_K(8, 16); SPOOFSV_K(8, 32); SPOOFSV_K(8, 64);
 #undef SPOOFSV_K
   return decode_cluster_kernel<0, 0, 0, 0>;
@@ -888,8 +895,6 @@ int spoofsv_decode_cluster_max_active(int C, int fpad, int n, int rows, int chun
   if (e != cudaSuccess) return -clear_and_return(e);
   return count;
 }
-
-int spoofsv_decode_cluster_phases() { return kPhases; }
 
 const char* spoofsv_decode_cluster_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

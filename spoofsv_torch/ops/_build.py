@@ -42,7 +42,6 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         "spoofsv_decode_cluster_launch": (_I, [_P] + [_I] * 11 + [_P]),
         "spoofsv_decode_cluster_smem": (_I, [_I] * 6),
         "spoofsv_decode_cluster_max_active": (_I, [_I] * 6),
-        "spoofsv_decode_cluster_phases": (_I, []),
         "spoofsv_decode_cluster_error_string": (ctypes.c_char_p, [_I]),
     },
     "gl": {

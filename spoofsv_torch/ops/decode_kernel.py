@@ -581,7 +581,8 @@ CLUSTER_VECTORS = ("hw_b", "hw_ln", "sq_b", "misc_ln", "enc_b1", "dec_b1", "tail
                    "ln5_s", "ln5_b")
 # the kernel's profile phases, in its order (kPhases)
 CLUSTER_PHASES = ("chunk wait", "products", "row partials", "partials exchange", "norm",
-                  "scores", "slice exchange + taps", "attention", "product epilogue + barrier", "product entry")
+                  "scores", "slice exchange + taps", "attention", "product epilogue + barrier",
+                  "product entry")
 
 
 def _decode_cluster(packed, K, V, s1, s2, n_frames, freq_bins, condition, plan, stream,

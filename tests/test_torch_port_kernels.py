@@ -169,6 +169,22 @@ def test_decode_cluster_matches_plain(dev, B, N, C, freq, cluster, rows, conditi
                                rtol=0)
 
 
+@pytest.mark.parametrize("B,C,freq,cluster,rows", [
+    (5, 64, 16, 8, 16), (64, 256, 80, 16, 16), (70, 256, 80, 8, 64)])
+def test_decode_cluster_long_rollout_matches_plain(dev, B, C, freq, cluster, rows):
+    """One text position: the attention window cannot move, so no argmax
+    flip parts the rollouts, and bf16 K1 is held to decode_plain over 64
+    frames, past the first wrap of every ring (2d ≤ 54): a stale or
+    misplaced cache tap moves the mel by more than the gate."""
+    packed, K, V, s1, s2 = _cluster_case(dev, B, 1, C, freq, seed=B + C + 1)
+    plan = decode_kernel.decode_cluster_plan(B, C, freq, cluster=cluster, rows=rows)
+    y, a, p = decode_kernel.decode_fused(packed, K, V, s1, s2, n_frames=64, freq_bins=freq,
+                                         plan=plan)
+    yq, _, _ = decode_kernel.decode_plain(packed, K, V, s1, s2, n_frames=64, freq_bins=freq)
+    assert float((y.float() - yq.float()).abs().max()) <= 0.05
+    assert bool((p == 0).all()) and bool((a.float() == 1.0).all())
+
+
 def test_decode_cluster_smem_matches_plan(dev):
     lib = _build.load("decode_cluster")
     for C, cluster, rows, B in [(256, 16, 16, 64), (256, 16, 32, 4), (256, 8, 64, 768),
