@@ -97,7 +97,7 @@ struct Args {
   bf16* y_out;
   bf16* a_out;
   int* pma_out;
-  long long* prof;  // null, or kPhases clock64 sums of CTA (0, 0)'s warp 0
+  long long* prof;  // null, or kPhases clock sums of CTA (0, 0)'s warp 0
   int Bp, T, N, F, fpad, C, condition, n, rows, stages;
   long long cta_elems;
 };
@@ -261,6 +261,14 @@ __device__ __forceinline__ float2 unpack_bf2(uint32_t u) {
 // a highway step (two LayerNorms, gate, residual), or the tail (LN5 over F,
 // sigmoid).
 enum Kind { DENSE = 0, HIGHWAY = 1, TAIL = 2 };
+// What a layer's product reads and how wide it is: enc_w1 (on y), sq_w (on
+// x), a highway step (on [x(t−2d) | x(t−d) | x]), dec_w1 (on [r | q]), the
+// tail. A template argument of the product, as PK<kind>.
+enum ProductKind { P_ENC = 0, P_SQ = 1, P_HW = 2, P_DEC = 3, P_TAIL = 4 };
+template <int V>
+struct PK {
+  static constexpr int value = V;
+};
 __device__ __forceinline__ int layer_kind(int l) {
   return l == 23 ? TAIL : ((l >= 3 && l <= 12) || (l >= 14 && l <= 19)) ? HIGHWAY : DENSE;
 }
@@ -299,8 +307,9 @@ __device__ void layer_vectors(const Args& a, int l, const float*& bias, const fl
 
 // CT, FPT, NT, RT: C, fpad, the cluster size and the rows per tile, fixed at
 // compile time for the main path's plans so that their divisions fold into
-// shifts and constants (0: read from the arguments; pick() chooses).
-template <int CT, int FPT, int NT, int RT>
+// shifts and constants (0: read from the arguments; pick() chooses). PROF:
+// the instantiation that fills a.prof (the others carry no profile code).
+template <int CT, int FPT, int NT, int RT, bool PROF>
 __global__ void __launch_bounds__(BLOCK, 1) decode_cluster_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((128 - (smem_addr(smem_raw) & 127)) & 127);
@@ -416,34 +425,33 @@ __global__ void __launch_bounds__(BLOCK, 1) decode_cluster_kernel(Args a) {
 
   unsigned gc = 0;  // chunks consumed (the same count in every consumer thread)
   // the profile is warp 0's (its lanes take the same branches: no divergence)
-  const bool profiling = a.prof != nullptr && warp == 0 && rank == 0 && tile == 0;
-  long long prof[kPhases] = {};
-  long long t_mark = clock64();
+  const bool profiling = PROF && warp == 0 && rank == 0 && tile == 0;
+  // lane p of the profiled warp sums phase p (one register a lane; a run's
+  // sum of one phase fits 32 bits)
+  unsigned prof_sum = 0, t_mark = clock();
   auto mark = [&](int phase) {  // time since the last mark to `phase`
     if (profiling) {
-      const long long now = clock64();
-      prof[phase] += now - t_mark;
+      const unsigned now = clock();
+      prof_sum += lane == phase ? now - t_mark : 0u;
       t_mark = now;
     }
   };
 
-  // ---- the product of layer l: its operand rows (K columns: the taps or r
-  // from `taps`, then x from xbuf; y from xbuf for enc_w1) times this CTA's
-  // weight slice, plus bias (and speaker projection), into hbuf
-  // [S][rows][ncol·8] (f32; split 0 carries the bias)
-  auto product = [&](int l) {
-    int K, ncol;
-    layer_shape(l, C, fpad, n, K, ncol);
-    // ncol, the warps an m tile has and the k rows a chunk holds are powers
-    // of two: shifts, not divisions (warp_split and rows_per_chunk)
-    constexpr int LG_CHUNK = 14;
-    static_assert(CHUNK == 1 << LG_CHUNK, "CHUNK is 2^LG_CHUNK");
-    const int lg = __ffs(ncol) - 1, wpm = WARPS / (rows / 16), lwpm = __ffs(wpm) - 1;
-    const int S = ncol < wpm ? wpm >> lg : 1, nbw = ncol < wpm ? 1 : ncol >> lwpm;
-    const int KP = K >> 5, lrpc = max(LG_CHUNK - 9 - lg, 0), rpc = 1 << lrpc;
-    const int nch = (KP + rpc - 1) >> lrpc;
-    const int mt = warp >> lwpm, wi = warp & (wpm - 1);
-    const int split = S > 1 ? wi >> lg : 0, nb0 = S > 1 ? wi & (ncol - 1) : wi;
+  // ---- the product of layer l, of product kind P: its operand rows (K
+  // columns: the taps or r from `taps`, then x from xbuf; y from xbuf for
+  // enc_w1) times this CTA's weight slice, plus bias (and speaker
+  // projection), into hbuf [S][rows][ncol·8] (f32; split 0 carries the
+  // bias). P fixes the shape at compile time, so with the plan's shapes
+  // fixed too the k rows of a chunk unroll and the index math folds.
+  auto product = [&](auto kind_tag, int l) {
+    constexpr int P = decltype(kind_tag)::value;
+    const int K = P == P_HW ? 3 * C : P == P_DEC ? 2 * C : P == P_ENC ? fpad : C;
+    const int ncol = P == P_HW ? 2 * NB : P == P_TAIL ? FT / 8 : NB;
+    const int wpm = WARPS / (rows / 16);  // warps an m tile has (powers of two)
+    const int S = ncol < wpm ? wpm / ncol : 1, nbw = ncol < wpm ? 1 : ncol / wpm;
+    const int KP = K / 32, rpc = CHUNK / (ncol * 512), nch = (KP + rpc - 1) / rpc;
+    const int mt = warp / wpm, wi = warp % wpm;
+    const int split = S > 1 ? wi / ncol : 0, nb0 = S > 1 ? wi % ncol : wi;
     float acc[2][4][4];  // two sets: the first and second 16 of each 32-deep k row
 #pragma unroll
     for (int u = 0; u < 2; ++u)
@@ -452,16 +460,16 @@ __global__ void __launch_bounds__(BLOCK, 1) decode_cluster_kernel(Args a) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[u][i][e] = 0.f;
     // this lane's ldmatrix row address for the k-step at k0: row mt·16 +
-    // lane % 16, column k0 + 8·(lane / 16)
-    // (slices are W = CH or FT columns wide, a power of two: shifts, not divisions)
-    const int tcols = layer_kind(l) == HIGHWAY ? 2 * C : l == 13 ? C : 0;
-    const int W = l == 0 ? FT : CH, SW = l == 0 ? SY : SX, lw = __ffs(W) - 1;
+    // lane % 16, column k0 + 8·(lane / 16); x (or y) slices are W columns
+    // wide
+    const int tcols = P == P_HW ? 2 * C : P == P_DEC ? C : 0;
+    const int W = P == P_ENC ? FT : CH, SW = P == P_ENC ? SY : SX;
     const int ar = mt * 16 + (lane & 15), c8 = 8 * (lane >> 4);
-    const uint32_t t_row = taps_s + (uint32_t)((ar * ldt + (l == 13 ? C : 0) + c8) * 2);
+    const uint32_t t_row = taps_s + (uint32_t)((ar * ldt + (P == P_DEC ? C : 0) + c8) * 2);
     auto a_addr = [&](int k0) -> uint32_t {
       if (k0 < tcols) return t_row + k0 * 2;
       const int c = k0 - tcols + c8;
-      return xbuf_s + (uint32_t)((((c >> lw) * rows + ar) * SW + (c & (W - 1))) * 2);
+      return xbuf_s + (uint32_t)((((c / W) * rows + ar) * SW + c % W) * 2);
     };
     for (int c = 0; c < nch; ++c, ++gc) {
       const int st = gc & smask;
@@ -470,7 +478,11 @@ __global__ void __launch_bounds__(BLOCK, 1) decode_cluster_kernel(Args a) {
       mark(0);
       __syncwarp();  // ldmatrix and mma.sync need the warp converged
       const unsigned char* w = ring + (size_t)st * CHUNK;
-      const int kp0 = c * rpc, kp1 = min(KP, kp0 + rpc);
+      // k rows of this chunk, and of this warp: kp0 + split + S·i, i < nkw
+      const int kp0 = c * rpc;
+      const int nk = KP <= rpc ? KP : KP % rpc == 0 ? rpc : min(rpc, KP - kp0);
+      const int nkw = nk % S == 0 ? nk / S : (nk - split + S - 1) / S;
+      const int k_first = kp0 + split;
       // a 32-deep k row's operands: two ldmatrix A fragments (k halves) and
       // the weight fragments of this warp's n8 blocks
       auto load = [&](int kp, uint32_t(&f0)[4], uint32_t(&f1)[4], uint4(&b)[4]) {
@@ -494,24 +506,22 @@ __global__ void __launch_bounds__(BLOCK, 1) decode_cluster_kernel(Args a) {
       // two buffers: the next k row's operands load while this one's mmas run
       uint32_t fa0[4], fa1[4], fb0[4], fb1[4];
       uint4 ba[4], bb[4];
-      int kp = kp0 + split;
-      if (kp < kp1) load(kp, fa0, fa1, ba);
-      while (kp < kp1) {
-        const int k1 = kp + S, k2 = k1 + S;
-        if (k1 < kp1) load(k1, fb0, fb1, bb);
+      if (nkw > 0) load(k_first, fa0, fa1, ba);
+#pragma unroll
+      for (int p = 0; p < nkw / 2; ++p) {
+        load(k_first + (2 * p + 1) * S, fb0, fb1, bb);
         mmas(fa0, fa1, ba);
-        if (k1 >= kp1) break;
-        if (k2 < kp1) load(k2, fa0, fa1, ba);
+        if (2 * p + 2 < nkw) load(k_first + (2 * p + 2) * S, fa0, fa1, ba);
         mmas(fb0, fb1, bb);
-        kp = k2;
       }
+      if (nkw & 1) mmas(fa0, fa1, ba);
       __syncwarp();
       if (lane == 0) mbar_arrive(empties + 8 * st);  // this warp is done with the stage
     }
     mark(1);
     const int ncols = ncol * 8;
     const float* bias = prm + prm_offset(l, NB);
-    const bf16* add = !a.condition ? nullptr : l == 0 ? a.s1 : l == 2 ? a.s2 : nullptr;
+    const bf16* add = !a.condition ? nullptr : P == P_ENC ? a.s1 : l == 2 ? a.s2 : nullptr;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       if (i < nbw) {
@@ -662,7 +672,11 @@ __global__ void __launch_bounds__(BLOCK, 1) decode_cluster_kernel(Args a) {
     const int kind = layer_kind(l);
     const int next_hw = l == 2 ? 0 : l == 13 ? 10 : (kind == HIGHWAY && l != 12 && l != 19)
                                                         ? layer_hw(l) + 1 : -1;
-    product(l);
+    if (kind == HIGHWAY) product(PK<P_HW>{}, l);
+    else if (l == 0) product(PK<P_ENC>{}, l);
+    else if (l == 13) product(PK<P_DEC>{}, l);
+    else if (l == 23) product(PK<P_TAIL>{}, l);
+    else product(PK<P_SQ>{}, l);
     row_partials(l);
     if (tid == 0) mbar_expect_tx(bar_part, n * rows * 16);
     if (next_hw >= 0) fetch_taps(next_hw, t);  // while the partials travel
@@ -765,8 +779,7 @@ __global__ void __launch_bounds__(BLOCK, 1) decode_cluster_kernel(Args a) {
     for (int l = 13; l < N_LAYERS; ++l) layer(l, t);
   }
   if (rank == 0 && tid < rows) a.pma_out[b0 + tid] = spma[tid];
-  if (profiling && lane == 0)
-    for (int k = 0; k < kPhases; ++k) a.prof[k] = prof[k];
+  if (profiling && lane < kPhases) a.prof[lane] = prof_sum;
   cluster_sync();  // no CTA leaves while another may still store into it
 }
 
@@ -796,16 +809,23 @@ typedef void (*KernelFn)(Args);
 
 // The instantiation for a plan: the main path's plans at C = 256, fpad = 128
 // (clusters of 16 with 16 rows, of 8 with 16-64 rows) with their shapes
-// fixed, any other with them read at run time. (Clusters of 16 with 32 or 64
-// rows spill with their shapes fixed: 168 registers is the most a thread of
-// 9 warps gets.)
+// fixed, any other with them read at run time; with the profile or without.
+// (Clusters of 16 with 32 or 64 rows spill with their shapes fixed: 168
+// registers is the most a thread of 9 warps gets.)
+template <bool PROF>
 KernelFn pick(int C, int fpad, int n, int rows) {
-#define SPOOFSV_K(N_, R_) \
-  if (C == 256 && fpad == 128 && n == N_ && rows == R_) return decode_cluster_kernel<256, 128, N_, R_>
+#define SPOOFSV_K(N_, R_)                                  \
+  if (C == 256 && fpad == 128 && n == N_ && rows == R_) \
+  return decode_cluster_kernel<256, 128, N_, R_, PROF>
   SPOOFSV_K(16, 16);
-  SPOOFSV_K(8, 16); SPOOFSV_K(8, 32); SPOOFSV_K(8, 64);
+  SPOOFSV_K(8, 16);
+  SPOOFSV_K(8, 32);
+  SPOOFSV_K(8, 64);
 #undef SPOOFSV_K
-  return decode_cluster_kernel<0, 0, 0, 0>;
+  return decode_cluster_kernel<0, 0, 0, 0, PROF>;
+}
+KernelFn pick(int C, int fpad, int n, int rows, bool prof) {
+  return prof ? pick<true>(C, fpad, n, rows) : pick<false>(C, fpad, n, rows);
 }
 
 int configure(KernelFn fn, int n, size_t smem) {
@@ -863,7 +883,7 @@ int spoofsv_decode_cluster_launch(const void* const* p, int n, int rows, int til
     a.cta_elems += (long long)K * ncol * 8;
   }
   const size_t smem = cluster_smem(C, fpad, n, rows, chunk, stages);
-  const KernelFn fn = pick(C, fpad, n, rows);
+  const KernelFn fn = pick(C, fpad, n, rows, a.prof != nullptr);
   int err = configure(fn, n, smem);
   if (err) return err;
   cudaLaunchConfig_t cfg;
@@ -884,7 +904,7 @@ int spoofsv_decode_cluster_smem(int C, int fpad, int n, int rows, int chunk, int
 int spoofsv_decode_cluster_max_active(int C, int fpad, int n, int rows, int chunk, int stages) {
   if (!plan_ok(C, fpad, n, rows, chunk, stages)) return -(int)cudaErrorInvalidValue;
   const size_t smem = cluster_smem(C, fpad, n, rows, chunk, stages);
-  const KernelFn fn = pick(C, fpad, n, rows);
+  const KernelFn fn = pick(C, fpad, n, rows, false);
   int err = configure(fn, n, smem);
   if (err) return -err;
   cudaLaunchConfig_t cfg;
