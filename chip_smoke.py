@@ -11,12 +11,16 @@ Phases (any failure raises and exits non-zero):
   4. K1 (decode) at the main path's B=64, N=100, T=325: f32
      (``csrc/decode.cu``) vs the plain eager decode, and bf16
      (``csrc/decode_cluster.cu``) vs ``decode_plain`` (the kernel's
-     arithmetic in plain torch) at B=64 and B=768 over frames 0-1; the
-     cluster kernel's ptxas lines (spills fail), its plan, and its CUDA-event
-     times for each cluster size and tile height with the L2 bytes a frame;
+     arithmetic in plain torch) at B=64 and B=768 over frames 0-1, and over
+     64 frames at one text position (no attention flips); the cluster
+     kernel's ptxas lines (spills fail), its plan, its CUDA-event times for
+     each cluster size and tile height with the L2 bytes a frame, and its
+     phase profiles;
   5. the main path: ``Synthesizer`` at full width in bf16, B=64, N=100,
      T=325, GL12 from the SPSI init, then ``finalize_audio``; launch counts
-     reset just before and read just after; plus a small f32 end-to-end
+     reset just before and read just after; per-stage times and one call
+     under ``torch.profiler`` (device time, idle share, the largest
+     kernels); plus a small f32 end-to-end
      comparison of the CUDA path against the CPU path;
   6. K4/K5/K6 (highway kernels) vs their plain versions in f32 at the
      training path's shapes (B=16), and K5 in bf16 at the synthesis batch
@@ -223,9 +227,10 @@ def bound_ms(flop: float, nbytes: float, peak_flops: float) -> tuple:
 def cluster_phase(dev, cuda_ms, mbf, packed, kv, cfg, T: int, smi: str) -> dict:
     """Phase 4, bf16 K1 (csrc/decode_cluster.cu): its ptxas lines (spills
     fail), the plan chosen, the kernel against decode_plain over frames 0-1 at
-    B=768 (B=64 is gated by the caller), and CUDA-event times at B=64 and
-    B=768 for each cluster size and tile height, with the L2 bytes a frame
-    the plan reads. Returns the JSON entry's numbers at B=64."""
+    B=768 (B=64 is gated by the caller) and over 64 frames at one text
+    position, CUDA-event times at B=64 and B=768 for each cluster size and
+    tile height with the L2 bytes a frame the plan reads, and the default
+    plans' phase profiles. Returns the JSON entry's numbers at B=64."""
     import torch
 
     from spoofsv_torch.data.text import encode_texts
@@ -361,6 +366,35 @@ def cluster_phase(dev, cuda_ms, mbf, packed, kv, cfg, T: int, smi: str) -> dict:
         f"{b_ms:.4f} ms ({b_by}: {flop / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); B=768 default "
         f"{times768[(plan768.cluster, plan768.rows)]:.3f} ms on [{smi}]")
     return dict(ms=ms64, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def device_view(call, smi: str) -> None:
+    """One call under ``torch.profiler``: the device time of its kernels and
+    copies against the call's wall time (the device's idle share; the
+    profiler's own host cost inflates the wall), and the largest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    dev_us = {}   # the device's own events (kernels, copies, sets), not the host ops
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            dev_us[e.key] = getattr(e, "self_cuda_time_total", 0.0) if us is None else us
+    if not sum(dev_us.values()):
+        log("[main] device view: the profiler recorded no device time (not measured)")
+        return
+    busy_ms = sum(dev_us.values()) / 1e3
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:5]
+    log(f"[main] device view of one Synthesizer call: {busy_ms:.1f} ms of device time in "
+        f"{wall_ms:.1f} ms of wall ({100 * (1 - busy_ms / wall_ms):.1f} % idle); largest: "
+        + ", ".join(f"{k[:60]} {v / 1e3:.1f} ms" for k, v in top) + f" on [{smi}]")
 
 
 def k1_alone(dev, cuda_ms, smi: str) -> None:
@@ -766,6 +800,7 @@ def main() -> None:
         f"{ {k: round(v, 3) for k, v in staged['stages_ms'].items()} }; whole call: "
         f"{audio_s:.1f} s of audio in {wall_s:.3f} s = {rate:.2f} audio s per wall s "
         f"on [{smi}]")
+    device_view(lambda: syn(texts, spk), smi)
     for k, n in launches.items():
         kernels[k]["launches"] = n
     del mbf, sbf, syn, staged, fused_bf, plain_bf, audio, mel, attn

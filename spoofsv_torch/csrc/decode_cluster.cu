@@ -41,7 +41,10 @@
 //   frame t+1's first layer.
 // - Each layer's bias and LayerNorm vectors for the CTA's columns sit in a
 //   shared-memory table, loaded once. The main path's shapes are template
-//   parameters (pick()); other shapes are read at run time.
+//   parameters (pick()); other shapes are read at run time. The product is
+//   compiled once for each kind of layer (enc_w1, sq_w, highway, dec_w1,
+//   tail), so with the shapes fixed a chunk's k rows unroll and the index
+//   math folds.
 // - LayerNorm across the cluster: each CTA sends its per-row partial (Σh,
 //   Σh²) into every CTA's shared memory with st.async, which completes on
 //   the receiver's mbarrier (release/acquire at cluster scope); every CTA
@@ -75,11 +78,12 @@ constexpr int N_LAYERS = 24;
 constexpr int RING_SLOTS = 256;
 constexpr float LN_EPS = 1e-5f;
 // phases of the optional profile (decode_kernel.CLUSTER_PHASES): waiting for
-// weight chunks, the rest of the products, row partials (with the taps'
-// copies issued), waiting for the partials, LayerNorm and the slice's
-// stores, score partials, waiting for the slices and taps, attention and r,
-// the products' epilogue and CTA barrier, a product's set-up
-constexpr int kPhases = 10;
+// weight chunks, the rest of the products, row partials and their stores,
+// waiting for the partials, LayerNorm and the slice's stores, score
+// partials, waiting for the slices and taps, attention and r, the products'
+// epilogue and CTA barrier, a product's set-up, issuing the next highway's
+// tap copies
+constexpr int kPhases = 11;
 constexpr int CHUNK = 16384;  // bytes of weight stream a ring stage holds
 
 typedef __nv_bfloat16 bf16;
@@ -327,8 +331,8 @@ __global__ void __launch_bounds__(BLOCK, 1) decode_cluster_kernel(Args a) {
   // ---- shared memory (cluster_smem) ----
   // The products' operands: taps [rows][ldt] (x(t−2d) | x(t−d) of a highway
   // step, or r in columns [C, 2C)); xbuf, the gathered x as [n][rows][SX] or
-  // the gathered y as [n][rows][SY], CTA q's slice at q (so a slice arrives
-  // as one contiguous bulk copy, and this CTA writes its own in place). y
+  // the gathered y as [n][rows][SY], CTA q's slice at q (every CTA stores a
+  // slice at the same offset, and this CTA writes its own in place). y
   // and x share it: every CTA has finished the tail's product, the last
   // reader of x, before any y slice is written, and the first encoder
   // product, the only reader of y, before any x slice.
@@ -679,8 +683,9 @@ __global__ void __launch_bounds__(BLOCK, 1) decode_cluster_kernel(Args a) {
     else product(PK<P_SQ>{}, l);
     row_partials(l);
     if (tid == 0) mbar_expect_tx(bar_part, n * rows * 16);
-    if (next_hw >= 0) fetch_taps(next_hw, t);  // while the partials travel
     mark(2);
+    if (next_hw >= 0) fetch_taps(next_hw, t);  // while the partials travel
+    mark(10);
     mbar_wait_cluster(bar_part, ph & 1);
     mark(3);
     finish(l, t);

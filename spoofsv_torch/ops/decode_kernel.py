@@ -502,9 +502,9 @@ def decode_cluster_emulate(packed: Dict[str, torch.Tensor], K: torch.Tensor, V: 
 def rows_per_block(batch: int, device: torch.device) -> int:
     """Most rows per block (4, 2, 1) that still gives every SM a block.
 
-    Every block streams all decode weights each frame whatever its row count,
-    so fewer rows buy more busy SMs at the price of more L2 traffic: on the
-    H100 (132 SMs) 1 row is fastest at B=64 and 4 rows at B=768 (PERF.md)."""
+    Every block of ``csrc/decode.cu`` streams all decode weights each frame
+    whatever its row count, so fewer rows buy more busy SMs at the price of
+    more L2 traffic."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     for rows in (4, 2):
         if -(-batch // rows) >= sms:
@@ -582,7 +582,7 @@ CLUSTER_VECTORS = ("hw_b", "hw_ln", "sq_b", "misc_ln", "enc_b1", "dec_b1", "tail
 # the kernel's profile phases, in its order (kPhases)
 CLUSTER_PHASES = ("chunk wait", "products", "row partials", "partials exchange", "norm",
                   "scores", "slice exchange + taps", "attention", "product epilogue + barrier",
-                  "product entry")
+                  "product entry", "tap copies issued")
 
 
 def _decode_cluster(packed, K, V, s1, s2, n_frames, freq_bins, condition, plan, stream,
