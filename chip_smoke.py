@@ -13,9 +13,9 @@ Phases (any failure raises and exits non-zero):
      (``csrc/decode_cluster.cu``) vs ``decode_plain`` (the kernel's
      arithmetic in plain torch) at B=64 and B=768 over frames 0-1, and over
      64 frames at one text position (no attention flips); the cluster
-     kernel's ptxas lines (spills fail), its plan, its CUDA-event times for
-     each cluster size and tile height with the L2 bytes a frame, and its
-     phase profiles;
+     kernel's ptxas lines (spills fail), its plan, its CUDA-event times
+     (the default plan, clusters of 16, clusters of 8) and the L2 bytes a
+     frame;
   5. the main path: ``Synthesizer`` at full width in bf16, B=64, N=100,
      T=325, GL12 from the SPSI init, then ``finalize_audio``; launch counts
      reset just before and read just after; per-stage times and one call
@@ -36,15 +36,10 @@ Phases (any failure raises and exits non-zero):
 Prints a kernels JSON line (each kernel's time, plain time, launches on
 the main path and bound), the card line, then the ``{"ok": true, ...}`` line
 last.
-
-``python3 chip_smoke.py --k1`` runs phase 1 and phase 4's bf16 K1 part alone
-(ptxas lines, the B=768 gate, the plan sweep, the phase profiles), for
-iterating on ``csrc/decode_cluster.cu``; it prints no result line.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import os
 import subprocess
@@ -152,14 +147,15 @@ def highway_kernel_phase(dev, cuda_ms, kernels: dict) -> None:
     }
     sources = {"highway_conv_pair": "spoofsv_torch/csrc/hconv_pair.cu"}
     # bounds of each JSON case: (operations, bytes, peak for their type). K6:
-    # 16·325 rows of h (2C) and x (C) in, out (C), ~10 operations an element;
-    # K4: the f32 conv on the CUDA cores (67 TFLOP/s); K5: both layers' convs
-    # as 3xTF32 tensor-core products (3 passes at 495 TFLOP/s)
+    # 16·325 rows of h (2C) and x (C) in, out (C), ~10 operations an element
+    # on the CUDA cores (67 TFLOP/s); K4 one layer's conv, K5 both layers':
+    # f32-accurate products at the card's fastest such rate, 3xTF32 (3 passes
+    # at 495 TFLOP/s)
     rows6, conv_mac = 16 * 325, 16 * 1300 * 3 * 512 * 2 * 512
     io = 4 * 2 * 16 * 1300 * 512
     bounds = {
         "highway_gate": (10 * rows6 * 2 * 256, 4 * (rows6 * 4 * 256 + 4 * 256), 67e12),
-        "highway_conv": (2 * conv_mac, io + 4 * (1536 * 1024 + 6 * 512), 67e12),
+        "highway_conv": (3 * 2 * conv_mac, io + 4 * (1536 * 1024 + 6 * 512), 495e12),
         "highway_conv_pair": (3 * 2 * 2 * conv_mac, io + 4 * (2 * 1536 * 1024 + 12 * 512), 495e12),
     }
     for name, (replaces, named) in cases.items():
@@ -227,10 +223,11 @@ def bound_ms(flop: float, nbytes: float, peak_flops: float) -> tuple:
 def cluster_phase(dev, cuda_ms, mbf, packed, kv, cfg, T: int, smi: str) -> dict:
     """Phase 4, bf16 K1 (csrc/decode_cluster.cu): its ptxas lines (spills
     fail), the plan chosen, the kernel against decode_plain over frames 0-1 at
-    B=768 (B=64 is gated by the caller) and over 64 frames at one text
-    position, CUDA-event times at B=64 and B=768 for each cluster size and
-    tile height with the L2 bytes a frame the plan reads, and the default
-    plans' phase profiles. Returns the JSON entry's numbers at B=64."""
+    B=768 on two speaker draws (B=64 is gated by the caller) and over 64
+    frames at one text position, and CUDA-event times at B=64 and B=768 of
+    the default plan and of the plans chosen with clusters of 16 and of 8,
+    with the L2 bytes a frame each reads. Returns the JSON entry's numbers
+    at B=64."""
     import torch
 
     from spoofsv_torch.data.text import encode_texts
@@ -242,7 +239,6 @@ def cluster_phase(dev, cuda_ms, mbf, packed, kv, cfg, T: int, smi: str) -> dict:
     spills = [ln for ln in info if "spill" in ln]
     gate(bool(spills) and all("0 bytes spill stores, 0 bytes spill loads" in ln for ln in spills),
          ("decode_cluster spills", spills))
-    lib = _build.load("decode_cluster")
     F = cfg.mel.freq_bins
     streams = {}
 
@@ -253,26 +249,21 @@ def cluster_phase(dev, cuda_ms, mbf, packed, kv, cfg, T: int, smi: str) -> dict:
         return decode_kernel.decode_fused(packed, *ins, n_frames=n_frames, freq_bins=F,
                                           plan=plan, stream=streams[plan.cluster])
 
-    def sweep(B, ins, default):
+    def cluster_sizes(B, ins, default):
+        """The default plan and the plans chosen with clusters of 16 and of 8:
+        ms, L2 bytes a frame."""
         out = {}
-        for n in (16, 8):
-            for rows in (16, 32, 64):
-                try:
-                    plan = decode_kernel.decode_cluster_plan(B, cfg.hidden_dim, F, cluster=n,
-                                                             rows=rows)
-                except ValueError as e:   # e.g. no room in shared memory
-                    log(f"[K1 cluster] B={B} cluster {n} rows {rows}: {e}")
-                    continue
-                active = lib.spoofsv_decode_cluster_max_active(
-                    plan.C, plan.fpad, n, rows, plan.chunk_bytes, plan.stages)
-                ms = cuda_ms(lambda: run(plan, ins), reps=3)
-                out[(n, rows)] = ms
-                log(f"[K1 cluster] B={B} cluster {n} rows {rows}: {plan.tiles} tiles, "
-                    f"{plan.tiles * n} CTAs, {active} clusters fit at once, smem "
-                    f"{plan.smem_bytes} B; {ms:.3f} ms = {1e3 * ms / T:.2f} us a frame; L2 "
-                    f"{plan.l2_bytes_per_frame / 1e6:.2f} MB a frame = "
-                    f"{plan.l2_bytes_per_frame * T / (ms * 1e-3) / 1e12:.3f} TB/s"
-                    f"{' (default plan)' if plan == default else ''} on [{smi}]")
+        for n in dict.fromkeys((default.cluster, 16, 8)):
+            plan = decode_kernel.decode_cluster_plan(B, cfg.hidden_dim, F, cluster=n)
+            ms = cuda_ms(lambda: run(plan, ins), reps=3)
+            out[(n, plan.rows)] = ms
+            log(f"[K1 cluster] B={B} cluster {n} rows {plan.rows}: {plan.tiles} tiles, "
+                f"{plan.tiles * n} CTAs, {plan.waves} wave(s) of at most "
+                f"{decode_kernel.H100_CLUSTERS_PER_WAVE[n]} clusters, smem {plan.smem_bytes} B; "
+                f"{ms:.3f} ms = {1e3 * ms / T:.2f} us a frame; L2 "
+                f"{plan.l2_bytes_per_frame / 1e6:.2f} MB a frame = "
+                f"{plan.l2_bytes_per_frame * T / (ms * 1e-3) / 1e12:.3f} TB/s"
+                f"{' (default plan)' if plan == default else ''} on [{smi}]")
         return out
 
     # B=64: the main path's batch
@@ -280,22 +271,9 @@ def cluster_phase(dev, cuda_ms, mbf, packed, kv, cfg, T: int, smi: str) -> dict:
     plan64 = decode_kernel.decode_cluster_plan(B, cfg.hidden_dim, F)
     log(f"[K1 cluster] plan B={B}: {plan64}; {plan64.chunks_per_frame} chunks of the weight "
         f"stream a frame, {2 * plan64.cta_elems} bytes a CTA a frame")
-    times64 = sweep(B, kv, plan64)
+    times64 = cluster_sizes(B, kv, plan64)
     ms64 = times64[(plan64.cluster, plan64.rows)]
 
-    def profile(plan, ins):
-        """The kernel's phase profile (one CTA's warp 0), as shares."""
-        prof = torch.zeros(len(decode_kernel.CLUSTER_PHASES), dtype=torch.int64, device=dev)
-        decode_kernel.decode_fused(packed, *ins, n_frames=T, freq_bins=F, plan=plan,
-                                   stream=streams[plan.cluster], profile=prof)
-        cyc = prof.cpu().numpy().astype(float)
-        layers = T * len(decode_kernel.CLUSTER_LAYERS)
-        log(f"[K1 cluster] B={ins[0].shape[0]} phase profile, plan {plan.cluster}x{plan.rows} "
-            f"({cyc.sum() / T:.0f} cycles a frame): "
-            + ", ".join(f"{k} {100 * v / cyc.sum():.1f} % ({v / layers:.0f} cycles a layer)"
-                        for k, v in zip(decode_kernel.CLUSTER_PHASES, cyc)))
-
-    profile(plan64, kv)
     # One text position: the window cannot move, so no argmax flip parts the
     # rollouts; 64 frames pass the first wrap of every ring (2d ≤ 54), and a
     # stale cache tap moves the mel by more than the gate.
@@ -315,46 +293,72 @@ def cluster_phase(dev, cuda_ms, mbf, packed, kv, cfg, T: int, smi: str) -> dict:
     torch.cuda.synchronize()
     plain_ms = start.elapsed_time(end)
 
-    # B=768: the bench batch, frames 0-1 against decode_plain
+    # B=768: the bench batch, frames 0-1 against decode_plain, on two draws of
+    # speakers
     texts = encode_texts([SENTENCES[i % len(SENTENCES)] for i in range(768)],
                          cfg.vocabulary, max_len=100)
-    spk = np.random.default_rng(5).normal(size=(768, cfg.spk_emb_dim)).astype(np.float32)
-    with torch.no_grad():
-        K, V = mbf.encode_text(torch.from_numpy(texts).to(dev))
-        sb = torch.from_numpy(spk).to(dev, torch.bfloat16)
-        kv768 = (K, V, mbf.audio_encoder.fc1(sb), mbf.audio_encoder.fc2(sb))
     plan768 = decode_kernel.decode_cluster_plan(768, cfg.hidden_dim, F)
-    y, a, p = run(plan768, kv768)
-    yq, aq, _ = decode_kernel.decode_plain(packed, *kv768, n_frames=2, freq_bins=F)
-    dy = (y[:, :2].float() - yq.float()).abs().amax(2)          # (B, 2)
-    da = (a[:, :, :2].float() - aq.float()).abs().amax(1)       # (B, 2)
-    mel2, att2 = float(dy.max()), float(da.max())
-    flip = (a[:, :, 0].float().argmax(1) != aq[:, :, 0].float().argmax(1))
-    top2 = aq[:, :, 0].float().topk(2, dim=1).values
-    bad = ((dy > 0.05) | (da > 0.02)).any(1)
-    log(f"[K1 cluster] bf16 B=768 vs decode_plain: frames 0-1 mel max|d| {mel2:.3g} (gate 0.05), "
-        f"attention max|d| {att2:.3g} (gate 0.02); frame 0 alone mel {float(dy[:, 0].max()):.3g} "
-        f"attention {float(da[:, 0].max()):.3g}; rows over a gate {int(bad.sum())} "
-        f"{bad.nonzero().flatten().tolist()[:16]}; frame-0 argmax flips {int(flip.sum())}, their "
-        f"frame-0 top-2 gaps {(top2[flip, 0] - top2[flip, 1]).tolist()[:16]}; plan {plan768}")
-    # An ulp flips a near-tied argmax (as in the onsets at B=64): a row whose
-    # frame-0 argmax differs on a tie within 2 bf16 ulps at 0.5 (2^-8) reads
-    # another window at frame 1. Frame 0 is held on every row, frames 0-1 on
-    # the others, and such rows may be at most 1 % of the batch.
-    gap = top2[flip, 0] - top2[flip, 1]
-    keep = ~flip
-    ok768 = (float(dy[:, 0].max()) <= 0.05 and float(da[:, 0].max()) <= 0.02
-             and float(dy[keep].max()) <= 0.05 and float(da[keep].max()) <= 0.02
-             and bool((gap <= 2.0 ** -8).all()) and int(flip.sum()) <= 768 // 100
-             and bool(torch.isfinite(y.float()).all()))
-    log(f"[K1 cluster] B=768 gate: frame 0 on all rows, frames 0-1 on the {int(keep.sum())} "
-        f"rows without a frame-0 near-tie flip: mel {float(dy[keep].max()):.3g}, attention "
-        f"{float(da[keep].max()):.3g} -> {'pass' if ok768 else 'FAIL'}")
-    del y, a, p, yq, aq
-    times768 = sweep(768, kv768, plan768)
-    profile(plan768, kv768)
-    gate(ok768, ("B=768", mel2, att2))
-    del kv768, K, V
+    packed32 = {k: v.float() for k, v in packed.items()}
+
+    def top2_gap(att0):   # (rows, N) frame-0 attention -> its top-2 gap
+        top = att0.float().topk(2, dim=1).values
+        return top[:, 0] - top[:, 1]
+
+    ok768 = []
+    for spk_seed in (5, 6):
+        spk = np.random.default_rng(spk_seed).normal(size=(768, cfg.spk_emb_dim))
+        with torch.no_grad():
+            K, V = mbf.encode_text(torch.from_numpy(texts).to(dev))
+            sb = torch.from_numpy(spk.astype(np.float32)).to(dev, torch.bfloat16)
+            kv768 = (K, V, mbf.audio_encoder.fc1(sb), mbf.audio_encoder.fc2(sb))
+        y, a, p = run(plan768, kv768)
+        yq, aq, _ = decode_kernel.decode_plain(packed, *kv768, n_frames=2, freq_bins=F)
+        dy = (y[:, :2].float() - yq.float()).abs().amax(2)          # (B, 2)
+        da = (a[:, :, :2].float() - aq.float()).abs().amax(1)       # (B, 2)
+        mel2, att2 = float(dy.max()), float(da.max())
+        flip = (a[:, :, 0].float().argmax(1) != aq[:, :, 0].float().argmax(1))
+        rows = flip.nonzero().flatten()
+        gap_k, gap_q = top2_gap(a[rows, :, 0]), top2_gap(aq[rows, :, 0])
+        # Two more witnesses of each flipped row's frame 0: the cluster's
+        # decomposition in plain torch (bf16, another summation order within
+        # each product), and decode_plain in f32 on the same weights and inputs
+        _, ae, _ = decode_kernel.decode_cluster_emulate(packed, *kv768, plan768, 1)
+        _, a32, _ = decode_kernel.decode_plain(packed32, *(t.float() for t in kv768), n_frames=1,
+                                               freq_bins=F)
+        g32 = top2_gap(a32[:, :, 0])                     # every row's f32 near-tie gap
+        rank32 = g32.argsort().argsort()
+        near = g32.argsort()[:5]
+        bad = ((dy > 0.05) | (da > 0.02)).any(1)
+        log(f"[K1 cluster] bf16 B=768 speakers seed {spk_seed} vs decode_plain: frames 0-1 mel "
+            f"max|d| {mel2:.3g} (gate 0.05), attention max|d| {att2:.3g} (gate 0.02); frame 0 "
+            f"alone mel {float(dy[:, 0].max()):.3g} attention {float(da[:, 0].max()):.3g}; rows "
+            f"over a gate {int(bad.sum())} {bad.nonzero().flatten().tolist()[:16]}; frame-0 "
+            f"argmax flips on rows {rows.tolist()[:16]}: top-2 gap in the kernel "
+            f"{gap_k.tolist()[:16]}, decode_plain {gap_q.tolist()[:16]}, the emulation "
+            f"{top2_gap(ae[rows, :, 0]).tolist()[:16]} (argmax as the kernel "
+            f"{(ae[rows, :, 0].float().argmax(1) == a[rows, :, 0].float().argmax(1)).tolist()[:16]}"
+            f"), f32 decode_plain {g32[rows].tolist()[:16]} (rank of 768 from the smallest "
+            f"{rank32[rows].tolist()[:16]}); smallest f32 gaps: rows {near.tolist()} "
+            f"{g32[near].tolist()}; plan {plan768}")
+        # An ulp flips a near-tied argmax (as in the onsets at B=64): a row whose
+        # frame-0 argmax differs on a tie within 2 bf16 ulps at 0.5 (2^-8) on
+        # both sides reads another window at frame 1. Frame 0 is held on every
+        # row, frames 0-1 on the others, and such rows may be at most 1 % of the
+        # batch.
+        keep = ~flip
+        ok = (float(dy[:, 0].max()) <= 0.05 and float(da[:, 0].max()) <= 0.02
+              and float(dy[keep].max()) <= 0.05 and float(da[keep].max()) <= 0.02
+              and bool((gap_q <= 2.0 ** -8).all()) and bool((gap_k <= 2.0 ** -8).all())
+              and int(flip.sum()) <= 768 // 100 and bool(torch.isfinite(y.float()).all()))
+        log(f"[K1 cluster] B=768 seed {spk_seed} gate: frame 0 on all rows, frames 0-1 on the "
+            f"{int(keep.sum())} rows without a frame-0 near-tie flip: mel "
+            f"{float(dy[keep].max()):.3g}, attention {float(da[keep].max()):.3g} -> "
+            f"{'pass' if ok else 'FAIL'}")
+        ok768.append(ok)
+        del y, a, p, yq, aq, ae, a32
+    times768 = cluster_sizes(768, kv768, plan768)
+    gate(all(ok768), ("B=768", ok768))
+    del kv768, K, V, packed32
 
     # the bound at B=64: the products (bf16, 989 TFLOP/s) against the bytes
     C, N = cfg.hidden_dim, kv[0].shape[1]
@@ -395,31 +399,6 @@ def device_view(call, smi: str) -> None:
     log(f"[main] device view of one Synthesizer call: {busy_ms:.1f} ms of device time in "
         f"{wall_ms:.1f} ms of wall ({100 * (1 - busy_ms / wall_ms):.1f} % idle); largest: "
         + ", ".join(f"{k[:60]} {v / 1e3:.1f} ms" for k, v in top) + f" on [{smi}]")
-
-
-def k1_alone(dev, cuda_ms, smi: str) -> None:
-    """``--k1``: the bf16 K1 part of phase 4 on phase 4's model and inputs
-    (seed-0 weights, the B=64 sentences and speakers)."""
-    import torch
-
-    from spoofsv_torch.config import Config
-    from spoofsv_torch.data.text import encode_texts
-    from spoofsv_torch.models import MelSyn
-    from spoofsv_torch.ops import decode_kernel
-
-    cfg = Config()
-    torch.manual_seed(0)
-    mbf = MelSyn(cfg.vocab_len, True, cfg.spk_emb_dim, cfg.text_emb_dim, cfg.mel.freq_bins,
-                 cfg.hidden_dim).to(dev, torch.bfloat16).eval()
-    texts = encode_texts([SENTENCES[i % len(SENTENCES)] for i in range(64)],
-                         cfg.vocabulary, max_len=100)
-    spk = np.random.default_rng(0).normal(size=(64, cfg.spk_emb_dim)).astype(np.float32)
-    with torch.no_grad():
-        K, V = mbf.encode_text(torch.from_numpy(texts).to(dev))
-        sb = torch.from_numpy(spk).to(dev, torch.bfloat16)
-        kv = (K, V, mbf.audio_encoder.fc1(sb), mbf.audio_encoder.fc2(sb))
-    cluster_phase(dev, cuda_ms, mbf, decode_kernel.pack_decode_weights(mbf), kv, cfg,
-                  cfg.max_frame_num, smi)
 
 
 def training_phase(cfg, dev, counters: dict, B: int, N: int, T: int):
@@ -513,10 +492,6 @@ def training_phase(cfg, dev, counters: dict, B: int, N: int, T: int):
 
 
 def main() -> None:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--k1", action="store_true",
-                        help="build, then only phase 4's bf16 K1 part; no result line")
-    args = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -563,10 +538,6 @@ def main() -> None:
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
-
-    if args.k1:
-        k1_alone(dev, cuda_ms, smi)
-        return
 
     def test_mag(B: int, T: int, seed: int) -> torch.Tensor:
         """|STFT| of harmonic test signals (realistic structure for GL)."""

@@ -21,7 +21,8 @@
 // set by each layer's synchronisation latency.
 //
 // What this design does about it.
-// - A cluster of n CTAs (16, or 8) serves a tile of up to 64 batch rows.
+// - A cluster of n CTAs (16, 8, 4 or 2) serves a tile of 16 to 64 batch
+//   rows; decode_cluster_plan chooses them by a rule timed on the card.
 //   CTA `rank` owns CH = C/n channels of every C-wide activation: the same
 //   columns of h1 and h2 in a highway step, C/n columns of the other
 //   products, fpad/n columns of the tail. So a cluster reads each layer's
@@ -40,8 +41,9 @@
 //   layer's LayerNorm exchange runs, and it wraps from frame t's tail to
 //   frame t+1's first layer.
 // - Each layer's bias and LayerNorm vectors for the CTA's columns sit in a
-//   shared-memory table, loaded once. The main path's shapes are template
-//   parameters (pick()); other shapes are read at run time. The product is
+//   shared-memory table, loaded once. The shapes of the plans that
+//   decode_cluster_plan chooses at C = 256 are template parameters (pick());
+//   other shapes are read at run time. The product is
 //   compiled once for each kind of layer (enc_w1, sq_w, highway, dec_w1,
 //   tail), so with the shapes fixed a chunk's k rows unroll and the index
 //   math folds.
@@ -63,6 +65,11 @@
 //   taps by then) and reads the full-width taps of later frames with
 //   cp.async.cg (L2, not the incoherent L1), issued while the previous
 //   layer's partials travel. The exchanges' barriers order the two.
+//
+// Built with -DSPOOFSV_K1_PROBE (spoofsv_torch/ops/k1_probe.py, a developer
+// tool; never on the product path), the library also holds instantiations
+// that fill a per-phase clock profile, more compiled plans for the plan
+// sweep, and a query of how many clusters of a plan the card holds at once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,7 +84,7 @@ constexpr int N_HW = 16;
 constexpr int N_LAYERS = 24;
 constexpr int RING_SLOTS = 256;
 constexpr float LN_EPS = 1e-5f;
-// phases of the optional profile (decode_kernel.CLUSTER_PHASES): waiting for
+// phases of the probe build's profile (k1_probe.PHASES): waiting for
 // weight chunks, the rest of the products, row partials and their stores,
 // waiting for the partials, LayerNorm and the slice's stores, score
 // partials, waiting for the slices and taps, attention and r, the products'
@@ -101,7 +108,7 @@ struct Args {
   bf16* y_out;
   bf16* a_out;
   int* pma_out;
-  long long* prof;  // null, or kPhases clock sums of CTA (0, 0)'s warp 0
+  long long* prof;  // probe build: kPhases clock sums of CTA (0, 0)'s warp 0
   int Bp, T, N, F, fpad, C, condition, n, rows, stages;
   long long cta_elems;
 };
@@ -310,9 +317,10 @@ __device__ void layer_vectors(const Args& a, int l, const float*& bias, const fl
 }
 
 // CT, FPT, NT, RT: C, fpad, the cluster size and the rows per tile, fixed at
-// compile time for the main path's plans so that their divisions fold into
+// compile time for the default plans so that their divisions fold into
 // shifts and constants (0: read from the arguments; pick() chooses). PROF:
-// the instantiation that fills a.prof (the others carry no profile code).
+// the probe build's instantiation that fills a.prof (the others carry no
+// profile code).
 template <int CT, int FPT, int NT, int RT, bool PROF>
 __global__ void __launch_bounds__(BLOCK, 1) decode_cluster_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -812,11 +820,9 @@ int clear_and_return(cudaError_t e) {
 
 typedef void (*KernelFn)(Args);
 
-// The instantiation for a plan: the main path's plans at C = 256, fpad = 128
-// (clusters of 16 with 16 rows, of 8 with 16-64 rows) with their shapes
-// fixed, any other with them read at run time; with the profile or without.
-// (Clusters of 16 with 32 or 64 rows spill with their shapes fixed: 168
-// registers is the most a thread of 9 warps gets.)
+// The instantiation for a plan: at C = 256, fpad = 128 the plans that
+// decode_cluster_plan chooses with their shapes fixed, any other with them
+// read at run time.
 template <bool PROF>
 KernelFn pick(int C, int fpad, int n, int rows) {
 #define SPOOFSV_K(N_, R_)                                  \
@@ -824,13 +830,24 @@ KernelFn pick(int C, int fpad, int n, int rows) {
   return decode_cluster_kernel<256, 128, N_, R_, PROF>
   SPOOFSV_K(16, 16);
   SPOOFSV_K(8, 16);
+  SPOOFSV_K(4, 16);
+  SPOOFSV_K(2, 16);
+#ifdef SPOOFSV_K1_PROBE
+  // the other candidates of the probe's plan sweep (clusters of 16 with 32
+  // or 64 rows spill with their shapes fixed: 168 registers is the most a
+  // thread of 9 warps gets)
   SPOOFSV_K(8, 32);
+  SPOOFSV_K(4, 32);
   SPOOFSV_K(8, 64);
+#endif
 #undef SPOOFSV_K
   return decode_cluster_kernel<0, 0, 0, 0, PROF>;
 }
 KernelFn pick(int C, int fpad, int n, int rows, bool prof) {
-  return prof ? pick<true>(C, fpad, n, rows) : pick<false>(C, fpad, n, rows);
+#ifdef SPOOFSV_K1_PROBE
+  if (prof) return pick<true>(C, fpad, n, rows);
+#endif
+  return pick<false>(C, fpad, n, rows);
 }
 
 int configure(KernelFn fn, int n, size_t smem) {
@@ -855,18 +872,10 @@ void fill_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, int n, int 
   cfg.numAttrs = 1;
 }
 
-}  // namespace
-
-extern "C" {
-
-// ptrs: K, V, s1, s2 (Bp, N|-, C) bf16; the weight stream (n, cta_elems) bf16;
-// hw_b, hw_ln, sq_b, misc_ln, enc_b1, dec_b1, tail_b5, ln5_s, ln5_b f32;
-// rings (256, Bp, C) bf16 zeroed; Y (Bp, T, F) bf16; A (Bp, N, T) bf16
-// zeroed (the kernel writes the window); pma (Bp) int32; prof null or
-// kPhases int64 (a phase profile of one CTA's warp 0). Bp = tiles·rows.
-int spoofsv_decode_cluster_launch(const void* const* p, int n, int rows, int tiles, int T, int N,
-                                  int F, int fpad, int C, int condition, int chunk, int stages,
-                                  void* stream) {
+// ptrs: see spoofsv_decode_cluster_launch; prof null (the product build) or
+// kPhases int64
+int launch(const void* const* p, long long* prof, int n, int rows, int tiles, int T, int N, int F,
+           int fpad, int C, int condition, int chunk, int stages, void* stream) {
   if (!plan_ok(C, fpad, n, rows, chunk, stages) || tiles < 1 || N < 1 || F < 2 || F % 2 ||
       F > fpad || T < 0)
     return (int)cudaErrorInvalidValue;
@@ -878,7 +887,7 @@ int spoofsv_decode_cluster_launch(const void* const* p, int n, int rows, int til
   a.misc_ln = (const float*)p[8]; a.enc_b1 = (const float*)p[9]; a.dec_b1 = (const float*)p[10];
   a.tail_b5 = (const float*)p[11]; a.ln5_s = (const float*)p[12]; a.ln5_b = (const float*)p[13];
   a.rings = (bf16*)p[14]; a.y_out = (bf16*)p[15]; a.a_out = (bf16*)p[16]; a.pma_out = (int*)p[17];
-  a.prof = (long long*)p[18];
+  a.prof = prof;
   a.Bp = tiles * rows; a.T = T; a.N = N; a.F = F; a.fpad = fpad; a.C = C;
   a.condition = condition; a.n = n; a.rows = rows; a.stages = stages;
   a.cta_elems = 0;
@@ -888,7 +897,7 @@ int spoofsv_decode_cluster_launch(const void* const* p, int n, int rows, int til
     a.cta_elems += (long long)K * ncol * 8;
   }
   const size_t smem = cluster_smem(C, fpad, n, rows, chunk, stages);
-  const KernelFn fn = pick(C, fpad, n, rows, a.prof != nullptr);
+  const KernelFn fn = pick(C, fpad, n, rows, prof != nullptr);
   int err = configure(fn, n, smem);
   if (err) return err;
   cudaLaunchConfig_t cfg;
@@ -899,9 +908,38 @@ int spoofsv_decode_cluster_launch(const void* const* p, int n, int rows, int til
   return (int)cudaGetLastError();
 }
 
+}  // namespace
+
+extern "C" {
+
+// ptrs: K, V, s1, s2 (Bp, N|-, C) bf16; the weight stream (n, cta_elems) bf16;
+// hw_b, hw_ln, sq_b, misc_ln, enc_b1, dec_b1, tail_b5, ln5_s, ln5_b f32;
+// rings (256, Bp, C) bf16 zeroed; Y (Bp, T, F) bf16; A (Bp, N, T) bf16
+// zeroed (the kernel writes the window); pma (Bp) int32. Bp = tiles·rows.
+int spoofsv_decode_cluster_launch(const void* const* p, int n, int rows, int tiles, int T, int N,
+                                  int F, int fpad, int C, int condition, int chunk, int stages,
+                                  void* stream) {
+  return launch(p, nullptr, n, rows, tiles, T, N, F, fpad, C, condition, chunk, stages, stream);
+}
+
 // Dynamic shared memory of one CTA, in bytes (the plan states the same).
 int spoofsv_decode_cluster_smem(int C, int fpad, int n, int rows, int chunk, int stages) {
   return (int)cluster_smem(C, fpad, n, rows, chunk, stages);
+}
+
+const char* spoofsv_decode_cluster_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+#ifdef SPOOFSV_K1_PROBE
+// As spoofsv_decode_cluster_launch, filling prof (kPhases int64): the clock
+// of each phase in CTA (0, 0)'s warp 0, summed over the run.
+int spoofsv_decode_cluster_probe_launch(const void* const* p, void* prof, int n, int rows,
+                                        int tiles, int T, int N, int F, int fpad, int C,
+                                        int condition, int chunk, int stages, void* stream) {
+  if (!prof) return (int)cudaErrorInvalidValue;
+  return launch(p, (long long*)prof, n, rows, tiles, T, N, F, fpad, C, condition, chunk, stages,
+                stream);
 }
 
 // Clusters of this plan that the card can hold at once (0 if none), or a
@@ -920,9 +958,6 @@ int spoofsv_decode_cluster_max_active(int C, int fpad, int n, int rows, int chun
   if (e != cudaSuccess) return -clear_and_return(e);
   return count;
 }
-
-const char* spoofsv_decode_cluster_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
-}
+#endif
 
 }  // extern "C"

@@ -41,6 +41,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
     "decode_cluster": {
         "spoofsv_decode_cluster_launch": (_I, [_P] + [_I] * 11 + [_P]),
         "spoofsv_decode_cluster_smem": (_I, [_I] * 6),
+        "spoofsv_decode_cluster_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "decode_cluster_probe": {
+        "spoofsv_decode_cluster_launch": (_I, [_P] + [_I] * 11 + [_P]),
+        "spoofsv_decode_cluster_probe_launch": (_I, [_P, _P] + [_I] * 11 + [_P]),
         "spoofsv_decode_cluster_max_active": (_I, [_I] * 6),
         "spoofsv_decode_cluster_error_string": (ctypes.c_char_p, [_I]),
     },
@@ -60,6 +65,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         "spoofsv_hconv_pair_smem": (_I, [_I, _I]),
         "spoofsv_hconv_pair_error_string": (ctypes.c_char_p, [_I]),
     },
+}
+
+# builds of a source with extra flags, for development tools only
+# (build_all skips them): name -> (source, flags)
+VARIANTS: Dict[str, Tuple[str, List[str]]] = {
+    "decode_cluster_probe": ("decode_cluster", ["-DSPOOFSV_K1_PROBE"]),
 }
 
 # the kernels' storage-type argument
@@ -86,28 +97,29 @@ def nvcc() -> str:
     return found
 
 
-def _target(name: str) -> Tuple[Path, Path]:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, BUILD_DIR / f"lib{name}_{digest}.so"
+def _target(name: str) -> Tuple[Path, Path, List[str]]:
+    source, extra = VARIANTS.get(name, (name, []))
+    src, flags = CSRC / f"{source}.cu", NVCC_FLAGS + extra
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    return src, BUILD_DIR / f"lib{name}_{digest}.so", flags
 
 
 def _start(name: str) -> Optional[Tuple[subprocess.Popen, Path, float]]:
     """Start ``nvcc`` for ``name`` unless its library is built; returns the
     process, its temporary output and its start time."""
-    src, out = _target(name)
+    src, out, flags = _target(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+    proc = subprocess.Popen([nvcc(), *flags, "-o", str(tmp), str(src)],
                             stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
     return proc, tmp, time.perf_counter()
 
 
 def _finish(name: str, started: Optional[Tuple[subprocess.Popen, Path, float]]) -> ctypes.CDLL:
     """Wait for the build of ``name`` (if one was started), then load and bind it."""
-    src, out = _target(name)
+    src, out, _ = _target(name)
     info = {"source": str(src.relative_to(PKG.parent)), "cached": started is None}
     log = out.with_suffix(".ptxas")   # the build's ptxas lines, kept beside the library
     if started is not None:
@@ -138,9 +150,11 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def build_all() -> Dict[str, dict]:
-    """Build every kernel library, one ``nvcc`` per source started together,
-    and load them; returns the build log."""
-    started = {name: _start(name) for name in SIGNATURES if name not in _LIBS}
+    """Build every kernel library (not the development :data:`VARIANTS`),
+    one ``nvcc`` per source started together, and load them; returns the
+    build log."""
+    started = {name: _start(name) for name in SIGNATURES
+               if name not in _LIBS and name not in VARIANTS}
     try:
         for name, proc in started.items():
             _finish(name, proc)

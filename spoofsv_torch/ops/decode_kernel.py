@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 from typing import Dict, List, Optional, Tuple
 
@@ -185,7 +186,12 @@ CLUSTER_THREADS = 256          # 8 warps a CTA
 CLUSTER_CHUNK = 16384          # bytes of weight stream per ring stage
 CLUSTER_STAGES = 8            # ring stages (8, else 4 or 2 where memory is short)
 SMEM_LIMIT = 232448            # dynamic shared memory one block may use (H100)
-H100_SMS = 132
+# Clusters of each size that one H100 SXM runs at once when every CTA needs
+# an SM of its own, as every plan at C = 256 does (more than half an SM's
+# shared memory): cudaOccupancyMaxActiveClusters on the card for 16-2
+# (python3 -m spoofsv_torch.ops.k1_probe), the 132 SMs for 1. A plan whose
+# tiles exceed this runs in more than one wave.
+H100_CLUSTERS_PER_WAVE = {16: 7, 8: 15, 4: 30, 2: 66, 1: 132}
 RING_SLOTS = 256               # Σ 2d over HW_DILATIONS, as csrc/decode.cu
 # the frame's products in execution order: (matrix, index, kind); kind "c" has
 # C output columns, "hw" the highway's [h1 | h2] 2C, "f" the fpad-wide tail
@@ -232,6 +238,11 @@ class ClusterPlan:
     @property
     def bp(self) -> int:
         return self.tiles * self.rows
+
+    @property
+    def waves(self) -> int:
+        """Waves of clusters the grid takes on an H100."""
+        return -(-self.tiles // H100_CLUSTERS_PER_WAVE[self.cluster])
 
     @property
     def layers(self) -> Tuple[Tuple[int, int], ...]:
@@ -299,15 +310,21 @@ class ClusterPlan:
         return None
 
 
+@functools.lru_cache(maxsize=None)   # a plain function of its arguments, asked every call
 def decode_cluster_plan(batch: int, C: int, freq_bins: int = 80, *,
                         cluster: Optional[int] = None, rows: Optional[int] = None
                         ) -> ClusterPlan:
     """The cluster kernel's plan for ``batch`` rows of width ``C``.
 
-    Default: the largest cluster (16, 8, ...) and the fewest rows per tile
-    (16, 32, 64) whose grid fits the card's 132 SMs in one wave; failing
-    that, the largest valid cluster and rows; the deepest ring of weight
-    chunks that fits. ``cluster`` / ``rows`` force a choice. Raises ``ValueError`` when the kernel cannot take the shapes."""
+    Default: the fewest rows per tile (16, 32, 64), then the largest cluster
+    (16, 8, ...), whose tiles run in one wave on an H100; failing that, the
+    fewest waves, then the same order. At C=256 that is 16×16 up to B=112,
+    8×16 to 240, 4×16 to 480, 2×16 to 1056: on the card each was the
+    fastest plan of at most two waves at B = 64, 128, 256, 512, and 2×16
+    within 1.1 % of the fastest at 768 (``k1_probe``; ``PERF.md`` §6).
+    Each plan gets the deepest ring of weight chunks that fits. ``cluster``
+    / ``rows`` force a choice. Raises ``ValueError`` when the kernel cannot
+    take the shapes."""
     if batch < 1:
         raise ValueError(f"batch must be ≥ 1, got {batch}")
     if C % 32 or C < 32:
@@ -322,16 +339,12 @@ def decode_cluster_plan(batch: int, C: int, freq_bins: int = 80, *,
                  for s in (8, 4, 2)]
         return next((p for p in plans if p.refusal() is None), plans[-1])
 
-    cands = [make(n, r) for n in ([cluster] if cluster else [16, 8, 4, 2, 1])
-             for r in ([rows] if rows else [16, 32, 64])]
+    cands = [make(n, r) for r in ([rows] if rows else [16, 32, 64])
+             for n in ([cluster] if cluster else [16, 8, 4, 2, 1])]
     valid = [p for p in cands if p.refusal() is None]
     if not valid:
         raise ValueError(f"no cluster plan for B={batch} C={C}: {cands[0].refusal()}")
-    one_wave = [p for p in valid if p.tiles * p.cluster <= H100_SMS]
-    if one_wave:
-        return one_wave[0]
-    top = max(p.cluster for p in valid)
-    return max((p for p in valid if p.cluster == top), key=lambda p: p.rows)
+    return min(valid, key=lambda p: p.waves)   # the first of the fewest waves
 
 
 def _layer_columns(kind: str, rank: int, plan: ClusterPlan) -> torch.Tensor:
@@ -516,8 +529,7 @@ def decode_fused(packed: Dict[str, torch.Tensor], K: torch.Tensor, V: torch.Tens
                  s1: Optional[torch.Tensor], s2: Optional[torch.Tensor], *,
                  n_frames: int, freq_bins: int, condition: bool = True,
                  monotonic: bool = True, rows: Optional[int] = None,
-                 plan: Optional[ClusterPlan] = None, stream: Optional[torch.Tensor] = None,
-                 profile: Optional[torch.Tensor] = None
+                 plan: Optional[ClusterPlan] = None, stream: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run the rollout. ``K``/``V``: (B, N, C) in f32 or bf16; ``s1``/``s2``:
     (B, C) speaker projections (None when unconditioned). Returns
@@ -528,18 +540,14 @@ def decode_fused(packed: Dict[str, torch.Tensor], K: torch.Tensor, V: torch.Tens
     :func:`decode_cluster_plan`) and the weight ``stream`` of
     :func:`pack_decode_stream` (built here when not given); f32
     ``csrc/decode.cu`` with ``rows`` batch rows per block (1, 2 or 4;
-    default :func:`rows_per_block`). Plan and row count change speed only.
-    ``profile``, an int64 CUDA tensor of ``len(CLUSTER_PHASES)`` entries,
-    receives the bf16 kernel's phase profile (clock cycles of one CTA's
-    warp 0)."""
+    default :func:`rows_per_block`). Plan and row count change speed only."""
     if K.device.type == "cpu":
         return decode_plain(packed, K, V, s1, s2, n_frames=n_frames, freq_bins=freq_bins,
                             condition=condition, monotonic=monotonic)
     if not monotonic:
         raise ValueError("the decode kernel implements monotonic attention only")
     if K.dtype == torch.bfloat16:
-        return _decode_cluster(packed, K, V, s1, s2, n_frames, freq_bins, condition, plan, stream,
-                               profile)
+        return _decode_cluster(packed, K, V, s1, s2, n_frames, freq_bins, condition, plan, stream)
     B, N, C = K.shape
     dt = K.dtype
     if dt != torch.float32:
@@ -579,15 +587,13 @@ def decode_fused(packed: Dict[str, torch.Tensor], K: torch.Tensor, V: torch.Tens
 # the f32 vectors of the packed weights, in decode_cluster.cu's argument order
 CLUSTER_VECTORS = ("hw_b", "hw_ln", "sq_b", "misc_ln", "enc_b1", "dec_b1", "tail_b5",
                    "ln5_s", "ln5_b")
-# the kernel's profile phases, in its order (kPhases)
-CLUSTER_PHASES = ("chunk wait", "products", "row partials", "partials exchange", "norm",
-                  "scores", "slice exchange + taps", "attention", "product epilogue + barrier",
-                  "product entry", "tap copies issued")
 
 
-def _decode_cluster(packed, K, V, s1, s2, n_frames, freq_bins, condition, plan, stream,
-                    profile=None):
-    """bf16 K1 through ``csrc/decode_cluster.cu`` (see :func:`decode_fused`)."""
+def cluster_launch_args(packed, K, V, s1, s2, n_frames, freq_bins, plan, stream):
+    """Check the bf16 kernel's inputs against ``plan`` (default
+    :func:`decode_cluster_plan`) and allocate its outputs: returns the plan,
+    the 18 tensors whose pointers ``spoofsv_decode_cluster_launch`` takes, and
+    (Y, A, pma) cut to the batch."""
     B, N, C = K.shape
     dev, dt = K.device, K.dtype
     plan = plan or decode_cluster_plan(B, C, freq_bins)
@@ -599,7 +605,6 @@ def _decode_cluster(packed, K, V, s1, s2, n_frames, freq_bins, condition, plan, 
         raise ValueError(f"cluster decode plan refused: {why}")
     if packed["tail_w5"].shape[1] != plan.fpad:
         raise ValueError(f"packed tail width {packed['tail_w5'].shape[1]} != fpad {plan.fpad}")
-    lib = _build.load("decode_cluster")
     if stream is None:
         stream = pack_decode_stream({k: packed[k].to(dev) for k in MATRIX_NAMES}, plan)
     if stream.dtype != dt or tuple(stream.shape) != (plan.cluster, plan.cta_elems):
@@ -620,20 +625,24 @@ def _decode_cluster(packed, K, V, s1, s2, n_frames, freq_bins, condition, plan, 
     a = torch.zeros(Bp, N, n_frames, device=dev, dtype=dt)   # the kernel writes the window
     pma = torch.empty(Bp, device=dev, dtype=torch.int32)
     tensors = [rowpad(K), rowpad(V), rowpad(s1), rowpad(s2), stream] + vecs + [rings, y, a, pma]
-    if profile is not None:
-        if profile.dtype != torch.int64 or profile.numel() != len(CLUSTER_PHASES):
-            raise ValueError(f"profile must be int64 of {len(CLUSTER_PHASES)} entries")
-        tensors.append(profile)
     _build.require_cuda(*tensors)
-    ptrs = (ctypes.c_void_p * 19)(*[t.data_ptr() for t in tensors])   # no profile: null
+    return plan, tensors, (y[:B], a[:B], pma[:B])
+
+
+def _decode_cluster(packed, K, V, s1, s2, n_frames, freq_bins, condition, plan, stream):
+    """bf16 K1 through ``csrc/decode_cluster.cu`` (see :func:`decode_fused`)."""
+    lib = _build.load("decode_cluster")
+    plan, tensors, (y, a, pma) = cluster_launch_args(packed, K, V, s1, s2, n_frames, freq_bins,
+                                                     plan, stream)
+    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
     err = lib.spoofsv_decode_cluster_launch(ptrs, plan.cluster, plan.rows, plan.tiles, n_frames,
-                                            N, freq_bins, plan.fpad, C, int(condition),
-                                            plan.chunk_bytes, plan.stages,
-                                            _build.stream_ptr(dev))
+                                            K.shape[1], freq_bins, plan.fpad, K.shape[2],
+                                            int(condition), plan.chunk_bytes, plan.stages,
+                                            _build.stream_ptr(K.device))
     _build.check(lib, "decode_cluster", err, "decode_cluster_kernel")
     decode_kernel.launches += 1
     cluster_kernel.launches += 1
-    return y[:B], a[:B], pma[:B].long()
+    return y, a, pma.long()
 
 
 def make_fused_decoder(model: MelSyn, n_frames: int, monotonic: bool = True):

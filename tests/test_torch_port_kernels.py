@@ -143,7 +143,9 @@ def _cluster_case(dev, B, N, C, freq, seed, condition=True):
     (6, 12, 64, 16, 8, 16, True), (6, 12, 64, 16, 4, 32, False), (5, 9, 32, 16, 4, 16, True),
     (3, 4, 32, 80, 2, 64, True),                        # text shorter than the window's reach
     (64, 100, 256, 80, 16, 16, True), (64, 100, 256, 80, 8, 64, True),
-    (40, 30, 256, 80, 16, 32, True), (70, 20, 256, 80, 8, 32, True)])   # ragged last tile
+    (64, 100, 256, 80, 8, 16, True), (40, 30, 256, 80, 4, 16, True),
+    (40, 30, 256, 80, 16, 32, True), (70, 20, 256, 80, 8, 32, True),   # ragged last tile
+    (70, 20, 256, 80, 2, 16, True)])
 def test_decode_cluster_matches_plain(dev, B, N, C, freq, cluster, rows, condition):
     """bf16 K1 (decode_cluster.cu) against decode_plain over frames 0-1 (the
     gates of chip_smoke.py: mel 0.05, attention 0.02) and against the
@@ -170,7 +172,7 @@ def test_decode_cluster_matches_plain(dev, B, N, C, freq, cluster, rows, conditi
 
 
 @pytest.mark.parametrize("B,C,freq,cluster,rows", [
-    (5, 64, 16, 8, 16), (64, 256, 80, 16, 16), (70, 256, 80, 8, 64)])
+    (5, 64, 16, 8, 16), (64, 256, 80, 16, 16), (70, 256, 80, 8, 64), (70, 256, 80, 2, 16)])
 def test_decode_cluster_long_rollout_matches_plain(dev, B, C, freq, cluster, rows):
     """One text position: the attention window cannot move, so no argmax
     flip parts the rollouts, and bf16 K1 is held to decode_plain over 64
@@ -203,7 +205,7 @@ def test_decode_cluster_launch_refusal(dev):
     with pytest.raises(ValueError, match="cluster decode plan refused"):
         decode_kernel.decode_fused(packed, K, V, s1, s2, n_frames=2, freq_bins=16, plan=bad)
     lib = _build.load("decode_cluster")
-    ptrs = (ctypes.c_void_p * 19)(*([K.data_ptr()] * 18))
+    ptrs = (ctypes.c_void_p * 18)(*([K.data_ptr()] * 18))
     err = lib.spoofsv_decode_cluster_launch(ptrs, 16, 16, 1, 2, 8, 16, 128, 64, 1, 16384, 4,
                                             _build.stream_ptr(dev))
     assert err != 0
