@@ -7,7 +7,11 @@ device and ``nvcc``; without a device it exits non-zero and prints no result.
 Phases (any failure raises and exits non-zero):
   1. card name/power limit; build the kernels from ``spoofsv_torch/csrc/``;
   2. K2 (GL phase init) vs its plain version at the main path's B=64, T=1300;
-  3. K3 (Griffin-Lim) vs plain torch GL at B=64, T=1300, same init;
+  3. K3 (Griffin-Lim) at B=64, T=1300 from the same init: the tensor-core
+     K3 (``csrc/gl_tc.cu``) in int8 and in bf16 against its plain version
+     (1 iteration at momentum 0) and GL12 against plain f32 GL (spectral
+     convergence), its ptxas lines (spills fail); the f32 K3
+     (``csrc/gl.cu``, the "highest" route) against plain f32 GL;
   4. K1 (decode) at the main path's B=64, N=100, T=325: f32
      (``csrc/decode.cu``) vs the plain eager decode, and bf16
      (``csrc/decode_cluster.cu``) vs ``decode_plain`` (the kernel's
@@ -18,7 +22,8 @@ Phases (any failure raises and exits non-zero):
      frame;
   5. the main path: ``Synthesizer`` at full width in bf16, B=64, N=100,
      T=325, GL12 from the SPSI init, then ``finalize_audio``; launch counts
-     reset just before and read just after; per-stage times and one call
+     reset just before and read just after (K1 through decode_cluster.cu
+     once, K3 through gl_tc.cu once and gl.cu never); per-stage times and one call
      under ``torch.profiler`` (device time, idle share, the largest
      kernels); plus a small f32 end-to-end
      comparison of the CUDA path against the CPU path;
@@ -211,6 +216,96 @@ def highway_kernel_phase(dev, cuda_ms, kernels: dict) -> None:
         log(f"[{name}] grads vs plain autograd B=2 T={T} C={C}: max|d| {worst:.3g} "
             f"(gate atol 5e-4 + rtol 1e-4)")
         gate(excess <= 0.0, (name, worst))
+
+
+def gl_phase(dev, cuda_ms, mag, init, kernels: dict, spectral_err, smi: str) -> None:
+    """Phase 3 at the main path's B=64, T=1300, from the same SPSI init: the
+    tensor-core K3 (``csrc/gl_tc.cu``) in int8 and in bf16 against its plain
+    version (1 iteration at momentum 0, rel-L2 < 0.03) and GL12 against plain
+    f32 GL (spectral convergence within 0.02), its ptxas lines (spills fail);
+    the f32 K3 (``csrc/gl.cu``) against plain f32 GL under the same gates.
+    Times, and each route's bound."""
+    import torch
+
+    from spoofsv_torch.dsp import torchdsp
+    from spoofsv_torch.ops import _build, gl_kernel
+
+    info = _build.BUILD_LOG["gl_tc"].get("ptxas", [])
+    for ln in info:
+        log(f"[K3 tc] ptxas: {ln.strip()}")
+    spills = [ln for ln in info if "spill" in ln]
+    gate(len(spills) == 3 and all("0 bytes spill stores, 0 bytes spill loads" in ln
+                                  for ln in spills), ("gl_tc spills", spills))
+    r12 = torchdsp.griffin_lim(mag, NFFT, HOP, n_iter=12, momentum=0.99, init_angles=init)
+    sc_f32 = spectral_err(r12, mag)
+    f32_plain = cuda_ms(lambda: torchdsp.griffin_lim(mag, NFFT, HOP, n_iter=12, init_angles=init),
+                        reps=2)
+    Bm, Tm, Fm = mag.shape
+    frames = Bm * Tm
+    # bytes every route must move: |S| and the initial angles in, the audio out (f32)
+    gl_bytes = 4.0 * (3 * mag.numel() + Bm * HOP * (Tm - 1))
+    tc = {}
+    for int8 in (True, False):
+        name = "int8" if int8 else "bf16"
+        g1 = gl_kernel.griffin_lim_tc(mag, NFFT, HOP, n_iter=1, momentum=0.0, init_angles=init,
+                                      int8=int8)
+        p1 = gl_kernel.griffin_lim_tc_plain(mag, *init, NFFT, HOP, 1, 0.0, int8)
+        rel1 = float(torch.linalg.norm(g1 - p1) / torch.linalg.norm(p1))
+        err1 = float((g1 - p1).abs().max())
+        g12 = gl_kernel.griffin_lim_tc(mag, NFFT, HOP, n_iter=12, init_angles=init, int8=int8)
+        p12 = gl_kernel.griffin_lim_tc_plain(mag, *init, NFFT, HOP, 12, 0.99, int8)
+        sc_k, sc_p = spectral_err(g12, mag), spectral_err(p12, mag)
+        rel12 = float(torch.linalg.norm(g12 - p12) / torch.linalg.norm(p12))
+        log(f"[K3 tc {name}] 1 iter mom 0 vs its plain version: rel-L2 {rel1:.3g} (gate < 0.03), "
+            f"max|d| {err1:.3g}; GL12 mom 0.99: spectral conv kernel {sc_k:.5f}, its plain "
+            f"version {sc_p:.5f}, plain f32 GL {sc_f32:.5f} (gate |kernel - f32| <= 0.02); "
+            f"GL12 rel-L2 vs its plain version {rel12:.3g} (context)")
+        gate(rel1 < 0.03, (name, rel1))
+        gate(abs(sc_k - sc_f32) <= 0.02, (name, sc_k, sc_f32))
+        ms = cuda_ms(lambda: gl_kernel.griffin_lim_tc(mag, NFFT, HOP, n_iter=12, init_angles=init,
+                                                      int8=int8), reps=5)
+        plain = cuda_ms(lambda: gl_kernel.griffin_lim_tc_plain(mag, *init, NFFT, HOP, 12, 0.99,
+                                                               int8), reps=1)
+        # operations: per frame and iteration a synthesis and an analysis
+        # product of 1024 x 1024 multiply-adds, plus the final bf16 synthesis
+        ops = 2.0 * 1024 * 1024 * frames
+        t_ops = (12 * 2 * ops / (1979e12 if int8 else 989e12) + ops / 989e12)
+        t_bytes = gl_bytes / 3.35e12
+        b_ms, b_by = 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+        log(f"[K3 tc {name}] B={Bm} T={Tm} GL12: kernel {ms:.3f} ms (13 launches), its plain "
+            f"version {plain:.3f} ms, plain f32 GL {f32_plain:.3f} ms; bound {b_ms:.4f} ms "
+            f"({b_by}: {12 * 2 * ops / 1e12:.3f} T{'OP' if int8 else 'FLOP'} + "
+            f"{ops / 1e12:.3f} TFLOP bf16, {gl_bytes / 1e9:.3f} GB) on [{smi}]")
+        tc[int8] = dict(max_abs_err=err1, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+        del g1, p1, g12, p12
+    kernels["griffin_lim"] = dict(
+        name="griffin_lim", route="cuda", source="spoofsv_torch/csrc/gl_tc.cu",
+        replaces="spoofsv_tpu/ops/pallas_gl.py:122", library_ms=None, **tc[True])
+    log(f"[K3 tc] JSON entry: int8 (the main path's); bf16 {tc[False]['ms']:.3f} ms, bound "
+        f"{tc[False]['bound_ms']:.4f} ms")
+
+    # the f32 K3, the "highest" precision route
+    g1 = gl_kernel.griffin_lim_fused(mag, NFFT, HOP, n_iter=1, momentum=0.0, init_angles=init)
+    r1 = torchdsp.griffin_lim(mag, NFFT, HOP, n_iter=1, momentum=0.0, init_angles=init)
+    rel1 = float(torch.linalg.norm(g1 - r1) / torch.linalg.norm(r1))
+    err1 = float((g1 - r1).abs().max())
+    g12 = gl_kernel.griffin_lim_fused(mag, NFFT, HOP, n_iter=12, momentum=0.99, init_angles=init)
+    sc_k = spectral_err(g12, mag)
+    log(f"[K3 f32] 1 iter mom 0: rel-L2 {rel1:.3g} (gate < 0.03), max|d| {err1:.3g}; GL12 mom "
+        f"0.99: spectral conv kernel {sc_k:.5f} plain {sc_f32:.5f} (gate delta <= 0.02)")
+    gate(rel1 < 0.03, rel1)
+    gate(abs(sc_k - sc_f32) <= 0.02, (sc_k, sc_f32))
+    ms = cuda_ms(lambda: gl_kernel.griffin_lim_fused(mag, NFFT, HOP, n_iter=12, init_angles=init))
+    # 12 iterations of an inverse and a forward real FFT per frame (2.5·n·log2 n
+    # operations each, f32 at 67 TFLOP/s) against the same bytes
+    gl_flop = 12 * frames * (2 * 2.5 * NFFT * np.log2(NFFT) + 10 * Fm)
+    b_ms, b_by = bound_ms(gl_flop, gl_bytes, 67e12)
+    log(f"[K3 f32] B={Bm} T={Tm} GL12: kernel {ms:.3f} ms, plain {f32_plain:.3f} ms; bound "
+        f"{b_ms:.4f} ms ({b_by}: {gl_flop / 1e9:.1f} GFLOP, {gl_bytes / 1e9:.3f} GB)")
+    kernels["griffin_lim_f32"] = dict(
+        name="griffin_lim_f32", route="cuda", source="spoofsv_torch/csrc/gl.cu",
+        replaces="spoofsv_tpu/ops/pallas_gl.py:122", max_abs_err=err1, ms=ms,
+        plain_ms=f32_plain, bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
 def bound_ms(flop: float, nbytes: float, peak_flops: float) -> tuple:
@@ -590,39 +685,10 @@ def main() -> None:
         replaces="spoofsv_tpu/ops/pallas_gl.py:618", max_abs_err=spsi_err, ms=k2_ms,
         plain_ms=k2_plain, bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
-    # ---- phase 3: K3 vs plain torch GL -----------------------------------------
+    # ---- phase 3: K3 vs its plain versions -------------------------------------
     init = (p_re, p_im)
-    g1 = gl_kernel.griffin_lim_fused(mag, NFFT, HOP, n_iter=1, momentum=0.0, init_angles=init)
-    r1 = torchdsp.griffin_lim(mag, NFFT, HOP, n_iter=1, momentum=0.0, init_angles=init)
-    rel1 = float(torch.linalg.norm(g1 - r1) / torch.linalg.norm(r1))
-    gl_err = float((g1 - r1).abs().max())
-    g12 = gl_kernel.griffin_lim_fused(mag, NFFT, HOP, n_iter=12, momentum=0.99, init_angles=init)
-    r12 = torchdsp.griffin_lim(mag, NFFT, HOP, n_iter=12, momentum=0.99, init_angles=init)
-    sc_k, sc_p = spectral_err(g12, mag), spectral_err(r12, mag)
-    log(f"[K3] arithmetic: {gl_kernel.ARITHMETIC}")
-    log(f"[K3] 1 iter mom 0: rel-L2 {rel1:.3g} (gate < 0.03), max|d| {gl_err:.3g}; "
-        f"12 iter mom 0.99: spectral conv kernel {sc_k:.5f} plain {sc_p:.5f} "
-        f"(gate delta <= 0.02)")
-    gate(rel1 < 0.03, rel1)
-    gate(abs(sc_k - sc_p) <= 0.02, (sc_k, sc_p))
-    k3_ms = cuda_ms(lambda: gl_kernel.griffin_lim_fused(mag, NFFT, HOP, n_iter=12,
-                                                        init_angles=init))
-    k3_plain = cuda_ms(lambda: torchdsp.griffin_lim(mag, NFFT, HOP, n_iter=12,
-                                                    init_angles=init))
-    log(f"[K3] B=64 T=1300 GL12: kernel {k3_ms:.3f} ms, plain {k3_plain:.3f} ms")
-    # bound: 12 iterations of an inverse and a forward real FFT per frame
-    # (2.5·n·log2 n operations each, f32 at 67 TFLOP/s) against |S| and the
-    # initial angles in, the audio out (f32)
-    Bm, Tm = mag.shape[0], mag.shape[1]
-    gl_flop = 12 * Bm * Tm * (2 * 2.5 * NFFT * np.log2(NFFT) + 10 * mag.shape[2])
-    gl_bytes = 4.0 * (3 * mag.numel() + Bm * HOP * (Tm - 1))
-    b_ms, b_by = bound_ms(gl_flop, gl_bytes, 67e12)
-    log(f"[K3] bound {b_ms:.4f} ms ({b_by}: {gl_flop / 1e9:.1f} GFLOP, {gl_bytes / 1e9:.3f} GB)")
-    kernels["griffin_lim"] = dict(
-        name="griffin_lim", route="cuda", source="spoofsv_torch/csrc/gl.cu",
-        replaces="spoofsv_tpu/ops/pallas_gl.py:122", max_abs_err=gl_err, ms=k3_ms,
-        plain_ms=k3_plain, bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    del mag, init, g1, r1, g12, r12, k_re, k_im, p_re, p_im, h_re, h_im, q_re, q_im
+    gl_phase(dev, cuda_ms, mag, init, kernels, spectral_err, smi)
+    del mag, init, k_re, k_im, p_re, p_im, h_re, h_im, q_re, q_im
 
     # ---- phase 4: K1 vs the plain eager decode --------------------------------
     cfg = Config()
@@ -715,7 +781,7 @@ def main() -> None:
     syn = Synthesizer(cfg, mbf, sbf, n_frames=cfg.max_frame_num,
                       gl_iters=cfg.tpu.griffin_lim_iters)
     counters = {"decode": decode_kernel.decode_kernel, "gl_init": gl_kernel.init_kernel,
-                "griffin_lim": gl_kernel.gl_kernel}
+                "griffin_lim": gl_kernel.gl_tc_kernel, "griffin_lim_f32": gl_kernel.gl_kernel}
     cluster = decode_kernel.cluster_kernel   # the bf16 K1 source alone
 
     def drive() -> dict:
@@ -746,9 +812,11 @@ def main() -> None:
     B, L = audio.shape
     log(f"[main] launches {launches}, of which decode_cluster.cu {cluster.launches}; audio "
         f"{tuple(audio.shape)}; first call {first_s:.3f} s")
-    gate(all(n > 0 for n in launches.values()), launches)
+    gate(all(n > 0 for k, n in launches.items() if k != "griffin_lim_f32"), launches)
     gate(launches["decode"] == 1 and cluster.launches == 1,
          ("the main path's K1 did not run decode_cluster.cu once", launches, cluster.launches))
+    gate(launches["griffin_lim"] == 1 and launches["griffin_lim_f32"] == 0,
+         ("the main path's K3 did not run gl_tc.cu once and gl.cu never", launches))
     gate((B, L) == (64, HOP * (4 * cfg.max_frame_num - 1)), audio.shape)
     gate(mel.shape == (64, cfg.max_frame_num, cfg.mel.freq_bins)
          and attn.shape == (64, 100, cfg.max_frame_num), (mel.shape, attn.shape))
@@ -777,7 +845,10 @@ def main() -> None:
     del mbf, sbf, syn, staged, fused_bf, plain_bf, audio, mel, attn
 
     # small f32 end-to-end: the CUDA path against the CPU (plain) path
-    tiny = dataclasses.replace(cfg.tpu, griffin_lim_iters=4)
+    # "highest": the f32 K3 on the card, plain f32 GL on the CPU (int8 GL
+    # turns the paths' ~1e-6 mel differences into rounding flips that momentum
+    # amplifies; phase 3 holds the int8 K3 against its plain version)
+    tiny = dataclasses.replace(cfg.tpu, griffin_lim_iters=4, griffin_lim_precision="highest")
     cfg_s = cfg.replace(tpu=tiny)
     m_c, s_c = build_models(torch.float32, seed=3)
     m_h = MelSyn(cfg.vocab_len, True, cfg.spk_emb_dim, cfg.text_emb_dim,

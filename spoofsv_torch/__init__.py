@@ -20,12 +20,14 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``device`` (str, ``torch.device`` or None → CPU) as a ``torch.device``.
+    """``device`` (str, ``torch.device`` or None → the card) as a ``torch.device``.
 
-    Raises ``RuntimeError`` when a CUDA device is asked for and no card is
-    present: there is no silent CPU fallback.
+    The port's entry points run on the card unless the caller passes
+    ``device="cpu"``. Raises ``RuntimeError`` when a CUDA device is asked for
+    (or implied by None) and no card is present: there is no silent CPU
+    fallback.
     """
-    dev = torch.device(device if device is not None else "cpu")
+    dev = torch.device(device if device is not None else "cuda")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but torch.cuda.is_available() is False")
     return dev

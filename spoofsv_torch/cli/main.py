@@ -11,6 +11,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from spoofsv_torch import resolve_device
 from spoofsv_torch.config import Config
 from spoofsv_torch.models import SSRN, MelSyn
 from spoofsv_torch.models.layers import set_default_gate_impl
@@ -44,7 +45,10 @@ def apply_runtime_knobs(cfg: Config, infer: bool = False) -> None:
 def build_models(cfg: Config, pattern: str = "conditional", dtype: Optional[torch.dtype] = None,
                  device=None) -> Tuple[MelSyn, SSRN]:
     """Text2Mel and SSRN with the configuration's widths (dropout 0.05 when
-    ``cfg.apply_dropout``). The discriminators are not ported yet."""
+    ``cfg.apply_dropout``) on ``device``: the card unless the caller passes
+    ``device="cpu"`` (:func:`spoofsv_torch.resolve_device`, which raises
+    without a card). The discriminators are not ported yet."""
+    device = resolve_device(device)
     dropout = 0.05 if cfg.apply_dropout else 0.0
     melsyn = MelSyn(cfg.vocab_len, pattern == "conditional", cfg.spk_emb_dim, cfg.text_emb_dim,
                     cfg.mel.freq_bins, cfg.hidden_dim, dropout)

@@ -3,8 +3,11 @@
 Port of :mod:`spoofsv_tpu.infer.synthesize` (``make_vocoder``,
 ``finalize_audio``, ``Synthesizer``). Tensors on a CUDA device go through
 the hand-written kernels (decode K1, GL init K2, Griffin-Lim K3); tensors on
-the CPU go through their plain PyTorch versions. Data-parallel synthesis over
-several devices is not part of this module.
+the CPU go through their plain PyTorch versions. The routes follow the
+configuration as the JAX package's do (:func:`gl_route`,
+:func:`decode_route`); a value the port does not take raises
+``ValueError``. Data-parallel synthesis over several devices is not part of
+this module.
 """
 
 from __future__ import annotations
@@ -19,8 +22,52 @@ from spoofsv_torch.dsp import host as dsp_host
 from spoofsv_torch.dsp import torchdsp
 from spoofsv_torch.models.ssrn import SSRN
 from spoofsv_torch.models.text2mel import MelSyn
+from spoofsv_torch.infer.decode import make_decoder
 from spoofsv_torch.ops.decode_kernel import make_fused_decoder
-from spoofsv_torch.ops.gl_kernel import griffin_lim_fused
+from spoofsv_torch.ops.gl_kernel import griffin_lim_fused, griffin_lim_tc, init_angles_plain
+
+GL_IMPLS = ("auto", "pallas", "xla")
+GL_PRECISIONS = ("default", "highest")
+# "scan" is the JAX package's documented name of its plain decode
+DECODE_IMPLS = {"auto": "kernel", "pallas": "kernel", "xla": "plain", "scan": "plain"}
+
+
+def _field(cfg: Config, name: str, allowed) -> object:
+    value = getattr(cfg.tpu, name)
+    if value not in allowed or not isinstance(value, type(next(iter(allowed)))):
+        raise ValueError(f"cfg.tpu.{name}={value!r} is not one the port takes: {tuple(allowed)}")
+    return value
+
+
+def gl_route(cfg: Config, device) -> str:
+    """The Griffin-Lim route for tensors on ``device``, from
+    ``cfg.tpu.griffin_lim_impl`` and ``griffin_lim_precision`` (as
+    ``spoofsv_tpu.infer.synthesize.make_vocoder`` routes, with the card in
+    the TPU's place):
+
+    * "tc": :func:`griffin_lim_tc`, the tensor-core K3 (int8 operands if
+      ``griffin_lim_int8``, else bf16); its plain version for CPU tensors.
+      "pallas" on any device, "auto" with "default" precision on a card.
+    * "f32": :func:`griffin_lim_fused`, the f32 K3 (``csrc/gl.cu``):
+      "auto" with "highest" precision on a card.
+    * "xla": :func:`spoofsv_torch.dsp.torchdsp.griffin_lim` from the plain
+      init: "xla" on any device, "auto" on the CPU.
+    """
+    impl = _field(cfg, "griffin_lim_impl", GL_IMPLS)
+    precision = _field(cfg, "griffin_lim_precision", GL_PRECISIONS)
+    _field(cfg, "griffin_lim_int8", (True, False))
+    if impl != "auto":
+        return "tc" if impl == "pallas" else "xla"
+    if torch.device(device).type == "cpu":
+        return "xla"
+    return "f32" if precision == "highest" else "tc"
+
+
+def decode_route(cfg: Config) -> str:
+    """``cfg.tpu.decode_impl``: "kernel" (:func:`make_fused_decoder`, K1 on a
+    card, its plain version for CPU tensors) for "auto"/"pallas", "plain"
+    (:func:`spoofsv_torch.infer.decode.make_decoder`) for "xla"/"scan"."""
+    return DECODE_IMPLS[_field(cfg, "decode_impl", DECODE_IMPLS)]
 
 
 def gl_seeds(batch: int, generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -34,12 +81,14 @@ def make_vocoder(cfg: Config, n_iter: Optional[int] = None):
 
     Per-utterance peak renorm (non-log mode), power ``(·)^(1.3/0.6)``,
     Griffin-Lim from ``cfg.tpu.griffin_lim_init`` (random hash init uses
-    ``seeds``, (B,) int), and de-emphasis.
+    ``seeds``, (B,) int) on the route :func:`gl_route` picks for the
+    tensor's device, and de-emphasis.
     """
     n_iter = n_iter or cfg.tpu.griffin_lim_iters
     n_fft, hop = cfg.stft.fft_length, cfg.stft.hop_length
     power = cfg.norm.reconstruction_power / cfg.norm.analysis_power
     init_mode = cfg.tpu.griffin_lim_init
+    gl_route(cfg, "cpu")   # unknown values raise here, not at the first call
 
     @torch.no_grad()
     def vocode(lin_pred: torch.Tensor, seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -53,8 +102,16 @@ def make_vocoder(cfg: Config, n_iter: Optional[int] = None):
         spec = torch.pow(x, power)
         if init_mode == "random" and seeds is None:
             seeds = gl_seeds(spec.shape[0])
-        audio = griffin_lim_fused(spec, n_fft, hop, n_fft, n_iter=n_iter,
-                                  init_mode=init_mode, seeds=seeds)
+        route = gl_route(cfg, spec.device)
+        if route == "xla":
+            init = init_angles_plain(spec, n_fft, hop, init_mode, seeds)
+            audio = torchdsp.griffin_lim(spec, n_fft, hop, n_fft, n_iter, init_angles=init)
+        elif route == "f32":
+            audio = griffin_lim_fused(spec, n_fft, hop, n_fft, n_iter=n_iter,
+                                      init_mode=init_mode, seeds=seeds)
+        else:
+            audio = griffin_lim_tc(spec, n_fft, hop, n_fft, n_iter=n_iter, init_mode=init_mode,
+                                   seeds=seeds, int8=cfg.tpu.griffin_lim_int8)
         return torchdsp.deemphasis(audio, coeff=cfg.preemph)
 
     return vocode
@@ -84,7 +141,9 @@ class Synthesizer:
     :attr:`vocode`) so callers can time them. The text encoder and SSRN run
     the process-wide highway implementation, which
     ``spoofsv_torch.cli.main.apply_runtime_knobs(cfg, infer=True)`` sets from
-    ``cfg.tpu.highway_infer_impl`` ("xla" by default).
+    ``cfg.tpu.highway_infer_impl`` ("xla" by default). The decoder follows
+    ``cfg.tpu.decode_impl`` (:func:`decode_route`), the vocoder the
+    Griffin-Lim fields (:func:`gl_route`).
     """
 
     def __init__(self, cfg: Config, melsyn: MelSyn, ssrn: SSRN,
@@ -94,7 +153,10 @@ class Synthesizer:
         self.ssrn = ssrn.eval()
         self.n_frames = n_frames or cfg.max_frame_num
         self.device = next(melsyn.parameters()).device
-        self.decode = make_fused_decoder(self.melsyn, self.n_frames)
+        self.decode_route = decode_route(cfg)
+        self.decode = (make_fused_decoder(self.melsyn, self.n_frames)
+                       if self.decode_route == "kernel"
+                       else make_decoder(self.melsyn, self.n_frames))
         self.vocode = make_vocoder(cfg, gl_iters)
 
     @torch.no_grad()

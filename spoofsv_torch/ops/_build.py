@@ -55,6 +55,14 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         "spoofsv_gl_run": (_I, [_P] * 10 + [_I] * 6 + [_F, _P]),
         "spoofsv_gl_error_string": (ctypes.c_char_p, [_I]),
     },
+    "gl_tc": {
+        "spoofsv_gl_tc_run": (_I, [_I] + [_P] * 16 + [_I] * 4 + [_F, _P]),
+        "spoofsv_gl_tc_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "gl_tc_probe": {
+        "spoofsv_gl_tc_run": (_I, [_I] + [_P] * 16 + [_I] * 4 + [_F, _P]),
+        "spoofsv_gl_tc_error_string": (ctypes.c_char_p, [_I]),
+    },
     "highway": {
         "spoofsv_highway_gate_launch": (_I, [_I, _P, _P, _P, _P, _I, _I, _F, _P]),
         "spoofsv_hconv_launch": (_I, [_I] + [_P] * 5 + [_I] * 6 + [_F, _P]),
@@ -71,6 +79,7 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
 # (build_all skips them): name -> (source, flags)
 VARIANTS: Dict[str, Tuple[str, List[str]]] = {
     "decode_cluster_probe": ("decode_cluster", ["-DSPOOFSV_K1_PROBE"]),
+    "gl_tc_probe": ("gl_tc", ["-DSPOOFSV_GLTC_PROBE"]),
 }
 
 # the kernels' storage-type argument

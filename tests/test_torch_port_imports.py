@@ -65,7 +65,11 @@ def test_cuda_request_without_card_raises():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError):
         spoofsv_torch.resolve_device("cuda")
-    assert spoofsv_torch.resolve_device(None) == torch.device("cpu")
+    # the default is the card: without one it raises, and the CPU is reached
+    # only when asked for
+    with pytest.raises(RuntimeError):
+        spoofsv_torch.resolve_device(None)
+    assert spoofsv_torch.resolve_device("cpu") == torch.device("cpu")
 
 
 def test_wrappers_take_the_kernel_path_for_non_cpu_tensors():

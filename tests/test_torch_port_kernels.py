@@ -77,6 +77,41 @@ def test_gl_kernel_matches_plain(dev):
     assert abs(sc[0] - sc[1]) <= 0.02, sc
 
 
+@pytest.mark.parametrize("int8", [True, False])
+@pytest.mark.parametrize("B,T", [(2, 300), (1, 16), (3, 59), (1, 117)])
+def test_gl_tc_kernel_matches_plain(dev, B, T, int8):
+    """The tensor-core K3 against its plain version (the same quantisation
+    and state types): one projection at momentum 0 (gate 0.03 of
+    test_pallas_gl.py), GL12 spectral convergence within 0.02 of plain f32 GL,
+    and the final synthesis alone (n_iter 0). T covers one tile (16), a last
+    tile of 3 frames (59: 56-frame tiles), and several tiles."""
+    mag = _test_mag(B, T, 9, dev)
+    init = gl_kernel.init_angles_plain(mag, NFFT, HOP, "spsi")
+    for n_iter in (0, 1):
+        before = gl_kernel.gl_tc_kernel.launches
+        got = gl_kernel.griffin_lim_tc(mag, NFFT, HOP, n_iter=n_iter, momentum=0.0,
+                                       init_angles=init, int8=int8)
+        assert gl_kernel.gl_tc_kernel.launches == before + 1
+        ref = gl_kernel.griffin_lim_tc_plain(mag, *init, NFFT, HOP, n_iter, 0.0, int8)
+        assert _rel_l2(got, ref) < 0.03, (n_iter, _rel_l2(got, ref))
+    g12 = gl_kernel.griffin_lim_tc(mag, NFFT, HOP, n_iter=12, init_angles=init, int8=int8)
+    r12 = torchdsp.griffin_lim(mag, NFFT, HOP, n_iter=12, init_angles=init)
+    sc = []
+    for audio in (g12, r12):
+        re, im = torchdsp.stft_ri(audio, NFFT, HOP)
+        sc.append(_rel_l2(torch.sqrt(re * re + im * im)[:, :T], mag))
+    assert abs(sc[0] - sc[1]) <= 0.02, sc
+
+
+def test_gl_tc_kernel_rejects_unsupported_geometry(dev):
+    with pytest.raises(ValueError):
+        gl_kernel.griffin_lim_tc(torch.rand(1, 20, 257, device=dev), 512, 128, n_iter=1,
+                                 init_mode="advance")
+    with pytest.raises(ValueError):
+        gl_kernel.griffin_lim_tc(torch.rand(1, 12, 513, device=dev), NFFT, HOP, n_iter=1,
+                                 init_mode="advance")
+
+
 def test_gl_kernel_rejects_unsupported_geometry(dev):
     mag = torch.rand(1, 20, 300, device=dev)
     with pytest.raises(ValueError):

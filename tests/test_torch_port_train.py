@@ -122,7 +122,7 @@ def test_ordinary_step_matches_jax(tiny_cfg, jax_steps, kind, impl):
     schema: Adam's first steps move a parameter by about lr·sign(g), so a
     gradient differing by rounding moves it by rounding times lr."""
     batch, ref = jax_steps
-    melsyn, ssrn = cli.build_models(tiny_cfg)
+    melsyn, ssrn = cli.build_models(tiny_cfg, device="cpu")
     model = load_state(melsyn if kind == "train_text2mel" else ssrn, ref[kind]["init"])
     tb = {k: _t(v) for k, v in batch.items()}
     with layers.gate_impl(impl):
@@ -151,7 +151,7 @@ def test_trainer_checkpoints_reload_and_resume(tiny_cfg, tmp_path, kind):
     cfg = tiny_cfg.replace(src_root_dir=str(tmp_path) + "/", val_every_iter=2)
     pick = 0 if kind == "train_text2mel" else 1
     torch.manual_seed(0)
-    model = cli.build_models(cfg)[pick]
+    model = cli.build_models(cfg, device="cpu")[pick]
     data = [_batch(cfg, seed) for seed in range(3)]
     trainer = Trainer(cfg, model, kind, ctime="t")
     trainer.fit(lambda: iter(data), lambda: iter(data[:1]), max_iterations=4)
@@ -176,12 +176,12 @@ def test_trainer_checkpoints_reload_and_resume(tiny_cfg, tmp_path, kind):
     assert len(adam) == len(list(model.parameters()))
     assert all(float(s["step"]) == 4 and s["exp_avg_sq"].abs().sum() > 0 for s in adam.values())
 
-    fresh = cli.build_models(cfg)[pick]
+    fresh = cli.build_models(cfg, device="cpu")[pick]
     load_reference_checkpoint(fresh, path)
     for k, v in model.state_dict().items():
         torch.testing.assert_close(fresh.state_dict()[k], v, rtol=0, atol=0)
 
-    again = Trainer(cfg, cli.build_models(cfg)[pick], kind, ctime="t")
+    again = Trainer(cfg, cli.build_models(cfg, device="cpu")[pick], kind, ctime="t")
     again.resume(path)
     assert (again.iteration, again.state.step, again.loss_val_log) == (4, 4, trainer.loss_val_log)
     again.fit(lambda: iter(data), lambda: iter(data[:1]), max_iterations=6)
@@ -198,7 +198,8 @@ def test_cli_helpers(tiny_cfg):
 
     assert cli.training_dtype(tiny_cfg, "cpu") == torch.float32
     assert cli.inference_dtype(tiny_cfg, "cpu") == torch.float32
-    melsyn, ssrn = cli.build_models(tiny_cfg.replace(apply_dropout=True), "unconditional")
+    melsyn, ssrn = cli.build_models(tiny_cfg.replace(apply_dropout=True), "unconditional",
+                                   device="cpu")
     assert not melsyn.condition and melsyn.text_encoder.dropout_rate == 0.05
     assert ssrn.dropout_rate == 0.05 and next(ssrn.parameters()).dtype == torch.float32
     tpu = dataclasses.replace(tiny_cfg.tpu, highway_gate_impl="pallas",
@@ -224,7 +225,7 @@ def test_synthesizer_takes_the_infer_impl(tiny_cfg):
     tpu = dataclasses.replace(tiny_cfg.tpu, highway_infer_impl="fused_pair", griffin_lim_iters=4)
     cfg = tiny_cfg.replace(tpu=tpu)
     torch.manual_seed(1)
-    melsyn, ssrn = cli.build_models(cfg)
+    melsyn, ssrn = cli.build_models(cfg, device="cpu")
     b = _batch(cfg, 5)
     outs = []
     for infer in (False, True):
