@@ -13,7 +13,8 @@ Phases (any failure raises and exits non-zero):
      convergence), its ptxas lines (spills fail); the f32 K3
      (``csrc/gl.cu``, the "highest" route) against plain f32 GL;
   4. K1 (decode) at the main path's B=64, N=100, T=325: f32
-     (``csrc/decode.cu``) vs the plain eager decode, and bf16
+     (``csrc/decode.cu``) vs the plain eager decode, its time alone against
+     ``decode_plain`` and its bound, and bf16
      (``csrc/decode_cluster.cu``) vs ``decode_plain`` (the kernel's
      arithmetic in plain torch) at B=64 and B=768 over frames 0-1, and over
      64 frames at one text position (no attention flips); the cluster
@@ -25,19 +26,26 @@ Phases (any failure raises and exits non-zero):
      reset just before and read just after (K1 through decode_cluster.cu
      once, K3 through gl_tc.cu once and gl.cu never); per-stage times and one call
      under ``torch.profiler`` (device time, idle share, the largest
-     kernels); plus a small f32 end-to-end
+     kernels); the SSRN stage from the same mel under the "xla",
+     "fused_conv" and "fused_pair" highway impls (times, launches, the
+     kernel impls' output against "xla"); plus a small f32 end-to-end
      comparison of the CUDA path against the CPU path;
-  6. K4/K5/K6 (highway kernels) vs their plain versions in f32 at the
-     training path's shapes (B=16), and K5 in bf16 at the synthesis batch
-     (B=64): max |d|, kernel and plain ms, for K5 the executed/useful row
-     ratio, the TFLOP/s achieved and the ptxas registers and spills of
-     each instantiation (spills fail the run); gradients through each
-     ``autograd.Function`` against plain autograd;
+  6. K4/K5/K6 (highway kernels, the cases of ``ops/hconv_probe.py``) vs
+     their plain versions in f32 at the training path's shapes (B=16), and
+     K4 and K5 in bf16 at the synthesis batch (B=64): max |d|, the device
+     time of a call (every kernel it runs) and of its kernel alone
+     (``torch.profiler``; K6 over input sets three times the L2, so its
+     bytes come from DRAM), the call's host-clock time, plain ms, each
+     case's bound (a device time under it fails), for K4 and K5 the
+     executed/useful row ratio, the TFLOP/s achieved and the ptxas
+     registers and spills of each instantiation of their one source
+     (spills fail the run); gradients through each ``autograd.Function``
+     against plain autograd;
   7. the ordinary training path: ``Trainer`` for Text2Mel and SSRN at full
      width, f32, B=16, N=186, T=325 (lin 1300 frames), 5 iterations from the
      same seed-0 weights under each highway impl, one validation (Text2Mel
-     through K1) and one checkpoint round trip each; launch counts reset
-     just before each run and read just after.
+     through the f32 K1) and one checkpoint round trip each; launch counts
+     reset just before each run and read just after.
 Prints a kernels JSON line (each kernel's time, plain time, launches on
 the main path and bound), the card line, then the ``{"ok": true, ...}`` line
 last.
@@ -78,130 +86,93 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def highway_kernel_phase(dev, cuda_ms, kernels: dict) -> None:
+def highway_kernel_phase(dev, cuda_ms, kernels: dict, smi: str) -> None:
     """Phase 6: K6, K4 and K5 against their plain versions in f32 at the
-    training path's shapes (B=16), K5 also in bf16 at the synthesis batch
-    (B=64), then gradients through each autograd.Function."""
+    training path's shapes (B=16), K4 and K5 also in bf16 at the synthesis
+    batch (B=64), then gradients through each autograd.Function."""
     import re
 
     import torch
 
-    from spoofsv_torch.ops import _build, gate_kernel, hconv_kernel
+    from spoofsv_torch.ops import _build, gate_kernel, hconv_kernel, hconv_probe
+    from spoofsv_torch.ops.hconv_probe import hw_params, rand
 
-    def rand(shape, seed: int, dtype=torch.float32) -> torch.Tensor:
-        return torch.randn(*shape, generator=torch.Generator().manual_seed(seed)).to(dev, dtype)
-
-    def hw_params(C: int, K: int, seed: int, dtype=torch.float32) -> list:
-        """Conv weight (2C, C, K) at the models' Kaiming scale, bias, LN params."""
-        g = torch.Generator().manual_seed(seed)
-        w = torch.randn(2 * C, C, K, generator=g) * (2.0 / (K * C)) ** 0.5
-        b = torch.randn(2 * C, generator=g) * 0.1
-        lns = [torch.randn(C, generator=g) * 0.2 + (1.0 if i % 2 == 0 else 0.0) for i in range(4)]
-        return [t.to(dev, dtype) for t in (w, b, *lns)]
-
-    # K5's ptxas lines, one instantiation (storage type, channels per CTA) each
+    # the ptxas lines of K4 (1 layer) and K5 (2 layers), one instantiation
+    # (storage type, channels per CTA, layers) each: 12, none may spill
     info = _build.BUILD_LOG["hconv_pair"].get("ptxas", [])
+    seen = set()
     for i, ln in enumerate(info):
-        inst = re.search(r"hconv_pair_kernelI(f|13__nv_bfloat16)Li(\d)E", ln)
+        inst = re.search(r"hconv_kernelI(f|13__nv_bfloat16)Li(\d)ELi(\d)E", ln)
         if inst and i + 2 < len(info):
-            log(f"[highway_conv_pair] ptxas <{'f32' if inst[1] == 'f' else 'bf16'}, "
-                f"{32 * int(inst[2])} channels per CTA>: {info[i + 2].split(':', 1)[-1].strip()}; "
+            seen.add(inst.groups())
+            log(f"[{'highway_conv' if inst[3] == '1' else 'highway_conv_pair'}] ptxas "
+                f"<{'f32' if inst[1] == 'f' else 'bf16'}, {32 * int(inst[2])} channels per CTA, "
+                f"{inst[3]} layer(s)>: {info[i + 2].split(':', 1)[-1].strip()}; "
                 f"{info[i + 1].strip()}")
             gate(info[i + 1].strip().startswith("0 bytes stack frame, 0 bytes spill stores"),
-                 ("K5 spills", info[i + 1]))
-
-    def gate_case(rows: int, C: int, seed: int):
-        args = (rand((16, rows, 2 * C), seed), rand((16, rows, C), seed + 1),
-                *hw_params(C, 1, seed + 2)[2:])
-        return (lambda: gate_kernel.fused_highway_gate(*args),
-                lambda: gate_kernel.highway_gate_plain(*args))
-
-    def conv_case(T: int, C: int, dil: int, causal: bool, seed: int):
-        x, p = rand((16, T, C), seed), hw_params(C, 3, seed + 1)
-        return (lambda: hconv_kernel.fused_highway_conv(x, *p, dil, causal),
-                lambda: hconv_kernel.highway_conv_plain(x, *p, dil, causal))
-
-    def pair_case(T: int, C: int, da: int, db: int, causal: bool, seed: int, B: int = 16,
-                  dtype=torch.float32):
-        x = rand((B, T, C), seed, dtype)
-        pa, pb = hw_params(C, 3, seed + 1, dtype), hw_params(C, 3, seed + 2, dtype)
-        plan = hconv_kernel.pair_tile_plan(C, 3, db, T, dtype)
-        flop = 2 * (2 * B * T * 3 * C * 2 * C)   # two layers of (B·T, K·C) × (K·C, 2C)
-        return (lambda: hconv_kernel.fused_highway_conv_pair(x, *pa, *pb, da, db, causal),
-                lambda: hconv_kernel.highway_pair_plain(x, *pa, *pb, da, db, causal),
-                (plan.executed_over_useful(T), flop))
+                 ("K4/K5 spills", info[i + 1]))
+    gate(len(seen) == 12, ("K4/K5 instantiations in the ptxas lines", sorted(seen)))
 
     # f32: sums of up to K·C = 1536 products in another order, then LayerNorm;
     # bf16: outputs within a few bf16 ulps (the card tests' gate)
     tols = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
-    cases = {   # name -> (TPU kernel, [(case, builder)]); the first case is the JSON's
-        "highway_gate": ("spoofsv_tpu/ops/pallas_ops.py:40", [
-            ("audio encoder 16x325 rows C=256", lambda: gate_case(325, 256, 30)),
-            ("text encoder 16x186 rows C=512", lambda: gate_case(186, 512, 33))]),
-        "highway_conv": ("spoofsv_tpu/ops/pallas_conv.py:57", [
-            ("SSRN hc3 T=1300 C=512 d=1 SAME", lambda: conv_case(1300, 512, 1, False, 40)),
-            ("audio encoder T=325 C=256 d=27 causal", lambda: conv_case(325, 256, 27, True, 42))]),
-        "highway_conv_pair": ("spoofsv_tpu/ops/pallas_conv.py:204", [
-            ("SSRN hc3->hc4 T=1300 C=512 (1,1)", lambda: pair_case(1300, 512, 1, 1, False, 50)),
-            ("ups2 pair T=1300 C=256 (1,3)", lambda: pair_case(1300, 256, 1, 3, False, 53)),
-            ("causal (9,27) T=325 C=256", lambda: pair_case(325, 256, 9, 27, True, 56)),
-            ("text encoder (9,27) SAME N=186 C=512",
-             lambda: pair_case(186, 512, 9, 27, False, 59)),
-            ("bf16 SSRN hc3->hc4 B=64 T=1300 C=512 (1,1)",
-             lambda: pair_case(1300, 512, 1, 1, False, 62, B=64, dtype=torch.bfloat16))]),
-    }
-    sources = {"highway_conv_pair": "spoofsv_torch/csrc/hconv_pair.cu"}
-    # bounds of each JSON case: (operations, bytes, peak for their type). K6:
-    # 16·325 rows of h (2C) and x (C) in, out (C), ~10 operations an element
-    # on the CUDA cores (67 TFLOP/s); K4 one layer's conv, K5 both layers':
-    # f32-accurate products at the card's fastest such rate, 3xTF32 (3 passes
-    # at 495 TFLOP/s)
-    rows6, conv_mac = 16 * 325, 16 * 1300 * 3 * 512 * 2 * 512
-    io = 4 * 2 * 16 * 1300 * 512
-    bounds = {
-        "highway_gate": (10 * rows6 * 2 * 256, 4 * (rows6 * 4 * 256 + 4 * 256), 67e12),
-        "highway_conv": (3 * 2 * conv_mac, io + 4 * (1536 * 1024 + 6 * 512), 495e12),
-        "highway_conv_pair": (3 * 2 * 2 * conv_mac, io + 4 * (2 * 1536 * 1024 + 12 * 512), 495e12),
-    }
-    for name, (replaces, named) in cases.items():
-        errs, times = [], []
+    sources = {"highway_gate": "spoofsv_torch/csrc/highway.cu"}
+    for name, (replaces, named) in hconv_probe.cases(dev).items():
+        errs, first = [], None
         for label, build_case in named:
-            fused, plain, *work = build_case()
-            got, ref = fused(), plain()
+            case = build_case()
+            got, ref = case.fused(), case.plain()
             err = float((got.float() - ref.float()).abs().max())
             tol = tols[got.dtype]
             if got.dtype == torch.float32:
                 errs.append(err)
-            times.append((cuda_ms(fused, reps=5), cuda_ms(plain, reps=5)))
+            # device time of a call (every kernel and copy it runs), of its
+            # kernel alone, and the call's host-clock time: the small calls
+            # are host work
+            calls = 100 if name == "highway_gate" else 20
+            ms, kernel_ms = _build.device_ms(case.timed, hconv_probe.KERNEL_NAMES[name], calls)
+            gate(ms is not None and kernel_ms is not None,
+                 (name, label, "torch.profiler recorded no device time of the kernel"))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                case.timed()
+            torch.cuda.synchronize()
+            call_ms = 1e3 * (time.perf_counter() - t0) / calls
+            plain_ms = cuda_ms(case.plain, reps=5)
+            work = case.work
+            b_ms, b_by = bound_ms(work["ops"], work["bytes"], work["peak"])
             extra = ""
-            if work:   # K5: executed/useful rows, useful FLOPs over the kernel's time
-                ratio, flop = work[0]
-                extra = (f"; executed/useful rows {ratio:.3f}, "
-                         f"{flop / (times[-1][0] * 1e-3) / 1e12:.1f} TFLOP/s")
-            log(f"[{name}] {label}: max|d| {err:.3g} (gate {tol}); kernel "
-                f"{times[-1][0]:.3f} ms, plain {times[-1][1]:.3f} ms{extra}")
+            if name != "highway_gate":   # executed/useful rows, useful FLOPs over the kernel's time
+                extra = (f"; executed/useful rows {work['ratio']:.3f}, "
+                         f"{work['flop'] / (kernel_ms * 1e-3) / 1e12:.1f} TFLOP/s")
+            log(f"[{name}] {label}: max|d| {err:.3g} (gate {tol}); device {ms:.4f} ms a call, "
+                f"its kernel {kernel_ms:.4f} ms (torch.profiler), call {call_ms:.4f} ms (host "
+                f"clock, {calls} calls), plain {plain_ms:.3f} ms{extra}; bound {b_ms:.4f} ms "
+                f"({b_by}), {100 * b_ms / ms:.1f} % of it, on [{smi}]")
             gate(err <= tol, (name, label, err))
-            del fused, plain, got, ref
-        b_ms, b_by = bound_ms(*bounds[name])
+            gate(ms >= b_ms, (name, label, "device time under its bound", ms, b_ms))
+            if first is None:
+                first = dict(ms=ms, kernel_ms=kernel_ms, call_ms=call_ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=b_by)
+            del case, got, ref
         kernels[name] = dict(name=name, route="cuda",
-                             source=sources.get(name, "spoofsv_torch/csrc/highway.cu"),
-                             replaces=replaces, max_abs_err=max(errs), ms=times[0][0],
-                             plain_ms=times[0][1], bound_ms=b_ms, bound_by=b_by,
-                             library_ms=None)
-        log(f"[{name}] bound of the first case {b_ms:.4f} ms ({b_by})")
+                             source=sources.get(name, "spoofsv_torch/csrc/hconv_pair.cu"),
+                             replaces=replaces, max_abs_err=max(errs), library_ms=None, **first)
 
     # gradients through each autograd.Function (the plain version recomputed
     # from the saved inputs) against autograd of the plain version
     C, T = 256, 64
     grad_cases = {
         "highway_gate": (gate_kernel.fused_highway_gate, gate_kernel.highway_gate_plain,
-                         [rand((2, T, 2 * C), 60), rand((2, T, C), 61)]
-                         + hw_params(C, 1, 62)[2:], ()),
+                         [rand((2, T, 2 * C), 60, dev), rand((2, T, C), 61, dev)]
+                         + hw_params(C, 1, 62, dev)[2:], ()),
         "highway_conv": (hconv_kernel.fused_highway_conv, hconv_kernel.highway_conv_plain,
-                         [rand((2, T, C), 63)] + hw_params(C, 3, 64), (3, True)),
+                         [rand((2, T, C), 63, dev)] + hw_params(C, 3, 64, dev), (3, True)),
         "highway_conv_pair": (hconv_kernel.fused_highway_conv_pair,
                               hconv_kernel.highway_pair_plain,
-                              [rand((2, T, C), 65)] + hw_params(C, 3, 66) + hw_params(C, 3, 67),
+                              [rand((2, T, C), 65, dev)] + hw_params(C, 3, 66, dev)
+                              + hw_params(C, 3, 67, dev),
                               (1, 3, False)),
     }
     for name, (fused, plain, ins, static) in grad_cases.items():
@@ -313,6 +284,16 @@ def bound_ms(flop: float, nbytes: float, peak_flops: float) -> tuple:
     the bytes over 3.35 TB/s and the operations over ``peak_flops``."""
     t_bytes, t_ops = nbytes / 3.35e12, flop / peak_flops
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def decode_work(C: int, F: int, B: int, N: int, T: int, elem: int) -> tuple:
+    """K1's FLOPs over a rollout (its products: 16 highway layers of K=3, the
+    attention and decoder projections) and the bytes it must move (the
+    weights, K, V, the speaker projections and the outputs, ``elem`` bytes a
+    value)."""
+    macs_row = 16 * 3 * C * 2 * C + 5 * C * C + 2 * C * C + F * C + C * F
+    return (2.0 * macs_row * B * T,
+            elem * (macs_row + 2 * B * N * C + 2 * B * C + B * T * F + B * N * T))
 
 
 def cluster_phase(dev, cuda_ms, mbf, packed, kv, cfg, T: int, smi: str) -> dict:
@@ -456,10 +437,7 @@ def cluster_phase(dev, cuda_ms, mbf, packed, kv, cfg, T: int, smi: str) -> dict:
     del kv768, K, V, packed32
 
     # the bound at B=64: the products (bf16, 989 TFLOP/s) against the bytes
-    C, N = cfg.hidden_dim, kv[0].shape[1]
-    macs_row = 16 * 3 * C * 2 * C + 5 * C * C + 2 * C * C + F * C + C * F
-    flop = 2.0 * macs_row * B * T
-    nbytes = 2.0 * (macs_row + 2 * B * N * C + 2 * B * C + B * T * F + B * N * T)
+    flop, nbytes = decode_work(cfg.hidden_dim, F, B, kv[0].shape[1], T, 2)
     b_ms, b_by = bound_ms(flop, nbytes, 989e12)
     log(f"[K1 cluster] B={B} T={T}: kernel {ms64:.3f} ms, decode_plain {plain_ms:.1f} ms, bound "
         f"{b_ms:.4f} ms ({b_by}: {flop / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); B=768 default "
@@ -496,13 +474,44 @@ def device_view(call, smi: str) -> None:
         + ", ".join(f"{k[:60]} {v / 1e3:.1f} ms" for k, v in top) + f" on [{smi}]")
 
 
+def ssrn_impls(syn, mel, cuda_ms, smi: str) -> None:
+    """The main path's SSRN stage (bf16, from the main path's mel) under the
+    "xla", "fused_conv" (K4) and "fused_pair" (K5, K4 for unpaired blocks)
+    highway impls: CUDA-event times, launches, and each kernel impl's output
+    against "xla" within the bf16 gate (5e-2). Measurement only: the main
+    path's impl stays "xla"."""
+    import torch
+
+    from spoofsv_torch.models.layers import gate_impl
+    from spoofsv_torch.ops import hconv_kernel
+
+    counters = {"K4": hconv_kernel.hconv_kernel, "K5": hconv_kernel.hconv_pair_kernel}
+    outs, times = {}, {}
+    for impl in ("xla", "fused_conv", "fused_pair"):
+        with gate_impl(impl), torch.no_grad():
+            for c in counters.values():
+                c.launches = 0
+            outs[impl] = syn.ssrn_apply(mel)
+            n = {k: c.launches for k, c in counters.items()}
+            times[impl] = cuda_ms(lambda: syn.ssrn_apply(mel), reps=5)
+        log(f"[ssrn] B={mel.shape[0]} T={mel.shape[1]} {outs[impl].dtype} under {impl}: "
+            f"{times[impl]:.3f} ms (CUDA events, mean of 5), launches of one call {n} on [{smi}]")
+        gate(impl == "xla" or n["K4"] + n["K5"] > 0, (impl, "no highway kernel ran", n))
+    for impl in ("fused_conv", "fused_pair"):
+        err = float((outs[impl].float() - outs["xla"].float()).abs().max())
+        log(f"[ssrn] {impl} vs xla: lin max|d| {err:.3g} (gate 5e-2), mean|d| "
+            f"{float((outs[impl].float() - outs['xla'].float()).abs().mean()):.3g}")
+        gate(err <= 5e-2 and bool(torch.isfinite(outs[impl].float()).all()), (impl, err))
+
+
 def training_phase(cfg, dev, counters: dict, B: int, N: int, T: int):
     """Phase 7: the ordinary training path. For each train kind and highway
     impl, a ``Trainer`` takes 5 steps on one synthetic batch (B utterances,
     N text ids, T mel frames, 4T lin frames) from the same seed-0 weights,
     validates once and checkpoints; the checkpoint is reloaded and resumed.
     Launch counts are reset just before each run and read just after.
-    Returns (K4/K5/K6 launches summed over the runs, step ms per run)."""
+    Returns (K4/K5/K6 and f32 K1 launches summed over the runs, step ms per
+    run)."""
     import torch
 
     from spoofsv_torch.cli.main import build_models
@@ -521,7 +530,7 @@ def training_phase(cfg, dev, counters: dict, B: int, N: int, T: int):
                for k, m in models.items()}
     impl_kernel = {"pallas": "highway_gate", "fused_conv": "highway_conv",
                    "fused_pair": "highway_conv_pair"}
-    hw_launches = dict.fromkeys(impl_kernel.values(), 0)
+    totals = dict.fromkeys([*impl_kernel.values(), "decode_f32"], 0)
     ckpt_keys = {"epoch", "iteration", "model_state_dict", "optimizer_state_dict",
                  "loss_val_log"}
     step_ms = {}
@@ -547,8 +556,8 @@ def training_phase(cfg, dev, counters: dict, B: int, N: int, T: int):
                 val = [r["loss"] for r in recs if r["split"] == "validate"]
                 step_ms[f"{kind[6:]}/{impl}"] = round(1e3 * float(np.median(secs[1:])), 2)
                 first_loss[impl] = losses[0]
-                for k in hw_launches:
-                    hw_launches[k] += n[k]
+                for k in totals:
+                    totals[k] += n[k]
                 log(f"[train] {kind} {impl}: losses {[round(v, 6) for v in losses]}; validation "
                     f"{val}; step ms (iters 2-5) {[round(1e3 * v, 2) for v in secs[1:]]}; "
                     f"launches {n}")
@@ -561,12 +570,12 @@ def training_phase(cfg, dev, counters: dict, B: int, N: int, T: int):
                 own = {impl_kernel.get(impl)}
                 if impl == "fused_pair":
                     own.add("highway_conv")
-                gate(all(n[k] == 0 for k in hw_launches if k not in own),
+                gate(all(n[k] == 0 for k in impl_kernel.values() if k not in own),
                      (kind, impl, "a kernel of another impl ran", n))
                 if impl in impl_kernel:
                     gate(n[impl_kernel[impl]] > 0, (kind, impl, "kernel not launched", n))
                 if kind == "train_text2mel":
-                    gate(n["decode"] > 0, (kind, impl, "validation did not run K1", n))
+                    gate(n["decode_f32"] > 0, (kind, impl, "validation did not run K1 f32", n))
                 # checkpoint round trip: reference schema, reload, resume
                 path = trainer.ckpt.latest()
                 ck = torch.load(path, map_location="cpu", weights_only=True)
@@ -583,7 +592,7 @@ def training_phase(cfg, dev, counters: dict, B: int, N: int, T: int):
                 gate(same and again.iteration == 5 and again.state.step == 5,
                      (kind, impl, "checkpoint round trip", same, again.iteration))
                 del fresh, again, ck
-    return hw_launches, step_ms
+    return totals, step_ms
 
 
 def main() -> None:
@@ -734,7 +743,28 @@ def main() -> None:
         f"max|d| {mel_err:.3g}, attention max|d| {att_err:.3g} (gates 1e-3, onset >= 32)")
     gate(min(ons) >= 32, ons)
     gate(mel_err <= 1e-3 and att_err <= 1e-3, (mel_err, att_err))
-    del m32, yk, ak, yp, ap
+    # its time alone (text encoder and speaker projections done once) against
+    # decode_plain in f32, and its bound: f32-accurate products as 3xTF32
+    # (3 passes at 495 TFLOP/s) against the f32 bytes
+    F = cfg.mel.freq_bins
+    packed32 = decode_kernel.pack_decode_weights(m32)
+    with torch.no_grad():
+        kv32 = (*m32.encode_text(text_d), m32.audio_encoder.fc1(spk_d),
+                m32.audio_encoder.fc2(spk_d))
+    f32_ms = cuda_ms(lambda: decode_kernel.decode_fused(packed32, *kv32, n_frames=T,
+                                                        freq_bins=F), reps=2)
+    f32_plain = cuda_ms(lambda: decode_kernel.decode_plain(packed32, *kv32, n_frames=T,
+                                                           freq_bins=F), reps=1)
+    flop, nbytes = decode_work(cfg.hidden_dim, F, 64, kv32[0].shape[1], T, 4)
+    b_ms, b_by = bound_ms(3 * flop, nbytes, 495e12)
+    log(f"[K1 f32] B=64 N=100 T={T} (csrc/decode.cu): kernel {f32_ms:.3f} ms, decode_plain "
+        f"{f32_plain:.1f} ms; bound {b_ms:.4f} ms ({b_by}: 3 x {flop / 1e9:.1f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB), {100 * b_ms / f32_ms:.2f} % of it, on [{smi}]")
+    kernels["decode_f32"] = dict(
+        name="decode_f32", route="cuda", source="spoofsv_torch/csrc/decode.cu",
+        replaces="spoofsv_tpu/ops/pallas_decode.py:144", max_abs_err=mel_err, ms=f32_ms,
+        plain_ms=f32_plain, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del m32, yk, ak, yp, ap, packed32, kv32
 
     # bf16 (the main path's dtype) against decode_plain, the kernel's arithmetic in
     # plain torch (bf16 operands, f32 accumulation). Summation order alone moves
@@ -773,7 +803,7 @@ def main() -> None:
     k1 = cluster_phase(dev, cuda_ms, mbf, packed_bf, (K, V, s1, s2), cfg, T, smi)
     kernels["decode"] = dict(
         name="decode", route="cuda",
-        source="spoofsv_torch/csrc/decode_cluster.cu (bf16); spoofsv_torch/csrc/decode.cu (f32)",
+        source="spoofsv_torch/csrc/decode_cluster.cu",
         replaces="spoofsv_tpu/ops/pallas_decode.py:144", max_abs_err=mel2, **k1)
     del K, V, s1, s2, packed_bf
 
@@ -842,6 +872,7 @@ def main() -> None:
     device_view(lambda: syn(texts, spk), smi)
     for k, n in launches.items():
         kernels[k]["launches"] = n
+    ssrn_impls(syn, mel, cuda_ms, smi)
     del mbf, sbf, syn, staged, fused_bf, plain_bf, audio, mel, attn
 
     # small f32 end-to-end: the CUDA path against the CPU (plain) path
@@ -872,21 +903,26 @@ def main() -> None:
 
     # ---- phase 6: K4/K5/K6 vs their plain versions -----------------------------
     t0 = time.perf_counter()
-    highway_kernel_phase(dev, cuda_ms, kernels)
+    highway_kernel_phase(dev, cuda_ms, kernels, smi)
     log(f"[time] phase 6 {time.perf_counter() - t0:.1f} s")
 
     # ---- phase 7: the ordinary training path at full width --------------------
     counters.update({"highway_gate": gate_kernel.gate_kernel,
                      "highway_conv": hconv_kernel.hconv_kernel,
-                     "highway_conv_pair": hconv_kernel.hconv_pair_kernel})
+                     "highway_conv_pair": hconv_kernel.hconv_pair_kernel,
+                     "decode_f32": decode_kernel.f32_kernel})
     t0 = time.perf_counter()
-    hw_launches, step_ms = training_phase(cfg, dev, counters, B=16, N=186, T=325)
+    train_launches, step_ms = training_phase(cfg, dev, counters, B=16, N=186, T=325)
     log(f"[time] phase 7 {time.perf_counter() - t0:.1f} s")
-    for k, v in hw_launches.items():
+    for k, v in train_launches.items():
         kernels[k]["launches"] = v
     log(f"[train] step ms per impl, B=16 N=186 T=325 f32 (median of iterations 2-5): "
         f"{step_ms} on [{smi}]")
 
+    # a kernel faster than the least time the card could take means a bound
+    # or a timing is wrong (data left in the L2, a rate too low)
+    for k in kernels.values():
+        gate(k["ms"] >= k["bound_ms"], (k["name"], "time under its bound", k["ms"], k["bound_ms"]))
     out = {"kernels": list(kernels.values())}
     log(json.dumps(out))
     log(f"{smi}")

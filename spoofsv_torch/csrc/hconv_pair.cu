@@ -1,5 +1,7 @@
-// K5: two consecutive highway blocks in one launch, for sm_90a, in f32 or
-// bf16 storage. Replaces spoofsv_tpu/ops/pallas_conv.py::_hconv_pair_kernel.
+// K4 and K5: one highway block (K4) or two consecutive ones (K5) in one
+// launch, for sm_90a, in f32 or bf16 storage: one kernel template on the
+// number of layers. Replaces spoofsv_tpu/ops/pallas_conv.py::_hconv_kernel
+// (LAYERS = 1) and ::_hconv_pair_kernel (LAYERS = 2).
 //
 // Per frame t of x (B, T, C), each block computes
 //   [h1, h2] = conv(x)[t] + bias            (K taps at dilation d, 2C wide)
@@ -17,13 +19,15 @@
 // of y1 beyond its own, which layer A must recompute per tile. With the design
 // below, hc3→hc4 streams 5.5 GB of tiles from L2 (f32: 40 KB per CTA per
 // chunk) and runs 3xTF32's 425 GFLOP on the tensor cores; on an H100 both
-// are near their limits (about 3.5 TB/s and 57 % of the TF32 peak).
+// are near their limits (about 4 TB/s and 65 % of the TF32 peak).
 //
 // What this design does about it.
-// - Tensor cores: wgmma m64n64 from two warpgroups (64 rows each), the
-//   weight from shared memory. bf16 storage: bf16 products (exact in f32)
-//   with f32 accumulation, the operand from shared memory too. f32 storage:
-//   3xTF32, each operand a = a_hi + a_lo, both TF32,
+// - Tensor cores: wgmma m64nN from two warpgroups (64 rows each), N = 2·CH:
+//   all of the CTA's columns in one instruction a k-step (in n64 blocks the
+//   f32 kernels took 13-15 % longer), the weight from shared memory. bf16
+//   storage: bf16 products (exact in f32) with f32 accumulation, the operand
+//   from shared memory too. f32 storage: 3xTF32, each operand
+//   a = a_hi + a_lo, both TF32,
 //   h ≈ a_lo·w_hi + a_hi·w_lo + a_hi·w_hi in f32, which holds f32 accuracy
 //   (one TF32 pass keeps ~3 digits). The weight comes split into hi/lo from
 //   the wrapper (wgmma reads it from shared memory as it lies); the
@@ -95,7 +99,7 @@ __host__ __device__ constexpr size_t stage_bytes(int ch) {
   return (size_t)A_BYTES + (size_t)Cfg<T>::WMATS * 2 * ch * 64;
 }
 template <typename T>
-__host__ __device__ constexpr size_t pair_smem(int ch, int n) {
+__host__ __device__ constexpr size_t tile_smem(int ch, int n) {
   return 1024 + Cfg<T>::STAGES * stage_bytes<T>(ch) + 4 * 2 * (size_t)n * ROWS * 2 +
          8 * Cfg<T>::STAGES;
 }
@@ -222,30 +226,98 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
+// wgmma operand lists: the n accumulator registers "+f"(d[0..n)) and their
+// "{%0, ..., %(n−1)}"
 #define SPOOFSV_D8(i)                                                                   \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
       "+f"(d[i + 6]), "+f"(d[i + 7])
-#define SPOOFSV_D32 SPOOFSV_D8(0), SPOOFSV_D8(8), SPOOFSV_D8(16), SPOOFSV_D8(24)
-#define SPOOFSV_R32                                                                      \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
-  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define SPOOFSV_D32(i) SPOOFSV_D8(i), SPOOFSV_D8(i + 8), SPOOFSV_D8(i + 16), SPOOFSV_D8(i + 24)
 
-// d (64 rows × 64 columns of the warpgroup, f32) += a · b: a the thread's 4
-// words of the warpgroup's (64, 8) TF32 operand (the m16n8k8 A layout per
-// warp), b the (64 columns, 8) weight slice behind `desc`.
-__device__ __forceinline__ void wgmma64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
+#define SPOOFSV_R32 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19," \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+#define SPOOFSV_R64 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19," \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37," \
+  "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55," \
+  "%56, %57, %58, %59, %60, %61, %62, %63}"
+
+#define SPOOFSV_R128 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19," \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37," \
+  "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55," \
+  "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73," \
+  "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91," \
+  "%92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107," \
+  "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122," \
+  "%123, %124, %125, %126, %127}"
+
+// d (64 rows × N columns of the warpgroup, f32: N / 2 floats a thread, n8
+// block J's 4 at 4J) += a · b in one wgmma, N = 2·CH (64, 128 or 256). tf32:
+// a the thread's 4 words of the warpgroup's (64, 8) TF32 operand (the m16n8k8
+// A layout per warp), b the (N columns, 8) weight slice behind `desc`. bf16:
+// the operand too from shared memory (no split).
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const uint32_t (&a)[4],
+                                           uint64_t desc);
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t desc) {
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
                "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " SPOOFSV_R32
                ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-               : SPOOFSV_D32
+               : SPOOFSV_D32(0)
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
-// d += a · b with the operand too from shared memory (bf16: no split).
-__device__ __forceinline__ void wgmma64_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], uint64_t desc_a,
+                                                uint64_t desc_b) {
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
                "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SPOOFSV_R32
                ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-               : SPOOFSV_D32
+               : SPOOFSV_D32(0)
+               : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<128>(float (&d)[64], const uint32_t (&a)[4],
+                                                uint64_t desc) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " SPOOFSV_R64
+               ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+               : SPOOFSV_D32(0), SPOOFSV_D32(32)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], uint64_t desc_a,
+                                                uint64_t desc_b) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SPOOFSV_R64
+               ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+               : SPOOFSV_D32(0), SPOOFSV_D32(32)
+               : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<256>(float (&d)[128], const uint32_t (&a)[4],
+                                                uint64_t desc) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 " SPOOFSV_R128
+               ", {%128, %129, %130, %131}, %132, p, 1, 1;\n}\n"
+               : SPOOFSV_D32(0), SPOOFSV_D32(32), SPOOFSV_D32(64), SPOOFSV_D32(96)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16<256>(float (&d)[128], uint64_t desc_a,
+                                                uint64_t desc_b) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " SPOOFSV_R128
+               ", %128, %129, p, 1, 1, 0, 0;\n}\n"
+               : SPOOFSV_D32(0), SPOOFSV_D32(32), SPOOFSV_D32(64), SPOOFSV_D32(96)
                : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
@@ -254,30 +326,32 @@ __device__ __forceinline__ void wgmma64_ss(float (&d)[32], uint64_t desc_a, uint
 // blockIdx.y of utterance blockIdx.z. y1 row j ∈ [0, 128) is frame
 // t0 − pb_left + j, t0 = tile·rows_out; layer A's tap k for it reads x at
 // that frame − pa_left + k·dil_a; layer B's output row r ∈ [0, rows_out),
-// frame t0 + r, tap k reads y1 row r + k·dil_b.
+// frame t0 + r, tap k reads y1 row r + k·dil_b. With LAYERS = 1, layer A's
+// rows are the output (pb_left = 0, rows_out = 128) and the layer-B
+// arguments are unused.
 //
 // Weights: (n, 2·CH, K·C) per layer, CTA r's slice row j < CH the h1 column
 // r·CH + j, row CH + j the h2 column C + r·CH + j, reduction index k·C + i
 // contiguous (f32: hi and lo TF32 parts). bias (2C) and ln (4, C) f32.
 //
-// Warpgroup wg computes rows 64·wg + [0, 64) over all 2·CH = 64·NT columns,
-// as NT wgmma n64 blocks; warp wq of it holds rows 16·wq + g and 16·wq + g + 8
-// (lane (g, t) = (lane / 4, lane % 4)) and columns 8·J + 2t, 8·J + 2t + 1 of
-// every n8 block J: acc[J / 8][4·(J % 8) + 2·h + e] is row g + 8h, column
-// 8J + 2t + e. h1 is n8 blocks [0, 4·NT), h2 the next 4·NT, so the gate pairs
-// h1 and h2 in registers.
+// Warpgroup wg computes rows 64·wg + [0, 64) over all 2·CH = 64·NT columns
+// in one wgmma of width 2·CH per k-step (and TF32 pass); warp wq of it holds
+// rows 16·wq + g and 16·wq + g + 8 (lane (g, t) = (lane / 4, lane % 4)) and
+// columns 8·J + 2t, 8·J + 2t + 1 of every n8 block J: acc[4·J + 2·h + e] is
+// row g + 8h, column 8J + 2t + e. h1 is n8 blocks [0, 4·NT), h2 the next
+// 4·NT, so the gate pairs h1 and h2 in registers.
 // ---------------------------------------------------------------------------
-template <typename T, int NT>
+template <typename T, int NT, int LAYERS>
 __global__ void __launch_bounds__(THREADS, 1)
-hconv_pair_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_y1,
-                  const __grid_constant__ CUtensorMap tm_wa_hi,
-                  const __grid_constant__ CUtensorMap tm_wa_lo,
-                  const __grid_constant__ CUtensorMap tm_wb_hi,
-                  const __grid_constant__ CUtensorMap tm_wb_lo, const T* __restrict__ x,
-                  const float* __restrict__ bias_a, const float* __restrict__ ln_a,
-                  const float* __restrict__ bias_b, const float* __restrict__ ln_b,
-                  T* __restrict__ y1, T* __restrict__ out, int T_, int C, int K, int dil_a,
-                  int dil_b, int pa_left, int pb_left, int rows_out, int rows_b, float eps) {
+hconv_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_y1,
+             const __grid_constant__ CUtensorMap tm_wa_hi,
+             const __grid_constant__ CUtensorMap tm_wa_lo,
+             const __grid_constant__ CUtensorMap tm_wb_hi,
+             const __grid_constant__ CUtensorMap tm_wb_lo, const T* __restrict__ x,
+             const float* __restrict__ bias_a, const float* __restrict__ ln_a,
+             const float* __restrict__ bias_b, const float* __restrict__ ln_b,
+             T* __restrict__ y1, T* __restrict__ out, int T_, int C, int K, int dil_a,
+             int dil_b, int pa_left, int pb_left, int rows_out, int rows_b, float eps) {
   constexpr int CH = 32 * NT, NC = 2 * CH, HB = 4 * NT;  // HB: n8 blocks of h1
   constexpr int BK = Cfg<T>::BK, STAGES = Cfg<T>::STAGES, WMATS = Cfg<T>::WMATS;
   constexpr bool SPLIT = WMATS == 2;
@@ -299,7 +373,7 @@ hconv_pair_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constan
   const int chunks = K * C / BK, per_tap = C / BK;
   const int t0 = tile * rows_out;
   const T* xb = x + (size_t)b * T_ * C;
-  T* y1t = y1 + ((size_t)b * gridDim.y + tile) * ROWS * C;
+  T* y1t = LAYERS == 2 ? y1 + ((size_t)b * gridDim.y + tile) * ROWS * C : nullptr;
   const int rl0 = 64 * wg + 16 * wq + g;  // this thread's rows: rl0 and rl0 + 8
 
   if (threadIdx.x == 0) {
@@ -309,7 +383,7 @@ hconv_pair_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constan
   cluster_sync();  // every CTA of the cluster runs before any remote store; barriers ready
 
 #pragma unroll 1
-  for (int layer = 0; layer < 2; ++layer) {
+  for (int layer = 0; layer < LAYERS; ++layer) {
     // layer B's second warpgroup idles when its rows hold no output frame
     const bool active = layer == 0 || 64 * wg < rows_b;
     const int g0 = layer * chunks;  // chunks of earlier layers: stage and phase run on
@@ -333,11 +407,9 @@ hconv_pair_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constan
       }
     };
 
-    float acc[NT][32];
+    float acc[NC / 2];
 #pragma unroll
-    for (int m = 0; m < NT; ++m)
-#pragma unroll
-      for (int e = 0; e < 32; ++e) acc[m][e] = 0.f;
+    for (int e = 0; e < NC / 2; ++e) acc[e] = 0.f;
 
     // ---- the conv: chunks of the K·C reduction through the TMA ring.
     // Chunk q's products stay in flight while chunk q + 1 is set up, so a
@@ -369,20 +441,18 @@ hconv_pair_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constan
       }
       wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < 2; ++ks)
-#pragma unroll
-        for (int m = 0; m < NT; ++m) {
-          // n64 block m: weight rows 64m.. (4096 bytes on); the warpgroup's
-          // operand rows 64·wg.. likewise; k-step ks 32 bytes into each row
-          const uint32_t w = w_s + m * 4096 + ks * 32;
-          if constexpr (SPLIT) {
-            wgmma64(acc[m], al[ks], wgmma_desc(w));
-            wgmma64(acc[m], ah[ks], wgmma_desc(w + WBYTES));
-            wgmma64(acc[m], ah[ks], wgmma_desc(w));
-          } else {
-            wgmma64_ss(acc[m], wgmma_desc(a_s + wg * 4096 + ks * 32), wgmma_desc(w));
-          }
+      for (int ks = 0; ks < 2; ++ks) {
+        // all 2·CH weight rows (64 bytes each) at once; the warpgroup's
+        // operand rows 64·wg.. (4096 bytes on); k-step ks 32 bytes into each row
+        const uint32_t w = w_s + ks * 32;
+        if constexpr (SPLIT) {
+          wgmma_tf32<NC>(acc, al[ks], wgmma_desc(w));
+          wgmma_tf32<NC>(acc, ah[ks], wgmma_desc(w + WBYTES));
+          wgmma_tf32<NC>(acc, ah[ks], wgmma_desc(w));
+        } else {
+          wgmma_bf16<NC>(acc, wgmma_desc(a_s + wg * 4096 + ks * 32), wgmma_desc(w));
         }
+      }
       wgmma_commit();
     };
     uint32_t ah0[2][4], al0[2][4], ah1[2][4], al1[2][4];  // f32 only
@@ -424,10 +494,8 @@ hconv_pair_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constan
     __syncthreads();  // prm landed
 
     const int cl0 = 2 * t;  // + 8·J: this lane's channel pair (of the CTA's CH) in n8 block J
-    auto h1 = [&](int J, int h, int e) -> float& { return acc[J >> 3][4 * (J & 7) + 2 * h + e]; };
-    auto h2 = [&](int J, int h, int e) -> float& {
-      return acc[(J + HB) >> 3][4 * ((J + HB) & 7) + 2 * h + e];
-    };
+    auto h1 = [&](int J, int h, int e) -> float& { return acc[4 * J + 2 * h + e]; };
+    auto h2 = [&](int J, int h, int e) -> float& { return acc[4 * (J + HB) + 2 * h + e]; };
     auto prm2 = [&](int v, int cl) { return *reinterpret_cast<const float2*>(prm + v * CH + cl); };
 
     // row sums over the whole 2C row, for mean (pass 0) or variance (pass 1):
@@ -512,7 +580,7 @@ hconv_pair_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constan
         const float na = h2(J, h, 0) * r2[h] * s2.x + o2.x;
         const float nb = h2(J, h, 1) * r2[h] * s2.y + o2.y;
         const float2 x2 = load2(res + r * RSTRIDE + cl);
-        if (layer == 0) {
+        if (layer + 1 < LAYERS) {
           // y1 row r, frame t0 − pb_left + r; zeros outside the sequence
           const int f = t0 - pb_left + r;
           const bool in = f >= 0 && f < T_;
@@ -526,11 +594,14 @@ hconv_pair_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constan
     }
     // y1 complete across the cluster (layer B's operand, read by TMA: the
     // proxy fence orders the plain stores before it, as it orders this
-    // layer's plain use of the ring before the next layer's copies); no CTA
-    // leaves while others may still store into its shared memory
-    __threadfence();
-    fence_proxy_async();
-    cluster_sync();
+    // layer's plain use of the ring before the next layer's copies). After
+    // the last layer no barrier is needed: every store into another CTA's
+    // shared memory came before row_sums(1)'s cluster barrier.
+    if (layer + 1 < LAYERS) {
+      __threadfence();
+      fence_proxy_async();
+      cluster_sync();
+    }
   }
 }
 
@@ -581,23 +652,27 @@ int encode(CUtensorMap* m, int rank, const void* base, const cuuint64_t* dims,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <typename T, int NT>
-int pair_launch(const void* x, const void* wa_hi, const void* wa_lo, const float* bias_a,
-                const float* ln_a, const void* wb_hi, const void* wb_lo, const float* bias_b,
-                const float* ln_b, void* y1, void* out, int B, int T_, int C, int K, int dil_a,
-                int dil_b, int pa_left, int pb_left, int rows_out, int tiles, float eps,
-                cudaStream_t s) {
+template <typename T, int NT, int LAYERS>
+int hconv_launch(const void* x, const void* wa_hi, const void* wa_lo, const float* bias_a,
+                 const float* ln_a, const void* wb_hi, const void* wb_lo, const float* bias_b,
+                 const float* ln_b, void* y1, void* out, int B, int T_, int C, int K, int dil_a,
+                 int dil_b, int pa_left, int pb_left, int rows_out, int tiles, float eps,
+                 cudaStream_t s) {
   constexpr int CH = 32 * NT;
   constexpr cuuint32_t BK = Cfg<T>::BK;
   const int n = C / CH;
-  // layer B's rows and their halo must fit the 128 rows of y1, and the tiles
-  // must cover the sequence (the scratch holds `tiles` tiles per utterance)
-  if (n > MAX_CLUSTER || rows_out < 1 || rows_out + dil_b * (K - 1) > ROWS ||
-      (long long)tiles * rows_out < T_ || (long long)(tiles - 1) * rows_out >= T_)
+  // one layer: the tile's 128 rows are output frames; two: layer B's rows and
+  // their halo must fit the 128 rows of y1. The tiles must cover the sequence
+  // (the scratch holds `tiles` tiles per utterance).
+  const bool rows_ok = LAYERS == 1 ? rows_out == ROWS && pb_left == 0
+                                   : rows_out >= 1 && rows_out + dil_b * (K - 1) <= ROWS;
+  if (n > MAX_CLUSTER || !rows_ok || (long long)tiles * rows_out < T_ ||
+      (long long)(tiles - 1) * rows_out >= T_)
     return (int)cudaErrorInvalidValue;
   const int rows_b = rows_out > 64 ? ROWS : 64;
   // TMA boxes: BK channels × 128 rows of x (C, T, B) and of the y1 scratch
-  // (C, 128, tiles, B); BK × 2·CH of each weight (K·C, n·2·CH)
+  // (C, 128, tiles, B); BK × 2·CH of each weight (K·C, n·2·CH). One layer
+  // has no scratch and no layer-B weight: their maps repeat x's and A's.
   const cuuint64_t es = sizeof(T), uC = C, uT = T_, uK = K;
   const cuuint64_t dx[3] = {uC, uT, (cuuint64_t)B}, sx[2] = {uC * es, uT * uC * es};
   const cuuint64_t dy[4] = {uC, ROWS, (cuuint64_t)tiles, (cuuint64_t)B},
@@ -607,11 +682,15 @@ int pair_launch(const void* x, const void* wa_hi, const void* wa_lo, const float
   CUtensorMap mx, my, mw[4];
   const void* ws[4] = {wa_hi, wa_lo, wb_hi, wb_lo};
   int err = encode<T>(&mx, 3, x, dx, sx, bx);
-  if (!err) err = encode<T>(&my, 4, y1, dy, sy, by);
-  for (int i = 0; i < 4 && !err; ++i) err = encode<T>(&mw[i], 2, ws[i], dw, sw, bw);
+  for (int i = 0; i < 2 * LAYERS && !err; ++i) err = encode<T>(&mw[i], 2, ws[i], dw, sw, bw);
+  if constexpr (LAYERS == 2) {
+    if (!err) err = encode<T>(&my, 4, y1, dy, sy, by);
+  } else {
+    my = mx, mw[2] = mw[0], mw[3] = mw[1];
+  }
   if (err) return err;
-  const size_t smem = pair_smem<T>(CH, n);
-  auto kernel = hconv_pair_kernel<T, NT>;
+  const size_t smem = tile_smem<T>(CH, n);
+  auto kernel = hconv_kernel<T, NT, LAYERS>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return clear_and_return(e);
   cudaLaunchConfig_t cfg = {};
@@ -633,24 +712,47 @@ int pair_launch(const void* x, const void* wa_hi, const void* wa_lo, const float
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int pair_dispatch(const void* x, const void* wa_hi, const void* wa_lo, const float* bias_a,
-                  const float* ln_a, const void* wb_hi, const void* wb_lo, const float* bias_b,
-                  const float* ln_b, void* y1, void* out, int B, int T_, int C, int K, int dil_a,
-                  int dil_b, int pa_left, int pb_left, int rows_out, int tiles, float eps,
-                  cudaStream_t s) {
-#define SPOOFSV_PAIR(NT_)                                                                      \
-  return pair_launch<T, NT_>(x, wa_hi, wa_lo, bias_a, ln_a, wb_hi, wb_lo, bias_b, ln_b, y1, out, \
-                             B, T_, C, K, dil_a, dil_b, pa_left, pb_left, rows_out, tiles, eps, s)
-  if (C == 32) SPOOFSV_PAIR(1);
-  if (C == 64) SPOOFSV_PAIR(2);
-  SPOOFSV_PAIR(4);
-#undef SPOOFSV_PAIR
+// The instantiation for dtype (0 f32, 1 bf16) and C (a power of two in
+// [32, 1024]: 32 or 64 channels a CTA below 128, else 128).
+template <int LAYERS>
+int dispatch(int dtype, const void* x, const void* wa_hi, const void* wa_lo, const float* bias_a,
+             const float* ln_a, const void* wb_hi, const void* wb_lo, const float* bias_b,
+             const float* ln_b, void* y1, void* out, int B, int T_, int C, int K, int dil_a,
+             int dil_b, int pa_left, int pb_left, int rows_out, int tiles, float eps,
+             void* stream) {
+  if (dtype < 0 || dtype > 1 || C < 32 || C > 1024 || (C & (C - 1)) || K < 1 || dil_a < 1 ||
+      dil_b < 1 || B < 0 || T_ < 0)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || T_ == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+#define SPOOFSV_HCONV(T, NT_)                                                                  \
+  return hconv_launch<T, NT_, LAYERS>(x, wa_hi, wa_lo, bias_a, ln_a, wb_hi, wb_lo, bias_b, ln_b, \
+                                      y1, out, B, T_, C, K, dil_a, dil_b, pa_left, pb_left,      \
+                                      rows_out, tiles, eps, s)
+  if (dtype == 0) {
+    if (C == 32) SPOOFSV_HCONV(float, 1);
+    if (C == 64) SPOOFSV_HCONV(float, 2);
+    SPOOFSV_HCONV(float, 4);
+  }
+  if (C == 32) SPOOFSV_HCONV(bf16, 1);
+  if (C == 64) SPOOFSV_HCONV(bf16, 2);
+  SPOOFSV_HCONV(bf16, 4);
+#undef SPOOFSV_HCONV
 }
 
 }  // namespace
 
 extern "C" {
+
+// K4. x and out (B, T, C); w_hi, w_lo (n, 2·CH, K·C) in x's type (w_lo
+// unused for bf16); bias (2C) and ln (4, C) f32; tiles = ceil(T / 128).
+// C a power of two in [32, 1024].
+int spoofsv_hconv_launch(int dtype, const void* x, const void* w_hi, const void* w_lo,
+                         const float* bias, const float* ln, void* out, int B, int T, int C,
+                         int K, int dil, int pad_left, int tiles, float eps, void* stream) {
+  return dispatch<1>(dtype, x, w_hi, w_lo, bias, ln, w_hi, w_lo, bias, ln, nullptr, out, B, T, C,
+                     K, dil, 1, pad_left, 0, ROWS, tiles, eps, stream);
+}
 
 // K5. x and out (B, T, C); w*_hi, w*_lo (n, 2·CH, K·C) in x's type (w*_lo
 // unused for bf16); bias (2C) and ln (4, C) f32; y1 the scratch
@@ -661,25 +763,15 @@ int spoofsv_hconv_pair_launch(int dtype, const void* x, const void* wa_hi, const
                               void* out, int B, int T, int C, int K, int dil_a, int dil_b,
                               int pa_left, int pb_left, int rows_out, int tiles, float eps,
                               void* stream) {
-  if (dtype < 0 || dtype > 1 || C < 32 || C > 1024 || (C & (C - 1)) || K < 1 || dil_a < 1 ||
-      dil_b < 1 || B < 0 || T < 0)
-    return (int)cudaErrorInvalidValue;
-  if (B == 0 || T == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  return dtype == 0
-             ? pair_dispatch<float>(x, wa_hi, wa_lo, bias_a, ln_a, wb_hi, wb_lo, bias_b, ln_b, y1,
-                                    out, B, T, C, K, dil_a, dil_b, pa_left, pb_left, rows_out,
-                                    tiles, eps, s)
-             : pair_dispatch<bf16>(x, wa_hi, wa_lo, bias_a, ln_a, wb_hi, wb_lo, bias_b, ln_b, y1,
-                                   out, B, T, C, K, dil_a, dil_b, pa_left, pb_left, rows_out,
-                                   tiles, eps, s);
+  return dispatch<2>(dtype, x, wa_hi, wa_lo, bias_a, ln_a, wb_hi, wb_lo, bias_b, ln_b, y1, out, B,
+                     T, C, K, dil_a, dil_b, pa_left, pb_left, rows_out, tiles, eps, stream);
 }
 
-// Dynamic shared memory of one K5 CTA, in bytes (the wrapper's tile plan
-// states the same).
-int spoofsv_hconv_pair_smem(int dtype, int C) {
+// Dynamic shared memory of one K4 or K5 CTA, in bytes: both run the same
+// tile and ring (the wrapper's tile plan states the same).
+int spoofsv_hconv_smem(int dtype, int C) {
   const int ch = C < 128 ? C : 128;
-  return (int)(dtype == 0 ? pair_smem<float>(ch, C / ch) : pair_smem<bf16>(ch, C / ch));
+  return (int)(dtype == 0 ? tile_smem<float>(ch, C / ch) : tile_smem<bf16>(ch, C / ch));
 }
 
 const char* spoofsv_hconv_pair_error_string(int err) {

@@ -64,13 +64,13 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         "spoofsv_gl_tc_error_string": (ctypes.c_char_p, [_I]),
     },
     "highway": {
-        "spoofsv_highway_gate_launch": (_I, [_I, _P, _P, _P, _P, _I, _I, _F, _P]),
-        "spoofsv_hconv_launch": (_I, [_I] + [_P] * 5 + [_I] * 6 + [_F, _P]),
+        "spoofsv_highway_gate_launch": (_I, [_I] + [_P] * 6 + [_I, _P, _I, _I, _F, _P]),
         "spoofsv_highway_error_string": (ctypes.c_char_p, [_I]),
     },
     "hconv_pair": {
+        "spoofsv_hconv_launch": (_I, [_I] + [_P] * 6 + [_I] * 7 + [_F, _P]),
         "spoofsv_hconv_pair_launch": (_I, [_I] + [_P] * 11 + [_I] * 10 + [_F, _P]),
-        "spoofsv_hconv_pair_smem": (_I, [_I, _I]),
+        "spoofsv_hconv_smem": (_I, [_I, _I]),
         "spoofsv_hconv_pair_error_string": (ctypes.c_char_p, [_I]),
     },
 }
@@ -183,7 +183,36 @@ def check(lib: ctypes.CDLL, name: str, err: int, what: str) -> None:
 
 
 def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of ``device``'s current stream (``current_stream(device)
+    .cuda_stream`` builds a Stream object first, on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def device_ms(fn, name: str, reps: int = 20) -> Tuple[Optional[float], Optional[float]]:
+    """Device time of ``reps`` back-to-back calls of ``fn`` under
+    ``torch.profiler``: (ms a call of all the device work it runs, kernels and
+    copies; ms a launch of the kernels whose name holds ``name``), each None
+    when the profiler records no such work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    every, named, count = 0.0, 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            us = getattr(e, "self_cuda_time_total", 0.0) if us is None else us
+            every += us
+            if name in e.key:
+                named += us
+                count += e.count
+    return (every / 1e3 / reps if every else None,
+            named / 1e3 / count if count and named else None)
 
 
 def require_cuda(*tensors: torch.Tensor) -> torch.device:

@@ -40,6 +40,7 @@ MATRIX_NAMES = ("hw_w", "sq_w", "enc_w1", "dec_w1", "tail_w5")   # in the comput
 
 decode_kernel = _build.LaunchCounter()   # K1, both sources
 cluster_kernel = _build.LaunchCounter()  # K1's bf16 source, decode_cluster.cu, alone
+f32_kernel = _build.LaunchCounter()      # K1's f32 source, decode.cu, alone
 
 
 def _round_up(x: int, m: int) -> int:
@@ -581,6 +582,7 @@ def decode_fused(packed: Dict[str, torch.Tensor], K: torch.Tensor, V: torch.Tens
                                     _build.stream_ptr(dev))
     _build.check(lib, "decode", err, "decode_kernel")
     decode_kernel.launches += 1
+    f32_kernel.launches += 1
     return y[:B], a[:B], pma[:B].long()
 
 

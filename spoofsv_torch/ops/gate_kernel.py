@@ -10,8 +10,6 @@ from the saved inputs, the design of ``fused_highway_gate_ad``.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from spoofsv_torch.ops import _build
@@ -48,14 +46,10 @@ def aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def pack_ln(s1, b1, s2, b2) -> torch.Tensor:
-    """The kernels' (4, C) f32 LayerNorm operand: LN1 scale, LN1 bias, LN2 scale, LN2 bias."""
-    return torch.stack([s1, b1, s2, b2]).float().contiguous()
-
-
 def gate_launch(h: torch.Tensor, x: torch.Tensor, s1, b1, s2, b2,
                 eps: float = LN_EPS) -> torch.Tensor:
-    """Launch K6 on CUDA tensors; raises on anything the kernel does not take."""
+    """Launch K6 on CUDA tensors, one launch a call; raises on anything the
+    kernel does not take. The LayerNorm vectors go as they are, f32 or bf16."""
     *lead, c2 = h.shape
     c = c2 // 2
     if tuple(x.shape) != (*lead, c) or c2 != 2 * c:
@@ -63,17 +57,21 @@ def gate_launch(h: torch.Tensor, x: torch.Tensor, s1, b1, s2, b2,
     if x.dtype not in _build.DTYPE_CODES or h.dtype != x.dtype:
         raise ValueError(f"gate kernel takes f32 or bf16 h and x of one dtype, "
                          f"got {h.dtype}/{x.dtype}")
-    if c % 32 or c > 1024:
-        raise ValueError(f"gate kernel needs C % 32 == 0 and C <= 1024, got {c}")
+    if c < 32 or c > 1024 or c & (c - 1):
+        raise ValueError(f"gate kernel needs C a power of two in [32, 1024], got {c}")
+    lns = [aligned(t) for t in (s1, b1, s2, b2)]
+    if any(t.shape != (c,) or t.dtype != lns[0].dtype for t in lns) \
+            or lns[0].dtype not in _build.DTYPE_CODES:
+        raise ValueError(f"gate kernel takes four LayerNorm vectors of {c} f32 or bf16 values "
+                         f"of one dtype, got {[(tuple(t.shape), t.dtype) for t in lns]}")
     lib = _build.load("highway")
     h, x = aligned(h), aligned(x)
-    ln = pack_ln(s1, b1, s2, b2).to(x.device)
     out = torch.empty_like(x)
-    _build.require_cuda(h, x, ln, out)
-    rows = x.numel() // c
-    ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (h, x, ln, out)]
-    err = lib.spoofsv_highway_gate_launch(_build.DTYPE_CODES[x.dtype], *ptrs, rows, c, eps,
-                                          _build.stream_ptr(x.device))
+    _build.require_cuda(h, x, *lns, out)
+    err = lib.spoofsv_highway_gate_launch(
+        _build.DTYPE_CODES[x.dtype], h.data_ptr(), x.data_ptr(), *(t.data_ptr() for t in lns),
+        _build.DTYPE_CODES[lns[0].dtype], out.data_ptr(), x.numel() // c, c, eps,
+        _build.stream_ptr(x.device))
     _build.check(lib, "highway", err, "gate_kernel")
     gate_kernel.launches += 1
     return out

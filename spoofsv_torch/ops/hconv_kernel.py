@@ -1,33 +1,31 @@
 """K4 and K5: whole highway blocks (conv, LayerNorms, gate) in one pass.
 
-Port of :mod:`spoofsv_tpu.ops.pallas_conv`. K4 (``_hconv_kernel`` →
-``csrc/highway.cu::hconv_kernel``) runs one block; K5
-(``_hconv_pair_kernel`` → ``csrc/hconv_pair.cu``) runs two consecutive
-blocks in one launch, the activation between them in an L2-resident
-scratch tile. :func:`highway_conv_plain` ports ``highway_conv_reference`` and
+Port of :mod:`spoofsv_tpu.ops.pallas_conv`. Both kernels are one template in
+``csrc/hconv_pair.cu``: K4 (``_hconv_kernel``) is its one-layer instance and
+runs one block; K5 (``_hconv_pair_kernel``) runs two consecutive blocks in
+one launch, the activation between them in an L2-resident scratch tile.
+:func:`highway_conv_plain` ports ``highway_conv_reference`` and
 :func:`highway_pair_plain` the chained pair reference.
 
-The conv weight is the reference schema ``(2C, C, K)`` (``Conv1d``). K4
-takes it as ``(K·C, 2C)``; K5 as one ``(2·CH, K·C)`` slice per CTA of its
-cluster (:func:`pair_weight_operand`), split into TF32 hi and lo parts for
-f32 (:func:`tf32_split`), both prepared once per call here. Both wrappers
-are differentiable: the forward launches the kernel for CUDA tensors (the
-plain version for CPU tensors) and the backward is the gradient of the plain
+The conv weight is the reference schema ``(2C, C, K)`` (``Conv1d``). The
+kernels take it as one ``(2·CH, K·C)`` slice per CTA of their cluster
+(:func:`pair_weight_operand`), split into TF32 hi and lo parts for f32
+(:func:`tf32_split`), prepared once per call here. Both wrappers are
+differentiable: the forward launches the kernel for CUDA tensors (the plain
+version for CPU tensors) and the backward is the gradient of the plain
 version recomputed from the saved inputs, as ``fused_highway_conv_ad`` and
 ``fused_highway_conv_pair_ad`` do.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from spoofsv_torch.ops import _build
-from spoofsv_torch.ops.gate_kernel import (LN_EPS, aligned, highway_gate_plain, pack_ln,
-                                           recompute_grads)
+from spoofsv_torch.ops.gate_kernel import LN_EPS, aligned, highway_gate_plain, recompute_grads
 
 hconv_kernel = _build.LaunchCounter()        # K4
 hconv_pair_kernel = _build.LaunchCounter()   # K5
@@ -62,24 +60,25 @@ def highway_pair_plain(x, wa, ba, s1a, b1a, s2a, b2a, wb, bb, s1b, b1b, s2b, b2b
     return highway_conv_plain(y1, wb, bb, s1b, b1b, s2b, b2b, dilation_b, causal)
 
 
-def _kernel_operand(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """(2C, C, K) → the kernels' (K·C, 2C), row k·C + i, column o = weight[o, i, k]."""
-    two_c, c, k = weight.shape
-    return aligned(weight.detach().permute(2, 1, 0).reshape(k * c, two_c).to(dtype))
+def pack_ln(s1, b1, s2, b2) -> torch.Tensor:
+    """K4's and K5's (4, C) f32 LayerNorm operand: LN1 scale, LN1 bias, LN2 scale, LN2 bias."""
+    return torch.stack([s1, b1, s2, b2]).detach().float().contiguous()
 
 
-# K5's tile (csrc/hconv_pair.cu): layer A runs over PAIR_ROWS rows of y1 and
-# layer B over the PAIR_ROWS - d_b·(K-1) output frames they cover; a CTA owns
-# PAIR_CHANNELS channels of h1 and h2 (fewer when C is smaller)
+# The tile (csrc/hconv_pair.cu): layer A runs over PAIR_ROWS rows of y1 and
+# layer B over the PAIR_ROWS - d_b·(K-1) output frames they cover (K4: the
+# PAIR_ROWS rows are the output frames); a CTA owns PAIR_CHANNELS channels of
+# h1 and h2 (fewer when C is smaller)
 PAIR_ROWS = 128
 PAIR_CHANNELS = 128
 
 
 class PairPlan(NamedTuple):
-    """K5's tiling of one call."""
-    rows_a: int          # layer A's rows per tile (y1 rows)
+    """K4's or K5's tiling of one call."""
+    layers: int          # 1 (K4) or 2 (K5)
+    rows_a: int          # layer A's rows per tile (y1 rows; K4: output frames)
     rows_out: int        # output frames per tile
-    rows_b: int          # layer B's rows per tile: rows_out rounded up to a warpgroup's 64
+    rows_b: int          # layer B's rows per tile: rows_out rounded up to 64 (K4: 0)
     tiles: int           # tiles per utterance
     cluster: int         # CTAs per tile, along the channels
     channels: int        # channels of h1 (and of h2) per CTA
@@ -87,16 +86,22 @@ class PairPlan(NamedTuple):
     smem_bytes: int      # dynamic shared memory per CTA
 
     def executed_over_useful(self, T: int) -> float:
-        """Rows the two layers compute over the rows the pair needs (2·T)."""
-        return self.tiles * (self.rows_a + self.rows_b) / (2 * T)
+        """Rows the layers compute over the rows the blocks need (layers·T)."""
+        return self.tiles * (self.rows_a + self.rows_b) / (self.layers * T)
 
 
-def pair_tile_plan(C: int, K: int, dilation_b: int, T: int, dtype: torch.dtype) -> PairPlan:
-    """K5's tile plan, as ``csrc/hconv_pair.cu`` lays it out. A halo that
-    leaves layer B no row (``d_b·(K-1) >= 128``) gives ``rows_out < 1``,
-    which the kernel refuses at launch."""
+def pair_tile_plan(C: int, K: int, dilation_b: int, T: int, dtype: torch.dtype,
+                   layers: int = 2) -> PairPlan:
+    """The tile plan of K5 (``layers=2``) or K4 (``layers=1``), as
+    ``csrc/hconv_pair.cu`` lays it out. K5: a halo that leaves layer B no row
+    (``d_b·(K-1) >= 128``) gives ``rows_out < 1``, which the kernel refuses at
+    launch. K4: 128 output frames a tile whatever the conv's span (each tap's
+    rows are fetched at their own offset), so ``K`` and ``dilation_b`` do not
+    enter."""
+    if layers not in (1, 2):
+        raise ValueError(f"a highway tile runs 1 or 2 layers, got {layers}")
     ch = min(C, PAIR_CHANNELS)
-    rows_out = PAIR_ROWS - dilation_b * (K - 1)
+    rows_out = PAIR_ROWS - dilation_b * (K - 1) if layers == 2 else PAIR_ROWS
     split = dtype == torch.float32           # 3xTF32: weight hi and lo
     stages = 5 if split else 8
     # per stage: 64 bytes of each operand row and of each of the 2·ch weight rows
@@ -104,8 +109,9 @@ def pair_tile_plan(C: int, K: int, dilation_b: int, T: int, dtype: torch.dtype) 
     cluster = C // ch
     # + alignment slack, the cluster's row-sum exchange and a barrier per stage
     smem = 1024 + ring + 4 * 2 * cluster * PAIR_ROWS * 2 + 8 * stages
-    return PairPlan(PAIR_ROWS, rows_out, PAIR_ROWS if rows_out > 64 else 64,
-                    -(-T // max(rows_out, 1)), cluster, ch, stages, smem)
+    rows_b = 0 if layers == 1 else PAIR_ROWS if rows_out > 64 else 64
+    return PairPlan(layers, PAIR_ROWS, rows_out, rows_b, -(-T // max(rows_out, 1)), cluster, ch,
+                    stages, smem)
 
 
 def tf32_split(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -134,8 +140,9 @@ def _check(x: torch.Tensor, *weights: torch.Tensor) -> int:
     B, T, C = x.shape
     if x.dtype not in _build.DTYPE_CODES:
         raise ValueError(f"highway conv kernels take f32 or bf16, got {x.dtype}")
-    if C < 16 or C > 1024 or C & (C - 1):
-        raise ValueError(f"highway conv kernels need C a power of two in [16, 1024], got {C}")
+    if C < 32 or C > 1024 or C & (C - 1):
+        # C >= 32: a CTA's h1 and h2 columns (2·min(C, 128)) fill at least a wgmma n64
+        raise ValueError(f"highway conv kernels need C a power of two in [32, 1024], got {C}")
     K = weights[0].shape[-1]
     for w in weights:
         if tuple(w.shape) != (2 * C, C, K):
@@ -143,23 +150,31 @@ def _check(x: torch.Tensor, *weights: torch.Tensor) -> int:
     return K
 
 
+def _weight_parts(weight: torch.Tensor, cluster: int, dtype: torch.dtype):
+    """The kernels' weight operand (:func:`pair_weight_operand`): f32 as its
+    TF32 (hi, lo) parts; bf16 has no lo part and passes hi twice."""
+    w = pair_weight_operand(weight, cluster)
+    return tf32_split(w) if dtype == torch.float32 else (w.to(dtype),) * 2
+
+
 def hconv_launch(x, weight, bias, s1, b1, s2, b2, dilation: int, causal: bool,
                  eps: float = LN_EPS) -> torch.Tensor:
-    """Launch K4 on CUDA tensors; raises on anything the kernel does not take."""
+    """Launch K4, the one-layer instance of ``csrc/hconv_pair.cu``, on CUDA
+    tensors; raises on anything the kernel does not take."""
     K = _check(x, weight)
-    lib = _build.load("highway")
     B, T, C = x.shape
+    lib = _build.load("hconv_pair")
+    plan = pair_tile_plan(C, K, dilation, T, x.dtype, layers=1)
     x = aligned(x)
-    w = _kernel_operand(weight, x.dtype)
-    b = bias.detach().float().contiguous()
-    ln = pack_ln(s1, b1, s2, b2).detach()
+    hi, lo = _weight_parts(weight, plan.cluster, x.dtype)
+    ops = [x, hi, lo, bias.detach().float().contiguous(), pack_ln(s1, b1, s2, b2)]
     out = torch.empty_like(x)
-    _build.require_cuda(x, w, b, ln, out)
-    ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (x, w, b, ln, out)]
-    err = lib.spoofsv_hconv_launch(_build.DTYPE_CODES[x.dtype], *ptrs, B, T, C, K, dilation,
-                                   pad_left(K, dilation, causal), eps,
+    _build.require_cuda(*ops, out)
+    err = lib.spoofsv_hconv_launch(_build.DTYPE_CODES[x.dtype], *(t.data_ptr() for t in ops),
+                                   out.data_ptr(), B, T, C, K, dilation,
+                                   pad_left(K, dilation, causal), plan.tiles, eps,
                                    _build.stream_ptr(x.device))
-    _build.check(lib, "highway", err, "hconv_kernel")
+    _build.check(lib, "hconv_pair", err, "hconv_kernel")
     hconv_kernel.launches += 1
     return out
 
@@ -171,22 +186,17 @@ def hconv_pair_launch(x, wa, ba, s1a, b1a, s2a, b2a, wb, bb, s1b, b1b, s2b, b2b,
     (including a layer-B halo that leaves its tile no output row)."""
     K = _check(x, wa, wb)
     B, T, C = x.shape
-    if C < 32:
-        raise ValueError(f"K5 needs C >= 32 (one CTA's channel tile), got {C}")
     lib = _build.load("hconv_pair")
     plan = pair_tile_plan(C, K, dilation_b, T, x.dtype)
     x = aligned(x)
-    # both layers' weights in one pass; bf16 has no lo part and passes hi twice
-    w = pair_weight_operand(torch.stack([wa, wb]), plan.cluster)
-    hi, lo = tf32_split(w) if x.dtype == torch.float32 else (w.to(x.dtype),) * 2
-    ops = [x, hi[0], lo[0], ba.detach().float().contiguous(),
-           pack_ln(s1a, b1a, s2a, b2a).detach(), hi[1], lo[1],
-           bb.detach().float().contiguous(), pack_ln(s1b, b1b, s2b, b2b).detach(),
+    hi, lo = _weight_parts(torch.stack([wa, wb]), plan.cluster, x.dtype)   # both layers at once
+    ops = [x, hi[0], lo[0], ba.detach().float().contiguous(), pack_ln(s1a, b1a, s2a, b2a),
+           hi[1], lo[1], bb.detach().float().contiguous(), pack_ln(s1b, b1b, s2b, b2b),
            torch.empty(B, plan.tiles, plan.rows_a, C, dtype=x.dtype, device=x.device)]
     out = torch.empty_like(x)
     _build.require_cuda(*ops, out)
-    ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (*ops, out)]
-    err = lib.spoofsv_hconv_pair_launch(_build.DTYPE_CODES[x.dtype], *ptrs, B, T, C, K,
+    err = lib.spoofsv_hconv_pair_launch(_build.DTYPE_CODES[x.dtype],
+                                        *(t.data_ptr() for t in (*ops, out)), B, T, C, K,
                                         dilation_a, dilation_b, pad_left(K, dilation_a, causal),
                                         pad_left(K, dilation_b, causal), plan.rows_out,
                                         plan.tiles, eps, _build.stream_ptr(x.device))

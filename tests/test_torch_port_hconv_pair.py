@@ -1,23 +1,30 @@
-"""K5's host-side pieces on the CPU: the TF32 hi/lo split, the kernel's
-tiling and operand layout emulated in plain torch with 3xTF32 products, and
-the tile plan at every pair the models fuse.
+"""K4's and K5's host-side pieces on the CPU (one kernel template,
+``csrc/hconv_pair.cu``): the TF32 hi/lo split, the kernels' tiling and
+operand layout emulated in plain torch with 3xTF32 products, and the tile
+plan at every block and pair the models run through them.
 
-The emulation walks the tiles as ``csrc/hconv_pair.cu`` does (y1 rows,
-cluster column slices, zero padding, output rows per tile) and forms each
-product as x_lo·w_hi + x_hi·w_lo + x_hi·w_hi of TF32 parts in f32, which is
-the kernel's arithmetic up to summation order; it is held against
-``highway_pair_plain`` at 1e-4, the card's f32 gate for K5.
+The emulations walk the tiles as the kernel does (K5: y1 rows; K4: 128
+output frames, each tap's 128 operand rows fetched at their own offset;
+cluster column slices, zero fill outside the sequence, output rows per tile)
+and form each product as x_lo·w_hi + x_hi·w_lo + x_hi·w_hi of TF32 parts in
+f32, which is the kernel's arithmetic up to summation order; they are held
+against the plain versions at 1e-4, the card's f32 gate, and K4's also
+against the JAX package's ``fused_highway_conv`` in interpret mode.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
 from spoofsv_torch.config import Config
 from spoofsv_torch.models import SSRN, MelSyn, layers
 from spoofsv_torch.ops import gate_kernel, hconv_kernel
-from spoofsv_torch.ops.hconv_kernel import (PAIR_ROWS, highway_pair_plain, pad_left,
-                                            pair_tile_plan, pair_weight_operand, tf32_split)
+from spoofsv_torch.ops.hconv_kernel import (PAIR_ROWS, highway_conv_plain, highway_pair_plain,
+                                            pad_left, pair_tile_plan, pair_weight_operand,
+                                            tf32_split)
+from spoofsv_tpu.ops import pallas_conv
 
 SMEM_PER_CTA = 232448   # H100: 227 KB of dynamic shared memory per block
 
@@ -85,6 +92,51 @@ def _emulate_k5(x, pa, pb, da, db, causal):
             n = min(plan.rows_out, T - t0)
             out[b, t0:t0 + n] = y[:n]
     return out
+
+
+def _window(xb, start, n=PAIR_ROWS):
+    """Rows start .. start + n of xb (T, C), zeros outside [0, T): one TMA box."""
+    idx = torch.arange(start, start + n)
+    ok = (idx >= 0) & (idx < xb.shape[0])
+    w = torch.zeros(n, xb.shape[1])
+    w[ok] = xb[idx[ok]]
+    return w
+
+
+def _emulate_k4(x, p, d, causal):
+    B, T, C = x.shape
+    K = p[0].shape[-1]
+    plan = pair_tile_plan(C, K, d, T, torch.float32, layers=1)
+    left = pad_left(K, d, causal)
+    out = torch.full_like(x, float("nan"))
+    for b in range(B):
+        for tile in range(plan.tiles):
+            t0 = tile * plan.rows_out
+            # tap k's operand: x at frames t0 - left + k·d .. + 127
+            rows = torch.stack([_window(x[b], t0 - left + k * d) for k in range(K)], dim=1)
+            y = gate_kernel.highway_gate_plain(_block(rows, p, plan.cluster), _window(x[b], t0),
+                                               *p[2:])
+            n = min(plan.rows_out, T - t0)
+            out[b, t0:t0 + n] = y[:n]
+    return out
+
+
+@pytest.mark.parametrize("C,T,d,causal,K", [
+    (32, 20, 1, False, 3),      # shorter than one tile
+    (64, 128, 1, False, 3),     # exactly one tile
+    (64, 129, 3, False, 3),     # one frame into the second tile
+    (32, 300, 27, True, 3),     # causal d=27: the 54-frame halo straddles tiles
+    (64, 150, 1, False, 1),     # K = 1
+    (256, 140, 1, False, 3),    # a cluster of 2
+])
+def test_k4_tiling_with_3xtf32_matches_plain_and_jax(C, T, d, causal, K):
+    x, p = _x(2, T, C, 11), _params(C, K, 12)
+    got = _emulate_k4(x, p, d, causal)
+    torch.testing.assert_close(got, highway_conv_plain(x, *p, d, causal), atol=1e-4, rtol=1e-4)
+    jp = [jnp.asarray(p[0].permute(2, 1, 0).numpy())] + [jnp.asarray(v.numpy()) for v in p[1:]]
+    ref = pallas_conv.fused_highway_conv(jnp.asarray(x.numpy()), *jp, dilation=d, causal=causal,
+                                         interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4, rtol=1e-4)
 
 
 def test_tf32_split():
@@ -162,6 +214,76 @@ def model_pairs():
     finally:
         layers.fused_highway_conv_pair = real
     return sorted(seen)
+
+
+@pytest.fixture(scope="module")
+def model_blocks():
+    """(C, K, d, causal) of every block the shipping-width MelSyn and SSRN run
+    through K4 under "fused_conv"."""
+    cfg = Config()
+    seen = set()
+    real = layers.fused_highway_conv
+
+    def record(x, w, b, s1, b1, s2, b2, dilation, causal):
+        seen.add((x.shape[-1], w.shape[-1], dilation, causal))
+        return real(x, w, b, s1, b1, s2, b2, dilation, causal)
+
+    torch.manual_seed(0)
+    melsyn = MelSyn(cfg.vocab_len, True, cfg.spk_emb_dim, cfg.text_emb_dim,
+                    cfg.mel.freq_bins, cfg.hidden_dim).eval()
+    ssrn = SSRN(cfg.mel.freq_bins, cfg.lin_bins, cfg.ssrn_dim).eval()
+    text = torch.randint(1, cfg.vocab_len - 1, (1, 64))
+    mel = torch.rand(1, 80, cfg.mel.freq_bins)
+    layers.fused_highway_conv = record
+    try:
+        with layers.gate_impl("fused_conv"), torch.no_grad():
+            melsyn(mel, text, torch.randn(1, cfg.spk_emb_dim))
+            ssrn(mel)
+    finally:
+        layers.fused_highway_conv = real
+    return sorted(seen)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hconv_tile_plan_fits_every_model_block(model_blocks, dtype):
+    """Every block the models run through K4 fits one CTA's shared memory and
+    a portable cluster, with 128 output frames a tile covering the sequence."""
+    assert {b[0] for b in model_blocks} == {256, 512}, model_blocks
+    assert {b[2] for b in model_blocks} >= {1, 3, 9, 27} and any(b[1] == 1 for b in model_blocks)
+    for C, K, d, causal in model_blocks:
+        for T in (186, 325, 1300):
+            plan = pair_tile_plan(C, K, d, T, dtype, layers=1)
+            assert plan.smem_bytes <= SMEM_PER_CTA, (C, K, d, plan)
+            assert 1 <= plan.cluster <= 8 and plan.cluster * plan.channels == C
+            assert plan.rows_a == plan.rows_out == PAIR_ROWS and plan.rows_b == 0
+            assert (plan.tiles - 1) * plan.rows_out < T <= plan.tiles * plan.rows_out
+            assert plan.executed_over_useful(T) >= 1.0
+
+
+def test_hconv_tile_plan_numbers():
+    """SSRN hc3 (C=512) at T=1300: 11 tiles of 128 frames (1.083× the useful
+    rows), a cluster of 4, K5's ring and shared memory; the audio encoder
+    (C=256) at T=325: 3 tiles, a cluster of 2."""
+    p = pair_tile_plan(512, 3, 1, 1300, torch.float32, layers=1)
+    assert (p.layers, p.rows_out, p.rows_b, p.tiles, p.cluster, p.channels, p.stages) == \
+        (1, 128, 0, 11, 4, 128, 5)
+    assert p.smem_bytes == pair_tile_plan(512, 3, 1, 1300, torch.float32).smem_bytes
+    assert abs(p.executed_over_useful(1300) - 11 * 128 / 1300) < 1e-12
+    q = pair_tile_plan(256, 3, 27, 325, torch.bfloat16, layers=1)
+    assert (q.rows_out, q.tiles, q.cluster, q.stages) == (128, 3, 2, 8)
+    with pytest.raises(ValueError):
+        pair_tile_plan(256, 3, 1, 100, torch.float32, layers=3)
+
+
+def test_k4_wrapper_cpu_takes_plain():
+    """On CPU tensors K4's wrapper is the plain block (no build, no count),
+    at a width the kernel would refuse too."""
+    C, T = 16, 20
+    x, p = _x(1, T, C, 13), _params(C, 3, 14)
+    before = hconv_kernel.hconv_kernel.launches
+    got = hconv_kernel.fused_highway_conv(x, *p, 3, True)
+    assert hconv_kernel.hconv_kernel.launches == before
+    torch.testing.assert_close(got, highway_conv_plain(x, *p, 3, True), atol=0, rtol=0)
 
 
 def test_model_pairs_are_the_known_set(model_pairs):

@@ -61,6 +61,44 @@ def test_gate_plain_matches_pallas(lead, c):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gate_wrapper_cpu_takes_plain_with_bf16_ln(dtype):
+    """K6's wrapper on CPU tensors is the plain gate (no build, no count) and
+    takes bf16 LayerNorm vectors as they are, as the kernel does on the card;
+    held against the JAX kernel (interpret) on the same bf16-rounded values."""
+    rng = np.random.default_rng(4)
+    c = 32
+    h = _t(rng.normal(size=(3, 7, 2 * c))).to(dtype)
+    x = _t(rng.normal(size=(3, 7, c))).to(dtype)
+    lns = [_t(rng.normal(1 if i % 2 == 0 else 0, 0.1, (c,))).to(torch.bfloat16)
+           for i in range(4)]
+    before = gate_kernel.gate_kernel.launches
+    got = gate_kernel.fused_highway_gate(h, x, *lns)
+    assert gate_kernel.gate_kernel.launches == before and got.dtype == dtype
+    torch.testing.assert_close(got, gate_kernel.highway_gate_plain(h, x, *lns), atol=0, rtol=0)
+    ref = pallas_ops.fused_highway_gate(*(jnp.asarray(t.float().numpy()) for t in (h, x, *lns)),
+                                        block_rows=8, interpret=True)
+    # bf16: the output rounded to bf16, half an ulp (2⁻⁸ relative)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(ref), atol=ATOL,
+                               rtol=1e-7 if dtype == torch.float32 else 2 ** -8)
+
+
+def test_chip_smoke_gate_case_on_cpu():
+    """The card's K6 case (``ops/hconv_probe.py``, run by ``chip_smoke.py``
+    phase 6) built on the CPU: one input set (no L2 to outrun), the timed
+    call computes what the checked call does, and the bound's bytes are h, x
+    and y once each plus the LayerNorm vectors."""
+    from spoofsv_torch.ops import hconv_probe
+
+    cpu = torch.device("cpu")
+    assert set(hconv_probe.cases(cpu)) == set(hconv_probe.KERNEL_NAMES)
+    case = hconv_probe.gate_case(325, 256, 30, cpu)
+    assert case.work["bytes"] == 4 * 16 * 325 * (2 * 256 + 256 + 256) + 4 * 4 * 256
+    ref = case.plain()
+    torch.testing.assert_close(case.fused(), ref, atol=0, rtol=0)
+    torch.testing.assert_close(case.timed(), ref, atol=0, rtol=0)
+
+
 @pytest.mark.parametrize("T,dil,causal,K", [
     (37, 1, False, 3),    # ragged tail, SAME
     (37, 3, False, 3),    # dilated SAME

@@ -286,12 +286,33 @@ def test_gate_kernel_matches_plain(dev, C, dtype):
     torch.testing.assert_close(got.float(), ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype,ln_dtype", [(torch.float32, torch.bfloat16),
+                                            (torch.bfloat16, torch.float32)])
+def test_gate_kernel_takes_ln_in_its_own_type(dev, dtype, ln_dtype):
+    """K6 reads the four LayerNorm vectors in their storage type, whatever
+    h's and x's, in one launch; C=1024 and C=64 (two and eight lanes a row
+    group), a row count that leaves the last warp's second pass empty."""
+    for C in (64, 1024):
+        h = _x(1, 29, 2 * C, dev, 23, dtype)
+        x = _x(1, 29, C, dev, 24, dtype)
+        lns = _hw_params(C, 1, dev, 25, ln_dtype)[2:]
+        before = gate_kernel.gate_kernel.launches
+        got = gate_kernel.fused_highway_gate(h, x, *lns)
+        assert gate_kernel.gate_kernel.launches == before + 1
+        ref = gate_kernel.highway_gate_plain(h, x, *lns)
+        torch.testing.assert_close(got.float(), ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("C,T,dil,causal,K", [
     (64, 37, 3, False, 3), (256, 300, 27, True, 3), (512, 50, 1, False, 1),
-    (16, 9, 1, False, 3), (512, 186, 27, False, 3)])
+    (32, 9, 1, False, 3), (512, 186, 27, False, 3),
+    # K4's tile: 128 output frames
+    (256, 128, 1, False, 3), (256, 129, 1, True, 3), (512, 1300, 1, False, 3),
+    (1024, 70, 9, False, 3)])                                          # a cluster of 8
 def test_hconv_kernel_matches_plain(dev, C, T, dil, causal, K, dtype):
-    """K4: SAME and causal halos, K=1, a sequence shorter than one tile."""
+    """K4: SAME and causal halos, K=1, a sequence shorter than one tile,
+    tile edges (128, 129 frames), SSRN hc3's length."""
     x = _x(2, T, C, dev, 4, dtype)
     p = _hw_params(C, K, dev, 5, dtype)
     before = hconv_kernel.hconv_kernel.launches
@@ -333,7 +354,16 @@ def test_hconv_pair_smem_matches_plan(dev, dtype):
     lib = _build.load("hconv_pair")
     for C in (32, 64, 128, 256, 512, 1024):
         plan = hconv_kernel.pair_tile_plan(C, 3, 1, 100, dtype)
-        assert lib.spoofsv_hconv_pair_smem(_build.DTYPE_CODES[dtype], C) == plan.smem_bytes
+        assert lib.spoofsv_hconv_smem(_build.DTYPE_CODES[dtype], C) == plan.smem_bytes
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hconv_smem_matches_plan(dev, dtype):
+    """K4's shared memory per CTA is its one-layer tile plan's."""
+    lib = _build.load("hconv_pair")
+    for C in (32, 64, 128, 256, 512, 1024):
+        plan = hconv_kernel.pair_tile_plan(C, 3, 27, 100, dtype, layers=1)
+        assert lib.spoofsv_hconv_smem(_build.DTYPE_CODES[dtype], C) == plan.smem_bytes
 
 
 def test_highway_kernel_grads_match_plain_autograd(dev):
@@ -362,7 +392,8 @@ def test_highway_kernel_grads_match_plain_autograd(dev):
 def test_highway_launch_failure_raises(dev):
     """A launch the kernel refuses (K5 with a layer-B halo of 128 rows, d_b = 64,
     which leaves its 128-row tile no output frame) raises: no plain fallback,
-    no count."""
+    no count. Widths the kernels do not take (K4 and K6 below 32 or not a power
+    of two) raise ValueError before any launch."""
     C = 256
     x = _x(1, 64, C, dev, 17)
     pa, pb = _hw_params(C, 3, dev, 18), _hw_params(C, 3, dev, 19)
@@ -370,9 +401,15 @@ def test_highway_launch_failure_raises(dev):
     with pytest.raises(RuntimeError, match="CUDA error"):
         hconv_kernel.fused_highway_conv_pair(x, *pa, *pb, 1, 64, False)
     assert hconv_kernel.hconv_pair_kernel.launches == before
-    with pytest.raises(ValueError):
-        hconv_kernel.fused_highway_conv(_x(1, 8, 48, dev, 20), *_hw_params(48, 3, dev, 21),
-                                        1, False)
+    before = (hconv_kernel.hconv_kernel.launches, gate_kernel.gate_kernel.launches)
+    for c in (16, 48):
+        with pytest.raises(ValueError):
+            hconv_kernel.fused_highway_conv(_x(1, 8, c, dev, 20), *_hw_params(c, 3, dev, 21),
+                                            1, False)
+        with pytest.raises(ValueError):
+            gate_kernel.fused_highway_gate(_x(1, 8, 2 * c, dev, 20), _x(1, 8, c, dev, 21),
+                                           *_hw_params(c, 1, dev, 21)[2:])
+    assert (hconv_kernel.hconv_kernel.launches, gate_kernel.gate_kernel.launches) == before
     # the card is still usable after the refused launch
     y = hconv_kernel.fused_highway_conv(x, *_hw_params(C, 3, dev, 22), 1, False)
     torch.cuda.synchronize()
