@@ -6,16 +6,20 @@ device and ``nvcc``; without a device it exits non-zero and prints no result.
 
 Phases (any failure raises and exits non-zero):
   1. card name/power limit; build the kernels from ``spoofsv_torch/csrc/``;
-  2. K2 (GL phase init) vs its plain version at the main path's B=64, T=1300;
+  2. K2 (GL phase init, ``csrc/gl.cu``: segment sums, their scan, a second
+     pass) vs its plain version at the main path's B=64, T=1300, its time
+     against the plain version's and its bound;
   3. K3 (Griffin-Lim) at B=64, T=1300 from the same init: the tensor-core
      K3 (``csrc/gl_tc.cu``) in int8 and in bf16 against its plain version
      (1 iteration at momentum 0) and GL12 against plain f32 GL (spectral
      convergence), its ptxas lines (spills fail); the f32 K3
      (``csrc/gl.cu``, the "highest" route) against plain f32 GL;
-  4. K1 (decode) at the main path's B=64, N=100, T=325: f32
-     (``csrc/decode.cu``) vs the plain eager decode, its time alone against
-     ``decode_plain`` and its bound, and bf16
-     (``csrc/decode_cluster.cu``) vs ``decode_plain`` (the kernel's
+  4. K1 (decode, ``csrc/decode_cluster.cu``) at the main path's B=64,
+     N=100, T=325: f32 (3xTF32 products) vs the plain eager decode and vs
+     ``decode_plain`` (divergence onsets, the frames before them), its
+     ptxas lines (spills fail), its plans and times at B=64 and at the
+     Trainer's validation shape B=16, N=186 against ``decode_plain`` and
+     its bound; bf16 vs ``decode_plain`` (the kernel's
      arithmetic in plain torch) at B=64 and B=768 over frames 0-1, and over
      64 frames at one text position (no attention flips); the cluster
      kernel's ptxas lines (spills fail), its plan, its CUDA-event times
@@ -445,6 +449,88 @@ def cluster_phase(dev, cuda_ms, mbf, packed, kv, cfg, T: int, smi: str) -> dict:
     return dict(ms=ms64, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
+def f32_decode_phase(cuda_ms, build_models, onsets, before_onset, cfg, text_d, spk_d, T: int,
+                     smi: str) -> dict:
+    """Phase 4, f32 K1 (the 3xTF32 instance of csrc/decode_cluster.cu): its
+    ptxas lines (spills fail), the gates at the main path's B=64, N=100 (per
+    row, the first frame whose attention argmax differs, at least 32, and
+    mel and attention within 1e-3 before it) against the eager f32 decode
+    and against decode_plain, then its plans and CUDA-event times at B=64,
+    N=100 and at the Trainer's validation shape B=16, N=186, against
+    decode_plain and the bound. Returns the JSON entry (B=64)."""
+    import torch
+
+    from spoofsv_torch.infer.decode import make_decoder
+    from spoofsv_torch.ops import _build, decode_kernel
+
+    # each instantiation's "Function properties" line, then its spill and
+    # register lines; the f32 ones are decode_cluster_kernel<float, ...>
+    info = _build.BUILD_LOG["decode_cluster"].get("ptxas", [])
+    lines = [ln for i, head in enumerate(info) if "decode_cluster_kernelIf" in head
+             for ln in info[i:i + 3]]
+    for ln in lines:
+        log(f"[K1 f32] ptxas: {ln.strip()}")
+    spills = [ln for ln in lines if "spill" in ln]
+    gate(len(spills) == 4 and all("0 bytes spill stores, 0 bytes spill loads" in ln
+                                  for ln in spills), ("K1 f32 spills", spills))
+    F = cfg.mel.freq_bins
+    # Random weights make the rollout chaotic once a near-tie flips an
+    # argmax, so frames are held only before each row's first flip
+    # (scripts/parity_tpu.py).
+    m32, _ = build_models(torch.float32)
+    packed32 = decode_kernel.pack_decode_weights(m32)
+    with torch.no_grad():
+        kv32 = (*m32.encode_text(text_d), m32.audio_encoder.fc1(spk_d),
+                m32.audio_encoder.fc2(spk_d))
+    yk, ak, _ = decode_kernel.make_fused_decoder(m32, T)(text_d, spk_d)
+    mel_err = 0.0
+    for ref_name, (yp, ap) in (
+            ("eager f32 decode", make_decoder(m32, T)(text_d, spk_d)[:2]),
+            ("decode_plain f32", decode_kernel.decode_plain(packed32, *kv32, n_frames=T,
+                                                             freq_bins=F)[:2])):
+        ons = onsets(ak, ap)
+        mel, att = before_onset(yk, ak, yp, ap, ons)
+        log(f"[K1 f32] B=64 N=100 T={T} vs {ref_name}: per-row divergence onset {ons}; before "
+            f"onset mel max|d| {mel:.3g}, attention max|d| {att:.3g} (gates 1e-3, onset >= 32)")
+        gate(min(ons) >= 32, (ref_name, ons))
+        gate(mel <= 1e-3 and att <= 1e-3, (ref_name, mel, att))
+        mel_err = max(mel_err, mel)
+    del yk, ak, yp, ap
+    # times alone (text encoder and speaker projections done once), the
+    # bound: f32-accurate products as 3xTF32 (3 passes at 495 TFLOP/s)
+    # against the f32 bytes
+    rng = np.random.default_rng(2)
+    text16 = torch.from_numpy(rng.integers(1, cfg.vocab_len - 1, (16, 186)).astype(np.int32))
+    with torch.no_grad():
+        text16 = text16.to(text_d.device)
+        kv16 = (*m32.encode_text(text16), m32.audio_encoder.fc1(spk_d[:16]),
+                m32.audio_encoder.fc2(spk_d[:16]))
+    out = {}
+    for B, kv in ((64, kv32), (16, kv16)):
+        N = kv[0].shape[1]
+        plan = decode_kernel.decode_cluster_plan(B, cfg.hidden_dim, F, elem=4)
+        stream = decode_kernel.pack_decode_stream(
+            {k: packed32[k] for k in decode_kernel.MATRIX_NAMES}, plan)
+        ms = cuda_ms(lambda: decode_kernel.decode_fused(packed32, *kv, n_frames=T, freq_bins=F,
+                                                        plan=plan, stream=stream), reps=3)
+        plain = cuda_ms(lambda: decode_kernel.decode_plain(packed32, *kv, n_frames=T,
+                                                           freq_bins=F), reps=1)
+        flop, nbytes = decode_work(cfg.hidden_dim, F, B, N, T, 4)
+        b_ms, b_by = bound_ms(3 * flop, nbytes, 495e12)
+        log(f"[K1 f32] plan B={B}: {plan}; {plan.chunks_per_frame} chunks of the weight stream "
+            f"a frame, {4 * plan.cta_elems} bytes a CTA a frame, L2 "
+            f"{plan.l2_bytes_per_frame / 1e6:.2f} MB a frame")
+        log(f"[K1 f32] B={B} N={N} T={T} (csrc/decode_cluster.cu, 3xTF32): kernel {ms:.3f} ms "
+            f"(CUDA events, mean of 3) = {1e3 * ms / T:.2f} us a frame, decode_plain "
+            f"{plain:.1f} ms; bound {b_ms:.4f} ms ({b_by}: 3 x {flop / 1e9:.1f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB), {100 * b_ms / ms:.2f} % of it, on [{smi}]")
+        out[B] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+    del m32, packed32, kv32, kv16
+    return dict(name="decode_f32", route="cuda", source="spoofsv_torch/csrc/decode_cluster.cu",
+                replaces="spoofsv_tpu/ops/pallas_decode.py:144", max_abs_err=mel_err,
+                library_ms=None, **out[64])
+
+
 def device_view(call, smi: str) -> None:
     """One call under ``torch.profiler``: the device time of its kernels and
     copies against the call's wall time (the device's idle share; the
@@ -682,13 +768,16 @@ def main() -> None:
         f"hash angles max|d| {hash_err:.3g}; advance max|d| {adv_err:.3g}")
     gate(cos_dphi >= 0.99995, cos_dphi)
     gate(hash_err < 1e-5 and adv_err < 1e-5, (hash_err, adv_err))
-    k2_ms = cuda_ms(lambda: gl_kernel.gl_init_angles(mag, NFFT, HOP, "spsi"))
+    k2_ms = cuda_ms(lambda: gl_kernel.gl_init_angles(mag, NFFT, HOP, "spsi"), reps=10)
     k2_plain = cuda_ms(lambda: gl_kernel.init_angles_plain(mag, NFFT, HOP, "spsi"))
-    log(f"[K2] B=64 T=1300 spsi: kernel {k2_ms:.3f} ms, plain {k2_plain:.3f} ms")
-    # bound: |S| in, the two angle planes out (f32); ~30 operations a bin
+    # bound: |S| in, the two angle planes out (f32; 512 MB, ten times the
+    # L2, so back-to-back calls read and write device memory); ~30
+    # operations a bin
     bins = mag.numel()
     b_ms, b_by = bound_ms(30.0 * bins, 3 * 4.0 * bins, 67e12)
-    log(f"[K2] bound {b_ms:.4f} ms ({b_by})")
+    log(f"[K2] B=64 T=1300 spsi: kernel {k2_ms:.4f} ms (CUDA events, mean of 10), plain "
+        f"{k2_plain:.3f} ms; bound {b_ms:.4f} ms ({b_by}: {3 * 4.0 * bins / 1e6:.1f} MB), "
+        f"{100 * b_ms / k2_ms:.1f} % of it, on [{smi}]")
     kernels["gl_init"] = dict(
         name="gl_init", route="cuda", source="spoofsv_torch/csrc/gl.cu",
         replaces="spoofsv_tpu/ops/pallas_gl.py:618", max_abs_err=spsi_err, ms=k2_ms,
@@ -731,40 +820,8 @@ def main() -> None:
                   for i, o in enumerate(ons))
         return mel, att
 
-    # f32 at the main path's B=64, N=100, T=325 against the eager decode. Random
-    # weights make the rollout chaotic once a near-tie flips an argmax, so
-    # frames are held only before each row's first flip (scripts/parity_tpu.py).
-    m32, _ = build_models(torch.float32)
-    yk, ak, _ = decode_kernel.make_fused_decoder(m32, T)(text_d, spk_d)
-    yp, ap, _ = make_decoder(m32, T)(text_d, spk_d)
-    ons = onsets(ak, ap)
-    mel_err, att_err = before_onset(yk, ak, yp, ap, ons)
-    log(f"[K1] f32 B=64 N=100 T={T}: per-row divergence onset {ons}; before onset mel "
-        f"max|d| {mel_err:.3g}, attention max|d| {att_err:.3g} (gates 1e-3, onset >= 32)")
-    gate(min(ons) >= 32, ons)
-    gate(mel_err <= 1e-3 and att_err <= 1e-3, (mel_err, att_err))
-    # its time alone (text encoder and speaker projections done once) against
-    # decode_plain in f32, and its bound: f32-accurate products as 3xTF32
-    # (3 passes at 495 TFLOP/s) against the f32 bytes
-    F = cfg.mel.freq_bins
-    packed32 = decode_kernel.pack_decode_weights(m32)
-    with torch.no_grad():
-        kv32 = (*m32.encode_text(text_d), m32.audio_encoder.fc1(spk_d),
-                m32.audio_encoder.fc2(spk_d))
-    f32_ms = cuda_ms(lambda: decode_kernel.decode_fused(packed32, *kv32, n_frames=T,
-                                                        freq_bins=F), reps=2)
-    f32_plain = cuda_ms(lambda: decode_kernel.decode_plain(packed32, *kv32, n_frames=T,
-                                                           freq_bins=F), reps=1)
-    flop, nbytes = decode_work(cfg.hidden_dim, F, 64, kv32[0].shape[1], T, 4)
-    b_ms, b_by = bound_ms(3 * flop, nbytes, 495e12)
-    log(f"[K1 f32] B=64 N=100 T={T} (csrc/decode.cu): kernel {f32_ms:.3f} ms, decode_plain "
-        f"{f32_plain:.1f} ms; bound {b_ms:.4f} ms ({b_by}: 3 x {flop / 1e9:.1f} GFLOP, "
-        f"{nbytes / 1e6:.1f} MB), {100 * b_ms / f32_ms:.2f} % of it, on [{smi}]")
-    kernels["decode_f32"] = dict(
-        name="decode_f32", route="cuda", source="spoofsv_torch/csrc/decode.cu",
-        replaces="spoofsv_tpu/ops/pallas_decode.py:144", max_abs_err=mel_err, ms=f32_ms,
-        plain_ms=f32_plain, bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    del m32, yk, ak, yp, ap, packed32, kv32
+    kernels["decode_f32"] = f32_decode_phase(cuda_ms, build_models, onsets, before_onset, cfg,
+                                             text_d, spk_d, T, smi)
 
     # bf16 (the main path's dtype) against decode_plain, the kernel's arithmetic in
     # plain torch (bf16 operands, f32 accumulation). Summation order alone moves
@@ -812,7 +869,7 @@ def main() -> None:
                       gl_iters=cfg.tpu.griffin_lim_iters)
     counters = {"decode": decode_kernel.decode_kernel, "gl_init": gl_kernel.init_kernel,
                 "griffin_lim": gl_kernel.gl_tc_kernel, "griffin_lim_f32": gl_kernel.gl_kernel}
-    cluster = decode_kernel.cluster_kernel   # the bf16 K1 source alone
+    cluster = decode_kernel.cluster_kernel   # the bf16 instance of K1 alone
 
     def drive() -> dict:
         torch.cuda.synchronize()

@@ -1,24 +1,25 @@
-// K1 in bf16: the whole autoregressive Text2Mel decode in one launch, for
-// sm_90a. Replaces spoofsv_tpu/ops/pallas_decode.py::_decode_kernel (:144,
-// pallas_call at :329) for bf16 inputs; f32 runs csrc/decode.cu.
+// K1: the whole autoregressive Text2Mel decode in one launch, for sm_90a,
+// in bf16 or f32 (one template on the operand type E). Replaces
+// spoofsv_tpu/ops/pallas_decode.py::_decode_kernel (:144, pallas_call at
+// :329).
 //
 // Per frame t: the audio-encoder front (enc_w1 + s1, LN, relu; sq_w[0], LN,
 // relu; sq_w[1] + s2, LN), 10 encoder highway steps with ring caches at slot
 // t mod 2d, monotonic attention over K in the window [pma, pma+2] and
 // r = A·V, dec_w1 on [r | q], LN, 6 decoder highway steps, 3× dense-LN-relu,
-// the 80-bin tail, LN5 and sigmoid. bf16 matmul operands, f32 accumulation,
+// the 80-bin tail, LN5 and sigmoid. Matmul operands in E, f32 accumulation,
 // f32 LayerNorm with the fast variance E[x²] − mean², the in-loop f32 pma.
 // The arithmetic is spoofsv_torch.ops.decode_kernel.decode_plain's; the
-// decomposition below is decode_cluster_emulate's.
+// decomposition below is decode_cluster_emulate's (tf32x3=True for f32).
 //
 // What bounds it. A frame is ~27 dependent layers; each needs all of its
-// weights (13.6 MB a frame in bf16) and a LayerNorm over whole 2C-wide rows.
-// The first port (decode.cu) ran one block per batch row, each streaming all
-// weights from L2 every frame: 64 blocks × 13.6 MB a frame at B=64, about
-// 3.45 TB/s of L2 traffic, the card's L2 stream limit, on CUDA-core FMAs.
-// The work itself is 282 GFLOP at B=64 (0.29 ms of bf16 tensor-core time),
-// but 325 frames × ~27 layers are in series, so what a design can reach is
-// set by each layer's synchronisation latency.
+// weights (13.6 MB a frame in bf16, 27.2 in f32) and a LayerNorm over whole
+// 2C-wide rows. The first port ran one block per batch row on CUDA-core
+// FMAs, each block streaming all weights from L2 every frame: 64 blocks ×
+// 27.2 MB a frame at B=64 in f32, the card's L2 stream limit. The work
+// itself is 282 GFLOP at B=64 (0.29 ms of bf16 tensor-core time, 1.71 ms as
+// 3xTF32), but 325 frames × ~27 layers are in series, so what a design can
+// reach is set by each layer's synchronisation latency.
 //
 // What this design does about it.
 // - A cluster of n CTAs (16, 8, 4 or 2) serves a tile of 16 to 64 batch
@@ -27,12 +28,22 @@
 //   columns of h1 and h2 in a highway step, C/n columns of the other
 //   products, fpad/n columns of the tail. So a cluster reads each layer's
 //   weights once a frame for all its rows, and each CTA only its 1/n share.
-// - Products on the tensor cores with mma.sync m16n8k16 (bf16 → f32). The
-//   operand rows (bf16, [x(t−2d) | x(t−d) | x] for a highway step) are in
-//   shared memory and feed ldmatrix; the weights arrive in B-fragment order
-//   (the host packs each CTA's column slice of every layer, in execution
-//   order, into one stream), so a lane loads two products' fragments with
-//   one 16-byte load.
+// - Products on the tensor cores with mma.sync. bf16: m16n8k16 (bf16 →
+//   f32), A fragments by ldmatrix. f32: 3xTF32 on m16n8k8, hi·hi + hi·lo +
+//   lo·hi with hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x − hi), each
+//   operand split in registers as its fragment is loaded (the weights stay
+//   f32 in the stream, 27.2 MB a frame that stays resident in the 50 MB L2;
+//   a host-side hi/lo stream would be twice that and come from DRAM). The
+//   tf32 A layout is not ldmatrix's: within 16 columns of a k row the k
+//   order is permuted alike in A and in the packed weights, so a lane loads
+//   four A operands (two k8 steps) with one 16-byte shared load from rows at
+//   a stride of 16 mod 32 words (conflict-free), and the three passes go
+//   pass by pass over the steps, so no product waits on the one before it.
+//   The operand rows (E, [x(t−2d) |
+//   x(t−d) | x] for a highway step) are in shared memory; the weights arrive
+//   in B-fragment order (the host packs each CTA's column slice of every
+//   layer, in execution order, into one stream), so a lane loads a 32-deep k
+//   row of an n8 block with one 16-byte load (bf16) or two (f32).
 // - The weight stream runs ahead: a producer warp (one lane) feeds a ring of
 //   mbarrier stages (16 KB each, 8 where shared memory allows) with 1-D
 //   cp.async.bulk copies of whole 32-deep k rows, taking each stage back
@@ -52,15 +63,15 @@
 //   the receiver's mbarrier (release/acquire at cluster scope); every CTA
 //   sums the n partials in rank order, so all hold the same statistics. The
 //   new x is all-gathered the same way (16-byte pieces) into every CTA's
-//   operand rows (bf16). Two exchanges a layer, no cluster barrier: a CTA
+//   operand rows (E). Two exchanges a layer, no cluster barrier: a CTA
 //   waits only for the bytes it needs.
 // - Attention: each CTA's partial q·K dot products over its channels go out
 //   with the all-gather of the last encoder step; every CTA sums them in
 //   rank order and computes the softmax, pma and r = A·V for its tile's
 //   rows (3 dot products of C a row, no extra exchange). Rank 0 writes A and
 //   pma.
-// - The 16 causal-conv caches are rings in global memory (slot t mod 2d,
-//   as decode.cu). Each CTA writes its own channels of x(t) with plain
+// - The 16 causal-conv caches are rings in global memory (slot t mod 2d).
+//   Each CTA writes its own channels of x(t) with plain
 //   stores once the layer's partials have arrived (every CTA has read its
 //   taps by then) and reads the full-width taps of later frames with
 //   cp.async.cg (L2, not the incoherent L1), issued while the previous
@@ -100,13 +111,16 @@ typedef __nv_bfloat16 bf16;
 __constant__ int c_dil[N_HW] = {1, 3, 9, 27, 1, 3, 9, 27, 3, 3, 1, 3, 9, 27, 1, 1};
 __constant__ int c_slot0[N_HW] = {0, 2, 8, 26, 80, 82, 88, 106, 160, 166, 172, 174, 180, 198, 252, 254};
 
+// E: the operand type (bf16 or float) of K, V, s1, s2, the weight stream,
+// the rings and the outputs
+template <typename E>
 struct Args {
-  const bf16 *K, *V, *s1, *s2;
-  const bf16* stream;  // (n, cta_elems): each CTA's weight stream
+  const E *K, *V, *s1, *s2;
+  const E* stream;  // (n, cta_elems): each CTA's weight stream
   const float *hw_b, *hw_ln, *sq_b, *misc_ln, *enc_b1, *dec_b1, *tail_b5, *ln5_s, *ln5_b;
-  bf16* rings;
-  bf16* y_out;
-  bf16* a_out;
+  E* rings;
+  E* y_out;
+  E* a_out;
   int* pma_out;
   long long* prof;  // probe build: kPhases clock sums of CTA (0, 0)'s warp 0
   int Bp, T, N, F, fpad, C, condition, n, rows, stages;
@@ -124,28 +138,48 @@ __host__ __device__ inline void layer_shape(int l, int C, int fpad, int n, int& 
   else if ((l >= 3 && l <= 12) || (l >= 14 && l <= 19)) K = 3 * C, ncol = 2 * nb;
   else K = C, ncol = nb;
 }
-// k rows of 32 per stream chunk
-__host__ __device__ inline int rows_per_chunk(int chunk, int ncol) {
-  const int r = chunk / (ncol * 512);
+// k rows of 32 per stream chunk; a k row of an n8 block is 256·esize bytes
+__host__ __device__ inline int rows_per_chunk(int chunk, int ncol, int esize) {
+  const int r = chunk / (ncol * 256 * esize);
   return r > 0 ? r : 1;
 }
-// (k splits, n8 blocks per warp): WARPS / (rows / 16) warps share an m tile
-__host__ __device__ inline void warp_split(int rows, int ncol, int& S, int& nbw) {
+// (k splits S, n8 blocks per warp nbw) of a product of depth K: WARPS /
+// (rows / 16) warps share an m tile. bf16: over columns first, then over k.
+// f32: over k first, up to the k rows a chunk holds and the layer's own
+// (never fewer splits than the columns leave), so that fewer warps split
+// the same A fragment into TF32.
+__host__ __device__ inline void warp_split(int rows, int ncol, int K, int esize, int& S,
+                                           int& nbw) {
   const int wpm = WARPS / (rows / 16);
-  if (ncol < wpm) S = wpm / ncol, nbw = 1;
-  else S = 1, nbw = ncol / wpm;
+  S = ncol < wpm ? wpm / ncol : 1;
+  if (esize == 4) {
+    const int rpc = rows_per_chunk(CHUNK, ncol, esize);
+    int most = wpm < rpc ? wpm : rpc;
+    while (most > K / 32) most >>= 1;  // powers of two: K/32 may be 3·2^k
+    S = most > S ? most : S;
+  }
+  nbw = ncol * S / wpm;
 }
 
-// Dynamic shared memory of one CTA; the plan in ops/decode_kernel.py states
-// the same (ClusterPlan.smem_bytes).
+// Elements between consecutive operand rows of width w: bf16 rows padded
+// by 16 bytes, so that ldmatrix's eight rows fall in different banks; f32
+// rows at a stride of 16 mod 32 words, so that the 16-byte A loads of lanes
+// (g, t) and (g + 1, t) fall in different halves of the banks.
+__host__ __device__ inline int row_stride(int w, int esize) {
+  return esize == 2 ? w + 8 : w + ((16 - w) & 31);
+}
+
+// Dynamic shared memory of one CTA with operands of esize bytes; the plan in
+// ops/decode_kernel.py states the same (ClusterPlan.smem_bytes).
 __host__ __device__ inline size_t cluster_smem(int C, int fpad, int n, int rows, int chunk,
-                                               int stages) {
-  const int ldt = 2 * C + 8, sx = C / n + 8, sy = fpad / n + 8, ss = sx > sy ? sx : sy;
+                                               int stages, int esize) {
+  const int ldt = row_stride(2 * C, esize), sx = row_stride(C / n, esize);
+  const int sy = row_stride(fpad / n, esize), ss = sx > sy ? sx : sy;
   size_t hbuf = 0;
   for (int l = 0; l < N_LAYERS; ++l) {
     int K, ncol, S, nbw;
     layer_shape(l, C, fpad, n, K, ncol);
-    warp_split(rows, ncol, S, nbw);
+    warp_split(rows, ncol, K, esize, S, nbw);
     const size_t h = (size_t)S * rows * ncol * 8;
     hbuf = h > hbuf ? h : hbuf;
   }
@@ -155,7 +189,7 @@ __host__ __device__ inline size_t cluster_smem(int C, int fpad, int n, int rows,
     layer_shape(l, C, fpad, n, K, ncol);
     prm += 3 * ncol * 8;
   }
-  return 128 + (size_t)stages * chunk + (size_t)rows * (ldt + (size_t)n * ss) * 2 +
+  return 128 + (size_t)stages * chunk + (size_t)rows * (ldt + (size_t)n * ss) * esize +
          (size_t)rows * (C / n) * 4 + hbuf * 4 + prm * 4 + 2 * (size_t)n * rows * 16 +
          (size_t)rows * 16 + (size_t)rows * 8 + 2 * N_HW * 4 + (size_t)(2 * stages + 2) * 8;
 }
@@ -163,8 +197,13 @@ __host__ __device__ inline size_t cluster_smem(int C, int fpad, int n, int rows,
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
-// the fast exponential and division: bf16 outputs, f32 inside
-__device__ __forceinline__ float sigmoid(float v) { return __fdividef(1.f, 1.f + __expf(-v)); }
+// bf16 outputs: the fast exponential and division; f32 outputs: the
+// accurate ones (eager torch's)
+template <typename E>
+__device__ __forceinline__ float sigmoid(float v) {
+  if constexpr (sizeof(E) == 2) return __fdividef(1.f, 1.f + __expf(-v));
+  else return 1.f / (1.f + expf(-v));
+}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
@@ -260,6 +299,22 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], 
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// 3xTF32 (f32 operands): D += A·B on m16n8k8, A and B as TF32 (not
+// volatile: independent products may be scheduled across each other)
+__device__ __forceinline__ void mma1688(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// x → (hi, lo), both TF32: hi rounded to nearest, ties away from zero, lo
+// the remainder rounded likewise (decode_kernel.tf32_split on the host)
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+}
+
 __device__ __forceinline__ uint32_t pack_bf2(float a, float b) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -267,6 +322,21 @@ __device__ __forceinline__ uint32_t pack_bf2(float a, float b) {
 __device__ __forceinline__ float2 unpack_bf2(uint32_t u) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
 }
+// two consecutive operands of type E (4- or 8-byte aligned) as f32, and back
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return unpack_bf2(*reinterpret_cast<const uint32_t*>(p));
+}
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf2(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store1(bf16* p, float a) { *p = __float2bfloat16_rn(a); }
+__device__ __forceinline__ void store1(float* p, float a) { *p = a; }
 
 // What a layer's product becomes: a LayerNorm over C columns (relu or not),
 // a highway step (two LayerNorms, gate, residual), or the tail (LN5 over F,
@@ -295,7 +365,9 @@ __device__ __forceinline__ int prm_offset(int l, int nb) {
 
 // Layer l's bias and LayerNorm vectors in global memory: bias (its full
 // width), ln[v] the v-th LayerNorm vector (scale, bias[, scale 2, bias 2]).
-__device__ void layer_vectors(const Args& a, int l, const float*& bias, const float* (&ln)[4]) {
+template <typename E>
+__device__ void layer_vectors(const Args<E>& a, int l, const float*& bias,
+                              const float* (&ln)[4]) {
   const int C = a.C;
   const float* ml = a.misc_ln;
   const float* lnb = nullptr;  // LayerNorm block of (scale, bias[, scale, bias]) of C each
@@ -316,20 +388,26 @@ __device__ void layer_vectors(const Args& a, int l, const float*& bias, const fl
   for (int v = 0; v < 4; ++v) ln[v] = lnb + (size_t)v * C;
 }
 
-// CT, FPT, NT, RT: C, fpad, the cluster size and the rows per tile, fixed at
-// compile time for the default plans so that their divisions fold into
-// shifts and constants (0: read from the arguments; pick() chooses). PROF:
-// the probe build's instantiation that fills a.prof (the others carry no
-// profile code).
-template <int CT, int FPT, int NT, int RT, bool PROF>
-__global__ void __launch_bounds__(BLOCK, 1) decode_cluster_kernel(Args a) {
+// E: the operand type. CT, FPT, NT, RT: C, fpad, the cluster size and the
+// rows per tile, fixed at compile time for the default plans so that their
+// divisions fold into shifts and constants (0: read from the arguments;
+// pick() chooses). PROF: the probe build's instantiation that fills a.prof
+// (the others carry no profile code).
+template <typename E, int CT, int FPT, int NT, int RT, bool PROF>
+__global__ void __launch_bounds__(BLOCK, 1) decode_cluster_kernel(Args<E> a) {
+  constexpr bool F32 = sizeof(E) == 4;
+  constexpr int PIECE = 16 / sizeof(E);  // elements of 16 bytes
+  // accumulator sets of a product: bf16 the two 16-deep halves of a 32-deep
+  // k row; f32 its four k8 steps where the shapes are fixed (more
+  // independent mma chains), else two (the run-time shapes' registers)
+  constexpr int NACC = F32 && CT ? 4 : 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((128 - (smem_addr(smem_raw) & 127)) & 127);
   const int C = CT ? CT : a.C, fpad = FPT ? FPT : a.fpad, n = NT ? NT : a.n;
   const int rows = RT ? RT : a.rows, CH = C / n, FT = fpad / n;
-  // rows of the taps buffer; rows of one CTA's slice of x and of y, padded
-  // by 16 bytes so that ldmatrix's eight rows fall in different banks
-  const int ldt = 2 * C + 8, SX = CH + 8, SY = FT + 8, SS = SX > SY ? SX : SY;
+  // row strides of the taps buffer and of one CTA's slice of x and of y
+  const int ldt = row_stride(2 * C, sizeof(E)), SX = row_stride(CH, sizeof(E));
+  const int SY = row_stride(FT, sizeof(E)), SS = SX > SY ? SX : SY;
   // ring stages are a power of two: stage = count & smask, phase = count >> sshift
   const unsigned smask = a.stages - 1, sshift = __ffs(a.stages) - 1;
   const int rank = blockIdx.x, tile = blockIdx.y, b0 = tile * rows;
@@ -345,15 +423,15 @@ __global__ void __launch_bounds__(BLOCK, 1) decode_cluster_kernel(Args a) {
   // reader of x, before any y slice is written, and the first encoder
   // product, the only reader of y, before any x slice.
   unsigned char* ring = smem;
-  bf16* taps = reinterpret_cast<bf16*>(ring + (size_t)a.stages * CHUNK);
-  bf16* xbuf = taps + rows * ldt;
+  E* taps = reinterpret_cast<E*>(ring + (size_t)a.stages * CHUNK);
+  E* xbuf = taps + rows * ldt;
   float* xown = reinterpret_cast<float*>(xbuf + n * rows * SS);  // [rows][CH]
   float* hbuf = xown + rows * CH;
   size_t hfl = 0;
   for (int l = 0; l < N_LAYERS; ++l) {
     int K, ncol, S, nbw;
     layer_shape(l, C, fpad, n, K, ncol);
-    warp_split(rows, ncol, S, nbw);
+    warp_split(rows, ncol, K, sizeof(E), S, nbw);
     const size_t h = (size_t)S * rows * ncol * 8;
     hfl = h > hfl ? h : hfl;
   }
@@ -376,10 +454,10 @@ __global__ void __launch_bounds__(BLOCK, 1) decode_cluster_kernel(Args a) {
   const uint32_t ring_s = smem_addr(ring), taps_s = smem_addr(taps);
   const uint32_t xbuf_s = smem_addr(xbuf);
   const unsigned char* my_stream =
-      reinterpret_cast<const unsigned char*>(a.stream) + (size_t)rank * a.cta_elems * 2;
+      reinterpret_cast<const unsigned char*>(a.stream) + (size_t)rank * a.cta_elems * sizeof(E);
 
   if (tid < THREADS) {
-    for (int i = tid; i < rows * (ldt + n * SS) / 2; i += THREADS)
+    for (int i = tid; i < rows * (ldt + n * SS) * (int)sizeof(E) / 4; i += THREADS)
       reinterpret_cast<uint32_t*>(taps)[i] = 0u;   // taps and x (frame 0's y is 0)
     for (int i = tid; i < rows * CH; i += THREADS) xown[i] = 0.f;
     if (tid < rows) spma[tid] = 0;
@@ -419,9 +497,9 @@ __global__ void __launch_bounds__(BLOCK, 1) decode_cluster_kernel(Args a) {
         for (int l = 0; l < N_LAYERS; ++l) {
           int K, ncol;
           layer_shape(l, C, fpad, n, K, ncol);
-          const int KP = K / 32, rpc = rows_per_chunk(CHUNK, ncol);
+          const int KP = K / 32, rpc = rows_per_chunk(CHUNK, ncol, sizeof(E));
           for (int kp = 0; kp < KP; kp += rpc, ++gi) {
-            const uint32_t bytes = (uint32_t)min(rpc, KP - kp) * ncol * 512;
+            const uint32_t bytes = (uint32_t)min(rpc, KP - kp) * ncol * 256 * sizeof(E);
             const int s = gi & smask;
             if (gi >= (unsigned)a.stages) mbar_wait(empties + 8 * s, ((gi >> sshift) - 1) & 1);
             mbar_expect_tx(bars + 8 * s, bytes);
@@ -457,31 +535,45 @@ __global__ void __launch_bounds__(BLOCK, 1) decode_cluster_kernel(Args a) {
   // fixed too the k rows of a chunk unroll and the index math folds.
   auto product = [&](auto kind_tag, int l) {
     constexpr int P = decltype(kind_tag)::value;
+    constexpr int BB = 256 * sizeof(E);  // bytes of a 32-deep k row of an n8 block
     const int K = P == P_HW ? 3 * C : P == P_DEC ? 2 * C : P == P_ENC ? fpad : C;
     const int ncol = P == P_HW ? 2 * NB : P == P_TAIL ? FT / 8 : NB;
     const int wpm = WARPS / (rows / 16);  // warps an m tile has (powers of two)
-    const int S = ncol < wpm ? wpm / ncol : 1, nbw = ncol < wpm ? 1 : ncol / wpm;
-    const int KP = K / 32, rpc = CHUNK / (ncol * 512), nch = (KP + rpc - 1) / rpc;
-    const int mt = warp / wpm, wi = warp % wpm;
-    const int split = S > 1 ? wi / ncol : 0, nb0 = S > 1 ? wi % ncol : wi;
-    float acc[2][4][4];  // two sets: the first and second 16 of each 32-deep k row
+    int S, nbw;
+    warp_split(rows, ncol, K, sizeof(E), S, nbw);
+    const int KP = K / 32, rpc = CHUNK / (ncol * BB), nch = (KP + rpc - 1) / rpc;
+    // the m tile's warps: S k splits of cw warps, warp nb0 of a split taking
+    // n8 blocks nb0 + cw·i, i < nbw
+    const int mt = warp / wpm, wi = warp % wpm, cw = wpm / S;
+    const int split = wi / cw, nb0 = wi % cw;
+    float acc[NACC][4][4];  // NACC sets, each its share of a k row's depth
 #pragma unroll
-    for (int u = 0; u < 2; ++u)
+    for (int u = 0; u < NACC; ++u)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[u][i][e] = 0.f;
-    // this lane's ldmatrix row address for the k-step at k0: row mt·16 +
-    // lane % 16, column k0 + 8·(lane / 16); x (or y) slices are W columns
-    // wide
+    // The operand columns: the taps (or r) first, then x (or y) slices W
+    // columns wide
     const int tcols = P == P_HW ? 2 * C : P == P_DEC ? C : 0;
     const int W = P == P_ENC ? FT : CH, SW = P == P_ENC ? SY : SX;
+    // bf16: this lane's ldmatrix row address for the k-step at k0: row
+    // mt·16 + lane % 16, column k0 + 8·(lane / 16)
     const int ar = mt * 16 + (lane & 15), c8 = 8 * (lane >> 4);
     const uint32_t t_row = taps_s + (uint32_t)((ar * ldt + (P == P_DEC ? C : 0) + c8) * 2);
     auto a_addr = [&](int k0) -> uint32_t {
       if (k0 < tcols) return t_row + k0 * 2;
       const int c = k0 - tcols + c8;
       return xbuf_s + (uint32_t)((((c / W) * rows + ar) * SW + c % W) * 2);
+    };
+    // f32: this lane's four operands (row mt·16 + g + 8·h, columns k0 + 4·t4
+    // to k0 + 4·t4 + 3) of the 16 columns at k0; they lie in one x slice (W
+    // is a multiple of 8)
+    const int ag = mt * 16 + g;
+    auto a_elem = [&](int k0, int h) -> const E* {
+      if (k0 < tcols) return taps + (ag + 8 * h) * ldt + (P == P_DEC ? C : 0) + k0 + 4 * t4;
+      const int c = k0 - tcols + 4 * t4;
+      return xbuf + ((c / W) * rows + ag + 8 * h) * SW + c % W;
     };
     for (int c = 0; c < nch; ++c, ++gc) {
       const int st = gc & smask;
@@ -495,59 +587,111 @@ __global__ void __launch_bounds__(BLOCK, 1) decode_cluster_kernel(Args a) {
       const int nk = KP <= rpc ? KP : KP % rpc == 0 ? rpc : min(rpc, KP - kp0);
       const int nkw = nk % S == 0 ? nk / S : (nk - split + S - 1) / S;
       const int k_first = kp0 + split;
-      // a 32-deep k row's operands: two ldmatrix A fragments (k halves) and
-      // the weight fragments of this warp's n8 blocks
-      auto load = [&](int kp, uint32_t(&f0)[4], uint32_t(&f1)[4], uint4(&b)[4]) {
-        ldmatrix_x4(f0, a_addr(32 * kp));
-        ldmatrix_x4(f1, a_addr(32 * kp + 16));
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (i < nbw)
-            b[i] = *reinterpret_cast<const uint4*>(w + ((kp - kp0) * ncol + nb0 + wpm * i) * 512 +
-                                                   lane * 16);
+      // this warp's i-th n8 block of k row kp in the chunk: lane's 16 bytes
+      // of its q-th half (f32: two halves)
+      auto wfrag = [&](int kp, int i, int q) {
+        return *reinterpret_cast<const uint4*>(w + ((kp - kp0) * ncol + nb0 + cw * i) * BB +
+                                               q * 512 + lane * 16);
       };
-      // the k halves into the two accumulator sets: no mma waits on the other
-      auto mmas = [&](const uint32_t(&f0)[4], const uint32_t(&f1)[4], const uint4(&b)[4]) {
+      if constexpr (!F32) {
+        // a 32-deep k row's operands: two ldmatrix A fragments (k halves) and
+        // the weight fragments of this warp's n8 blocks
+        auto load = [&](int kp, uint32_t(&f0)[4], uint32_t(&f1)[4], uint4(&b)[4]) {
+          ldmatrix_x4(f0, a_addr(32 * kp));
+          ldmatrix_x4(f1, a_addr(32 * kp + 16));
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (i < nbw) {
-            mma16816(acc[0][i], f0, b[i].x, b[i].y);
-            mma16816(acc[1][i], f1, b[i].z, b[i].w);
+          for (int i = 0; i < 4; ++i)
+            if (i < nbw) b[i] = wfrag(kp, i, 0);
+        };
+        // the k halves into the two accumulator sets: no mma waits on the other
+        auto mmas = [&](const uint32_t(&f0)[4], const uint32_t(&f1)[4], const uint4(&b)[4]) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (i < nbw) {
+              mma16816(acc[0][i], f0, b[i].x, b[i].y);
+              mma16816(acc[1][i], f1, b[i].z, b[i].w);
+            }
+        };
+        // two buffers: the next k row's operands load while this one's mmas run
+        uint32_t fa0[4], fa1[4], fb0[4], fb1[4];
+        uint4 ba[4], bb[4];
+        if (nkw > 0) load(k_first, fa0, fa1, ba);
+#pragma unroll
+        for (int p = 0; p < nkw / 2; ++p) {
+          load(k_first + (2 * p + 1) * S, fb0, fb1, bb);
+          mmas(fa0, fa1, ba);
+          if (2 * p + 2 < nkw) load(k_first + (2 * p + 2) * S, fa0, fa1, ba);
+          mmas(fb0, fb1, bb);
+        }
+        if (nkw & 1) mmas(fa0, fa1, ba);
+      } else {
+        // 3xTF32 on m16n8k8, by 16 columns of a k row (two k8 steps). Their
+        // k order is permuted alike in A and in the packed weights: lane (g,
+        // t) holds columns 4t..4t+3 of rows g and g + 8 (one 16-byte load
+        // each) and the weights of the same four k rows, which are its k
+        // rows t, t + 4 of the first step (columns 4t, 4t + 1) and of the
+        // second (4t + 2, 4t + 3). Each operand is split into TF32 hi and lo
+        // as it is loaded, and the three passes go pass by pass over both
+        // steps and every n8 block: consecutive products never share an
+        // accumulator.
+#pragma unroll
+        for (int p = 0; p < nkw; ++p) {
+          const int kp = k_first + p * S;
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const float4 x0 = *reinterpret_cast<const float4*>(a_elem(32 * kp + 16 * q, 0));
+            const float4 x1 = *reinterpret_cast<const float4*>(a_elem(32 * kp + 16 * q, 1));
+            uint32_t ah[2][4], al[2][4];  // [step][a0..a3]
+            tf32_split(x0.x, ah[0][0], al[0][0]), tf32_split(x1.x, ah[0][1], al[0][1]);
+            tf32_split(x0.y, ah[0][2], al[0][2]), tf32_split(x1.y, ah[0][3], al[0][3]);
+            tf32_split(x0.z, ah[1][0], al[1][0]), tf32_split(x1.z, ah[1][1], al[1][1]);
+            tf32_split(x0.w, ah[1][2], al[1][2]), tf32_split(x1.w, ah[1][3], al[1][3]);
+            uint32_t bh[4][4], bl[4][4];  // [n8 block][b0, b1 of step 0, of step 1]
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              if (i < nbw) {
+                const uint4 b = wfrag(kp, i, q);
+                tf32_split(__uint_as_float(b.x), bh[i][0], bl[i][0]);
+                tf32_split(__uint_as_float(b.y), bh[i][1], bl[i][1]);
+                tf32_split(__uint_as_float(b.z), bh[i][2], bl[i][2]);
+                tf32_split(__uint_as_float(b.w), bh[i][3], bl[i][3]);
+              }
+#pragma unroll
+            for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+              for (int s = 0; s < 2; ++s)
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+                  if (i < nbw) {
+                    float(&d)[4] = acc[(2 * q + s) % NACC][i];
+                    const uint32_t(&a)[4] = pass == 0 ? al[s] : ah[s];
+                    const uint32_t(&bb)[4] = pass == 1 ? bl[i] : bh[i];
+                    mma1688(d, a, bb[2 * s], bb[2 * s + 1]);
+                  }
           }
-      };
-      // two buffers: the next k row's operands load while this one's mmas run
-      uint32_t fa0[4], fa1[4], fb0[4], fb1[4];
-      uint4 ba[4], bb[4];
-      if (nkw > 0) load(k_first, fa0, fa1, ba);
-#pragma unroll
-      for (int p = 0; p < nkw / 2; ++p) {
-        load(k_first + (2 * p + 1) * S, fb0, fb1, bb);
-        mmas(fa0, fa1, ba);
-        if (2 * p + 2 < nkw) load(k_first + (2 * p + 2) * S, fa0, fa1, ba);
-        mmas(fb0, fb1, bb);
+        }
       }
-      if (nkw & 1) mmas(fa0, fa1, ba);
       __syncwarp();
       if (lane == 0) mbar_arrive(empties + 8 * st);  // this warp is done with the stage
     }
     mark(1);
     const int ncols = ncol * 8;
     const float* bias = prm + prm_offset(l, NB);
-    const bf16* add = !a.condition ? nullptr : P == P_ENC ? a.s1 : l == 2 ? a.s2 : nullptr;
+    const E* add = !a.condition ? nullptr : P == P_ENC ? a.s1 : l == 2 ? a.s2 : nullptr;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       if (i < nbw) {
-        const int col = (nb0 + wpm * i) * 8 + 2 * t4;
+        const int col = (nb0 + cw * i) * 8 + 2 * t4;
 #pragma unroll
         for (int h8 = 0; h8 < 2; ++h8) {
           const int r = mt * 16 + g + 8 * h8;
-          float v0 = acc[0][i][2 * h8] + acc[1][i][2 * h8];
-          float v1 = acc[0][i][2 * h8 + 1] + acc[1][i][2 * h8 + 1];
+          float v0 = acc[0][i][2 * h8], v1 = acc[0][i][2 * h8 + 1];
+#pragma unroll
+          for (int u = 1; u < NACC; ++u) v0 += acc[u][i][2 * h8], v1 += acc[u][i][2 * h8 + 1];
           if (split == 0) {
             v0 += bias[col], v1 += bias[col + 1];
             if (add) {
-              const float2 s2 = unpack_bf2(*reinterpret_cast<const uint32_t*>(
-                  add + (size_t)(b0 + r) * C + rank * CH + col));
+              const float2 s2 = load2(add + (size_t)(b0 + r) * C + rank * CH + col);
               v0 += s2.x, v1 += s2.y;
             }
           }
@@ -560,14 +704,14 @@ __global__ void __launch_bounds__(BLOCK, 1) decode_cluster_kernel(Args a) {
     mark(8);
   };
 
-  // ---- the taps of highway j for frame t into `taps`
+  // ---- the taps of highway j for frame t into `taps`, 16-byte pieces
   auto fetch_taps = [&](int j, int t) {
-    const int seg = C / 8;  // 16-byte pieces of a C-wide row
+    const int seg = C / PIECE;  // 16-byte pieces of a C-wide row
     for (int i = tid; i < rows * 2 * seg; i += THREADS) {
       const int r = i / (2 * seg), k = i % (2 * seg), half = k / seg, s = k % seg;
       const int slot = slots[2 * j + half];
-      cp16(taps_s + (uint32_t)((r * ldt + half * C + 8 * s) * 2),
-           a.rings + ((size_t)slot * a.Bp + b0 + r) * C + 8 * s);
+      cp16(taps_s + (uint32_t)((r * ldt + half * C + PIECE * s) * sizeof(E)),
+           a.rings + ((size_t)slot * a.Bp + b0 + r) * C + PIECE * s);
     }
   };
 
@@ -577,7 +721,7 @@ __global__ void __launch_bounds__(BLOCK, 1) decode_cluster_kernel(Args a) {
   auto row_partials = [&](int l) {
     int K, ncol, S, nbw;
     layer_shape(l, C, fpad, n, K, ncol);
-    warp_split(rows, ncol, S, nbw);
+    warp_split(rows, ncol, K, sizeof(E), S, nbw);
     const int kind = layer_kind(l), ncols = ncol * 8, r = tid / TPR, sub = tid % TPR;
     float s1 = 0.f, q1 = 0.f, s2 = 0.f, q2 = 0.f;
     for (int c = sub; c < ncols; c += TPR) {
@@ -604,7 +748,8 @@ __global__ void __launch_bounds__(BLOCK, 1) decode_cluster_kernel(Args a) {
   // order, so every CTA holds the same), gate / relu / sigmoid over this
   // CTA's channels, 2 a thread: the new x (or y) slice into this CTA's place
   // in xbuf and into the same place in every other CTA's, completing on its
-  // bar_x (the 4 lanes of 8 channels gather them for one 16-byte st.async)
+  // bar_x (the lanes of 16 bytes of channels, 4 in bf16 and 2 in f32, gather
+  // them for one st.async)
   auto finish = [&](int l, int t) {
     const int kind = layer_kind(l), w = kind == TAIL ? FT : CH;
     const int ncols = kind == HIGHWAY ? 2 * w : w, sw = kind == TAIL ? SY : SX;
@@ -612,7 +757,7 @@ __global__ void __launch_bounds__(BLOCK, 1) decode_cluster_kernel(Args a) {
     // pairs of channels a row, a power of two ≥ 4: rows·pairs is a multiple
     // of 32, so whole warps take part in the shuffles
     const int lp = __ffs(w) - 2, pairs = 1 << lp;
-    bf16* mine = xbuf + (size_t)rank * rows * sw;
+    E* mine = xbuf + (size_t)rank * rows * sw;
     const uint32_t mine_s = smem_addr(mine);
     const float* p = prm + prm_offset(l, NB) + ncols;  // LayerNorm vector v at p + v·w
     const bool relu = layer_relu(l);
@@ -632,18 +777,18 @@ __global__ void __launch_bounds__(BLOCK, 1) decode_cluster_kernel(Args a) {
       if (kind == TAIL) {
         const int col = rank * FT + c;
         for (int k = 0; k < 2; ++k)
-          v[k] = col + k < a.F ? sigmoid((h[k] - m1) * r1 * pv[k] + pv[w + k]) : 0.f;
-        bf16* yo = a.y_out + ((size_t)b * a.T + t) * a.F + col;
-        if (col + 1 < a.F) *reinterpret_cast<uint32_t*>(yo) = pack_bf2(v[0], v[1]);
-        else if (col < a.F) yo[0] = __float2bfloat16_rn(v[0]);
+          v[k] = col + k < a.F ? sigmoid<E>((h[k] - m1) * r1 * pv[k] + pv[w + k]) : 0.f;
+        E* yo = a.y_out + ((size_t)b * a.T + t) * a.F + col;
+        if (col + 1 < a.F) store2(yo, v[0], v[1]);
+        else if (col < a.F) store1(yo, v[0]);
       } else {
         float* xo = xown + r * CH + c;
         if (kind == HIGHWAY) {
           // x(t) into its ring slot (every CTA has fetched this layer's taps)
-          *reinterpret_cast<uint32_t*>(a.rings + ((size_t)slots[2 * layer_hw(l)] * a.Bp + b) * C +
-                                       rank * CH + c) = pack_bf2(xo[0], xo[1]);
+          store2(a.rings + ((size_t)slots[2 * layer_hw(l)] * a.Bp + b) * C + rank * CH + c, xo[0],
+                 xo[1]);
           for (int k = 0; k < 2; ++k) {
-            const float gt = sigmoid((h[k] - m1) * r1 * pv[k] + pv[w + k]);
+            const float gt = sigmoid<E>((h[k] - m1) * r1 * pv[k] + pv[w + k]);
             const float nv = (h[CH + k] - m2) * r2 * pv[2 * w + k] + pv[3 * w + k];
             v[k] = gt * nv + (1.f - gt) * xo[k];
           }
@@ -655,14 +800,23 @@ __global__ void __launch_bounds__(BLOCK, 1) decode_cluster_kernel(Args a) {
         }
         xo[0] = v[0], xo[1] = v[1];
       }
-      const uint32_t u = pack_bf2(v[0], v[1]);
-      const uint32_t u1 = __shfl_down_sync(0xffffffffu, u, 1);
-      const uint32_t u2 = __shfl_down_sync(0xffffffffu, u, 2);
-      const uint32_t u3 = __shfl_down_sync(0xffffffffu, u, 3);
-      if ((lane & 3) == 0) {
-        const uint4 piece = make_uint4(u, u1, u2, u3);
+      uint4 piece;
+      bool lead;
+      if constexpr (!F32) {
+        const uint32_t u = pack_bf2(v[0], v[1]);
+        const uint32_t u1 = __shfl_down_sync(0xffffffffu, u, 1);
+        const uint32_t u2 = __shfl_down_sync(0xffffffffu, u, 2);
+        const uint32_t u3 = __shfl_down_sync(0xffffffffu, u, 3);
+        piece = make_uint4(u, u1, u2, u3), lead = (lane & 3) == 0;
+      } else {
+        const uint32_t u0 = __float_as_uint(v[0]), u1 = __float_as_uint(v[1]);
+        const uint32_t n0 = __shfl_down_sync(0xffffffffu, u0, 1);
+        const uint32_t n1 = __shfl_down_sync(0xffffffffu, u1, 1);
+        piece = make_uint4(u0, u1, n0, n1), lead = (lane & 1) == 0;
+      }
+      if (lead) {
         *reinterpret_cast<uint4*>(mine + r * sw + c) = piece;
-        const uint32_t dst = mine_s + (uint32_t)((r * sw + c) * 2);
+        const uint32_t dst = mine_s + (uint32_t)((r * sw + c) * sizeof(E));
         for (int q = 0; q < n; ++q)
           if (q != rank) st_async_v4b(remote(dst, q), piece, remote(bar_x, q));
       }
@@ -706,9 +860,9 @@ __global__ void __launch_bounds__(BLOCK, 1) decode_cluster_kernel(Args a) {
         const int r = i / 3, w = i % 3, pos = spma[r] + w;
         float s = 0.f;
         if (pos < a.N) {
-          const bf16* kr = a.K + ((size_t)(b0 + r) * a.N + pos) * C + rank * CH;
+          const E* kr = a.K + ((size_t)(b0 + r) * a.N + pos) * C + rank * CH;
           for (int c = 0; c < CH; c += 2) {
-            const float2 k2 = unpack_bf2(*reinterpret_cast<const uint32_t*>(kr + c));
+            const float2 k2 = load2(kr + c);
             s = fmaf(k2.x, xown[r * CH + c], s);
             s = fmaf(k2.y, xown[r * CH + c + 1], s);
           }
@@ -719,7 +873,7 @@ __global__ void __launch_bounds__(BLOCK, 1) decode_cluster_kernel(Args a) {
       mark(5);
     }
     if (tid == 0)   // the other CTAs' slices (and every CTA's score partials)
-      mbar_expect_tx(bar_x, (n - 1) * rows * (kind == TAIL ? FT : CH) * 2 +
+      mbar_expect_tx(bar_x, (n - 1) * rows * (kind == TAIL ? FT : CH) * (int)sizeof(E) +
                                 (l == 12 ? n * rows * 12 : 0));
     cp_wait_all();  // this thread's tap copies have landed
     mbar_wait_cluster(bar_x, ph & 1);
@@ -755,8 +909,7 @@ __global__ void __launch_bounds__(BLOCK, 1) decode_cluster_kernel(Args a) {
         if (pma + w < a.N && patt[r * 4 + w] >= amax) arg = pma + w;
       if (rank == 0)
         for (int w = 0; w < 3; ++w)
-          if (pma + w < a.N)
-            a.a_out[((size_t)b * a.N + pma + w) * a.T + t] = __float2bfloat16_rn(patt[r * 4 + w]);
+          if (pma + w < a.N) store1(a.a_out + ((size_t)b * a.N + pma + w) * a.T + t, patt[r * 4 + w]);
       wbase[r] = pma;
       spma[r] = arg;
     }
@@ -766,12 +919,11 @@ __global__ void __launch_bounds__(BLOCK, 1) decode_cluster_kernel(Args a) {
       float r0 = 0.f, r1 = 0.f;
       for (int w = 0; w < 3; ++w)
         if (pma + w < a.N) {
-          const float2 v = unpack_bf2(
-              *reinterpret_cast<const uint32_t*>(a.V + ((size_t)b * a.N + pma + w) * C + c));
+          const float2 v = load2(a.V + ((size_t)b * a.N + pma + w) * C + c);
           r0 = fmaf(patt[r * 4 + w], v.x, r0);
           r1 = fmaf(patt[r * 4 + w], v.y, r1);
         }
-      *reinterpret_cast<uint32_t*>(taps + (size_t)r * ldt + C + c) = pack_bf2(r0, r1);
+      store2(taps + (size_t)r * ldt + C + c, r0, r1);
     }
     csync();
     mark(7);
@@ -799,7 +951,8 @@ __global__ void __launch_bounds__(BLOCK, 1) decode_cluster_kernel(Args a) {
 bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
 
 // what decode_kernel.ClusterPlan.refusal() checks
-bool plan_ok(int C, int fpad, int n, int rows, int chunk, int stages) {
+bool plan_ok(int C, int fpad, int n, int rows, int chunk, int stages, int esize) {
+  if (esize != 2 && esize != 4) return false;
   if (!pow2(n) || n > 16 || (rows != 16 && rows != 32 && rows != 64)) return false;
   if (C < 32 || C % 32 || C % n || (C / n) % 8 || !pow2(C / n / 8)) return false;
   if (fpad < 128 || fpad % 128 || fpad % n || (fpad / n) % 8 || !pow2(fpad / n / 8)) return false;
@@ -807,10 +960,10 @@ bool plan_ok(int C, int fpad, int n, int rows, int chunk, int stages) {
   for (int l = 0; l < N_LAYERS; ++l) {
     int K, ncol, S, nbw;
     layer_shape(l, C, fpad, n, K, ncol);
-    warp_split(rows, ncol, S, nbw);
-    if (nbw > 4 || ncol * 512 > chunk) return false;
+    warp_split(rows, ncol, K, esize, S, nbw);
+    if (nbw > 4 || ncol * 256 * esize > chunk) return false;
   }
-  return cluster_smem(C, fpad, n, rows, chunk, stages) <= 232448;
+  return cluster_smem(C, fpad, n, rows, chunk, stages, esize) <= 232448;
 }
 
 int clear_and_return(cudaError_t e) {
@@ -818,39 +971,51 @@ int clear_and_return(cudaError_t e) {
   return (int)e;
 }
 
-typedef void (*KernelFn)(Args);
+template <typename E>
+using KernelFn = void (*)(Args<E>);
 
 // The instantiation for a plan: at C = 256, fpad = 128 the plans that
-// decode_cluster_plan chooses with their shapes fixed, any other with them
-// read at run time.
-template <bool PROF>
-KernelFn pick(int C, int fpad, int n, int rows) {
+// decode_cluster_plan chooses with their shapes fixed (bf16: clusters of
+// 16, 8, 4, 2 with 16 rows; f32: 16, 8, 4, its chunk holding no highway k
+// row at 2), any other with them read at run time.
+template <typename E, bool PROF>
+KernelFn<E> pick(int C, int fpad, int n, int rows) {
 #define SPOOFSV_K(N_, R_)                                  \
   if (C == 256 && fpad == 128 && n == N_ && rows == R_) \
-  return decode_cluster_kernel<256, 128, N_, R_, PROF>
+  return decode_cluster_kernel<E, 256, 128, N_, R_, PROF>
   SPOOFSV_K(16, 16);
   SPOOFSV_K(8, 16);
   SPOOFSV_K(4, 16);
-  SPOOFSV_K(2, 16);
+  if constexpr (sizeof(E) == 2) {
+    SPOOFSV_K(2, 16);
+  }
 #ifdef SPOOFSV_K1_PROBE
-  // the other candidates of the probe's plan sweep (clusters of 16 with 32
-  // or 64 rows spill with their shapes fixed: 168 registers is the most a
-  // thread of 9 warps gets)
-  SPOOFSV_K(8, 32);
-  SPOOFSV_K(4, 32);
-  SPOOFSV_K(8, 64);
+  // the other candidates of the probe's plan sweep (bf16 clusters of 16 with
+  // 32 or 64 rows spill with their shapes fixed: 168 registers is the most
+  // a thread of 9 warps gets)
+  if constexpr (sizeof(E) == 2) {
+    SPOOFSV_K(8, 32);
+    SPOOFSV_K(4, 32);
+    SPOOFSV_K(8, 64);
+  } else {
+    SPOOFSV_K(16, 32);
+    SPOOFSV_K(8, 32);
+    SPOOFSV_K(4, 32);
+  }
 #endif
 #undef SPOOFSV_K
-  return decode_cluster_kernel<0, 0, 0, 0, PROF>;
+  return decode_cluster_kernel<E, 0, 0, 0, 0, PROF>;
 }
-KernelFn pick(int C, int fpad, int n, int rows, bool prof) {
+template <typename E>
+KernelFn<E> pick(int C, int fpad, int n, int rows, bool prof) {
 #ifdef SPOOFSV_K1_PROBE
-  if (prof) return pick<true>(C, fpad, n, rows);
+  if (prof) return pick<E, true>(C, fpad, n, rows);
 #endif
-  return pick<false>(C, fpad, n, rows);
+  return pick<E, false>(C, fpad, n, rows);
 }
 
-int configure(KernelFn fn, int n, size_t smem) {
+template <typename E>
+int configure(KernelFn<E> fn, int n, size_t smem) {
   cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess && n > 8)
     e = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -874,19 +1039,20 @@ void fill_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, int n, int 
 
 // ptrs: see spoofsv_decode_cluster_launch; prof null (the product build) or
 // kPhases int64
+template <typename E>
 int launch(const void* const* p, long long* prof, int n, int rows, int tiles, int T, int N, int F,
            int fpad, int C, int condition, int chunk, int stages, void* stream) {
-  if (!plan_ok(C, fpad, n, rows, chunk, stages) || tiles < 1 || N < 1 || F < 2 || F % 2 ||
-      F > fpad || T < 0)
+  if (!plan_ok(C, fpad, n, rows, chunk, stages, sizeof(E)) || tiles < 1 || N < 1 || F < 2 ||
+      F % 2 || F > fpad || T < 0)
     return (int)cudaErrorInvalidValue;
   if (T == 0) return 0;
-  Args a;
-  a.K = (const bf16*)p[0]; a.V = (const bf16*)p[1]; a.s1 = (const bf16*)p[2]; a.s2 = (const bf16*)p[3];
-  a.stream = (const bf16*)p[4];
+  Args<E> a;
+  a.K = (const E*)p[0]; a.V = (const E*)p[1]; a.s1 = (const E*)p[2]; a.s2 = (const E*)p[3];
+  a.stream = (const E*)p[4];
   a.hw_b = (const float*)p[5]; a.hw_ln = (const float*)p[6]; a.sq_b = (const float*)p[7];
   a.misc_ln = (const float*)p[8]; a.enc_b1 = (const float*)p[9]; a.dec_b1 = (const float*)p[10];
   a.tail_b5 = (const float*)p[11]; a.ln5_s = (const float*)p[12]; a.ln5_b = (const float*)p[13];
-  a.rings = (bf16*)p[14]; a.y_out = (bf16*)p[15]; a.a_out = (bf16*)p[16]; a.pma_out = (int*)p[17];
+  a.rings = (E*)p[14]; a.y_out = (E*)p[15]; a.a_out = (E*)p[16]; a.pma_out = (int*)p[17];
   a.prof = prof;
   a.Bp = tiles * rows; a.T = T; a.N = N; a.F = F; a.fpad = fpad; a.C = C;
   a.condition = condition; a.n = n; a.rows = rows; a.stages = stages;
@@ -896,8 +1062,8 @@ int launch(const void* const* p, long long* prof, int n, int rows, int tiles, in
     layer_shape(l, C, fpad, n, K, ncol);
     a.cta_elems += (long long)K * ncol * 8;
   }
-  const size_t smem = cluster_smem(C, fpad, n, rows, chunk, stages);
-  const KernelFn fn = pick(C, fpad, n, rows, prof != nullptr);
+  const size_t smem = cluster_smem(C, fpad, n, rows, chunk, stages, sizeof(E));
+  const KernelFn<E> fn = pick<E>(C, fpad, n, rows, prof != nullptr);
   int err = configure(fn, n, smem);
   if (err) return err;
   cudaLaunchConfig_t cfg;
@@ -908,46 +1074,25 @@ int launch(const void* const* p, long long* prof, int n, int rows, int tiles, in
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// ptrs: K, V, s1, s2 (Bp, N|-, C) bf16; the weight stream (n, cta_elems) bf16;
-// hw_b, hw_ln, sq_b, misc_ln, enc_b1, dec_b1, tail_b5, ln5_s, ln5_b f32;
-// rings (256, Bp, C) bf16 zeroed; Y (Bp, T, F) bf16; A (Bp, N, T) bf16
-// zeroed (the kernel writes the window); pma (Bp) int32. Bp = tiles·rows.
-int spoofsv_decode_cluster_launch(const void* const* p, int n, int rows, int tiles, int T, int N,
-                                  int F, int fpad, int C, int condition, int chunk, int stages,
-                                  void* stream) {
-  return launch(p, nullptr, n, rows, tiles, T, N, F, fpad, C, condition, chunk, stages, stream);
-}
-
-// Dynamic shared memory of one CTA, in bytes (the plan states the same).
-int spoofsv_decode_cluster_smem(int C, int fpad, int n, int rows, int chunk, int stages) {
-  return (int)cluster_smem(C, fpad, n, rows, chunk, stages);
-}
-
-const char* spoofsv_decode_cluster_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
+// dtype: 0 f32, 1 bf16 (spoofsv_torch.ops._build.DTYPE_CODES)
+int launch_dtype(int dtype, const void* const* p, long long* prof, int n, int rows, int tiles,
+                 int T, int N, int F, int fpad, int C, int condition, int chunk, int stages,
+                 void* stream) {
+  if (dtype == 0)
+    return launch<float>(p, prof, n, rows, tiles, T, N, F, fpad, C, condition, chunk, stages,
+                         stream);
+  if (dtype == 1)
+    return launch<bf16>(p, prof, n, rows, tiles, T, N, F, fpad, C, condition, chunk, stages,
+                        stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 #ifdef SPOOFSV_K1_PROBE
-// As spoofsv_decode_cluster_launch, filling prof (kPhases int64): the clock
-// of each phase in CTA (0, 0)'s warp 0, summed over the run.
-int spoofsv_decode_cluster_probe_launch(const void* const* p, void* prof, int n, int rows,
-                                        int tiles, int T, int N, int F, int fpad, int C,
-                                        int condition, int chunk, int stages, void* stream) {
-  if (!prof) return (int)cudaErrorInvalidValue;
-  return launch(p, (long long*)prof, n, rows, tiles, T, N, F, fpad, C, condition, chunk, stages,
-                stream);
-}
-
-// Clusters of this plan that the card can hold at once (0 if none), or a
-// negative CUDA error.
-int spoofsv_decode_cluster_max_active(int C, int fpad, int n, int rows, int chunk, int stages) {
-  if (!plan_ok(C, fpad, n, rows, chunk, stages)) return -(int)cudaErrorInvalidValue;
-  const size_t smem = cluster_smem(C, fpad, n, rows, chunk, stages);
-  const KernelFn fn = pick(C, fpad, n, rows, false);
+template <typename E>
+int max_active(int C, int fpad, int n, int rows, int chunk, int stages) {
+  if (!plan_ok(C, fpad, n, rows, chunk, stages, sizeof(E))) return -(int)cudaErrorInvalidValue;
+  const size_t smem = cluster_smem(C, fpad, n, rows, chunk, stages, sizeof(E));
+  const KernelFn<E> fn = pick<E>(C, fpad, n, rows, false);
   int err = configure(fn, n, smem);
   if (err) return -err;
   cudaLaunchConfig_t cfg;
@@ -957,6 +1102,55 @@ int spoofsv_decode_cluster_max_active(int C, int fpad, int n, int rows, int chun
   const cudaError_t e = cudaOccupancyMaxActiveClusters(&count, fn, &cfg);
   if (e != cudaSuccess) return -clear_and_return(e);
   return count;
+}
+#endif
+
+}  // namespace
+
+extern "C" {
+
+// dtype 0 (f32) or 1 (bf16) for E. ptrs: K, V, s1, s2 (Bp, N|-, C) E; the
+// weight stream (n, cta_elems) E; hw_b, hw_ln, sq_b, misc_ln, enc_b1,
+// dec_b1, tail_b5, ln5_s, ln5_b f32; rings (256, Bp, C) E zeroed; Y (Bp, T,
+// F) E; A (Bp, N, T) E zeroed (the kernel writes the window); pma (Bp)
+// int32. Bp = tiles·rows.
+int spoofsv_decode_cluster_launch(int dtype, const void* const* p, int n, int rows, int tiles,
+                                  int T, int N, int F, int fpad, int C, int condition, int chunk,
+                                  int stages, void* stream) {
+  return launch_dtype(dtype, p, nullptr, n, rows, tiles, T, N, F, fpad, C, condition, chunk,
+                      stages, stream);
+}
+
+// Dynamic shared memory of one CTA, in bytes (the plan states the same), or
+// -1 for an unknown dtype.
+int spoofsv_decode_cluster_smem(int dtype, int C, int fpad, int n, int rows, int chunk,
+                                int stages) {
+  if (dtype != 0 && dtype != 1) return -1;
+  return (int)cluster_smem(C, fpad, n, rows, chunk, stages, dtype == 0 ? 4 : 2);
+}
+
+const char* spoofsv_decode_cluster_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+#ifdef SPOOFSV_K1_PROBE
+// As spoofsv_decode_cluster_launch, filling prof (kPhases int64): the clock
+// of each phase in CTA (0, 0)'s warp 0, summed over the run.
+int spoofsv_decode_cluster_probe_launch(int dtype, const void* const* p, void* prof, int n,
+                                        int rows, int tiles, int T, int N, int F, int fpad, int C,
+                                        int condition, int chunk, int stages, void* stream) {
+  if (!prof) return (int)cudaErrorInvalidValue;
+  return launch_dtype(dtype, p, (long long*)prof, n, rows, tiles, T, N, F, fpad, C, condition,
+                      chunk, stages, stream);
+}
+
+// Clusters of this plan that the card can hold at once (0 if none), or a
+// negative CUDA error.
+int spoofsv_decode_cluster_max_active(int dtype, int C, int fpad, int n, int rows, int chunk,
+                                      int stages) {
+  if (dtype == 0) return max_active<float>(C, fpad, n, rows, chunk, stages);
+  if (dtype == 1) return max_active<bf16>(C, fpad, n, rows, chunk, stages);
+  return -(int)cudaErrorInvalidValue;
 }
 #endif
 

@@ -1,12 +1,35 @@
 // K2 (Griffin-Lim phase init) and K3 (Griffin-Lim iterations) for sm_90a.
 //
 // K2 replaces spoofsv_tpu/ops/pallas_gl.py::_spsi_angles_kernel and the
-// init branches of ::_gl_kernel (random hash, advance, spsi). One thread per
-// (utterance, bin) walks the frames in order, so the SPSI frame-axis cumsum
-// is a running sum in a register; a block is one (utterance, 128-bin chunk).
-// Bound: one read of the f32 magnitudes and one write of the f32 (cos, sin)
-// pair; the design reads each magnitude three times from L1 (bin neighbours)
-// and nothing else.
+// init branches of ::_gl_kernel (random hash, advance, spsi). Its bound is
+// bytes: one read of the f32 magnitudes and one write of the f32 (cos, sin)
+// pair (512 MB at B=64, T=1300: 0.153 ms at 3.35 TB/s). The SPSI phase needs
+// a cumsum of δ along frames per bin, which the first port walked in series
+// (one thread per (utterance, bin) over all T frames: latency-bound at ~10
+// warps an SM). Here each utterance's frames are cut into 32 segments of
+// ⌈T/32⌉, and a block owns one segment over all bins (17 warps of 32 bins
+// at n_fft 1024), so it reads and writes whole rows: one contiguous span of
+// |S| and one of each angle plane (a block over a strip of bins and all
+// frames wrote 32 scattered 128-byte pieces at a time, and its writes alone
+// took 2.4 times a fill of the same planes). One pass, a scan with
+// look-back:
+//   1. the block computes δ for its frames (the log-magnitude parabola over
+//      bins k−1, k, k+1: the neighbours by warp shuffle, each warp's two
+//      edge bins loaded for 16 frames at a time by its lanes, the sequence's
+//      edge bins replicated), keeps it in shared memory, and publishes its
+//      per-bin totals and then a flag (release);
+//   2. it waits for the flags of the utterance's earlier segments (acquire)
+//      and sums their totals in segment order, so the result does not
+//      depend on timing; blocks take their segment from an atomic counter,
+//      so a block only waits for blocks that are already running;
+//   3. it walks its frames again from that prefix: the running sum, the
+//      wrapped cycles and cos/sin of the advanced, refined phase, written
+//      once. The advance phase 2π·((t·hk) mod N)/N comes from a table of the
+//      N angles, built by each block with the same cosf/sinf.
+// δ stays in shared memory (89 KB at T=1300: two blocks share an SM; past
+// ~3300 frames it goes through the output plane, which the same thread
+// overwrites). "random" and "advance" are elementwise over (b, t, k),
+// bit-for-bit the first port's.
 //
 // K3 replaces spoofsv_tpu/ops/pallas_gl.py::_gl_kernel. On the TPU one
 // utterance's whole GL state stays in VMEM; on Hopper it does not fit a
@@ -28,7 +51,11 @@
 
 namespace {
 
-constexpr int INIT_THREADS = 128;
+constexpr int INIT_SEGS = 32;    // K2: segments of frames an utterance is cut into
+constexpr int INIT_WARPS = 17;   // a block's warps, 32 bins each (513 bins: n_fft 1024)
+constexpr int INIT_THREADS = 32 * INIT_WARPS;
+constexpr int INIT_BATCH = 16;   // frames a warp loads before it computes on them
+constexpr int SMEM_LIMIT = 232448;
 constexpr int FFT_THREADS = 256;
 constexpr float WSS_FLOOR = 1e-11f;
 
@@ -45,8 +72,15 @@ __device__ __forceinline__ uint32_t hash_mix(uint32_t t, uint32_t k, uint32_t se
   return h;
 }
 
-__device__ __forceinline__ float log_mag(const float* row, int k) {
-  return logf(fmaxf(row[k], 1e-10f));
+__device__ __forceinline__ float log_mag(float m) { return logf(fmaxf(m, 1e-10f)); }
+
+// δ ∈ [−0.5, 0.5] from the log-magnitudes of bins k−1, k, k+1 where the
+// triple is concave, else 0 (torchdsp.gl_if_deltas, operation for operation)
+__device__ __forceinline__ float spsi_delta(float la, float lb, float lc) {
+  const float denom = __fadd_rn(__fsub_rn(la, __fmul_rn(2.f, lb)), lc);
+  float delta = 0.f;
+  if (denom < -1e-6f) delta = __fdiv_rn(__fmul_rn(0.5f, __fsub_rn(la, lc)), denom);
+  return fminf(fmaxf(delta, -0.5f), 0.5f);
 }
 
 struct InitConsts {
@@ -57,47 +91,162 @@ struct InitConsts {
   float lock_c;          // float32(lock*pi*(N-1)/N)
 };
 
-__global__ void __launch_bounds__(INIT_THREADS)
-gl_init_kernel(int mode, const float* __restrict__ mag, const int* __restrict__ seeds,
-               float* __restrict__ out_re, float* __restrict__ out_im, int T, int F,
-               int n_fft, int hop, InitConsts cst) {
-  const int b = blockIdx.y;
-  const int k = blockIdx.x * INIT_THREADS + threadIdx.x;
-  if (k >= F) return;
-  const int hk = (k * hop) % n_fft;
-  const uint32_t seed = seeds ? (uint32_t)seeds[b] : 0u;
-  const int km = k > 0 ? k - 1 : k, kp = k < F - 1 ? k + 1 : k;
-  float cum = 0.f;
-  for (int t = 0; t < T; ++t) {
-    const size_t o = ((size_t)b * T + t) * F + k;
-    float ph;
-    if (mode == INIT_RANDOM) {
-      ph = (float)(hash_mix((uint32_t)t, (uint32_t)k, seed) & 0xFFFFFFu) * cst.two_pi_over_24;
-      out_re[o] = cosf(ph);
-      out_im[o] = sinf(ph);
-      continue;
+// Dynamic shared memory of K2: the advance table (N float2, not for
+// "random") and δ of the segment's frames over its bins rounded up to 32
+// (SPSI_SMEM)
+__host__ __device__ inline size_t init_smem(int mode, int n_fft, int T, int F, bool spsi_smem) {
+  const size_t L = (T + INIT_SEGS - 1) / INIT_SEGS, W = 32 * ((F + 31) / 32);
+  return (mode == INIT_RANDOM ? 0 : (size_t)n_fft * 8) + (spsi_smem ? L * W * 4 : 0);
+}
+
+__device__ __forceinline__ void flag_release(int* p) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(1) : "memory");
+}
+__device__ __forceinline__ int flag_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// K2: a block computes segment `seg` (frames [seg·L, seg·L + L), L =
+// ⌈T/32⌉) of utterance b over all F bins, warp w bins 32w + lane (and
+// 32·(w + 17) + lane, ... past 544 bins). spsi: (b, seg) from the counter
+// sync[0]; its δ totals to agg[b][seg], then the flag sync[1 + 32b + seg].
+// SPSI_SMEM: δ kept in shared memory (else in out_re, overwritten in place).
+template <int MODE, bool SPSI_SMEM>
+__global__ void __launch_bounds__(INIT_THREADS, 2)
+gl_init_kernel(const float* __restrict__ mag, const int* __restrict__ seeds,
+               float* __restrict__ out_re, float* __restrict__ out_im, float* __restrict__ agg,
+               int* __restrict__ sync, int T, int F, int n_fft, int hop, InitConsts cst) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_tile;
+  constexpr unsigned FULL = 0xffffffffu;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+  const int nsl = (F + 31) / 32, W = 32 * nsl;  // 32-bin slices; bins rounded up
+  int tile = blockIdx.x;
+  if constexpr (MODE == INIT_SPSI) {
+    if (threadIdx.x == 0) s_tile = atomicAdd(sync, 1);
+    __syncthreads();
+    tile = s_tile;
+  }
+  const int b = tile / INIT_SEGS, seg = tile % INIT_SEGS;
+  const int L = (T + INIT_SEGS - 1) / INIT_SEGS, t0 = seg * L;
+  const int nt = max(0, min(L, T - t0));  // frames of this segment
+  const size_t row0 = (size_t)b * T + t0;  // its first row
+
+  if constexpr (MODE == INIT_RANDOM) {
+    const uint32_t seed = (uint32_t)seeds[b];
+    for (int sl = warp; sl < nsl; sl += nwarps) {
+      const int k = 32 * sl + lane;
+      if (k < F)
+        for (int i = 0; i < nt; ++i) {
+          const size_t o = (row0 + i) * F + k;
+          const float ph = (float)(hash_mix((uint32_t)(t0 + i), (uint32_t)k, seed) & 0xFFFFFFu) *
+                           cst.two_pi_over_24;
+          out_re[o] = cosf(ph);
+          out_im[o] = sinf(ph);
+        }
     }
-    ph = (float)((t * hk) % n_fft) * cst.two_pi_over_n;
-    const float b_re = cosf(ph), b_im = sinf(ph);
-    if (mode == INIT_ADVANCE) {
-      out_re[o] = b_re;
-      out_im[o] = b_im;
-      continue;
+    return;
+  } else {
+    float2* tab = reinterpret_cast<float2*>(smem);  // the advance angle of (t·hk) mod N
+    float* dl = reinterpret_cast<float*>(tab + n_fft);  // [frame i][bin] δ
+    for (int p = threadIdx.x; p < n_fft; p += blockDim.x) {
+      const float ph = (float)p * cst.two_pi_over_n;
+      tab[p] = make_float2(cosf(ph), sinf(ph));
     }
-    // spsi: delta from the log-magnitude parabola over (k-1, k, k+1)
-    const float* row = mag + ((size_t)b * T + t) * F;
-    const float lb = log_mag(row, k), la = log_mag(row, km), lc = log_mag(row, kp);
-    const float denom = __fadd_rn(__fsub_rn(la, __fmul_rn(2.f, lb)), lc);
-    float delta = 0.f;
-    if (denom < -1e-6f) delta = __fdiv_rn(__fmul_rn(0.5f, __fsub_rn(la, lc)), denom);
-    delta = fminf(fmaxf(delta, -0.5f), 0.5f);
-    cum = __fadd_rn(cum, delta);
-    const float cyc = __fmul_rn(__fsub_rn(cum, delta), cst.hop_over_n);  // exclusive cumsum
-    float frac = __fmul_rn(__fsub_rn(cyc, rintf(cyc)), cst.two_pi);
-    frac = __fadd_rn(frac, __fmul_rn(delta, cst.lock_c));
-    const float c_f = cosf(frac), s_f = sinf(frac);
-    out_re[o] = b_re * c_f - b_im * s_f;
-    out_im[o] = b_re * s_f + b_im * c_f;
+    if constexpr (MODE == INIT_SPSI) {
+      // 1. δ of this segment's frames, and its totals
+      const float* mb = mag + row0 * F;
+      for (int sl = warp; sl < nsl; sl += nwarps) {
+        const int k0 = 32 * sl, k = k0 + lane, kc = min(k, F - 1);
+        const int km = max(k0 - 1, 0), kp = min(k0 + 32, F - 1);  // the slice's edges
+        float sum = 0.f;
+        for (int ib = 0; ib < nt; ib += INIT_BATCH) {
+          const int nb = min(INIT_BATCH, nt - ib);
+          float v[INIT_BATCH];
+#pragma unroll
+          for (int i = 0; i < INIT_BATCH; ++i)
+            v[i] = i < nb ? __ldg(mb + (size_t)(ib + i) * F + kc) : 1.f;
+          // lane j < 16: bin k0 − 1 of frame ib + j; lane 16 + j: bin k0 + 32
+          const int j = lane & 15;
+          const float e =
+              log_mag(j < nb ? __ldg(mb + (size_t)(ib + j) * F + (lane < 16 ? km : kp)) : 1.f);
+#pragma unroll
+          for (int i = 0; i < INIT_BATCH; ++i) {
+            if (i < nb) {  // the same in every lane
+              const float lb = log_mag(v[i]);
+              float la = __shfl_up_sync(FULL, lb, 1), lc = __shfl_down_sync(FULL, lb, 1);
+              const float el = __shfl_sync(FULL, e, i), er = __shfl_sync(FULL, e, 16 + i);
+              if (lane == 0) la = el;
+              if (lane == 31) lc = er;
+              const float d = spsi_delta(la, lb, lc);
+              if constexpr (SPSI_SMEM) dl[(ib + i) * W + k] = d;
+              else if (k < F) out_re[(row0 + ib + i) * F + k] = d;
+              sum = __fadd_rn(sum, d);
+            }
+          }
+        }
+        if (k < F) agg[((size_t)b * INIT_SEGS + seg) * F + k] = sum;
+      }
+      // 2. publish the totals; wait for the earlier segments' (lane s of
+      // warp 0 polls segment s) and sum them in segment order
+      __syncthreads();  // every total stored (and δ, and the table)
+      if (threadIdx.x == 0) {
+        __threadfence();
+        flag_release(sync + 1 + b * INIT_SEGS + seg);
+      }
+      if (warp == 0) {
+        const int* flags = sync + 1 + b * INIT_SEGS;
+        while (!__all_sync(FULL, lane >= seg || flag_acquire(flags + lane) != 0))
+          __nanosleep(100);
+        __threadfence();
+      }
+      __syncthreads();  // the earlier totals are visible to every thread
+      // 3. the angles: cum is the exclusive sum of δ before frame t
+      for (int sl = warp; sl < nsl; sl += nwarps) {
+        const int k = 32 * sl + lane, kc = min(k, F - 1);
+        float cum = 0.f;
+        for (int s2 = 0; s2 < seg; ++s2)
+          cum = __fadd_rn(cum, __ldcg(agg + ((size_t)b * INIT_SEGS + s2) * F + kc));
+        const int hk = (kc * hop) % n_fft;
+        int p = (int)(((long long)t0 * hk) % n_fft);  // (t·hk) mod N, advanced frame by frame
+        for (int i = 0; i < nt; ++i) {
+          const size_t o = (row0 + i) * F + k;
+          float d = 0.f;
+          if constexpr (SPSI_SMEM) d = dl[i * W + k];
+          else if (k < F) d = out_re[o];
+          const float cyc = __fmul_rn(cum, cst.hop_over_n);
+          cum = __fadd_rn(cum, d);
+          float frac = __fmul_rn(__fsub_rn(cyc, rintf(cyc)), cst.two_pi);
+          frac = __fadd_rn(frac, __fmul_rn(d, cst.lock_c));
+          float s_f, c_f;
+          __sincosf(frac, &s_f, &c_f);
+          const float2 base = tab[p];
+          if (k < F) {
+            out_re[o] = base.x * c_f - base.y * s_f;
+            out_im[o] = base.x * s_f + base.y * c_f;
+          }
+          p += hk;
+          p -= p >= n_fft ? n_fft : 0;
+        }
+      }
+    } else {  // advance
+      __syncthreads();  // the table
+      for (int sl = warp; sl < nsl; sl += nwarps) {
+        const int k = 32 * sl + lane, hk = (k * hop) % n_fft;
+        int p = (int)(((long long)t0 * hk) % n_fft);
+        if (k < F)
+          for (int i = 0; i < nt; ++i) {
+            const float2 v = tab[p];
+            const size_t o = (row0 + i) * F + k;
+            out_re[o] = v.x;
+            out_im[o] = v.y;
+            p += hk;
+            p -= p >= n_fft ? n_fft : 0;
+          }
+      }
+    }
   }
 }
 
@@ -219,21 +368,52 @@ int log2_exact(int n) {
   return (1 << l) == n ? l : -1;
 }
 
+template <int MODE, bool SPSI_SMEM>
+int init_launch(const float* mag, const int* seeds, float* out_re, float* out_im, float* agg,
+                int* sync, int B, int T, int F, int n_fft, int hop, InitConsts c, cudaStream_t s) {
+  const size_t smem = init_smem(MODE, n_fft, T, F, SPSI_SMEM);
+  auto fn = gl_init_kernel<MODE, SPSI_SMEM>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int nsl = (F + 31) / 32, threads = 32 * (nsl < INIT_WARPS ? nsl : INIT_WARPS);
+  fn<<<B * INIT_SEGS, threads, smem, s>>>(mag, seeds, out_re, out_im, agg, sync, T, F, n_fft, hop,
+                                          c);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// K2: (cos, sin) phase init, f32 (B, T, F). mode 0 random hash (seeds), 1 advance, 2 spsi (mag).
+// K2: (cos, sin) phase init, f32 (B, T, F). mode 0 random hash (seeds), 1
+// advance, 2 spsi (mag; agg: B·32·F floats of scratch, sync: 1 + 32·B int32
+// zeroed by the caller). The advance table of n_fft angles sits in shared
+// memory: n_fft up to ~29,000.
 int spoofsv_gl_init_launch(int mode, const float* mag, const int* seeds, float* out_re,
-                           float* out_im, int B, int T, int F, int n_fft, int hop,
-                           float two_pi_over_n, float two_pi_over_24, float hop_over_n,
+                           float* out_im, float* agg, int* sync, int B, int T, int F, int n_fft,
+                           int hop, float two_pi_over_n, float two_pi_over_24, float hop_over_n,
                            float two_pi, float lock_c, void* stream) {
-  if (mode < 0 || mode > 2 || F != n_fft / 2 + 1) return (int)cudaErrorInvalidValue;
+  if (mode < 0 || mode > 2 || F != n_fft / 2 + 1 || B < 0 || T < 0 || hop < 1 ||
+      init_smem(mode, n_fft, 0, F, false) > (size_t)SMEM_LIMIT || (mode == INIT_RANDOM && !seeds) ||
+      (mode == INIT_SPSI && (!mag || !agg || !sync)))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || T == 0) return 0;
   InitConsts c{two_pi_over_n, two_pi_over_24, hop_over_n, two_pi, lock_c};
-  dim3 grid((F + INIT_THREADS - 1) / INIT_THREADS, B);
-  gl_init_kernel<<<grid, INIT_THREADS, 0, (cudaStream_t)stream>>>(mode, mag, seeds, out_re,
-                                                                  out_im, T, F, n_fft, hop, c);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (mode == INIT_RANDOM)
+    return init_launch<INIT_RANDOM, false>(mag, seeds, out_re, out_im, agg, sync, B, T, F, n_fft,
+                                           hop, c, s);
+  if (mode == INIT_ADVANCE)
+    return init_launch<INIT_ADVANCE, false>(mag, seeds, out_re, out_im, agg, sync, B, T, F, n_fft,
+                                            hop, c, s);
+  if (init_smem(mode, n_fft, T, F, true) <= (size_t)SMEM_LIMIT)
+    return init_launch<INIT_SPSI, true>(mag, seeds, out_re, out_im, agg, sync, B, T, F, n_fft, hop,
+                                        c, s);
+  return init_launch<INIT_SPSI, false>(mag, seeds, out_re, out_im, agg, sync, B, T, F, n_fft, hop,
+                                       c, s);
 }
 
 // K3: n_iter momentum iterations from (ang_re, ang_im), then the audio epilogue.

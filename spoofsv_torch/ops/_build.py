@@ -33,25 +33,19 @@ _F = ctypes.c_float
 
 # C signatures of every exported function: name -> (restype, argtypes)
 SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
-    "decode": {
-        "spoofsv_decode_ring_slots": (_I, []),
-        "spoofsv_decode_launch": (_I, [_I, _P] + [_I] * 8 + [_P]),
-        "spoofsv_decode_error_string": (ctypes.c_char_p, [_I]),
-    },
     "decode_cluster": {
-        "spoofsv_decode_cluster_launch": (_I, [_P] + [_I] * 11 + [_P]),
-        "spoofsv_decode_cluster_smem": (_I, [_I] * 6),
+        "spoofsv_decode_cluster_launch": (_I, [_I, _P] + [_I] * 11 + [_P]),
+        "spoofsv_decode_cluster_smem": (_I, [_I] * 7),
         "spoofsv_decode_cluster_error_string": (ctypes.c_char_p, [_I]),
     },
     "decode_cluster_probe": {
-        "spoofsv_decode_cluster_launch": (_I, [_P] + [_I] * 11 + [_P]),
-        "spoofsv_decode_cluster_probe_launch": (_I, [_P, _P] + [_I] * 11 + [_P]),
-        "spoofsv_decode_cluster_max_active": (_I, [_I] * 6),
+        "spoofsv_decode_cluster_launch": (_I, [_I, _P] + [_I] * 11 + [_P]),
+        "spoofsv_decode_cluster_probe_launch": (_I, [_I, _P, _P] + [_I] * 11 + [_P]),
+        "spoofsv_decode_cluster_max_active": (_I, [_I] * 7),
         "spoofsv_decode_cluster_error_string": (ctypes.c_char_p, [_I]),
     },
     "gl": {
-        "spoofsv_gl_init_launch": (_I, [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                        _F, _F, _F, _F, _F, _P]),
+        "spoofsv_gl_init_launch": (_I, [_I] + [_P] * 6 + [_I] * 5 + [_F] * 5 + [_P]),
         "spoofsv_gl_run": (_I, [_P] * 10 + [_I] * 6 + [_F, _P]),
         "spoofsv_gl_error_string": (ctypes.c_char_p, [_I]),
     },

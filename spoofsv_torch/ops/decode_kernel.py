@@ -1,9 +1,10 @@
 """K1: the whole autoregressive Text2Mel decode in one CUDA launch.
 
-Port of :mod:`spoofsv_tpu.ops.pallas_decode` (``_decode_kernel``). bf16 runs
-``csrc/decode_cluster.cu`` (a cluster of CTAs per tile of batch rows, each
-CTA a column slice of every layer, tensor-core products, a bulk-copy weight
-stream); f32 runs ``csrc/decode.cu``. :func:`decode_plain` is the same
+Port of :mod:`spoofsv_tpu.ops.pallas_decode` (``_decode_kernel``). Both
+dtypes run ``csrc/decode_cluster.cu`` (a cluster of CTAs per tile of batch
+rows, each CTA a column slice of every layer, tensor-core products, a
+bulk-copy weight stream): bf16 products on bf16 operands, f32 ones as
+3xTF32. :func:`decode_plain` is the same
 computation in plain PyTorch on the packed weights,
 :func:`decode_cluster_emulate` the cluster kernel's decomposition of it, and
 :func:`spoofsv_torch.infer.decode.make_decoder` the module-level eager loop
@@ -27,6 +28,7 @@ import torch.nn.functional as F
 
 from spoofsv_torch.models.text2mel import ATT_MASK_VALUE, MelSyn
 from spoofsv_torch.ops import _build
+from spoofsv_torch.ops.hconv_kernel import tf32_split
 
 LN_EPS = 1e-5
 # decode-path highway layers, in execution order: enc.hci1 (d 1/3/9/27),
@@ -38,9 +40,9 @@ WEIGHT_NAMES = ("hw_w", "hw_b", "hw_ln", "sq_w", "sq_b", "misc_ln", "enc_w1", "e
 MATRIX_NAMES = ("hw_w", "sq_w", "enc_w1", "dec_w1", "tail_w5")   # in the compute dtype
 
 
-decode_kernel = _build.LaunchCounter()   # K1, both sources
-cluster_kernel = _build.LaunchCounter()  # K1's bf16 source, decode_cluster.cu, alone
-f32_kernel = _build.LaunchCounter()      # K1's f32 source, decode.cu, alone
+decode_kernel = _build.LaunchCounter()   # K1, both dtypes
+cluster_kernel = _build.LaunchCounter()  # K1's bf16 instance alone
+f32_kernel = _build.LaunchCounter()      # K1's f32 (3xTF32) instance alone
 
 
 def _round_up(x: int, m: int) -> int:
@@ -178,9 +180,9 @@ def decode_plain(packed: Dict[str, torch.Tensor], K: torch.Tensor, V: torch.Tens
 
 
 # ---------------------------------------------------------------------------
-# bf16 K1: the cluster design (csrc/decode_cluster.cu). Host pieces: the plan,
-# the per-CTA weight stream in mma.sync fragment order, and the cluster's
-# decomposition emulated in plain torch (the CPU tests' yardstick).
+# K1: the cluster design (csrc/decode_cluster.cu), bf16 and f32. Host pieces:
+# the plan, the per-CTA weight stream in mma.sync fragment order, and the
+# cluster's decomposition emulated in plain torch (the CPU tests' yardstick).
 # ---------------------------------------------------------------------------
 
 CLUSTER_THREADS = 256          # 8 warps a CTA
@@ -188,12 +190,12 @@ CLUSTER_CHUNK = 16384          # bytes of weight stream per ring stage
 CLUSTER_STAGES = 8            # ring stages (8, else 4 or 2 where memory is short)
 SMEM_LIMIT = 232448            # dynamic shared memory one block may use (H100)
 # Clusters of each size that one H100 SXM runs at once when every CTA needs
-# an SM of its own, as every plan at C = 256 does (more than half an SM's
-# shared memory): cudaOccupancyMaxActiveClusters on the card for 16-2
-# (python3 -m spoofsv_torch.ops.k1_probe), the 132 SMs for 1. A plan whose
-# tiles exceed this runs in more than one wave.
+# an SM of its own, as every plan at C = 256 does in either dtype (more than
+# half an SM's shared memory): cudaOccupancyMaxActiveClusters on the card for
+# 16-2 (python3 -m spoofsv_torch.ops.k1_probe), the 132 SMs for 1. A plan
+# whose tiles exceed this runs in more than one wave.
 H100_CLUSTERS_PER_WAVE = {16: 7, 8: 15, 4: 30, 2: 66, 1: 132}
-RING_SLOTS = 256               # Σ 2d over HW_DILATIONS, as csrc/decode.cu
+RING_SLOTS = 256               # Σ 2d over HW_DILATIONS: the ring caches' slots
 # the frame's products in execution order: (matrix, index, kind); kind "c" has
 # C output columns, "hw" the highway's [h1 | h2] 2C, "f" the fpad-wide tail
 CLUSTER_LAYERS = tuple(
@@ -217,7 +219,8 @@ class ClusterPlan:
     ``cluster`` CTAs, each cluster ``rows`` batch rows, each CTA ``ch`` =
     C/cluster channels of every C-wide activation (``ft`` columns of the
     tail). The weight stream is read in ``chunk_bytes`` pieces (whole 32-deep
-    k rows of a layer) through a ring of ``stages``."""
+    k rows of a layer) through a ring of ``stages``. ``elem``: bytes of an
+    operand, 2 (bf16) or 4 (f32, 3xTF32 products)."""
     batch: int
     C: int
     freq_bins: int
@@ -227,6 +230,7 @@ class ClusterPlan:
     tiles: int
     chunk_bytes: int = CLUSTER_CHUNK
     stages: int = CLUSTER_STAGES
+    elem: int = 2
 
     @property
     def ch(self) -> int:
@@ -251,11 +255,25 @@ class ClusterPlan:
         ncol = {"c": self.ch // 8, "hw": 2 * self.ch // 8, "f": self.ft // 8}
         return tuple((_LAYER_K[m](self.C, self.fpad), ncol[kind]) for m, _, kind in CLUSTER_LAYERS)
 
-    def warp_split(self, ncol: int) -> Tuple[int, int]:
-        """(k splits, n8 blocks per warp) of a product with ``ncol`` blocks:
-        8/MT warps share each 16-row m tile, first over columns, then over k."""
+    def warp_split(self, K: int, ncol: int) -> Tuple[int, int]:
+        """(k splits, n8 blocks per warp) of a product of depth ``K`` with
+        ``ncol`` blocks: 8/MT warps share each 16-row m tile. bf16: first
+        over columns, then over k. f32: first over k, up to the k rows a
+        chunk holds and K/32 (a power of two), so that fewer warps split the
+        same A fragment into TF32."""
         wpm = CLUSTER_THREADS // 32 // (self.rows // 16)
-        return (wpm // ncol, 1) if ncol < wpm else (1, ncol // wpm)
+        S = wpm // ncol if ncol < wpm else 1
+        if self.elem == 4:
+            most = min(wpm, max(1, self.chunk_bytes // (ncol * self.block_bytes)))
+            while most > K // 32:
+                most //= 2
+            S = max(S, most)
+        return S, ncol * S // wpm
+
+    @property
+    def block_bytes(self) -> int:
+        """Bytes of one 32-deep k row of one n8 column block of the stream."""
+        return 256 * self.elem
 
     @property
     def cta_elems(self) -> int:
@@ -263,31 +281,40 @@ class ClusterPlan:
 
     @property
     def chunks_per_frame(self) -> int:
-        return sum(-(-(K // 32) // max(1, self.chunk_bytes // (ncol * 512)))
+        return sum(-(-(K // 32) // max(1, self.chunk_bytes // (ncol * self.block_bytes)))
                    for K, ncol in self.layers)
+
+    def row_stride(self, w: int) -> int:
+        """Elements between operand rows of width ``w`` in shared memory:
+        bf16 padded by 16 bytes (ldmatrix), f32 at 16 mod 32 words (the
+        16-byte A loads of neighbouring rows in the two halves of the banks)."""
+        return w + 8 if self.elem == 2 else w + ((16 - w) & 31)
 
     @property
     def smem_bytes(self) -> int:
         """Dynamic shared memory of one CTA (``spoofsv_decode_cluster_smem``)."""
         n, rows = self.cluster, self.rows
         # operand rows: taps (2C), then the gathered x or y slices (one buffer)
-        ldt, ss = 2 * self.C + 8, max(self.ch, self.ft) + 8
-        hbuf = max(self.warp_split(ncol)[0] * rows * ncol * 8 for _, ncol in self.layers)
+        ldt = self.row_stride(2 * self.C)
+        ss = max(self.row_stride(self.ch), self.row_stride(self.ft))
+        hbuf = max(self.warp_split(K, ncol)[0] * rows * ncol * 8 for K, ncol in self.layers)
         prm = sum(3 * ncol * 8 for _, ncol in self.layers)   # biases and LayerNorm vectors
-        return (128 + self.stages * self.chunk_bytes + rows * (ldt + n * ss) * 2
+        return (128 + self.stages * self.chunk_bytes + rows * (ldt + n * ss) * self.elem
                 + rows * self.ch * 4 + hbuf * 4 + prm * 4 + 2 * n * rows * 16 + rows * 16
                 + rows * 8 + 2 * 16 * 4 + (2 * self.stages + 2) * 8)
 
     @property
     def l2_bytes_per_frame(self) -> int:
         """Bytes every CTA reads from L2 in a frame, summed over the grid: its
-        weight stream (bf16) and the 16 highways' two full-width ring taps."""
-        taps = 16 * self.rows * 2 * self.C * 2
-        return self.tiles * self.cluster * (2 * self.cta_elems + taps)
+        weight stream and the 16 highways' two full-width ring taps."""
+        taps = 16 * self.rows * 2 * self.C * self.elem
+        return self.tiles * self.cluster * (self.elem * self.cta_elems + taps)
 
     def refusal(self) -> Optional[str]:
         """Why the kernel cannot take this plan, or None."""
         n, C = self.cluster, self.C
+        if self.elem not in (2, 4):
+            return f"operands of {self.elem} bytes (2: bf16, 4: f32)"
         if not _pow2(n) or n > 16:
             return f"cluster {n} is not a power of two ≤ 16"
         if self.rows not in (16, 32, 64):
@@ -296,13 +323,13 @@ class ClusterPlan:
             return f"C/cluster = {C}/{n} is not 8·2^k channels"
         if self.fpad % n or self.ft % 8 or not _pow2(self.ft // 8):
             return f"fpad/cluster = {self.fpad}/{n} is not 8·2^k columns"
-        if any(self.warp_split(ncol)[1] > 4 for _, ncol in self.layers):
+        if any(self.warp_split(K, ncol)[1] > 4 for K, ncol in self.layers):
             return "more than 4 n8 column blocks per warp"
         if self.stages < 2 or not _pow2(self.stages):
             return f"{self.stages} ring stages (a power of two ≥ 2)"
         if self.chunk_bytes != CLUSTER_CHUNK:
             return f"the kernel's chunk is {CLUSTER_CHUNK} bytes, not {self.chunk_bytes}"
-        if self.chunk_bytes < max(ncol * 512 for _, ncol in self.layers):
+        if self.chunk_bytes < max(ncol * self.block_bytes for _, ncol in self.layers):
             return f"chunk of {self.chunk_bytes} bytes holds no whole k row"
         if self.smem_bytes > SMEM_LIMIT:
             return f"{self.smem_bytes} bytes of shared memory > {SMEM_LIMIT}"
@@ -313,16 +340,21 @@ class ClusterPlan:
 
 @functools.lru_cache(maxsize=None)   # a plain function of its arguments, asked every call
 def decode_cluster_plan(batch: int, C: int, freq_bins: int = 80, *,
-                        cluster: Optional[int] = None, rows: Optional[int] = None
-                        ) -> ClusterPlan:
-    """The cluster kernel's plan for ``batch`` rows of width ``C``.
+                        cluster: Optional[int] = None, rows: Optional[int] = None,
+                        elem: int = 2) -> ClusterPlan:
+    """The cluster kernel's plan for ``batch`` rows of width ``C`` with
+    operands of ``elem`` bytes (2: bf16, 4: f32).
 
     Default: the fewest rows per tile (16, 32, 64), then the largest cluster
     (16, 8, ...), whose tiles run in one wave on an H100; failing that, the
-    fewest waves, then the same order. At C=256 that is 16×16 up to B=112,
-    8×16 to 240, 4×16 to 480, 2×16 to 1056: on the card each was the
+    fewest waves, then the same order. At C=256 in bf16 that is 16×16 up to
+    B=112, 8×16 to 240, 4×16 to 480, 2×16 to 1056: on the card each was the
     fastest plan of at most two waves at B = 64, 128, 256, 512, and 2×16
-    within 1.1 % of the fastest at 768 (``k1_probe``; ``PERF.md`` §6).
+    within 1.1 % of the fastest at 768 (``k1_probe``; ``PERF.md`` §6). In
+    f32 a k row of the weight stream is twice the bytes, so clusters of 2
+    at C=256 hold no whole highway k row in a chunk and are refused; the
+    rule's 16×16 was the fastest f32 plan at B=16 and B=64 (``k1_probe
+    --dtype f32``).
     Each plan gets the deepest ring of weight chunks that fits. ``cluster``
     / ``rows`` force a choice. Raises ``ValueError`` when the kernel cannot
     take the shapes."""
@@ -336,8 +368,8 @@ def decode_cluster_plan(batch: int, C: int, freq_bins: int = 80, *,
 
     def make(n: int, r: int) -> ClusterPlan:
         """The deepest ring of 8, 4 or 2 stages that fits shared memory."""
-        plans = [ClusterPlan(batch, C, freq_bins, fpad, n, r, -(-batch // r), stages=s)
-                 for s in (8, 4, 2)]
+        plans = [ClusterPlan(batch, C, freq_bins, fpad, n, r, -(-batch // r), stages=s,
+                             elem=elem) for s in (8, 4, 2)]
         return next((p for p in plans if p.refusal() is None), plans[-1])
 
     cands = [make(n, r) for r in ([rows] if rows else [16, 32, 64])
@@ -365,20 +397,30 @@ def pack_decode_stream(packed: Dict[str, torch.Tensor], plan: ClusterPlan) -> to
     """``packed`` (:func:`pack_decode_weights`) → the per-CTA weight stream
     (cluster, cta_elems) in the matrices' dtype: for each CTA, every product
     of a frame in execution order, each its column slice in mma.sync's B
-    fragment order. Within a layer, block (kp, j) (32 k rows × 8 columns,
-    512 bytes in bf16) follows row-major over (k/32, column block); lane
-    l = 4g + t of it holds columns 8j + g, k rows 2t, 2t+1, 2t+8, 2t+9 of the
-    first 16 and the same of the next 16: one 16-byte load feeds two
-    m16n8k16 products."""
+    fragment order. Within a layer, block (kp, j) (32 k rows × 8 columns)
+    follows row-major over (k/32, column block).
+
+    bf16 (m16n8k16, 512-byte blocks): lane l = 4g + t holds columns 8j + g,
+    k rows 2t, 2t+1, 2t+8, 2t+9 of the first 16 and the same of the next 16:
+    one 16-byte load feeds two products. f32 (m16n8k8 on TF32, 1024-byte
+    blocks): the block's first 512 bytes hold k rows 0-15, its second 16-31,
+    and in each lane l = 4g + t holds column 8j + g at the four k rows 4t to
+    4t + 3: b0, b1 of one k8 step, then of the next (the kernel permutes A's
+    k order alike), so two conflict-free 16-byte loads feed four steps."""
     n = plan.cluster
     out = []
     for (name, idx, kind), (K, ncol) in zip(CLUSTER_LAYERS, plan.layers):
         w = _matrix(packed, name, idx)
         cols = torch.stack([_layer_columns(kind, r, plan) for r in range(n)]).to(w.device)
         wr = w[:, cols].permute(1, 0, 2)                 # (n, K, ncol·8)
-        # k = 32kp + 16ks + 8kh + 2t + e, column = 8j + g
-        wr = wr.reshape(n, K // 32, 2, 2, 4, 2, ncol, 8)   # n kp ks kh t e j g
-        out.append(wr.permute(0, 1, 6, 7, 4, 2, 3, 5).reshape(n, -1))
+        if plan.elem == 4:
+            # k = 32kp + 16q + 4t + e, column = 8j + g
+            wr = wr.reshape(n, K // 32, 2, 4, 4, ncol, 8)   # n kp q t e j g
+            out.append(wr.permute(0, 1, 5, 2, 6, 3, 4).reshape(n, -1))
+        else:
+            # k = 32kp + 16ks + 8kh + 2t + e, column = 8j + g
+            wr = wr.reshape(n, K // 32, 2, 2, 4, 2, ncol, 8)   # n kp ks kh t e j g
+            out.append(wr.permute(0, 1, 6, 7, 4, 2, 3, 5).reshape(n, -1))
     return torch.cat(out, dim=1).contiguous()
 
 
@@ -387,8 +429,13 @@ def _layer_slices(stream: torch.Tensor, plan: ClusterPlan) -> List[torch.Tensor]
     n, off, out = plan.cluster, 0, []
     for K, ncol in plan.layers:
         size = K * ncol * 8
-        blk = stream[:, off:off + size].reshape(n, K // 32, ncol, 8, 4, 2, 2, 2)  # n kp j g t ks kh e
-        out.append(blk.permute(0, 1, 5, 6, 4, 7, 2, 3).reshape(n, K, ncol * 8))
+        if plan.elem == 4:
+            blk = stream[:, off:off + size].reshape(n, K // 32, ncol, 2, 8, 4, 4)  # n kp j q g t e
+            blk = blk.permute(0, 1, 3, 5, 6, 2, 4)
+        else:
+            blk = stream[:, off:off + size].reshape(n, K // 32, ncol, 8, 4, 2, 2, 2)  # n kp j g t ks kh e
+            blk = blk.permute(0, 1, 5, 6, 4, 7, 2, 3)
+        out.append(blk.reshape(n, K, ncol * 8))
         off += size
     return out
 
@@ -409,17 +456,28 @@ def unpack_decode_stream(stream: torch.Tensor, plan: ClusterPlan) -> Dict[str, t
 @torch.no_grad()
 def decode_cluster_emulate(packed: Dict[str, torch.Tensor], K: torch.Tensor, V: torch.Tensor,
                            s1: Optional[torch.Tensor], s2: Optional[torch.Tensor],
-                           plan: ClusterPlan, n_frames: int, condition: bool = True
+                           plan: ClusterPlan, n_frames: int, condition: bool = True,
+                           tf32x3: bool = False
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The cluster kernel's decomposition of :func:`decode_plain` in plain
     torch: each CTA's products from its slice of the unpacked stream, the
     LayerNorm statistics (Σh, Σh²) summed from per-CTA partials in rank
     order, the all-gather as a concatenation, the attention scores summed
     from per-CTA partial dot products, the 3-wide window's softmax. Same
-    outputs as :func:`decode_plain`."""
+    outputs as :func:`decode_plain`. ``tf32x3``: each product's operands
+    split into TF32 hi and lo as the f32 kernel splits its fragments
+    (``cvt.rna``), and the product taken as hi·hi + hi·lo + lo·hi."""
     B, N, C = K.shape
     dt, n, ch, F = K.dtype, plan.cluster, plan.ch, plan.freq_bins
     ws = [w.float() for w in _layer_slices(pack_decode_stream(packed, plan), plan)]
+    if tf32x3:   # per layer, per CTA: (hi, lo)
+        ws = [list(zip(*tf32_split(w))) for w in ws]
+
+    def mm(op, w):
+        if not tf32x3:
+            return op @ w
+        (ah, al), (wh, wl) = tf32_split(op), w
+        return al @ wh + ah @ wl + ah @ wh
     p = {k: v.float() for k, v in packed.items()}
     ml = p["misc_ln"]
     rings = [K.new_zeros(B, 2 * d, C) for d in HW_DILATIONS]
@@ -452,7 +510,7 @@ def decode_cluster_emulate(packed: Dict[str, torch.Tensor], K: torch.Tensor, V: 
         return rank_sum([h.sum(-1) for h in m]), rank_sum([(h * h).sum(-1) for h in m])
 
     def dense(li, op, bias, ln, relu, add=None):
-        hs = [op @ ws[li][r] + own(bias, r) + (0.0 if add is None else own(add, r))
+        hs = [mm(op, ws[li][r]) + own(bias, r) + (0.0 if add is None else own(add, r))
               for r in range(n)]
         s, q = stats(hs)
         out = torch.cat([norm(h, s, q, C, own(ln[0], r), own(ln[1], r))
@@ -464,7 +522,7 @@ def decode_cluster_emulate(packed: Dict[str, torch.Tensor], K: torch.Tensor, V: 
         i0, i1 = t % (2 * d), (t + d) % (2 * d)
         op = torch.cat([rings[j][:, i0], rings[j][:, i1], x.to(dt)], dim=-1).float()
         b, ln = p["hw_b"][j], p["hw_ln"][j]
-        hs = [op @ ws[li][r] + torch.cat([own(b[:C], r), own(b[C:], r)]) for r in range(n)]
+        hs = [mm(op, ws[li][r]) + torch.cat([own(b[:C], r), own(b[C:], r)]) for r in range(n)]
         s1_, q1_ = stats([h[:, :ch] for h in hs])
         s2_, q2_ = stats([h[:, ch:] for h in hs])
         out = []
@@ -500,7 +558,7 @@ def decode_cluster_emulate(packed: Dict[str, torch.Tensor], K: torch.Tensor, V: 
         for i in range(2, 5):
             x = dense(18 + i, rnd(x), p["sq_b"][i], ml[i + 2], True)
         ft = plan.ft
-        hs = [rnd(x) @ ws[23][r] + own(p["tail_b5"][0], r, ft) for r in range(n)]
+        hs = [mm(rnd(x), ws[23][r]) + own(p["tail_b5"][0], r, ft) for r in range(n)]
         mask = [(torch.arange(r * ft, (r + 1) * ft, device=K.device) < F).float()
                 for r in range(n)]
         s, q = stats(hs, mask)
@@ -513,77 +571,41 @@ def decode_cluster_emulate(packed: Dict[str, torch.Tensor], K: torch.Tensor, V: 
     return torch.stack(ys, dim=1), torch.stack(atts, dim=2), pma
 
 
-def rows_per_block(batch: int, device: torch.device) -> int:
-    """Most rows per block (4, 2, 1) that still gives every SM a block.
-
-    Every block of ``csrc/decode.cu`` streams all decode weights each frame
-    whatever its row count, so fewer rows buy more busy SMs at the price of
-    more L2 traffic."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    for rows in (4, 2):
-        if -(-batch // rows) >= sms:
-            return rows
-    return 1
-
-
 def decode_fused(packed: Dict[str, torch.Tensor], K: torch.Tensor, V: torch.Tensor,
                  s1: Optional[torch.Tensor], s2: Optional[torch.Tensor], *,
                  n_frames: int, freq_bins: int, condition: bool = True,
-                 monotonic: bool = True, rows: Optional[int] = None,
-                 plan: Optional[ClusterPlan] = None, stream: Optional[torch.Tensor] = None
+                 monotonic: bool = True, plan: Optional[ClusterPlan] = None,
+                 stream: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run the rollout. ``K``/``V``: (B, N, C) in f32 or bf16; ``s1``/``s2``:
     (B, C) speaker projections (None when unconditioned). Returns
     (Y (B, T, freq_bins), A (B, N, T), pma (B,)) in K's dtype.
 
-    CPU tensors run :func:`decode_plain`. CUDA tensors launch a kernel: bf16
-    ``csrc/decode_cluster.cu`` with ``plan`` (default
-    :func:`decode_cluster_plan`) and the weight ``stream`` of
-    :func:`pack_decode_stream` (built here when not given); f32
-    ``csrc/decode.cu`` with ``rows`` batch rows per block (1, 2 or 4;
-    default :func:`rows_per_block`). Plan and row count change speed only."""
+    CPU tensors run :func:`decode_plain`. CUDA tensors launch
+    ``csrc/decode_cluster.cu`` in K's dtype (f32 products as 3xTF32) with
+    ``plan`` (default :func:`decode_cluster_plan`) and the weight ``stream``
+    of :func:`pack_decode_stream` (built here when not given). The plan
+    changes speed only."""
     if K.device.type == "cpu":
         return decode_plain(packed, K, V, s1, s2, n_frames=n_frames, freq_bins=freq_bins,
                             condition=condition, monotonic=monotonic)
     if not monotonic:
         raise ValueError("the decode kernel implements monotonic attention only")
-    if K.dtype == torch.bfloat16:
-        return _decode_cluster(packed, K, V, s1, s2, n_frames, freq_bins, condition, plan, stream)
-    B, N, C = K.shape
-    dt = K.dtype
-    if dt != torch.float32:
-        raise ValueError(f"decode kernel takes float32 or bfloat16, got {dt}")
-    if C % 32:
-        raise ValueError(f"decode kernel needs hidden % 32 == 0, got {C}")
-    lib = _build.load("decode")
-    rows = rows or rows_per_block(B, K.device)
-    Bp = _round_up(B, rows)
-    dev = K.device
-
-    def rowpad(x):
-        return F.pad(x.to(dt), (0, 0) * (x.dim() - 1) + (0, Bp - B)).contiguous()
-
-    if s1 is None:
-        s1 = s2 = K.new_zeros(B, C)
-    ins = [rowpad(K), rowpad(V), rowpad(s1), rowpad(s2)]
-    weights = [packed[k].to(dev).contiguous() for k in WEIGHT_NAMES]
-    for k, w in zip(WEIGHT_NAMES, weights):
-        if w.dtype != (dt if k in MATRIX_NAMES else torch.float32):
-            raise ValueError(f"packed weight {k} has dtype {w.dtype}, kernel runs in {dt}")
-    rings = torch.zeros(lib.spoofsv_decode_ring_slots(), Bp, C, device=dev, dtype=dt)
-    y = torch.empty(Bp, n_frames, freq_bins, device=dev, dtype=dt)
-    a = torch.empty(Bp, N, n_frames, device=dev, dtype=dt)
-    pma = torch.empty(Bp, device=dev, dtype=torch.int32)
-    tensors = ins + weights + [rings, y, a, pma]
-    _build.require_cuda(*tensors)
+    if K.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"decode kernel takes float32 or bfloat16, got {K.dtype}")
+    lib = _build.load("decode_cluster")
+    plan, tensors, (y, a, pma) = cluster_launch_args(packed, K, V, s1, s2, n_frames, freq_bins,
+                                                     plan, stream)
     ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
-    err = lib.spoofsv_decode_launch(_build.DTYPE_CODES[dt], ptrs, rows, Bp, n_frames, N, freq_bins,
-                                    packed["tail_w5"].shape[1], C, int(condition),
-                                    _build.stream_ptr(dev))
-    _build.check(lib, "decode", err, "decode_kernel")
+    err = lib.spoofsv_decode_cluster_launch(_build.DTYPE_CODES[K.dtype], ptrs, plan.cluster,
+                                            plan.rows, plan.tiles, n_frames, K.shape[1],
+                                            freq_bins, plan.fpad, K.shape[2], int(condition),
+                                            plan.chunk_bytes, plan.stages,
+                                            _build.stream_ptr(K.device))
+    _build.check(lib, "decode_cluster", err, "decode_cluster_kernel")
     decode_kernel.launches += 1
-    f32_kernel.launches += 1
-    return y[:B], a[:B], pma[:B].long()
+    (cluster_kernel if K.dtype == torch.bfloat16 else f32_kernel).launches += 1
+    return y, a, pma.long()
 
 
 # the f32 vectors of the packed weights, in decode_cluster.cu's argument order
@@ -592,16 +614,19 @@ CLUSTER_VECTORS = ("hw_b", "hw_ln", "sq_b", "misc_ln", "enc_b1", "dec_b1", "tail
 
 
 def cluster_launch_args(packed, K, V, s1, s2, n_frames, freq_bins, plan, stream):
-    """Check the bf16 kernel's inputs against ``plan`` (default
-    :func:`decode_cluster_plan`) and allocate its outputs: returns the plan,
-    the 18 tensors whose pointers ``spoofsv_decode_cluster_launch`` takes, and
-    (Y, A, pma) cut to the batch."""
+    """Check the kernel's inputs against ``plan`` (default
+    :func:`decode_cluster_plan` for K's dtype) and allocate its outputs:
+    returns the plan, the 18 tensors whose pointers
+    ``spoofsv_decode_cluster_launch`` takes, and (Y, A, pma) cut to the
+    batch."""
     B, N, C = K.shape
     dev, dt = K.device, K.dtype
-    plan = plan or decode_cluster_plan(B, C, freq_bins)
+    plan = plan or decode_cluster_plan(B, C, freq_bins, elem=K.element_size())
     if (plan.batch, plan.C, plan.freq_bins) != (B, C, freq_bins):
         raise ValueError(f"plan for B={plan.batch} C={plan.C} F={plan.freq_bins}, "
                          f"inputs B={B} C={C} F={freq_bins}")
+    if plan.elem != K.element_size():
+        raise ValueError(f"plan for {plan.elem}-byte operands, inputs {dt}")
     why = plan.refusal()
     if why:
         raise ValueError(f"cluster decode plan refused: {why}")
@@ -631,28 +656,12 @@ def cluster_launch_args(packed, K, V, s1, s2, n_frames, freq_bins, plan, stream)
     return plan, tensors, (y[:B], a[:B], pma[:B])
 
 
-def _decode_cluster(packed, K, V, s1, s2, n_frames, freq_bins, condition, plan, stream):
-    """bf16 K1 through ``csrc/decode_cluster.cu`` (see :func:`decode_fused`)."""
-    lib = _build.load("decode_cluster")
-    plan, tensors, (y, a, pma) = cluster_launch_args(packed, K, V, s1, s2, n_frames, freq_bins,
-                                                     plan, stream)
-    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
-    err = lib.spoofsv_decode_cluster_launch(ptrs, plan.cluster, plan.rows, plan.tiles, n_frames,
-                                            K.shape[1], freq_bins, plan.fpad, K.shape[2],
-                                            int(condition), plan.chunk_bytes, plan.stages,
-                                            _build.stream_ptr(K.device))
-    _build.check(lib, "decode_cluster", err, "decode_cluster_kernel")
-    decode_kernel.launches += 1
-    cluster_kernel.launches += 1
-    return y, a, pma.long()
-
-
 def make_fused_decoder(model: MelSyn, n_frames: int, monotonic: bool = True):
     """Same contract as :func:`spoofsv_torch.infer.decode.make_decoder`,
     backed by :func:`decode_fused`. Weights are packed on the first call, and
-    the bf16 kernel's weight stream once per cluster size."""
+    the kernel's weight stream once per cluster size and dtype."""
     packed: Dict[str, torch.Tensor] = {}
-    streams: Dict[Tuple[int, torch.device], torch.Tensor] = {}
+    streams: Dict[Tuple[int, torch.dtype, torch.device], torch.Tensor] = {}
 
     @torch.no_grad()
     def decode(text_ids: torch.Tensor, spk_emb: Optional[torch.Tensor],
@@ -668,9 +677,10 @@ def make_fused_decoder(model: MelSyn, n_frames: int, monotonic: bool = True):
             s1 = model.audio_encoder.fc1(spk)
             s2 = model.audio_encoder.fc2(spk)
         plan = stream = None
-        if K.dtype == torch.bfloat16 and K.device.type == "cuda":
-            plan = decode_cluster_plan(K.shape[0], K.shape[2], model.freq_bins)
-            key = (plan.cluster, K.device)
+        if K.device.type == "cuda":
+            plan = decode_cluster_plan(K.shape[0], K.shape[2], model.freq_bins,
+                                       elem=K.element_size())
+            key = (plan.cluster, K.dtype, K.device)
             if key not in streams:
                 streams[key] = pack_decode_stream(
                     {k: packed[k].to(K.device) for k in MATRIX_NAMES}, plan)

@@ -2,8 +2,11 @@
 
 Port of :mod:`spoofsv_tpu.ops.pallas_gl`. ``gl_init_angles`` runs K2
 (``csrc/gl.cu::gl_init_kernel``; replaces ``_spsi_angles_kernel`` and the
-init branches of ``_gl_kernel``). K3 (replaces ``_gl_kernel``) has two
-routes:
+init branches of ``_gl_kernel``): each utterance's frames in 32 segments, a
+block a segment over all bins (whole rows read and written), the SPSI
+cumsum as segment totals, their scan in segment order by look-back, and a
+second pass (:func:`spsi_segments_emulate`). K3 (replaces
+``_gl_kernel``) has two routes:
 
 * :func:`griffin_lim_tc` (``csrc/gl_tc.cu``): the TPU kernel's arithmetic
   on the tensor cores. The DFTs are int8 products (``int8=True``, the
@@ -87,6 +90,43 @@ def init_angles_plain(mag: torch.Tensor, n_fft: int, hop: int, mode: str,
     return torchdsp.gl_spsi_angles(mag, n_fft, hop, lock)
 
 
+INIT_SEGMENTS = 32   # K2: segments of ⌈T/32⌉ frames an utterance is cut into, a block each
+
+
+def spsi_segments_emulate(mag: torch.Tensor, n_fft: int, hop: int, lock: float = 1.0,
+                          segments: int = INIT_SEGMENTS) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2's SPSI decomposition in plain torch: the frames cut into
+    ``segments`` of ⌈T/segments⌉; per segment the running sum of δ in frame
+    order (its total), the totals' exclusive scan in segment order, then each
+    segment's running sum again from its prefix, which gives every frame the
+    exclusive cumsum of δ before it. The same angles as
+    :func:`init_angles_plain` (``"spsi"``), the cumsum associated as the
+    kernel associates it."""
+    mag = mag.float()
+    B, T, F = mag.shape
+    delta = torchdsp.gl_if_deltas(mag)
+    S, L = segments, -(-T // segments)
+    seg = torch.nn.functional.pad(delta, (0, 0, 0, S * L - T)).reshape(B, S, L, F)
+    tot = torch.zeros(B, S, F, device=mag.device)
+    for i in range(L):
+        tot = tot + seg[:, :, i]
+    pre, run = torch.empty_like(tot), torch.zeros(B, F, device=mag.device)
+    for w in range(S):
+        pre[:, w] = run
+        run = run + tot[:, w]
+    excl, cum = torch.empty_like(seg), pre
+    for i in range(L):
+        excl[:, :, i] = cum
+        cum = cum + seg[:, :, i]
+    excl = excl.reshape(B, S * L, F)[:, :T]
+    cyc = excl * np.float32(hop / n_fft)
+    frac = (cyc - torch.round(cyc)) * np.float32(2.0 * np.pi)
+    frac = frac + delta * np.float32(lock * np.pi * (n_fft - 1) / n_fft)
+    b_re, b_im = torchdsp.gl_advance_angles(T, F, n_fft, hop, mag.device)
+    c_f, s_f = torch.cos(frac), torch.sin(frac)
+    return b_re * c_f - b_im * s_f, b_re * s_f + b_im * c_f
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -118,10 +158,15 @@ def gl_init_angles(mag: torch.Tensor, n_fft: int, hop: int, mode: str = "spsi",
     lib = _build.load("gl")
     out_re = torch.empty_like(mag)
     out_im = torch.empty_like(mag)
+    agg = sync = None
+    if mode == "spsi":   # the segments' δ totals, and the block counter and flags
+        agg = torch.empty(B * INIT_SEGMENTS * F, device=dev)
+        sync = torch.zeros(1 + B * INIT_SEGMENTS, device=dev, dtype=torch.int32)
     f32 = np.float32
     err = lib.spoofsv_gl_init_launch(
         INIT_MODES[mode], mag.data_ptr(), seeds_i.data_ptr() if seeds_i is not None else None,
-        out_re.data_ptr(), out_im.data_ptr(), B, T, F, n_fft, hop,
+        out_re.data_ptr(), out_im.data_ptr(), agg.data_ptr() if agg is not None else None,
+        sync.data_ptr() if sync is not None else None, B, T, F, n_fft, hop,
         *(float(f32(v)) for v in (2.0 * np.pi / n_fft, 2.0 * np.pi / (1 << 24), hop / n_fft,
                                   2.0 * np.pi, lock * np.pi * (n_fft - 1) / n_fft)),
         _build.stream_ptr(dev))

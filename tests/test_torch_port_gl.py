@@ -3,7 +3,8 @@
 Plain versions (what the K2/K3 wrappers run for CPU tensors) against
 ``jaxdsp`` and the Pallas kernels in interpret mode. Tolerances: hash bits
 equal; SPSI angles 1e-5 vs ``jaxdsp.gl_spsi_angles`` and ≥ 0.99995 cos Δφ vs
-the bf16-output Pallas kernel (the gate of test_pallas_gl.py); 12 GL
+the bf16-output Pallas kernel (the gate of test_pallas_gl.py); K2's
+segmented SPSI scan (:func:`spsi_segments_emulate`) against all three; 12 GL
 iterations rel-L2 ≤ 1e-3 vs ``jaxdsp.griffin_lim`` (both f32 FFT paths); one
 iteration < 0.03 vs the bf16 Pallas GL kernel; de-emphasis 1e-5 relative.
 """
@@ -79,6 +80,45 @@ def test_spsi_matches_pallas_kernel_phase():
     re1, im1 = gl_kernel.gl_init_angles(torch.from_numpy(mag), NFFT, HOP, "spsi")
     cos_dphi = (re_k * re1.numpy() + im_k * im1.numpy()) / np.sqrt(re_k ** 2 + im_k ** 2)
     assert float(cos_dphi.min()) > 0.99995, float(cos_dphi.min())
+
+
+@pytest.mark.parametrize("T", [1, 33, 59, 70, 300])
+def test_spsi_segments_match_plain_jaxdsp_and_pallas(T):
+    """K2's decomposition of the SPSI cumsum (32 segments of ⌈T/32⌉ frames,
+    their totals scanned, each segment walked again from its prefix) at T
+    that is not a multiple of the segment, T=1 (one warp's frame) and the
+    main path's F=513. Only the cumsum's association order differs from the
+    plain version and jaxdsp, so the angles agree to its f32 rounding: a walk
+    of √T roundings of ulp(T/2) (|δ| ≤ 1/2), times 2π·hop/N radians, at
+    least 1e-5 (the plain version's gate against jaxdsp); against the
+    bf16-output Pallas kernel the gate of test_pallas_gl.py, cos Δφ ≥
+    0.99995."""
+    mag = _test_mag(2, T, seed=T) if T > 1 else _test_mag(2, 8, seed=1)[:, :1]
+    tol = max(1e-5, 2 * np.pi * HOP / NFFT * np.sqrt(T) * float(np.spacing(np.float32(T / 2))))
+    re_e, im_e = gl_kernel.spsi_segments_emulate(torch.from_numpy(mag), NFFT, HOP)
+    assert re_e.shape == im_e.shape == (2, T, 513)
+    re_p, im_p = gl_kernel.init_angles_plain(torch.from_numpy(mag), NFFT, HOP, "spsi")
+    np.testing.assert_allclose(re_e.numpy(), re_p.numpy(), atol=tol)
+    np.testing.assert_allclose(im_e.numpy(), im_p.numpy(), atol=tol)
+    re0, im0 = jaxdsp.gl_spsi_angles(jnp.asarray(mag), NFFT, HOP)
+    np.testing.assert_allclose(re_e.numpy(), np.asarray(re0), atol=tol)
+    np.testing.assert_allclose(im_e.numpy(), np.asarray(im0), atol=tol)
+    re_k, im_k = pallas_gl.gl_spsi_angles_fused(jnp.asarray(mag), NFFT, HOP, interpret=True)
+    re_k, im_k = np.asarray(re_k, np.float32), np.asarray(im_k, np.float32)
+    cos_dphi = (re_k * re_e.numpy() + im_k * im_e.numpy()) / np.sqrt(re_k ** 2 + im_k ** 2)
+    assert float(cos_dphi.min()) > 0.99995, float(cos_dphi.min())
+
+
+def test_spsi_segments_split_the_frames():
+    """The segments partition the frames: with one segment the emulation is
+    the sequential cumsum, and with as many segments as frames each prefix
+    is the scan of single frames; both give the plain angles."""
+    mag = torch.from_numpy(_test_mag(1, 40, seed=5))
+    ref = gl_kernel.init_angles_plain(mag, NFFT, HOP, "spsi")
+    for segments in (1, 7, 40, 64):
+        got = gl_kernel.spsi_segments_emulate(mag, NFFT, HOP, segments=segments)
+        for g, r in zip(got, ref):
+            np.testing.assert_allclose(g.numpy(), r.numpy(), atol=1e-5)
 
 
 def test_stft_istft_match_jaxdsp():

@@ -47,17 +47,32 @@ def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
 
 
-def test_init_kernel_matches_plain(dev):
-    """K2: all three init modes; the gate of test_pallas_gl.py (cos Δφ)."""
-    mag = _test_mag(2, 300, 7, dev)
-    seeds = torch.tensor([5, 77], dtype=torch.int32, device=dev)
+@pytest.mark.parametrize("B,T", [(2, 300), (3, 59), (1, 1), (2, 33), (2, 1300), (1, 3500)])
+def test_init_kernel_matches_plain(dev, B, T):
+    """K2, all three init modes, at T that is not a multiple of the 32
+    segments (59, 33), one frame, the main path's 1300 frames, and past the
+    frames whose δ fits shared memory (3500: δ goes through the output
+    plane). SPSI: the gate of
+    test_pallas_gl.py (cos Δφ ≥ 0.99995) against the plain version and
+    against the segment emulation; hash and advance: max |Δ| < 1e-5 (the
+    same cosf/sinf of the same angle)."""
+    mag = _test_mag(B, T, 7, dev) if T > 1 else _test_mag(B, 8, 7, dev)[:, :1].contiguous()
+    seeds = torch.tensor([5, 77, 2 ** 31 - 2][:B], dtype=torch.int32, device=dev)
     for mode in ("spsi", "advance", "random"):
         before = gl_kernel.init_kernel.launches
         k = gl_kernel.gl_init_angles(mag, NFFT, HOP, mode, seeds)
+        torch.cuda.synchronize()
         assert gl_kernel.init_kernel.launches == before + 1
-        p = gl_kernel.init_angles_plain(mag, NFFT, HOP, mode, seeds)
-        cos_dphi = (k[0] * p[0] + k[1] * p[1]) / torch.sqrt(k[0] ** 2 + k[1] ** 2)
-        assert float(cos_dphi.min()) > 0.99995, mode
+        assert k[0].shape == k[1].shape == (B, T, 513)
+        refs = [gl_kernel.init_angles_plain(mag, NFFT, HOP, mode, seeds)]
+        if mode == "spsi":
+            refs.append(gl_kernel.spsi_segments_emulate(mag, NFFT, HOP))
+        for p in refs:
+            cos_dphi = (k[0] * p[0] + k[1] * p[1]) / torch.sqrt(k[0] ** 2 + k[1] ** 2)
+            assert float(cos_dphi.min()) > 0.99995, mode
+            if mode != "spsi":
+                err = torch.maximum((k[0] - p[0]).abs(), (k[1] - p[1]).abs())
+                assert float(err.max()) < 1e-5, mode
 
 
 def test_gl_kernel_matches_plain(dev):
@@ -143,29 +158,12 @@ def test_decode_kernel_matches_eager(dev, dtype):
         torch.testing.assert_close(y1[:, :1].float(), y0[:, :1].float(), atol=0.05, rtol=0.05)
 
 
-def test_decode_kernel_rows_per_block_bit_identical(dev):
-    """1, 2 and 4 batch rows per block of the f32 kernel give the same bits."""
-    torch.manual_seed(2)
-    model = MelSyn(34, True, 10, 16, 16, 64).to(dev, torch.float32).eval()
-    packed = decode_kernel.pack_decode_weights(model)
-    g = torch.Generator().manual_seed(3)
-    text = torch.randint(1, 33, (5, 12), generator=g).to(dev)
-    spk = torch.randn(5, 10, generator=g).to(dev, torch.float32)
-    with torch.no_grad():
-        K, V = model.encode_text(text)
-        s1, s2 = model.audio_encoder.fc1(spk), model.audio_encoder.fc2(spk)
-    outs = [decode_kernel.decode_fused(packed, K, V, s1, s2, n_frames=20, freq_bins=16,
-                                       rows=rows) for rows in (1, 2, 4)]
-    for out in outs[1:]:
-        assert all(torch.equal(a, b) for a, b in zip(outs[0], out))
-
-
-def _cluster_case(dev, B, N, C, freq, seed, condition=True):
+def _cluster_case(dev, B, N, C, freq, seed, condition=True, dtype=torch.bfloat16):
     torch.manual_seed(seed)
-    model = MelSyn(34, condition, 10, 16, freq, C).to(dev, torch.bfloat16).eval()
+    model = MelSyn(34, condition, 10, 16, freq, C).to(dev, dtype).eval()
     g = torch.Generator().manual_seed(seed + 1)
     text = torch.randint(1, 33, (B, N), generator=g).to(dev)
-    spk = torch.randn(B, 10, generator=g).to(dev, torch.bfloat16)
+    spk = torch.randn(B, 10, generator=g).to(dev, dtype)
     with torch.no_grad():
         K, V = model.encode_text(text)
         s1 = s2 = None
@@ -174,60 +172,88 @@ def _cluster_case(dev, B, N, C, freq, seed, condition=True):
     return decode_kernel.pack_decode_weights(model), K, V, s1, s2
 
 
-@pytest.mark.parametrize("B,N,C,freq,cluster,rows,condition", [
-    (6, 12, 64, 16, 8, 16, True), (6, 12, 64, 16, 4, 32, False), (5, 9, 32, 16, 4, 16, True),
-    (3, 4, 32, 80, 2, 64, True),                        # text shorter than the window's reach
-    (64, 100, 256, 80, 16, 16, True), (64, 100, 256, 80, 8, 64, True),
-    (64, 100, 256, 80, 8, 16, True), (40, 30, 256, 80, 4, 16, True),
-    (40, 30, 256, 80, 16, 32, True), (70, 20, 256, 80, 8, 32, True),   # ragged last tile
-    (70, 20, 256, 80, 2, 16, True)])
-def test_decode_cluster_matches_plain(dev, B, N, C, freq, cluster, rows, condition):
-    """bf16 K1 (decode_cluster.cu) against decode_plain over frames 0-1 (the
-    gates of chip_smoke.py: mel 0.05, attention 0.02) and against the
-    cluster's emulation in bf16 over the same frames, pma in range."""
-    packed, K, V, s1, s2 = _cluster_case(dev, B, N, C, freq, seed=B + C, condition=condition)
-    plan = decode_kernel.decode_cluster_plan(B, C, freq, cluster=cluster, rows=rows)
+F32, BF16 = torch.float32, torch.bfloat16
+# bf16: the gates of chip_smoke.py over frames 0-1 (mel 0.05, attention
+# 0.02); f32 (3xTF32 products against decode_plain's f32 ones, sums in
+# another order): 1e-4 on both
+CLUSTER_TOL = {BF16: (0.05, 0.02), F32: (1e-4, 1e-4)}
+
+
+@pytest.mark.parametrize("B,N,C,freq,cluster,rows,condition,dtype", [
+    (6, 12, 64, 16, 8, 16, True, BF16), (6, 12, 64, 16, 4, 32, False, BF16),
+    (5, 9, 32, 16, 4, 16, True, BF16),
+    (3, 4, 32, 80, 2, 64, True, BF16),                  # text shorter than the window's reach
+    (64, 100, 256, 80, 16, 16, True, BF16), (64, 100, 256, 80, 8, 64, True, BF16),
+    (64, 100, 256, 80, 8, 16, True, BF16), (40, 30, 256, 80, 4, 16, True, BF16),
+    (40, 30, 256, 80, 16, 32, True, BF16), (70, 20, 256, 80, 8, 32, True, BF16),   # ragged last tile
+    (70, 20, 256, 80, 2, 16, True, BF16),
+    (6, 12, 64, 16, 8, 16, True, F32), (6, 12, 64, 16, 4, 32, False, F32),
+    (5, 9, 32, 16, 4, 16, True, F32), (3, 4, 32, 80, 2, 64, True, F32),
+    (64, 100, 256, 80, 16, 16, True, F32), (16, 186, 256, 80, 16, 16, True, F32),
+    (64, 100, 256, 80, 8, 16, True, F32), (40, 30, 256, 80, 4, 16, True, F32),
+    (40, 30, 256, 80, 16, 32, True, F32), (70, 20, 256, 80, 8, 32, True, F32)])
+def test_decode_cluster_matches_plain(dev, B, N, C, freq, cluster, rows, condition, dtype):
+    """K1 (decode_cluster.cu) in bf16 and in f32 against decode_plain over
+    frames 0-1 (CLUSTER_TOL) and against the cluster's emulation (3xTF32
+    products in f32) over the same frames, pma in range."""
+    packed, K, V, s1, s2 = _cluster_case(dev, B, N, C, freq, seed=B + C, condition=condition,
+                                         dtype=dtype)
+    plan = decode_kernel.decode_cluster_plan(B, C, freq, cluster=cluster, rows=rows,
+                                             elem=dtype.itemsize)
     before = decode_kernel.decode_kernel.launches
+    counter = decode_kernel.f32_kernel if dtype == F32 else decode_kernel.cluster_kernel
+    own = counter.launches
     y, a, p = decode_kernel.decode_fused(packed, K, V, s1, s2, n_frames=12, freq_bins=freq,
                                          condition=condition, plan=plan)
     torch.cuda.synchronize()
-    assert decode_kernel.decode_kernel.launches == before + 1
-    assert y.shape == (B, 12, freq) and a.shape == (B, N, 12) and y.dtype == torch.bfloat16
+    assert decode_kernel.decode_kernel.launches == before + 1 and counter.launches == own + 1
+    assert y.shape == (B, 12, freq) and a.shape == (B, N, 12) and y.dtype == dtype
     assert bool(torch.isfinite(y.float()).all()) and bool(((p >= 0) & (p < N)).all())
     yq, aq, _ = decode_kernel.decode_plain(packed, K, V, s1, s2, n_frames=2, freq_bins=freq,
                                            condition=condition)
-    assert float((y[:, :2].float() - yq.float()).abs().max()) <= 0.05
-    assert float((a[:, :, :2].float() - aq.float()).abs().max()) <= 0.02
+    mel_tol, att_tol = CLUSTER_TOL[dtype]
+    assert float((y[:, :2].float() - yq.float()).abs().max()) <= mel_tol
+    assert float((a[:, :, :2].float() - aq.float()).abs().max()) <= att_tol
     ye, ae, _ = decode_kernel.decode_cluster_emulate(packed, K, V, s1, s2, plan, 2,
-                                                     condition=condition)
-    assert float((y[:, :2].float() - ye.float()).abs().max()) <= 0.05
+                                                     condition=condition, tf32x3=dtype == F32)
+    assert float((y[:, :2].float() - ye.float()).abs().max()) <= mel_tol
     # each frame's attention is one window of three probabilities summing to 1
     torch.testing.assert_close(a.float().sum(1), torch.ones(B, 12, device=dev), atol=2e-2,
                                rtol=0)
 
 
-@pytest.mark.parametrize("B,C,freq,cluster,rows", [
-    (5, 64, 16, 8, 16), (64, 256, 80, 16, 16), (70, 256, 80, 8, 64), (70, 256, 80, 2, 16)])
-def test_decode_cluster_long_rollout_matches_plain(dev, B, C, freq, cluster, rows):
+@pytest.mark.parametrize("B,C,freq,cluster,rows,dtype", [
+    (5, 64, 16, 8, 16, BF16), (64, 256, 80, 16, 16, BF16), (70, 256, 80, 8, 64, BF16),
+    (70, 256, 80, 2, 16, BF16), (5, 64, 16, 8, 16, F32), (64, 256, 80, 16, 16, F32),
+    (70, 256, 80, 8, 32, F32), (70, 256, 80, 4, 16, F32)])
+def test_decode_cluster_long_rollout_matches_plain(dev, B, C, freq, cluster, rows, dtype):
     """One text position: the attention window cannot move, so no argmax
-    flip parts the rollouts, and bf16 K1 is held to decode_plain over 64
-    frames, past the first wrap of every ring (2d ≤ 54): a stale or
-    misplaced cache tap moves the mel by more than the gate."""
-    packed, K, V, s1, s2 = _cluster_case(dev, B, 1, C, freq, seed=B + C + 1)
-    plan = decode_kernel.decode_cluster_plan(B, C, freq, cluster=cluster, rows=rows)
+    flip parts the rollouts, and K1 is held to decode_plain over 64 frames,
+    past the first wrap of every ring (2d ≤ 54): a stale or misplaced cache
+    tap moves the mel by more than the gate (bf16 0.05; f32 1e-3, phase 4's
+    f32 gate)."""
+    packed, K, V, s1, s2 = _cluster_case(dev, B, 1, C, freq, seed=B + C + 1, dtype=dtype)
+    plan = decode_kernel.decode_cluster_plan(B, C, freq, cluster=cluster, rows=rows,
+                                             elem=dtype.itemsize)
     y, a, p = decode_kernel.decode_fused(packed, K, V, s1, s2, n_frames=64, freq_bins=freq,
                                          plan=plan)
     yq, _, _ = decode_kernel.decode_plain(packed, K, V, s1, s2, n_frames=64, freq_bins=freq)
-    assert float((y.float() - yq.float()).abs().max()) <= 0.05
+    assert float((y.float() - yq.float()).abs().max()) <= (0.05 if dtype == BF16 else 1e-3)
     assert bool((p == 0).all()) and bool((a.float() == 1.0).all())
 
 
-def test_decode_cluster_smem_matches_plan(dev):
+@pytest.mark.parametrize("dtype,cases", [
+    (BF16, [(256, 16, 16, 64), (256, 16, 32, 4), (256, 8, 64, 768), (64, 8, 16, 4),
+            (64, 4, 32, 768), (32, 4, 16, 4), (32, 2, 64, 9)]),
+    (F32, [(256, 16, 16, 64), (256, 16, 32, 4), (256, 8, 32, 768), (256, 4, 16, 16),
+           (64, 8, 16, 4), (64, 4, 32, 768), (32, 4, 16, 4), (32, 2, 64, 9)])])
+def test_decode_cluster_smem_matches_plan(dev, dtype, cases):
     lib = _build.load("decode_cluster")
-    for C, cluster, rows, B in [(256, 16, 16, 64), (256, 16, 32, 4), (256, 8, 64, 768),
-                                (64, 8, 16, 4), (64, 4, 32, 768), (32, 4, 16, 4), (32, 2, 64, 9)]:
-        plan = decode_kernel.decode_cluster_plan(B, C, 80, cluster=cluster, rows=rows)
-        assert lib.spoofsv_decode_cluster_smem(C, plan.fpad, cluster, rows, plan.chunk_bytes,
+    for C, cluster, rows, B in cases:
+        plan = decode_kernel.decode_cluster_plan(B, C, 80, cluster=cluster, rows=rows,
+                                                 elem=dtype.itemsize)
+        assert lib.spoofsv_decode_cluster_smem(_build.DTYPE_CODES[dtype], C, plan.fpad, cluster,
+                                               rows, plan.chunk_bytes,
                                                plan.stages) == plan.smem_bytes
 
 
@@ -241,7 +267,7 @@ def test_decode_cluster_launch_refusal(dev):
         decode_kernel.decode_fused(packed, K, V, s1, s2, n_frames=2, freq_bins=16, plan=bad)
     lib = _build.load("decode_cluster")
     ptrs = (ctypes.c_void_p * 18)(*([K.data_ptr()] * 18))
-    err = lib.spoofsv_decode_cluster_launch(ptrs, 16, 16, 1, 2, 8, 16, 128, 64, 1, 16384, 4,
+    err = lib.spoofsv_decode_cluster_launch(1, ptrs, 16, 16, 1, 2, 8, 16, 128, 64, 1, 16384, 4,
                                             _build.stream_ptr(dev))
     assert err != 0
     assert decode_kernel.decode_kernel.launches == before
