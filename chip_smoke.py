@@ -49,10 +49,27 @@ Phases (any failure raises and exits non-zero):
      width, f32, B=16, N=186, T=325 (lin 1300 frames), 5 iterations from the
      same seed-0 weights under each highway impl, one validation (Text2Mel
      through the f32 K1) and one checkpoint round trip each; launch counts
-     reset just before each run and read just after.
+     reset just before each run and read just after;
+  8. serving: seed-0 bf16 weights saved as ``.tar.pth`` and loaded by
+     ``load_generator_params``, a warmed ``BatchingSynthesizer`` (rungs
+     1-8, frames buckets 120/200/325, speculative, attention trim) behind
+     ``make_http_server``: 32 concurrent requests (all 200, audio finite,
+     K1/K2/K3 once a batch run and the f32 K3 never, the worker on the
+     default stream), a 400, a 404 and a 413; latency, requests per second,
+     each rung x bucket's call time, the burst's time split between the
+     worker's device calls, its host finalize and the handler threads;
+     K1 at every rung and bucket against ``decode_plain`` (frames 0-1), a
+     row alone and in a batch of 8 bit-equal, K2 and K3 at B=8 per bucket
+     against their plain versions, each timed against its bound; one
+     request solo against co-batched, and where the text encoder's
+     outputs part between B=1 and B=8 (cuDNN on and off);
+  9. spoof-set synthesis: ``generate_spoof_set`` of 8 speakers x 20
+     sentences, one B=160 call under K1's 8x16 plan, 160 wavs in the
+     reference layout; K1 on that call's inputs against ``decode_plain``
+     (frames 0-1); the call's time, the host tail's, audio s per wall s.
 Prints a kernels JSON line (each kernel's time, plain time, launches on
-the main path and bound), the card line, then the ``{"ok": true, ...}`` line
-last.
+the main path, launches on each path, and bound), the card line, then the
+``{"ok": true, ...}`` line last.
 """
 
 from __future__ import annotations
@@ -76,7 +93,19 @@ SENTENCES = [
     "The juice of lemons makes fine punch.",
     "The box was thrown beside the parked truck.",
     "The hogs were fed chopped corn and garbage.",
-]
+    "Four hours of steady work faced us.",
+    "Large size in stockings is hard to sell.",
+    "The boy was there when the sun rose.",
+    "A rod is used to catch pink salmon.",
+    "The source of the huge river is the clear spring.",
+    "Kick the ball straight and follow through.",
+    "Help the woman get back to her feet.",
+    "A pot of tea helps to pass the evening.",
+    "Smoky fires lack flame and heat.",
+    "The soft cushion broke the man's fall.",
+    "The salt breeze came across from the sea.",
+    "The girl at the booth sold fifty bonds.",
+]   # Harvard sentences, lists 1-2; phases 4-5 and 8 take the first 8
 NFFT, HOP = 1024, 256
 
 
@@ -241,12 +270,7 @@ def gl_phase(dev, cuda_ms, mag, init, kernels: dict, spectral_err, smi: str) -> 
                                                       int8=int8), reps=5)
         plain = cuda_ms(lambda: gl_kernel.griffin_lim_tc_plain(mag, *init, NFFT, HOP, 12, 0.99,
                                                                int8), reps=1)
-        # operations: per frame and iteration a synthesis and an analysis
-        # product of 1024 x 1024 multiply-adds, plus the final bf16 synthesis
-        ops = 2.0 * 1024 * 1024 * frames
-        t_ops = (12 * 2 * ops / (1979e12 if int8 else 989e12) + ops / 989e12)
-        t_bytes = gl_bytes / 3.35e12
-        b_ms, b_by = 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+        b_ms, b_by, ops = gl_tc_bound(Bm, Tm, int8)
         log(f"[K3 tc {name}] B={Bm} T={Tm} GL12: kernel {ms:.3f} ms (13 launches), its plain "
             f"version {plain:.3f} ms, plain f32 GL {f32_plain:.3f} ms; bound {b_ms:.4f} ms "
             f"({b_by}: {12 * 2 * ops / 1e12:.3f} T{'OP' if int8 else 'FLOP'} + "
@@ -281,6 +305,19 @@ def gl_phase(dev, cuda_ms, mag, init, kernels: dict, spectral_err, smi: str) -> 
         name="griffin_lim_f32", route="cuda", source="spoofsv_torch/csrc/gl.cu",
         replaces="spoofsv_tpu/ops/pallas_gl.py:122", max_abs_err=err1, ms=ms,
         plain_ms=f32_plain, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def gl_tc_bound(B: int, T: int, int8: bool) -> tuple:
+    """The tensor-core K3's GL12 bound at B utterances of T frames: (ms, "bytes"
+    or "operations", the multiply-add operations of one pass). Per frame and
+    iteration a synthesis and an analysis product of 1024 x 1024
+    multiply-adds (int8 at 1,979 TOP/s, or bf16 at 989 TFLOP/s), plus the
+    final bf16 synthesis; bytes: |S| and the two initial angle planes in,
+    the f32 audio out."""
+    ops = 2.0 * 1024 * 1024 * B * T
+    t_ops = 12 * 2 * ops / (1979e12 if int8 else 989e12) + ops / 989e12
+    t_bytes = 4.0 * (3 * B * T * (NFFT // 2 + 1) + B * HOP * (T - 1)) / 3.35e12
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), ops
 
 
 def bound_ms(flop: float, nbytes: float, peak_flops: float) -> tuple:
@@ -375,7 +412,7 @@ def cluster_phase(dev, cuda_ms, mbf, packed, kv, cfg, T: int, smi: str) -> dict:
 
     # B=768: the bench batch, frames 0-1 against decode_plain, on two draws of
     # speakers
-    texts = encode_texts([SENTENCES[i % len(SENTENCES)] for i in range(768)],
+    texts = encode_texts([SENTENCES[i % 8] for i in range(768)],
                          cfg.vocabulary, max_len=100)
     plan768 = decode_kernel.decode_cluster_plan(768, cfg.hidden_dim, F)
     packed32 = {k: v.float() for k, v in packed.items()}
@@ -531,7 +568,7 @@ def f32_decode_phase(cuda_ms, build_models, onsets, before_onset, cfg, text_d, s
                 library_ms=None, **out[64])
 
 
-def device_view(call, smi: str) -> None:
+def device_view(call, smi: str, what: str = "[main] device view of one Synthesizer call") -> None:
     """One call under ``torch.profiler``: the device time of its kernels and
     copies against the call's wall time (the device's idle share; the
     profiler's own host cost inflates the wall), and the largest kernels."""
@@ -551,11 +588,11 @@ def device_view(call, smi: str) -> None:
             us = getattr(e, "self_device_time_total", None)
             dev_us[e.key] = getattr(e, "self_cuda_time_total", 0.0) if us is None else us
     if not sum(dev_us.values()):
-        log("[main] device view: the profiler recorded no device time (not measured)")
+        log(f"{what}: the profiler recorded no device time (not measured)")
         return
     busy_ms = sum(dev_us.values()) / 1e3
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:5]
-    log(f"[main] device view of one Synthesizer call: {busy_ms:.1f} ms of device time in "
+    log(f"{what}: {busy_ms:.1f} ms of device time in "
         f"{wall_ms:.1f} ms of wall ({100 * (1 - busy_ms / wall_ms):.1f} % idle); largest: "
         + ", ".join(f"{k[:60]} {v / 1e3:.1f} ms" for k, v in top) + f" on [{smi}]")
 
@@ -681,6 +718,535 @@ def training_phase(cfg, dev, counters: dict, B: int, N: int, T: int):
     return totals, step_ms
 
 
+# The serving phase's clients: argv url, a JSON file of request bodies. Fires
+# them all at once from threads; prints one JSON line: the wall time from the
+# first send to the last reply, and per request its status, latency (ms),
+# sampling rate, sample count and whether every sample is finite.
+HTTP_CLIENT = r"""
+import io, json, sys, threading, time, urllib.error, urllib.request
+import numpy as np
+from scipy.io import wavfile
+url, path = sys.argv[1], sys.argv[2]
+with open(path) as f:
+    bodies = [json.dumps(b).encode() for b in json.load(f)]
+out = [None] * len(bodies)
+def fire(i):
+    req = urllib.request.Request(url + "/synthesize", data=bodies[i],
+                                 headers={"Content-Type": "application/json"})
+    t = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            code, ctype, body = r.status, r.headers["Content-Type"], r.read()
+    except urllib.error.HTTPError as e:
+        code, ctype, body = e.code, e.headers["Content-Type"], e.read()
+    ms = 1e3 * (time.perf_counter() - t)
+    sr, y = 0, np.zeros(0, np.float32)
+    if code == 200 and ctype == "audio/wav":
+        sr, y = wavfile.read(io.BytesIO(body))
+        y = y.astype(np.float32) / 32767.0
+    elif code == 200:
+        js = json.loads(body)
+        sr, y = js["sr"], np.asarray(js["samples"], np.float32)
+    out[i] = {"code": code, "ms": ms, "sr": sr, "n": len(y),
+              "finite": bool(np.isfinite(y).all()), "head": body[:200].decode("latin-1")
+              if code != 200 else ""}
+threads = [threading.Thread(target=fire, args=(i,)) for i in range(len(bodies))]
+t0 = time.perf_counter()
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+print(json.dumps({"wall_s": time.perf_counter() - t0, "replies": out}))
+"""
+
+
+def serving_phase(cfg, dev, state_dicts, counters: dict, cluster, cuda_ms, test_mag,
+                  spectral_err, smi: str) -> dict:
+    """Phase 8: the serving path as a user starts it (``spoofsv_torch.cli.serve``'s
+    steps): the shipping ``Config()`` at full width in bf16 from seed-0
+    weights saved as reference ``.tar.pth`` and loaded by
+    ``load_generator_params``; a ``BatchingSynthesizer`` (rungs 1-8, frames
+    buckets 120/200/325, speculative, attention trim 4) warmed; an HTTP
+    server over 4 speakers answering 32 concurrent requests; then the bad
+    requests, each bucket's call time, where a burst's time goes (worker
+    and handler threads), K1, K2 and K3 alone at the serving shapes against
+    their plain versions and their bounds, and one request solo against
+    co-batched, with where the text encoder's outputs part between batch
+    sizes. Returns the serving launches of each kernel."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import torch
+
+    from spoofsv_torch.cli.main import apply_runtime_knobs, build_models, inference_dtype
+    from spoofsv_torch.data.text import encode_texts
+    from spoofsv_torch.infer.synthesize import Synthesizer, gl_seeds
+    from spoofsv_torch.ops import _build, decode_kernel, gl_kernel
+    from spoofsv_torch.serve import (MAX_BODY_BYTES, BatchingSynthesizer, SpeakerTable,
+                                     make_http_server)
+    from spoofsv_torch.weights import load_generator_params
+
+    buckets, ladder, C, F = [120, 200, 325], [1, 2, 4, 8], cfg.hidden_dim, cfg.mel.freq_bins
+    with tempfile.TemporaryDirectory() as root:
+        paths = {}
+        for kind, sd in state_dicts.items():
+            paths[kind] = os.path.join(root, f"{kind}_iteration_0.tar.pth")
+            torch.save({"model_state_dict": sd}, paths[kind])
+        apply_runtime_knobs(cfg, infer=True)
+        melsyn, ssrn = build_models(cfg, dtype=inference_dtype(cfg, dev), device=dev)
+        load_generator_params(paths["text2mel"], melsyn)
+        load_generator_params(paths["ssrn"], ssrn)
+        gate(next(melsyn.parameters()).dtype == torch.bfloat16, "serving models are not bf16")
+        syn = Synthesizer(cfg, melsyn, ssrn)
+        batcher = BatchingSynthesizer(cfg, syn, max_batch=8, batch_wait_ms=10,
+                                      frames_buckets=buckets, frames_per_char=3.0,
+                                      speculative=True, attn_trim=4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batcher.warmup()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        log(f"[serve] warmup of rungs {batcher._ladder()} x frames {batcher.frames_buckets}: "
+            f"{warm_s:.2f} s")
+        rng = np.random.default_rng(8)
+        names = [f"p{225 + i}" for i in range(4)]
+        os.makedirs(os.path.join(root, "spk_emb"))
+        embs = rng.normal(size=(4, cfg.spk_emb_dim)).astype(np.float32)
+        for name, e in zip(names, embs):
+            np.save(os.path.join(root, "spk_emb", name + ".npy"), e)
+        # the worker's stream and the batches it ran
+        worker = {"streams": set(), "batches": []}
+        process = batcher._process
+
+        def traced(batch, frames):
+            worker["streams"].add(_build.stream_ptr(dev) == torch.cuda.default_stream(dev)
+                                  .cuda_stream)
+            t = time.perf_counter()
+            process(batch, frames)
+            worker["batches"].append((len(batch), frames,
+                                      round(1e3 * (time.perf_counter() - t), 1)))
+
+        batcher._process = traced
+        httpd = make_http_server(batcher, SpeakerTable(os.path.join(root, "spk_emb")), port=0)
+        # where a burst's time goes, host clock: in the worker each device
+        # call (it ends in .cpu(), so it waits for the card) and the rest of
+        # its batch run (host finalize, escalation, stats); in the handler
+        # threads each request's parse, its wait for the worker and its reply
+        # (encoding and send)
+        split = {"device": [], "req": []}
+        device_call, synthesize, marks = batcher._device_call, batcher.synthesize, \
+            threading.local()
+
+        def timed_call(batch, frames, bsz):
+            t = time.perf_counter()
+            out = device_call(batch, frames, bsz)
+            split["device"].append((bsz, frames, 1e3 * (time.perf_counter() - t)))
+            return out
+
+        def timed_synthesize(*a, **k):
+            marks.t_in = time.perf_counter()
+            try:
+                return synthesize(*a, **k)
+            finally:
+                marks.t_out = time.perf_counter()
+
+        handler = httpd.RequestHandlerClass
+        do_post = handler.do_POST
+
+        def timed_post(h):
+            marks.t_in = marks.t_out = None
+            t = time.perf_counter()
+            do_post(h)
+            if marks.t_out is not None:
+                split["req"].append((1e3 * (marks.t_in - t), 1e3 * (marks.t_out - marks.t_in),
+                                     1e3 * (time.perf_counter() - marks.t_out)))
+
+        batcher._device_call, batcher.synthesize, handler.do_POST = \
+            timed_call, timed_synthesize, timed_post
+        rounds = {}
+        server = threading.Thread(target=httpd.serve_forever, daemon=True)
+        server.start()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+        def post(body: bytes):
+            req = urllib.request.Request(url + "/synthesize", data=body,
+                                         headers={"Content-Type": "application/json"})
+            t = time.perf_counter()
+            try:
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    out = (r.status, r.headers["Content-Type"], r.read())
+            except urllib.error.HTTPError as e:
+                out = (e.code, e.headers["Content-Type"], e.read())
+            return out + (1e3 * (time.perf_counter() - t),)
+
+        try:
+            reqs = []
+            for i in range(32):   # 8 sentences x 4 speakers, by name / vector, wav / json
+                body = {"text": SENTENCES[i % 8], "format": "wav" if (i // 2) % 2 else "json"}
+                if i % 2:
+                    body["speaker"] = names[i // 8]
+                else:
+                    body["spk_emb"] = embs[i // 8].tolist()
+                reqs.append(body)
+            with open(os.path.join(root, "requests.json"), "w") as f:
+                json.dump(reqs, f)
+            # the clients run in a process of their own, as they would in use:
+            # their reads and parsing do not take this interpreter's lock
+            for c in [*counters.values(), cluster]:
+                c.launches = 0
+            run = subprocess.run([sys.executable, "-c", HTTP_CLIENT, url,
+                                  os.path.join(root, "requests.json")],
+                                 capture_output=True, text=True, timeout=600)
+            gate(run.returncode == 0, ("HTTP client", run.returncode, run.stderr[-2000:]))
+            torch.cuda.synchronize()
+            launches = {k: c.launches for k, c in counters.items()}
+            client = json.loads(run.stdout.strip().splitlines()[-1])
+            with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
+                stats = json.load(r)["stats"]
+            for i, rep in enumerate(client["replies"]):
+                gate(rep["code"] == 200, ("serving reply", i, rep))
+                gate(rep["sr"] == cfg.sampling_rate and rep["n"] > 0 and rep["finite"],
+                     ("serving audio", i, rep))
+            wall = client["wall_s"]
+            lat = np.array([rep["ms"] for rep in client["replies"]])
+            audio_s = sum(rep["n"] for rep in client["replies"]) / cfg.sampling_rate
+            fmt = {f: np.median([r["ms"] for r, q in zip(client["replies"], reqs)
+                                 if q["format"] == f]) for f in ("wav", "json")}
+            log(f"[serve] 32 concurrent POST /synthesize (8 sentences x 4 speakers, half by "
+                f"name, half wav; clients in another process): {wall:.3f} s wall = "
+                f"{32 / wall:.2f} requests/s, latency p50 {np.percentile(lat, 50):.1f} ms p95 "
+                f"{np.percentile(lat, 95):.1f} ms max {lat.max():.1f} ms (client clock; median "
+                f"wav {fmt['wav']:.1f}, json {fmt['json']:.1f}); {audio_s:.1f} s of audio = "
+                f"{audio_s / wall:.1f} audio s per wall s; server stats {stats}; batches "
+                f"(size, frames, ms in _process) {worker['batches']}; launches {launches}, of "
+                f"which decode_cluster.cu {cluster.launches} on [{smi}]")
+            n = stats["n_batches"]
+            gate(stats["n_requests"] == 32 and stats["n_errors"] == 0
+                 and stats["max_batch_seen"] >= 2, ("serving stats", stats))
+            gate(n == len(worker["batches"]) and worker["streams"] == {True},
+                 ("worker batches or stream", n, worker))
+            gate(launches["decode"] == cluster.launches == n and launches["gl_init"] == n
+                 and launches["griffin_lim"] == n and launches["griffin_lim_f32"] == 0,
+                 ("serving launches: K1 (decode_cluster.cu), K2 and K3 (gl_tc.cu) once a "
+                  "batch, gl.cu never", launches, cluster.launches, n))
+            rounds["mixed"] = (wall, list(worker["batches"]), split["device"], split["req"])
+            worker["batches"], split["device"], split["req"] = [], [], []
+            # what the JSON replies cost: the same 32 requests all as wav,
+            # and one reply's JSON encoding on this host (it holds the
+            # interpreter's lock, which the worker needs to launch)
+            with open(os.path.join(root, "requests_wav.json"), "w") as f:
+                json.dump([dict(q, format="wav") for q in reqs], f)
+            n0 = stats["n_batches"]
+            run = subprocess.run([sys.executable, "-c", HTTP_CLIENT, url,
+                                  os.path.join(root, "requests_wav.json")],
+                                 capture_output=True, text=True, timeout=600)
+            gate(run.returncode == 0, ("HTTP client, wav", run.returncode, run.stderr[-2000:]))
+            wav_only = json.loads(run.stdout.strip().splitlines()[-1])
+            gate(all(r["code"] == 200 and r["n"] > 0 and r["finite"]
+                     for r in wav_only["replies"]), ("wav-only replies", wav_only["replies"][:2]))
+            lat_w = np.array([r["ms"] for r in wav_only["replies"]])
+            rounds["wav"] = (wav_only["wall_s"], list(worker["batches"]), split["device"],
+                             split["req"])
+            with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
+                stats_w = json.load(r)["stats"]
+            y = np.random.default_rng(0).normal(scale=0.3, size=HOP * (4 * 200 - 1))
+            t = time.perf_counter()
+            json.dumps({"samples": np.asarray(y, np.float64).round(6).tolist()})
+            enc_ms = 1e3 * (time.perf_counter() - t)
+            log(f"[serve] the same 32 requests all as wav: {wav_only['wall_s']:.3f} s wall = "
+                f"{32 / wav_only['wall_s']:.2f} requests/s, latency p50 "
+                f"{np.percentile(lat_w, 50):.1f} ms p95 {np.percentile(lat_w, 95):.1f} ms "
+                f"(client clock), {stats_w['n_batches'] - n0} batch runs; one 200-frame "
+                f"reply's JSON encoding {enc_ms:.1f} ms (host clock) on [{smi}]")
+            bad = {400: post(b'{"speaker": "p225"}')[0],
+                   413: post(json.dumps({"text": "x", "pad": "a" * (MAX_BODY_BYTES + 10)})
+                             .encode())[0]}
+            try:
+                urllib.request.urlopen(url + "/nothing", timeout=30)
+                bad[404] = 200
+            except urllib.error.HTTPError as e:
+                bad[404] = e.code
+            log(f"[serve] bad requests: expected -> got {bad}")
+            gate(all(k == v for k, v in bad.items()), ("bad request codes", bad))
+        finally:
+            httpd.shutdown()
+            batcher.close()
+        out = launches
+
+        # each rung x frames bucket, one whole call after warmup (host clock)
+        texts = encode_texts([SENTENCES[i % 8] for i in range(8)], cfg.vocabulary,
+                             max_len=cfg.max_text_len)
+        spk8 = np.repeat(embs, 2, axis=0)
+        call_ms = {}
+        for frames in buckets:
+            s = batcher._syn_for(frames)
+            for b in ladder:
+                seeds = gl_seeds(b, torch.Generator().manual_seed(0))
+                ts = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    s(texts[:b], spk8[:b], seeds)
+                    torch.cuda.synchronize()
+                    ts.append(1e3 * (time.perf_counter() - t))
+                call_ms[(b, frames)] = float(np.mean(ts))
+        device_view(lambda: batcher._syn_for(120)(texts[:1], spk8[:1]), smi,
+                    "[serve] device view of one B=1 T=120 Synthesizer call")
+        log("[serve] Synthesizer call ms (host clock, mean of 3), rows B, columns frames "
+            f"{buckets}: " + "; ".join(
+                f"B={b}: " + ", ".join(f"{call_ms[(b, f)]:.2f}" for f in buckets)
+                for b in ladder) + f" on [{smi}]")
+
+        # the burst's split beside the same calls alone (host clock)
+        for name, (wall_r, runs, dev_calls, reqs_r) in rounds.items():
+            busy = sum(ms for _, _, ms in runs)
+            dev_ms = sum(ms for _, _, ms in dev_calls)
+            slow = [ms / call_ms[(b, f)] for b, f, ms in dev_calls]
+            parse, wait, reply = (np.array(c) for c in zip(*reqs_r))
+            log(f"[serve split, {name} round] wall {1e3 * wall_r:.1f} ms; worker busy {busy:.1f} "
+                f"ms ({100 * busy / (1e3 * wall_r):.1f} %): {len(dev_calls)} device calls "
+                f"{dev_ms:.1f} ms ({', '.join(f'{ms:.1f}' for _, _, ms in dev_calls)}), each "
+                f"{np.median(slow):.2f}x (median; {min(slow):.2f}-{max(slow):.2f}) the same rung "
+                f"and bucket alone; the rest of the batch runs (host finalize, escalation, "
+                f"stats) {busy - dev_ms:.1f} ms. Handler threads, per request median / max ms: "
+                f"parse {np.median(parse):.2f} / {parse.max():.2f}, wait for the worker "
+                f"{np.median(wait):.1f} / {wait.max():.1f}, reply (encode, send) "
+                f"{np.median(reply):.2f} / {reply.max():.2f}, {reply.sum():.1f} in all; on [{smi}]")
+
+        # K1, K2 and K3 alone at the serving shapes: each against its plain
+        # version on the same tensors at the repo's gates, then timed
+        # against its bound
+        text_d = torch.from_numpy(texts).to(dev)
+        with torch.no_grad():
+            K, V = melsyn.encode_text(text_d)
+            sb = torch.from_numpy(spk8).to(dev, K.dtype)
+            s1, s2 = melsyn.audio_encoder.fc1(sb), melsyn.audio_encoder.fc2(sb)
+        packed = decode_kernel.pack_decode_weights(melsyn)
+        N = K.shape[1]
+        for b in ladder:
+            plan = decode_kernel.decode_cluster_plan(b, C, F)
+            stream = decode_kernel.pack_decode_stream(
+                {k: packed[k] for k in decode_kernel.MATRIX_NAMES}, plan)
+            ins = [t[:b].contiguous() for t in (K, V, s1, s2)]
+            yq, aq, _ = decode_kernel.decode_plain(packed, *ins, n_frames=2, freq_bins=F)
+            for T in buckets:
+                y, a, _ = decode_kernel.decode_fused(packed, *ins, n_frames=T, freq_bins=F,
+                                                     plan=plan, stream=stream)
+                mel2 = float((y[:, :2].float() - yq.float()).abs().max())
+                att2 = float((a[:, :, :2].float() - aq.float()).abs().max())
+                ms = cuda_ms(lambda: decode_kernel.decode_fused(
+                    packed, *ins, n_frames=T, freq_bins=F, plan=plan, stream=stream), reps=3)
+                flop, nbytes = decode_work(C, F, b, N, T, 2)
+                b_ms, b_by = bound_ms(flop, nbytes, 989e12)
+                log(f"[serve K1] bf16 B={b} N={N} T={T} plan {plan.cluster}x{plan.rows}: vs "
+                    f"decode_plain frames 0-1 mel max|d| {mel2:.3g} (gate 0.05), attention "
+                    f"{att2:.3g} (gate 0.02); {ms:.3f} ms (CUDA events, mean of 3) = "
+                    f"{1e3 * ms / T:.2f} us a frame; bound {b_ms:.4f} ms ({b_by}), "
+                    f"{100 * b_ms / ms:.3f} % of it, on [{smi}]")
+                gate(mel2 <= 0.05 and att2 <= 0.02, ("serving K1 vs decode_plain", b, T, mel2, att2))
+                gate(ms >= b_ms, ("K1 under its bound", b, T, ms, b_ms))
+        # under one plan K1's rows are independent: row 0 of the B=8 inputs
+        # alone (B=1, the same 16x16 plan) gives bit-equal outputs
+        plans = [decode_kernel.decode_cluster_plan(b, C, F) for b in (1, 8)]
+        y8, a8, p8 = decode_kernel.decode_fused(packed, K, V, s1, s2, n_frames=200, freq_bins=F)
+        y1, a1, p1 = decode_kernel.decode_fused(packed, *[t[:1].contiguous() for t in (K, V, s1, s2)],
+                                                n_frames=200, freq_bins=F)
+        same = torch.equal(y1[0], y8[0]) and torch.equal(a1[0], a8[0]) and torch.equal(p1[0], p8[0])
+        log(f"[serve K1] row 0 alone vs in the batch of 8, identical inputs, T=200, plans "
+            f"{[(p.cluster, p.rows) for p in plans]}: bit-equal {same}")
+        gate(same and len({(p.cluster, p.rows) for p in plans}) == 1, ("K1 row invariance", plans))
+        for T in buckets:
+            mag = test_mag(8, 4 * T, seed=T)
+            init = gl_kernel.init_angles_plain(mag, NFFT, HOP, "spsi")
+            k_re, k_im = gl_kernel.gl_init_angles(mag, NFFT, HOP, "spsi")
+            cos_dphi = float(((k_re * init[0] + k_im * init[1])
+                              / torch.sqrt(k_re ** 2 + k_im ** 2)).min())
+            g12 = gl_kernel.griffin_lim_tc(mag, NFFT, HOP, n_iter=12, init_angles=init, int8=True)
+            p12 = gl_kernel.griffin_lim_tc_plain(mag, *init, NFFT, HOP, 12, 0.99, True)
+            sc_k, sc_p = spectral_err(g12, mag), spectral_err(p12, mag)
+            k2 = cuda_ms(lambda: gl_kernel.gl_init_angles(mag, NFFT, HOP, "spsi"), reps=10)
+            k2_b, k2_by = bound_ms(30.0 * mag.numel(), 12.0 * mag.numel(), 67e12)
+            k3 = cuda_ms(lambda: gl_kernel.griffin_lim_tc(mag, NFFT, HOP, n_iter=12,
+                                                          init_angles=init, int8=True), reps=5)
+            k3_b, k3_by, _ = gl_tc_bound(8, 4 * T, True)
+            log(f"[serve K2/K3] B=8 lin frames {4 * T}: K2 spsi vs plain min cos dphi "
+                f"{cos_dphi:.7f} (gate >= 0.99995), {k2:.4f} ms, bound {k2_b:.4f} ({k2_by}); K3 "
+                f"GL12 int8 spectral conv {sc_k:.5f}, its plain version {sc_p:.5f} (gate delta "
+                f"<= 0.02), {k3:.3f} ms, bound {k3_b:.4f} ({k3_by}), {100 * k3_b / k3:.1f} % of "
+                f"it (CUDA events) on [{smi}]")
+            gate(cos_dphi >= 0.99995 and abs(sc_k - sc_p) <= 0.02,
+                 ("serving K2/K3 vs plain", T, cos_dphi, sc_k, sc_p))
+            gate(k2 >= k2_b and k3 >= k3_b, ("K2/K3 under their bounds", T, k2, k3))
+        del K, V, s1, s2, packed, mag, init, k_re, k_im, g12, p12, y8, a8, y1, a1
+
+        # one request solo (rung 1) and inside a batch of 8 (rung 8), its bucket
+        frames = batcher._frames_bucket(int((texts[0] > 0).sum()))
+        s = batcher._syn_for(frames)
+        rows = {}
+        for b in (1, 8):
+            td = torch.from_numpy(texts[:b]).to(dev)
+            with torch.no_grad():
+                k, v = melsyn.encode_text(td)
+                sb = torch.from_numpy(spk8[:b]).to(dev, k.dtype)
+                p1, p2 = melsyn.audio_encoder.fc1(sb), melsyn.audio_encoder.fc2(sb)
+            audio, mel, att = s(texts[:b], spk8[:b], gl_seeds(b, torch.Generator().manual_seed(1)))
+            rows[b] = [t[0].float() for t in (k, v, p1, p2, mel, att, audio)]
+        d = {n: float((x - y).abs().max()) for n, x, y in
+             zip(("K", "V", "s1", "s2", "mel", "attention", "audio"), rows[1], rows[8])}
+        diff = (rows[1][5].argmax(0) != rows[8][5].argmax(0)).cpu().numpy()
+        onset = int(np.argmax(diff)) if diff.any() else frames
+        mel_b = float((rows[1][4][:onset] - rows[8][4][:onset]).abs().max()) if onset else 0.0
+        att_b = float((rows[1][5][:, :onset] - rows[8][5][:, :onset]).abs().max()) if onset \
+            else 0.0
+        log(f"[serve] one request (frames bucket {frames}) solo vs in a batch of 8: max|d| "
+            f"{ {k: round(v, 6) for k, v in d.items()} }; attention argmax onset {onset} of "
+            f"{frames}; before it mel {mel_b:.3g} (gate 0.05), attention {att_b:.3g} (gate 0.02)")
+        gate(mel_b <= 0.05 and att_b <= 0.02, ("solo vs co-batched", mel_b, att_b))
+        gate(all(bool(torch.isfinite(r[6]).all()) for r in rows.values()), "solo audio")
+        # where K and V part: row 0's output of each text-encoder module at
+        # B=1 against B=8 (the 8 sentences; 8 copies of row 0) and, for the
+        # 8 sentences, with cuDNN off (the 1x1 convs are F.linear, cuBLAS;
+        # the highway convs F.conv1d, cuDNN)
+        enc = melsyn.text_encoder
+        mods = [(n, m) for n, m in enc.named_modules()
+                if n and (n.count(".") == 0 or n.startswith(("hci1.hc", "hci2.hc"))
+                          and n.count(".") == 1)]
+        outs: dict = {}
+
+        def hook(name):
+            def record(_, __, out):
+                outs.setdefault(name, []).append(out[0].float().clone())
+            return record
+
+        handles = [m.register_forward_hook(hook(n)) for n, m in mods]
+
+        def parts(t_a, t_b) -> str:
+            outs.clear()
+            with torch.no_grad():
+                enc(torch.from_numpy(t_a).to(dev))
+                enc(torch.from_numpy(t_b).to(dev))
+            d = [(n, float((v[0] - v[1]).abs().max())) for n, v in outs.items() if len(v) == 2]
+            first = next((n for n, x in d if x > 0), None)
+            return f"first parts at {first}; " + ", ".join(f"{n} {x:.3g}" for n, x in d)
+
+        try:
+            mixed = parts(texts[:1], texts[:8])
+            copies = parts(texts[:1], np.repeat(texts[:1], 8, axis=0))
+            with torch.backends.cudnn.flags(enabled=False):
+                no_cudnn = parts(texts[:1], texts[:8])
+        finally:
+            for h in handles:
+                h.remove()
+        log(f"[serve] text encoder, row 0 at B=1 vs B=8, max|d| of each module's output: the 8 "
+            f"sentences: {mixed}. 8 copies of row 0: {copies}. The 8 sentences, cuDNN off: "
+            f"{no_cudnn} (on [{smi}])")
+        del melsyn, ssrn, syn, batcher, s, rows
+    return out
+
+
+def spoofgen_phase(cfg, dev, state_dicts, counters: dict, cluster, smi: str) -> dict:
+    """Phase 9: spoof-set synthesis (``generate_spoof_set``) of 8 speakers x
+    20 Harvard sentences at full width in bf16, one B=160 call (K1's 8x16
+    plan), into the reference layout; K1 on that call's inputs against
+    ``decode_plain``. Returns its launches."""
+    import torch
+    from scipy.io import wavfile
+
+    from spoofsv_torch.cli.main import build_models, inference_dtype
+    from spoofsv_torch.infer.synthesize import Synthesizer
+    from spoofsv_torch.ops import decode_kernel
+    from spoofsv_torch.spoofkit.spoofgen import generate_spoof_set
+    from spoofsv_torch.weights import load_state
+
+    speakers = [f"p{225 + i}" for i in range(8)]
+    rng = np.random.default_rng(9)
+    with tempfile.TemporaryDirectory() as root:
+        for spk in speakers:
+            os.makedirs(os.path.join(root, "data", "wav22", spk))
+        os.makedirs(os.path.join(root, "spk_emb"))
+        for spk in speakers:
+            np.save(os.path.join(root, "spk_emb", spk + ".npy"),
+                    rng.normal(size=cfg.spk_emb_dim).astype(np.float32))
+        with open(os.path.join(root, "havard.txt"), "w") as f:
+            f.write("\n".join(SENTENCES) + "\n")
+        cfg9 = cfg.replace(data_root_dir=os.path.join(root, "data"),
+                           spk_emb_dir=os.path.join(root, "spk_emb"), src_root_dir=root + "/",
+                           tts_texts=os.path.join(root, "havard.txt"))
+        melsyn, ssrn = build_models(cfg9, dtype=inference_dtype(cfg9, dev), device=dev)
+        load_state(melsyn, state_dicts["text2mel"])
+        load_state(ssrn, state_dicts["ssrn"])
+        syn = Synthesizer(cfg9, melsyn, ssrn, n_frames=cfg9.max_frame_num)
+        C, F = cfg.hidden_dim, cfg.mel.freq_bins
+        plan = decode_kernel.decode_cluster_plan(160, C, F)
+        calls, inputs = [], []
+
+        def timed(text, spk, seeds):
+            """The synthesizer call alone (device work closed by a sync)."""
+            inputs.append((text, spk))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = syn(text, spk, seeds)
+            torch.cuda.synchronize()
+            calls.append((text.shape[0], time.perf_counter() - t))
+            return out
+
+        # first use: the decoder packs its weights and the 8x16 plan's stream
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        syn(np.ones((160, 8), np.int32), np.zeros((160, cfg.spk_emb_dim), np.float32))
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        for c in [*counters.values(), cluster]:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_dir = generate_spoof_set(cfg9, "smoke", timed, eval_utt_num=20, speaker_batch=8,
+                                      verbose=False)
+        wall = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        wavs = sorted(os.path.join(d, f) for d, _, fs in os.walk(save_dir) for f in fs)
+        expect = sorted(os.path.join(save_dir, f"s{s[1:]}", f"s{s[1:]}_{k:03d}.wav")
+                        for s in speakers for k in range(1, 21))
+        gate(wavs == expect, ("spoof-set layout", len(wavs), wavs[:3]))
+        audio_s = 0.0
+        for w in wavs:
+            sr, y = wavfile.read(w)
+            gate(sr == cfg.sampling_rate and 0 < len(y) <= 9 * sr
+                 and bool(np.isfinite(y.astype(np.float32)).all()), ("spoof wav", w, sr, len(y)))
+            audio_s += len(y) / sr
+        synth_s = sum(t for _, t in calls)
+        log(f"[spoofgen] 8 speakers x 20 sentences: calls (B, s) {calls}, K1 plan "
+            f"{plan.cluster}x{plan.rows} ({plan.tiles} tiles); synthesis {1e3 * synth_s:.1f} ms, "
+            f"host tail (finalize + write) {1e3 * (wall - synth_s):.1f} ms, whole function "
+            f"{wall:.3f} s; {audio_s:.1f} s of audio = {audio_s / wall:.2f} audio s per wall s "
+            f"(a first B=160 call before it, packing the weights: {first_s:.3f} s); "
+            f"launches {launches}, of which decode_cluster.cu {cluster.launches} on [{smi}]")
+        gate([b for b, _ in calls] == [160] and (plan.cluster, plan.rows) == (8, 16),
+             ("one B=160 call under the 8x16 plan", calls, plan))
+        gate(launches["decode"] == cluster.launches == 1 and launches["gl_init"] == 1
+             and launches["griffin_lim"] == 1 and launches["griffin_lim_f32"] == 0,
+             ("spoofgen launches", launches, cluster.launches))
+        # K1 under the 8x16 plan on that call's inputs against decode_plain
+        with torch.no_grad():
+            K, V = melsyn.encode_text(torch.as_tensor(inputs[0][0]).to(dev))
+            sb = torch.as_tensor(inputs[0][1]).to(dev, K.dtype)
+            s1, s2 = melsyn.audio_encoder.fc1(sb), melsyn.audio_encoder.fc2(sb)
+        packed = decode_kernel.pack_decode_weights(melsyn)
+        y, a, _ = decode_kernel.decode_fused(packed, K, V, s1, s2, n_frames=cfg9.max_frame_num,
+                                             freq_bins=F, plan=plan)
+        yq, aq, _ = decode_kernel.decode_plain(packed, K, V, s1, s2, n_frames=2, freq_bins=F)
+        mel2 = float((y[:, :2].float() - yq.float()).abs().max())
+        att2 = float((a[:, :, :2].float() - aq.float()).abs().max())
+        log(f"[spoofgen K1] B=160 N={K.shape[1]} T={cfg9.max_frame_num} plan "
+            f"{plan.cluster}x{plan.rows} vs decode_plain frames 0-1: mel max|d| {mel2:.3g} "
+            f"(gate 0.05), attention {att2:.3g} (gate 0.02)")
+        gate(mel2 <= 0.05 and att2 <= 0.02, ("spoofgen K1 vs decode_plain", mel2, att2))
+        del K, V, s1, s2, packed, y, a, yq, aq
+        del melsyn, ssrn, syn
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -804,7 +1370,7 @@ def main() -> None:
         diff = (a_k.float().argmax(1) != a_p.float().argmax(1)).cpu().numpy()
         return [int(np.argmax(r)) if r.any() else diff.shape[1] for r in diff]
 
-    texts = encode_texts([SENTENCES[i % len(SENTENCES)] for i in range(64)],
+    texts = encode_texts([SENTENCES[i % 8] for i in range(64)],
                          cfg.vocabulary, max_len=100)
     spk = rng.normal(size=(64, cfg.spk_emb_dim)).astype(np.float32)
     text_d = torch.from_numpy(texts).to(dev)
@@ -975,6 +1541,23 @@ def main() -> None:
         kernels[k]["launches"] = v
     log(f"[train] step ms per impl, B=16 N=186 T=325 f32 (median of iterations 2-5): "
         f"{step_ms} on [{smi}]")
+
+    # ---- phases 8-9: serving and spoof-set synthesis, bf16, seed-0 weights ----
+    m0, s0 = build_models(torch.float32, seed=0)
+    state_dicts = {"text2mel": {k: v.cpu() for k, v in m0.state_dict().items()},
+                   "ssrn": {k: v.cpu() for k, v in s0.state_dict().items()}}
+    del m0, s0
+    t0 = time.perf_counter()
+    serve_launches = serving_phase(cfg, dev, state_dicts, counters, cluster, cuda_ms, test_mag,
+                                   spectral_err, smi)
+    log(f"[time] phase 8 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    gen_launches = spoofgen_phase(cfg, dev, state_dicts, counters, cluster, smi)
+    log(f"[time] phase 9 {time.perf_counter() - t0:.1f} s")
+    paths = {"synthesis": launches, "training": train_launches, "serving": serve_launches,
+             "spoofgen": gen_launches}
+    for k, entry in kernels.items():
+        entry["launches_by_path"] = {p: n[k] for p, n in paths.items() if k in n}
 
     # a kernel faster than the least time the card could take means a bound
     # or a timing is wrong (data left in the L2, a rate too low)

@@ -1,7 +1,8 @@
-"""Host-side (numpy) audio tail: silence trimming.
+"""Host-side (numpy) audio tail: silence trimming and wav output.
 
-Copy of :func:`spoofsv_tpu.dsp.host.trim_silence` (librosa.effects.trim
-semantics); importing ``spoofsv_tpu.dsp`` loads jax.
+Copies of :func:`spoofsv_tpu.dsp.host.trim_silence` (librosa.effects.trim
+semantics) and :func:`spoofsv_tpu.dsp.host.write_wav`; importing
+``spoofsv_tpu.dsp`` loads jax.
 """
 
 from __future__ import annotations
@@ -42,3 +43,13 @@ def trim_silence(y: np.ndarray, top_db: float, frame_length: int = 2048,
     start = int(nonsilent[0] * hop_length)
     end = min(len(y), int((nonsilent[-1] + 1) * hop_length))
     return y[start:end], (start, end)
+
+
+def write_wav(path, y: np.ndarray, sr: int) -> None:
+    """Write float audio as 16-bit PCM wav to ``path`` (a file name or a
+    binary file object)."""
+    from scipy.io import wavfile
+
+    y = np.asarray(y, dtype=np.float32)
+    y = np.clip(y, -1.0, 1.0)
+    wavfile.write(path, sr, (y * 32767.0).astype(np.int16))

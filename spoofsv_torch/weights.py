@@ -3,6 +3,8 @@
 JAX parameter trees go through :mod:`spoofsv_torch.export` (numpy) →
 ``load_state_dict(strict=True)``; a reference ``*.tar.pth`` goes through the
 same loader, so both sources must match the reference schema exactly.
+:func:`load_generator_params` is the entry points' loader of a configured
+checkpoint path.
 """
 
 from __future__ import annotations
@@ -46,3 +48,23 @@ def load_reference_checkpoint(module: nn.Module, path: str,
     state dict under ``key``)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     return load_state(module, ckpt[key])
+
+
+#: the suffixes of the reference's ``torch.save`` checkpoints (``config.json``
+#: ``INFERENCE_TEXT2MEL_MODEL`` / ``INFERENCE_SSRN_MODEL``)
+CHECKPOINT_SUFFIXES = (".tar.pth", ".pth", ".pt", ".tar")
+
+
+def load_generator_params(path: str, module: nn.Module) -> nn.Module:
+    """Load a generator's weights into ``module`` (a ``MelSyn`` or an
+    ``SSRN``, whose strict load names what the checkpoint must hold) from a
+    reference-schema checkpoint (``*.tar.pth``, ``.pth``, ``.pt`` or
+    ``.tar``, as the port's ``CheckpointManager`` writes and the reference
+    saves). Any other path raises ``ValueError``: an orbax checkpoint of the
+    JAX package reaches the port through that package's ``cli/export.py``,
+    which writes a ``.tar.pth``."""
+    if not str(path).endswith(CHECKPOINT_SUFFIXES):
+        raise ValueError(
+            f"{path!r} is not a reference checkpoint ({', '.join(CHECKPOINT_SUFFIXES)}); "
+            "convert an orbax checkpoint with the JAX package's cli/export.py first")
+    return load_reference_checkpoint(module, path)

@@ -27,7 +27,8 @@ def test_port_imports_no_jax():
     mods = _port_modules()
     for m in ("ops.decode_kernel", "ops.gl_kernel", "ops.gate_kernel", "ops.hconv_kernel",
               "train.losses", "train.state", "train.steps", "train.loop", "cli.main",
-              "config", "export", "weights"):
+              "config", "export", "weights", "serve", "spoofkit.spoofgen", "cli.serve",
+              "cli.generate_test_utterances"):
         assert f"spoofsv_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -93,13 +93,15 @@ def test_gl_kernel_matches_plain(dev):
 
 
 @pytest.mark.parametrize("int8", [True, False])
-@pytest.mark.parametrize("B,T", [(2, 300), (1, 16), (3, 59), (1, 117)])
+@pytest.mark.parametrize("B,T", [(2, 300), (1, 16), (3, 59), (1, 117), (8, 480), (8, 800)])
 def test_gl_tc_kernel_matches_plain(dev, B, T, int8):
     """The tensor-core K3 against its plain version (the same quantisation
     and state types): one projection at momentum 0 (gate 0.03 of
     test_pallas_gl.py), GL12 spectral convergence within 0.02 of plain f32 GL,
     and the final synthesis alone (n_iter 0). T covers one tile (16), a last
-    tile of 3 frames (59: 56-frame tiles), and several tiles."""
+    tile of 3 frames (59: 56-frame tiles), and several tiles; B=8 at 480 and
+    800 lin frames are the server's batch and its 120- and 200-frame
+    rollouts."""
     mag = _test_mag(B, T, 9, dev)
     init = gl_kernel.init_angles_plain(mag, NFFT, HOP, "spsi")
     for n_iter in (0, 1):
@@ -187,6 +189,9 @@ CLUSTER_TOL = {BF16: (0.05, 0.02), F32: (1e-4, 1e-4)}
     (64, 100, 256, 80, 8, 16, True, BF16), (40, 30, 256, 80, 4, 16, True, BF16),
     (40, 30, 256, 80, 16, 32, True, BF16), (70, 20, 256, 80, 8, 32, True, BF16),   # ragged last tile
     (70, 20, 256, 80, 2, 16, True, BF16),
+    # the server's rungs at its padded text length (max_text_len 186)
+    (1, 186, 256, 80, 16, 16, True, BF16), (2, 186, 256, 80, 16, 16, True, BF16),
+    (8, 186, 256, 80, 16, 16, True, BF16),
     (6, 12, 64, 16, 8, 16, True, F32), (6, 12, 64, 16, 4, 32, False, F32),
     (5, 9, 32, 16, 4, 16, True, F32), (3, 4, 32, 80, 2, 64, True, F32),
     (64, 100, 256, 80, 16, 16, True, F32), (16, 186, 256, 80, 16, 16, True, F32),
@@ -220,6 +225,22 @@ def test_decode_cluster_matches_plain(dev, B, N, C, freq, cluster, rows, conditi
     # each frame's attention is one window of three probabilities summing to 1
     torch.testing.assert_close(a.float().sum(1), torch.ones(B, 12, device=dev), atol=2e-2,
                                rtol=0)
+
+
+def test_decode_cluster_row_is_batch_invariant(dev):
+    """Under one plan (16×16) K1's rows are independent: a row run alone
+    (B=1, padded to the 16-row tile) and inside a batch of 8 gives bit-equal
+    mel, attention and pma for identical K, V and speaker projections (the
+    server's solo and co-batched requests at N=186)."""
+    packed, K, V, s1, s2 = _cluster_case(dev, 8, 186, 256, 80, seed=11)
+    plan8 = decode_kernel.decode_cluster_plan(8, 256, 80)
+    plan1 = decode_kernel.decode_cluster_plan(1, 256, 80)
+    assert (plan8.cluster, plan8.rows) == (plan1.cluster, plan1.rows) == (16, 16)
+    y8, a8, p8 = decode_kernel.decode_fused(packed, K, V, s1, s2, n_frames=120, freq_bins=80)
+    for i in (0, 5):
+        one = [t[i:i + 1].contiguous() for t in (K, V, s1, s2)]
+        y1, a1, p1 = decode_kernel.decode_fused(packed, *one, n_frames=120, freq_bins=80)
+        assert torch.equal(y1[0], y8[i]) and torch.equal(a1[0], a8[i]) and torch.equal(p1[0], p8[i])
 
 
 @pytest.mark.parametrize("B,C,freq,cluster,rows,dtype", [
