@@ -66,7 +66,18 @@ Phases (any failure raises and exits non-zero):
   9. spoof-set synthesis: ``generate_spoof_set`` of 8 speakers x 20
      sentences, one B=160 call under K1's 8x16 plan, 160 wavs in the
      reference layout; K1 on that call's inputs against ``decode_plain``
-     (frames 0-1); the call's time, the host tail's, audio s per wall s.
+     (frames 0-1); the call's time, the host tail's, audio s per wall s;
+ 10. the training CLI (``python -m spoofsv_torch.cli.main``'s ``main``) on a
+     toy corpus of 4 speakers x 24 utterances of 110-160 characters, the
+     shipping widths, f32, batch 16: ``train_text2mel --adversarial`` (12
+     iterations, "fused_pair", validations through the f32 K1),
+     ``train_ssrn --adversarial`` ("fused_conv"), ``-R latest`` for 2 more
+     ("pallas", the resumed state bit-equal to its checkpoint) and
+     ``synthesize`` from the best checkpoints (bf16 K1, K2, K3); each G and
+     D step's launches and time; a G and a D step of each impl from the
+     same weights against "xla"; no highway kernel in a critic's penalty;
+     steady G/D step times and one of each under ``torch.profiler``; the
+     "wgan" (clipped) and "vanilla" critics for 6 iterations.
 Prints a kernels JSON line (each kernel's time, plain time, launches on
 the main path, launches on each path, and bound), the card line, then the
 ``{"ok": true, ...}`` line last.
@@ -648,7 +659,7 @@ def training_phase(cfg, dev, counters: dict, B: int, N: int, T: int):
              "lin": rng.uniform(0.05, 0.95, (B, 4 * T, cfg.lin_bins)).astype(np.float32),
              "spk": rng.normal(size=(B, cfg.spk_emb_dim)).astype(np.float32)}
     torch.manual_seed(0)
-    models = dict(zip(("train_text2mel", "train_ssrn"), build_models(cfg, device=dev)))
+    models = dict(zip(("train_text2mel", "train_ssrn"), build_models(cfg, device=dev)[:2]))
     init_sd = {k: {n: v.detach().clone() for n, v in m.state_dict().items()}
                for k, m in models.items()}
     impl_kernel = {"pallas": "highway_gate", "fused_conv": "highway_conv",
@@ -794,7 +805,7 @@ def serving_phase(cfg, dev, state_dicts, counters: dict, cluster, cuda_ms, test_
             paths[kind] = os.path.join(root, f"{kind}_iteration_0.tar.pth")
             torch.save({"model_state_dict": sd}, paths[kind])
         apply_runtime_knobs(cfg, infer=True)
-        melsyn, ssrn = build_models(cfg, dtype=inference_dtype(cfg, dev), device=dev)
+        melsyn, ssrn, _, _ = build_models(cfg, dtype=inference_dtype(cfg, dev), device=dev)
         load_generator_params(paths["text2mel"], melsyn)
         load_generator_params(paths["ssrn"], ssrn)
         gate(next(melsyn.parameters()).dtype == torch.bfloat16, "serving models are not bf16")
@@ -1173,7 +1184,7 @@ def spoofgen_phase(cfg, dev, state_dicts, counters: dict, cluster, smi: str) -> 
         cfg9 = cfg.replace(data_root_dir=os.path.join(root, "data"),
                            spk_emb_dir=os.path.join(root, "spk_emb"), src_root_dir=root + "/",
                            tts_texts=os.path.join(root, "havard.txt"))
-        melsyn, ssrn = build_models(cfg9, dtype=inference_dtype(cfg9, dev), device=dev)
+        melsyn, ssrn, _, _ = build_models(cfg9, dtype=inference_dtype(cfg9, dev), device=dev)
         load_state(melsyn, state_dicts["text2mel"])
         load_state(ssrn, state_dicts["ssrn"])
         syn = Synthesizer(cfg9, melsyn, ssrn, n_frames=cfg9.max_frame_num)
@@ -1245,6 +1256,569 @@ def spoofgen_phase(cfg, dev, state_dicts, counters: dict, cluster, smi: str) -> 
         del K, V, s1, s2, packed, y, a, yq, aq
         del melsyn, ssrn, syn
     return launches
+
+
+def train_cli_phase(cfg, dev, counters: dict, cluster, smi: str, onsets, before_onset,
+                    spectral_err, n_speakers: int = 4, utts_per_spk: int = 24,
+                    min_chars: int = 110, max_chars: int = 160) -> dict:
+    """Phase 10: the training CLI on a toy corpus (VCTK is not on the card's
+    machine): ``generate_toy_corpus`` (rich voices) and ``prepare_vctk``,
+    the features cached; then through ``spoofsv_torch.cli.main.main`` at the
+    shipping widths, f32, batch 16, validation every 6 iterations:
+    ``train_text2mel --adversarial`` for 12 iterations under "fused_pair"
+    (2 G steps, 10 D steps, validations at 6 and 12 through the f32 K1),
+    ``train_ssrn --adversarial`` under "fused_conv", ``-R latest`` for 2
+    more Text2Mel iterations (the resumed state checked against its
+    checkpoint), and ``synthesize`` from the two best checkpoints (bf16: K1,
+    K2, K3). Each G and D step's launches and time are read by wrapping the
+    steps ``Trainer`` builds; the inputs of the last validation's f32 K1
+    calls, of each synthesize batch's decode and of its vocoder are
+    recorded. Then, outside the counted runs: the f32 K1 on each recorded
+    validation batch against the eager f32 decode and ``decode_plain``
+    (1e-3 before each row's first attention argmax flip, onsets >= 32, as
+    phase 4); the bf16 K1 on each synthesize batch against ``decode_plain``
+    over frames 0-1 (mel 0.05, attention 0.02), K2 against
+    ``init_angles_plain`` and K3 GL12 against ``griffin_lim_tc_plain`` on
+    each batch's vocoder input (as phase 8); a G step and a D step of both
+    kinds under every highway impl on one batch of each (frames, text)
+    bucket, each from the same initial weights, against "xla": the
+    generator's output (and Text2Mel's attention) in the G step element by
+    element (1e-4), the gradients of the reconstruction loss and of the
+    critic's term apart (the whole gradient's relative difference 1e-2,
+    each parameter's 5e-2), the losses (1e-4 relative); a critic's forward
+    plus penalty launches no
+    highway kernel; each kind's steady G and D step times (5 each after a
+    warm-up, at the epoch's largest batch) and one of each under
+    ``torch.profiler``;
+    ``Trainer`` with the "wgan" (weights within ±0.1) and "vanilla" critics
+    for 6 iterations. Returns the launches of each kernel on the two CLI
+    paths."""
+    import dataclasses
+    import statistics
+
+    import torch
+    from scipy.io import wavfile
+
+    from spoofsv_torch.cli import main as cli
+    from spoofsv_torch.data.pipeline import DeviceReplayLoader, TTSDataSource, _bucket_for
+    from spoofsv_torch.data.toy import generate_toy_corpus
+    from spoofsv_torch.data.vctk import prepare_vctk
+    from spoofsv_torch.infer import synthesize as syn_mod
+    from spoofsv_torch.infer.decode import make_decoder
+    from spoofsv_torch.models import MelDisc
+    from spoofsv_torch.models.layers import GATE_IMPLS, gate_impl
+    from spoofsv_torch.ops import decode_kernel, gl_kernel
+    from spoofsv_torch.train import Trainer, loop, steps
+    from spoofsv_torch.weights import load_state
+
+    highway = ("highway_gate", "highway_conv", "highway_conv_pair")
+    impl_kernel = {"pallas": "highway_gate", "fused_conv": "highway_conv",
+                   "fused_pair": "highway_conv_pair"}
+    ckpt_keys = {"epoch", "iteration", "model_state_dict", "optimizer_state_dict",
+                 "loss_val_log", "disc_state_dict", "disc_optimizer_state_dict", "loss_logs"}
+
+    def snap() -> dict:
+        return {k: c.launches for k, c in counters.items()}
+
+    def since(before: dict) -> dict:
+        return {k: n - before[k] for k, n in snap().items()}
+
+    def reset() -> None:
+        for c in [*counters.values(), cluster]:
+            c.launches = 0
+
+    def same_tensors(a, b) -> bool:
+        if isinstance(a, dict):
+            return sorted(a) == sorted(b) and all(same_tensors(a[k], b[k]) for k in a)
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(same_tensors(x, y) for x, y in zip(a, b))
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a.detach().cpu(), torch.as_tensor(b).cpu())
+        return a == b
+
+    def matches_checkpoint(state, path: str) -> bool:
+        """Both nets and both Adam states bit-equal to the checkpoint's, at its step."""
+        ck = torch.load(path, map_location="cpu", weights_only=True)
+        return (state.step == ck["iteration"]
+                and same_tensors(state.gen.state_dict(), ck["model_state_dict"])
+                and same_tensors(state.disc.state_dict(), ck["disc_state_dict"])
+                and same_tensors(state.gen_optimizer.state_dict(), ck["optimizer_state_dict"])
+                and same_tensors(state.disc_optimizer.state_dict(),
+                                 ck["disc_optimizer_state_dict"]))
+
+    # every G and D step the Trainer takes: its kind, time and launches
+    seen, resume_check = [], {}
+    make_steps = steps.make_adversarial_steps
+
+    def recorded_steps(gen, disc, cfg_, train_kind, *args, **kwargs):
+        init_fn, g_step, d_step = make_steps(gen, disc, cfg_, train_kind, *args, **kwargs)
+
+        def record(which, fn):
+            def run(state, *a):
+                if resume_check.pop("path", None):
+                    resume_check["ok"] = matches_checkpoint(state, resume_check["want"])
+                before = snap()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(state, *a)
+                torch.cuda.synchronize()
+                seen.append(dict(kind=train_kind, step=which, ms=1e3 * (time.perf_counter() - t),
+                                 launches=since(before), metrics=out[1]))
+                return out
+            return run
+
+        return init_fn, record("G", g_step), record("D", d_step)
+
+    def median_ms(rows, which) -> float:
+        return round(statistics.median(r["ms"] for r in rows if r["step"] == which), 3)
+
+    # the inputs of the validator's decodes (with the steps taken before
+    # them), of each Synthesizer call and of its tensor-core vocoder
+    val_calls, syn_calls, gl_calls = [], [], []
+    make_fused = loop.make_fused_decoder
+    syn_call, gl_tc = syn_mod.Synthesizer.__call__, syn_mod.griffin_lim_tc
+
+    def recorded_decoder(model, n_frames, *a, **kw):
+        decode = make_fused(model, n_frames, *a, **kw)
+
+        def run(text_ids, spk_emb, *x):
+            val_calls.append(dict(steps=len(seen), model=model, T=n_frames, text=text_ids,
+                                  spk=spk_emb))
+            return decode(text_ids, spk_emb, *x)
+        return run
+
+    def recorded_call(self, text_ids, spk_emb, seeds=None):
+        syn_calls.append((self, text_ids, spk_emb))
+        return syn_call(self, text_ids, spk_emb, seeds)
+
+    def recorded_gl(spec, *a, **kw):
+        gl_calls.append((spec, kw["int8"]))
+        return gl_tc(spec, *a, **kw)
+
+    out = {}
+    steps.make_adversarial_steps = recorded_steps
+    loop.make_fused_decoder = recorded_decoder
+    syn_mod.Synthesizer.__call__ = recorded_call
+    syn_mod.griffin_lim_tc = recorded_gl
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            t0 = time.perf_counter()
+            generate_toy_corpus(os.path.join(root, "data"), os.path.join(root, "emb"),
+                                n_speakers=n_speakers, utts_per_spk=utts_per_spk,
+                                spk_emb_dim=cfg.spk_emb_dim, seed=0, min_chars=min_chars,
+                                max_chars=max_chars, rich_speakers=True)
+            base = cfg.replace(data_root_dir=os.path.join(root, "data"),
+                               spk_emb_dir=os.path.join(root, "emb"),
+                               src_root_dir=os.path.join(root, "work") + "/", batch_size=16,
+                               val_every_iter=6)
+            prepare_vctk(base, verbose=False)
+            corpus_s = time.perf_counter() - t0
+            spec = os.path.join(base.src_root_dir, "spec")
+            t0 = time.perf_counter()
+            srcs = {m: TTSDataSource(base, m, spec, need_lin=True)
+                    for m in ("train", "validate", "synthesize")}
+            for s in srcs.values():
+                s.warm_cache()
+            feature_s = time.perf_counter() - t0
+            shapes = {m: sorted({(_bucket_for(e.mel.shape[0], base.tpu.bucket_frames),
+                                  _bucket_for(len(e.text), base.tpu.bucket_text))
+                                 for e in (s[i] for i in range(len(s)))})
+                      for m, s in srcs.items()}
+            log(f"[train-cli] toy corpus {n_speakers} speakers x {utts_per_spk}: "
+                f"{ {m: len(s) for m, s in srcs.items()} } utterances, written and split in "
+                f"{corpus_s:.2f} s, features (host numpy, cached) {feature_s:.2f} s; "
+                f"(frames, text) buckets {shapes}")
+            gate(len(srcs["train"]) > 0 and len(srcs["synthesize"]) > 0, "empty toy corpus")
+
+            def conf(name: str, tpu=None, **fields) -> str:
+                c = base.replace(**fields)
+                if tpu:
+                    c = c.replace(tpu=dataclasses.replace(c.tpu, **tpu))
+                path = os.path.join(root, name + ".json")
+                with open(path, "w") as f:
+                    json.dump(c.to_reference_dict(), f)
+                return path
+
+            def cli_run(argv):
+                """``main(argv)`` on the card, launches counted from 0."""
+                reset()
+                for rec in (seen, val_calls, syn_calls, gl_calls):
+                    rec.clear()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                with gate_impl("xla"):   # main sets the process-wide impl; restore it after
+                    result = cli.main(argv, device=dev)
+                torch.cuda.synchronize()
+                return result, time.perf_counter() - t, snap(), list(seen)
+
+            def check_training(tr, kind, impl, n_iter, g_n, d_n, rows, n, wall, resumed=False):
+                recs = [json.loads(ln) for ln in open(os.path.join(tr.ckpt.base,
+                                                                   "metrics.jsonl"))]
+                train = [r for r in recs if r["split"] == "train"]
+                vals = [r["loss"] for r in recs if r["split"] == "validate"]
+                finite = [v for r in train for k, v in r.items() if k in
+                          ("loss", "loss_d", "gp", "wd", "loss_disc", "l1", "bd", "att")]
+                data = [r for r in recs if r["split"] == "data"]
+                gs = [r for r in rows if r["step"] == "G"]
+                ds = [r for r in rows if r["step"] == "D"]
+                log(f"[train-cli] {kind} --adversarial under {impl}"
+                    f"{' (resumed)' if resumed else ''}: iterations {tr.iteration}, "
+                    f"{len(gs)} G / {len(ds)} D steps, G ms "
+                    f"{[round(r['ms'], 2) for r in gs]}, D ms {[round(r['ms'], 2) for r in ds]}"
+                    f" (host clock, synchronized), validation losses {vals}, resident train "
+                    f"set {[r['device_bytes'] for r in data]} bytes, run wall {wall:.2f} s, "
+                    f"launches {n} on [{smi}]")
+                gate(tr.iteration == n_iter and len(gs) == g_n and len(ds) == d_n,
+                     (kind, "iterations / G / D", tr.iteration, len(gs), len(ds)))
+                gate(bool(np.isfinite(finite + vals).all()) and len(finite) > 0,
+                     (kind, "losses not finite", finite, vals))
+                own = impl_kernel[impl]
+                for r in rows:
+                    gate(r["launches"][own] > 0, (kind, r["step"], f"{own} not launched",
+                                                  r["launches"]))
+                    gate(all(r["launches"][k] == 0 for k in highway if k != own
+                             and not (impl == "fused_pair" and k == "highway_conv")),
+                         (kind, r["step"], "another impl's kernel ran", r["launches"]))
+                    gate(r["launches"]["decode_f32"] == 0, (kind, "K1 in a step", r["launches"]))
+                return gs, ds
+
+            # -- Text2Mel, adversarial, "fused_pair" ----------------------------
+            t2m_conf = conf("t2m", {"highway_gate_impl": "fused_pair"})
+            tr, wall, n, rows = cli_run(["train_text2mel", "-C", t2m_conf, "-T", "t2m",
+                                         "--adversarial", "--max_iterations", "12",
+                                         "--save_spectrogram"])
+            train_launches = {k: n[k] for k in (*highway, "decode_f32")}
+            gs, ds = check_training(tr, "text2mel", "fused_pair", 12, 2, 10, rows, n, wall)
+            gate({k: len(v) for k, v in tr.loss_logs.items()}
+                 == {"wd": 10, "t_s": 2, "t_s_o": 2, "t_d": 10}, ("loss_logs", tr.loss_logs))
+            gate(n["decode_f32"] > 0, ("validation did not run K1 f32", n))
+            t2m_path = tr.ckpt.latest()
+            ck = torch.load(t2m_path, map_location="cpu", weights_only=True)
+            gate(set(ck) == ckpt_keys and ck["iteration"] == 12
+                 and len(ck["loss_logs"]["t_d"]) == 10, ("checkpoint keys", sorted(ck)))
+            t2m_ms = (median_ms(rows, "G"), median_ms(rows, "D"))
+            # the f32 K1 on the last validation's own batches (the weights of
+            # iteration 12, the run's last) against the eager f32 decode and
+            # decode_plain, before each row's first attention argmax flip
+            F = base.mel.freq_bins
+            last = [c for c in val_calls if c["steps"] == 12]
+            gate(len(last) > 0 and all(c["model"] is tr.gen_model for c in last),
+                 ("validation decodes at iteration 12", len(val_calls)))
+            m32 = tr.gen_model.eval()
+            packed32 = decode_kernel.pack_decode_weights(m32)
+            for c in last:
+                text, spk = c["text"], c["spk"]
+                with torch.no_grad():
+                    kv = (*m32.encode_text(text), m32.audio_encoder.fc1(spk),
+                          m32.audio_encoder.fc2(spk))
+                yk, ak, _ = make_fused(m32, c["T"])(text, spk)
+                for ref_name, (yp, ap) in (
+                        ("eager f32 decode", make_decoder(m32, c["T"])(text, spk)[:2]),
+                        ("decode_plain f32", decode_kernel.decode_plain(
+                            packed32, *kv, n_frames=c["T"], freq_bins=F)[:2])):
+                    ons = onsets(ak, ap)
+                    mel, att = before_onset(yk, ak, yp, ap, ons)
+                    log(f"[train-cli K1 f32] validation batch B={text.shape[0]} "
+                        f"N={text.shape[1]} T={c['T']} vs {ref_name}: per-row divergence "
+                        f"onset {ons}; before onset mel max|d| {mel:.3g}, attention max|d| "
+                        f"{att:.3g} (gates 1e-3, onset >= 32)")
+                    gate(min(ons) >= 32 and mel <= 1e-3 and att <= 1e-3,
+                         ("validation K1 f32", ref_name, text.shape, c["T"], ons, mel, att))
+            del m32, packed32, kv, yk, ak, yp, ap, last
+            t2m_bytes = [json.loads(ln)["device_bytes"] for ln in open(os.path.join(
+                tr.ckpt.base, "metrics.jsonl")) if '"data"' in ln]
+
+            # -- SSRN, adversarial, "fused_conv" --------------------------------
+            tr_s, wall, n, rows = cli_run(["train_ssrn", "-C", conf("ssrn", {
+                "highway_gate_impl": "fused_conv"}), "-T", "ssrn", "--adversarial",
+                "--max_iterations", "12", "--save_spectrogram"])
+            for k in train_launches:
+                train_launches[k] += n[k]
+            check_training(tr_s, "ssrn", "fused_conv", 12, 2, 10, rows, n, wall)
+            gate(n["decode_f32"] == 0, ("SSRN ran K1", n))
+            ssrn_ms = (median_ms(rows, "G"), median_ms(rows, "D"))
+            ssrn_bytes = [json.loads(ln)["device_bytes"] for ln in open(os.path.join(
+                tr_s.ckpt.base, "metrics.jsonl")) if '"data"' in ln]
+
+            # -- -R latest: 2 more Text2Mel iterations, under "pallas" (K6) ------
+            resume_check.update(path=True, want=t2m_path)
+            tr_r, wall, n, rows = cli_run(["train_text2mel", "-C", conf("t2m_pallas", {
+                "highway_gate_impl": "pallas"}), "-T", "t2m", "--adversarial", "-R", "latest",
+                "--max_iterations", "14", "--save_spectrogram"])
+            for k in train_launches:
+                train_launches[k] += n[k]
+            check_training(tr_r, "text2mel", "pallas", 14, 1, 1, rows, n, wall, resumed=True)
+            gate({k: len(v) for k, v in tr_r.loss_logs.items()}
+                 == {"wd": 11, "t_s": 3, "t_s_o": 3, "t_d": 11}, ("resumed loss_logs",
+                                                                  tr_r.loss_logs))
+            gate(resume_check.get("ok") is True,
+                 ("the resumed state differs from its checkpoint at iteration 12", resume_check))
+            log(f"[train-cli] -R latest: resumed at iteration 12 with both nets and both Adam "
+                f"states bit-equal to {os.path.basename(t2m_path)}")
+
+            # -- synthesize from the two best checkpoints (bf16) ----------------
+            best = {k: os.path.join(base.src_root_dir, "checkpoints", "conditional",
+                                    "adversarial", k, f"{'text2mel' if k == 't2m' else k}"
+                                    "_best_model.tar.pth") for k in ("t2m", "ssrn")}
+            sample_dir, syn_wall, n, _ = cli_run(
+                ["synthesize", "-C", conf("syn", inference_text2mel_model=best["t2m"],
+                                          inference_ssrn_model=best["ssrn"]),
+                 "-T", "syn", "--save_spectrogram"])
+            syn_launches = {k: n[k] for k in ("gl_init", "griffin_lim", "griffin_lim_f32")}
+            syn_launches["decode"] = cluster.launches
+            wavs = sorted(f for f in os.listdir(sample_dir) if f.endswith(".wav"))
+            audio_s = 0.0
+            for w in wavs:
+                sr, y = wavfile.read(os.path.join(sample_dir, w))
+                gate(sr == base.sampling_rate and len(y) > 0
+                     and bool(np.isfinite(y.astype(np.float32)).all()), ("synthesized wav", w))
+                audio_s += len(y) / sr
+            log(f"[train-cli] synthesize from the best checkpoints: {len(wavs)} wavs "
+                f"({audio_s:.1f} s of audio) in {syn_wall:.3f} s wall (host features cached, "
+                f"bf16), launches {n}, of which decode_cluster.cu {cluster.launches}, "
+                f"on [{smi}]")
+            gate(len(wavs) == len(srcs["synthesize"]) and all(w.startswith("S") for w in wavs),
+                 ("synthesize wrote", wavs))
+            gate(n["decode"] == cluster.launches > 0 and n["decode_f32"] == 0
+                 and n["gl_init"] > 0 and n["griffin_lim"] > 0 and n["griffin_lim_f32"] == 0,
+                 ("synthesize launches", n, cluster.launches))
+            # K1 bf16 on each synthesize batch's own inputs and weights, its
+            # plan, against decode_plain over frames 0-1; K2 and K3 (GL12) on
+            # each batch's vocoder input against their plain versions
+            gate(len(syn_calls) == len(gl_calls) > 0, ("synthesize calls recorded",
+                                                       len(syn_calls), len(gl_calls)))
+            for (syn, text_ids, spk_emb), (mag, int8) in zip(syn_calls, gl_calls):
+                m = syn.melsyn
+                with torch.no_grad():
+                    K, V = m.encode_text(torch.as_tensor(text_ids).to(dev))
+                    sb = torch.as_tensor(spk_emb, dtype=torch.float32).to(dev, K.dtype)
+                    s1, s2 = m.audio_encoder.fc1(sb), m.audio_encoder.fc2(sb)
+                packed = decode_kernel.pack_decode_weights(m)
+                plan = decode_kernel.decode_cluster_plan(K.shape[0], K.shape[2], F,
+                                                         elem=K.element_size())
+                y, a, _ = decode_kernel.decode_fused(packed, K, V, s1, s2, n_frames=syn.n_frames,
+                                                     freq_bins=F, plan=plan)
+                yq, aq, _ = decode_kernel.decode_plain(packed, K, V, s1, s2, n_frames=2,
+                                                       freq_bins=F)
+                mel2 = float((y[:, :2].float() - yq.float()).abs().max())
+                att2 = float((a[:, :, :2].float() - aq.float()).abs().max())
+                init = gl_kernel.init_angles_plain(mag, NFFT, HOP, "spsi")
+                k_re, k_im = gl_kernel.gl_init_angles(mag, NFFT, HOP, "spsi")
+                cos_dphi = float(((k_re * init[0] + k_im * init[1])
+                                  / torch.sqrt(k_re ** 2 + k_im ** 2)).min())
+                g12 = gl_kernel.griffin_lim_tc(mag, NFFT, HOP, n_iter=12, init_angles=init,
+                                               int8=int8)
+                p12 = gl_kernel.griffin_lim_tc_plain(mag, *init, NFFT, HOP, 12, 0.99, int8)
+                sc_k, sc_p = spectral_err(g12, mag), spectral_err(p12, mag)
+                log(f"[train-cli synthesize] batch B={K.shape[0]} N={K.shape[1]} "
+                    f"T={syn.n_frames} {K.dtype}: K1 plan {plan.cluster}x{plan.rows} vs "
+                    f"decode_plain frames 0-1 mel max|d| {mel2:.3g} (gate 0.05), attention "
+                    f"{att2:.3g} (gate 0.02); lin frames {mag.shape[1]}: K2 spsi vs plain min "
+                    f"cos dphi {cos_dphi:.7f} (gate >= 0.99995); K3 GL12 int8={int8} spectral "
+                    f"conv {sc_k:.5f}, its plain version {sc_p:.5f} (gate delta <= 0.02)")
+                gate(mel2 <= 0.05 and att2 <= 0.02,
+                     ("synthesize K1 vs decode_plain", K.shape, syn.n_frames, mel2, att2))
+                gate(cos_dphi >= 0.99995 and abs(sc_k - sc_p) <= 0.02,
+                     ("synthesize K2/K3 vs plain", mag.shape, cos_dphi, sc_k, sc_p))
+            del syn_calls[:], gl_calls[:], syn, m, K, V, s1, s2, packed, y, a, yq, aq, mag
+            del init, k_re, k_im, g12, p12
+
+            # -- outside the counted runs: every impl against "xla" --------------
+            loaders = {kind: DeviceReplayLoader(TTSDataSource(base, "train", spec, need_lin=lin),
+                                                base.batch_size, with_lin=lin, seed=0,
+                                                device=dev)
+                       for kind, lin in (("train_text2mel", False), ("train_ssrn", True))}
+            torch.manual_seed(0)
+            melsyn, ssrn, mel_disc, lin_disc = cli.build_models(base, device=dev)
+            nets = {"train_text2mel": (melsyn, mel_disc), "train_ssrn": (ssrn, lin_disc)}
+            steady = {}
+            for kind, (gen, disc) in nets.items():
+                # the largest batch of the epoch (B × frames), the shape a step times
+                batch = max(loaders[kind], key=lambda b: b["mel"].shape[0] * b["mel"].shape[1])
+                # one batch of each (frames, text) bucket the CLI runs trained on
+                buckets = {}
+                for b in loaders[kind]:
+                    buckets.setdefault((b["mel"].shape[1], b["text"].shape[1]), b)
+                init = [{k: v.clone() for k, v in m.state_dict().items()} for m in (gen, disc)]
+                names, params = zip(*[(k, p) for k, p in gen.named_parameters()
+                                      if p.requires_grad])
+                gaw = steps.guided_attention_table(base)
+                for (T_b, N_b), bb in sorted(buckets.items()):
+                    first = {}
+                    for impl in GATE_IMPLS:
+                        with gate_impl(impl):
+                            init_fn, g_step, d_step = make_steps(gen, disc, base, kind)
+                            # each step from the initial weights: after one Adam step a
+                            # parameter moves by ~lr·sign(g), so rounding in a near-zero
+                            # gradient would move the second step's inputs by ~lr
+                            for m, sd in zip((gen, disc), init):
+                                load_state(m, sd)
+                            # the generator's outputs in the G step
+                            got = {}
+                            hook = gen.register_forward_hook(lambda mod, i, o: got.update(
+                                out=[t.detach().clone() for t in (o if isinstance(o, tuple)
+                                                                  else (o,))]))
+                            before = snap()
+                            _, gm = g_step(init_fn(), bb)
+                            torch.cuda.synchronize()
+                            g_n = since(before)
+                            hook.remove()
+                            for m, sd in zip((gen, disc), init):
+                                load_state(m, sd)
+                            before = snap()
+                            mix = torch.Generator(device=dev).manual_seed(1)
+                            _, dm = d_step(init_fn(), bb, mix)
+                            torch.cuda.synchronize()
+                            d_n = since(before)
+                            # the G step's gradient is ∇recon + c·∇loss_disc with c =
+                            # recon/|loss_disc| from the forward; the two are held
+                            # apart, from the initial weights. The backwards recompute
+                            # the plain version, so a fault there moves them by O(1);
+                            # rounding alone moves them far more than the outputs
+                            # (K6's 4e-6 in the outputs gave 8.6e-4 in ∇recon on the
+                            # card: the L1 loss's sign and the ReLUs' masks flip), so
+                            # the gates sit at 1e-2 (whole) and 5e-2 (a parameter)
+                            for m, sd in zip((gen, disc), init):
+                                load_state(m, sd)
+                            gen.train(base.apply_dropout)
+                            y, a = steps._gen_forward(gen, bb, kind)
+                            rl, _ = steps._recon_losses(bb, y, a, gaw, kind, False)
+                            ld = torch.mean(-disc(y.float()))
+                            got["grads"] = [
+                                [torch.zeros_like(p) if g is None else g for p, g in zip(
+                                    params, torch.autograd.grad(loss, params, retain_graph=True,
+                                                                allow_unused=True))]
+                                for loss in (rl, ld)]
+                            got["coeff"] = float(rl / ld.abs())
+                            del y, a, rl, ld
+                        recon = sum(float(gm[k]) for k in ("l1", "bd", "att") if k in gm)
+                        first[impl] = dict(losses=(float(gm["loss"]), float(dm["loss_d"]),
+                                                   float(dm["gp"]), recon), **got)
+                        if impl in impl_kernel:
+                            gate(g_n[impl_kernel[impl]] > 0 and d_n[impl_kernel[impl]] > 0,
+                                 (kind, impl, "the impl's kernel did not run in G and D", g_n,
+                                  d_n))
+                        ref = first["xla"]
+                        # the G loss is recon·(1 ± 1) (the adaptive weight cancels it when
+                        # the critic's term is negative), so it is held relative to recon
+                        scale = (ref["losses"][3], abs(ref["losses"][1]), abs(ref["losses"][2]),
+                                 ref["losses"][3])
+                        rel = max(abs(a - b) / s_ for a, b, s_ in zip(first[impl]["losses"],
+                                                                      ref["losses"], scale))
+                        out_d = max(float((o - r).abs().max()) for o, r in
+                                    zip(first[impl]["out"], ref["out"]))
+                        # of ∇recon and ∇loss_disc: each parameter's difference over
+                        # its norm, and the whole gradient's (all parameters as one)
+                        whole, worst = [], []
+                        for gs_i, gs_x in zip(first[impl]["grads"], ref["grads"]):
+                            d2 = [float(torch.linalg.norm(g - r)) ** 2
+                                  for g, r in zip(gs_i, gs_x)]
+                            r2 = [float(torch.linalg.norm(r)) ** 2 for r in gs_x]
+                            whole.append(float(np.sqrt(sum(d2) / sum(r2))))
+                            worst.append(max((float(np.sqrt(d / max(r, 1e-60))), n)
+                                             for d, r, n in zip(d2, r2, names)))
+                        c_rel = abs(first[impl]["coeff"] / ref["coeff"] - 1.0)
+                        outs = "s (mel, attention)" if len(ref["out"]) > 1 else ""
+                        log(f"[train-cli] {kind} B={bb['mel'].shape[0]} T={T_b} N={N_b} first "
+                            f"G loss / D loss_d / gp / recon under {impl}: "
+                            f"{first[impl]['losses']}, max relative to xla {rel:.3g} (gate "
+                            f"1e-4); G-step generator output{outs} "
+                            f"max|d| {out_d:.3g} (gate 1e-4); gradients of recon / loss_disc "
+                            f"(all {len(params)} parameters) relative difference "
+                            f"{whole[0]:.3g} / {whole[1]:.3g} (gate 1e-2), largest per "
+                            f"parameter {worst[0][0]:.3g} ({worst[0][1]}) / {worst[1][0]:.3g} "
+                            f"({worst[1][1]}) (gate 5e-2); the adaptive weight "
+                            f"recon/|loss_disc| {first[impl]['coeff']:.6g}, relative to xla "
+                            f"{c_rel:.3g}; G launches "
+                            f"{ {k: g_n[k] for k in highway} }, D "
+                            f"{ {k: d_n[k] for k in highway} }")
+                        gate(rel <= 1e-4, (kind, impl, T_b, N_b, "first steps vs xla",
+                                           first[impl]["losses"], ref["losses"]))
+                        gate(out_d <= 1e-4 and max(whole) <= 1e-2
+                             and max(w for w, _ in worst) <= 5e-2,
+                             (kind, impl, T_b, N_b, "G-step outputs / gradients vs xla", out_d,
+                              whole, worst))
+                    del first, got
+                # the critic alone: forward, penalty gradient and its backward
+                x = batch["mel" if kind == "train_text2mel" else "lin"].clone().requires_grad_()
+                for impl in GATE_IMPLS:
+                    with gate_impl(impl):
+                        before = snap()
+                        gx, = torch.autograd.grad(disc(x).sum(), x, create_graph=True)
+                        ((gx.flatten(1).norm(dim=1) - 1.0) ** 2).mean().backward()
+                        torch.cuda.synchronize()
+                        c_n = since(before)
+                    gate(all(c_n[k] == 0 for k in highway), (kind, impl, "critic launched", c_n))
+                log(f"[train-cli] {kind} critic forward + penalty under every impl: 0 highway "
+                    f"kernel launches")
+                # steady-state step times under the impl the CLI run used: one warm-up
+                # step each, then 5 G and 5 D steps, host clock closed by a sync
+                impl = "fused_pair" if kind == "train_text2mel" else "fused_conv"
+                with gate_impl(impl):
+                    init_fn, g_step, d_step = make_steps(gen, disc, base, kind)
+                    state = init_fn()
+                    mix = torch.Generator(device=dev).manual_seed(2)
+                    times = {"G": [], "D": []}
+                    for which in ["G", "D"] + ["G"] * 5 + ["D"] * 5:
+                        torch.cuda.synchronize()
+                        t = time.perf_counter()
+                        state, _ = (g_step(state, batch) if which == "G"
+                                    else d_step(state, batch, mix))
+                        torch.cuda.synchronize()
+                        times[which].append(1e3 * (time.perf_counter() - t))
+                    for which, step in (("G", lambda: g_step(state, batch)),
+                                        ("D", lambda: d_step(state, batch, mix))):
+                        device_view(step, smi, f"[train-cli] {kind} device view of one "
+                                               f"{which} step under {impl}")
+                steady[kind] = {k: round(statistics.median(v[1:]), 3) for k, v in times.items()}
+                log(f"[train-cli] {kind} steady steps under {impl}, B={batch['mel'].shape[0]} "
+                    f"T={batch['mel'].shape[1]} N={batch['text'].shape[1]}: G ms "
+                    f"{[round(v, 2) for v in times['G'][1:]]}, D ms "
+                    f"{[round(v, 2) for v in times['D'][1:]]} (after one warm-up each; host "
+                    f"clock closed by synchronize) on [{smi}]")
+            data_bytes = {kind: ld.nbytes for kind, ld in loaders.items()}
+            del loaders, melsyn, ssrn, mel_disc, lin_disc, nets, batch, x, gx
+
+            # -- the weaker GAN variants: Trainer alone, Text2Mel ----------------
+            variant_ms = {}
+            loader = DeviceReplayLoader(TTSDataSource(base, "train", spec, need_lin=False),
+                                        base.batch_size, seed=0, device=dev)
+            for gan_type in ("wgan", "vanilla"):
+                torch.manual_seed(0)
+                gen = cli.build_models(base, device=dev)[0]
+                disc = MelDisc(base.disc_dim, sigmoid_out=gan_type == "vanilla",
+                               freq_bins=base.mel.freq_bins).to(dev)
+                seen.clear()
+                tr_v = Trainer(base, gen, "train_text2mel", adversarial=True, gan_type=gan_type,
+                               disc_model=disc, ctime=gan_type)
+                tr_v.fit(lambda: loader, max_iterations=6)
+                tr_v.close()
+                vals = [float(v) for r in seen for v in r["metrics"].values()]
+                variant_ms[gan_type] = (median_ms(seen, "G"), median_ms(seen, "D"))
+                clipped = max(float(p.detach().abs().max()) for name, p in
+                              disc.named_parameters() if name.endswith(".weight"))
+                log(f"[train-cli] {gan_type}: 6 iterations, G/D ms (median) "
+                    f"{variant_ms[gan_type]}, losses {[round(v, 5) for v in vals]}, critic "
+                    f"max |weight| {clipped:.6f}")
+                gate(tr_v.iteration == 6 and len(seen) == 6 and bool(np.isfinite(vals).all()),
+                     (gan_type, "losses", vals))
+                if gan_type == "wgan":
+                    gate(all(bool((p.abs() <= 0.1).all()) for name, p in disc.named_parameters()
+                             if name.endswith(".weight")), ("wgan critic not clipped", clipped))
+            log(f"[train-cli] step ms (median, host clock closed by synchronize): wgan-gp "
+                f"steady G/D {steady}; in the CLI runs (first steps included) text2mel G/D "
+                f"{t2m_ms}, ssrn G/D {ssrn_ms}; text2mel wgan "
+                f"{variant_ms['wgan']}, vanilla {variant_ms['vanilla']}; features "
+                f"{feature_s:.2f} s; synthesize wall {syn_wall:.3f} s; device-resident "
+                f"training sets: text2mel {t2m_bytes} bytes, ssrn {ssrn_bytes} bytes (loaders "
+                f"{data_bytes}) on [{smi}]")
+            out = {"train_cli": train_launches, "synthesize_cli": syn_launches}
+    finally:
+        steps.make_adversarial_steps = make_steps
+        loop.make_fused_decoder = make_fused
+        syn_mod.Synthesizer.__call__ = syn_call
+        syn_mod.griffin_lim_tc = gl_tc
+    return out
 
 
 def main() -> None:
@@ -1554,8 +2128,14 @@ def main() -> None:
     t0 = time.perf_counter()
     gen_launches = spoofgen_phase(cfg, dev, state_dicts, counters, cluster, smi)
     log(f"[time] phase 9 {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 10: the training CLI on a toy corpus, then synthesize ----------
+    t0 = time.perf_counter()
+    cli_launches = train_cli_phase(cfg, dev, counters, cluster, smi, onsets, before_onset,
+                                   spectral_err)
+    log(f"[time] phase 10 {time.perf_counter() - t0:.1f} s")
     paths = {"synthesis": launches, "training": train_launches, "serving": serve_launches,
-             "spoofgen": gen_launches}
+             "spoofgen": gen_launches, **cli_launches}
     for k, entry in kernels.items():
         entry["launches_by_path"] = {p: n[k] for p, n in paths.items() if k in n}
 

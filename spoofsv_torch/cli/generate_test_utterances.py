@@ -53,7 +53,8 @@ def main(argv=None, device=None) -> None:
     cfg = load_config(args.configuration)
     apply_runtime_knobs(cfg, infer=True)
     dev = resolve_device(device)
-    melsyn, ssrn = build_models(cfg, "conditional", dtype=inference_dtype(cfg, dev), device=dev)
+    melsyn, ssrn, _, _ = build_models(cfg, "conditional", dtype=inference_dtype(cfg, dev),
+                                      device=dev)
     load_generator_params(cfg.inference_text2mel_model, melsyn)
     load_generator_params(cfg.inference_ssrn_model, ssrn)
     syn = Synthesizer(cfg, melsyn, ssrn, n_frames=cfg.max_frame_num)

@@ -1,21 +1,71 @@
-"""Host-side (numpy) audio tail: silence trimming and wav output.
+"""Host-side (numpy) DSP: wav I/O, trimming and the training features.
 
-Copies of :func:`spoofsv_tpu.dsp.host.trim_silence` (librosa.effects.trim
-semantics) and :func:`spoofsv_tpu.dsp.host.write_wav`; importing
-``spoofsv_tpu.dsp`` loads jax.
+Copies of :mod:`spoofsv_tpu.dsp.host` (importing ``spoofsv_tpu.dsp`` loads
+jax): ``load_wav``/``write_wav``/``resample`` through scipy,
+``trim_silence`` (librosa.effects.trim semantics), pre- and de-emphasis,
+``amplitude_to_db``, the centered magnitude STFT and ``tts_features``, the
+reference dataset's feature pipeline (``data/dataset.py:94-118``). This is
+host code in both packages; ``--save_spectrogram`` caches its output.
+
+FLAC is not read here: the JAX package decodes it with its native
+``libspoofkit`` codec, which is not built for the port yet (ROADMAP A.3).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
+from spoofsv_torch.config import Config
+from spoofsv_torch.dsp.primitives import frame_indices, hann_window, mel_filterbank, pad_center
 
-def _frame_count(n_samples: int, frame_length: int, hop_length: int) -> int:
-    if n_samples < frame_length:
-        return 0
-    return 1 + (n_samples - frame_length) // hop_length
+
+def load_wav(path: str, sr: Optional[int] = None, mono: bool = True) -> Tuple[np.ndarray, int]:
+    """Read a wav file → (float32 in [-1, 1], sample rate), resampled to
+    ``sr`` when given and different. A ``.flac`` path raises
+    ``NotImplementedError``."""
+    from scipy.io import wavfile
+
+    if path.lower().endswith(".flac"):
+        raise NotImplementedError(
+            f"{path}: FLAC needs the native libspoofkit codec, not built for the port yet "
+            "(ROADMAP A.3)")
+    rate, data = wavfile.read(path)
+    if data.dtype == np.int16:
+        y = data.astype(np.float32) / 32768.0
+    elif data.dtype == np.int32:
+        y = data.astype(np.float32) / 2147483648.0
+    elif data.dtype == np.uint8:
+        y = (data.astype(np.float32) - 128.0) / 128.0
+    else:
+        y = data.astype(np.float32)
+    if mono and y.ndim > 1:
+        y = y.mean(axis=1)
+    if sr is not None and sr != rate:
+        y = resample(y, rate, sr)
+        rate = sr
+    return y, rate
+
+
+def write_wav(path, y: np.ndarray, sr: int) -> None:
+    """Write float audio as 16-bit PCM wav to ``path`` (a file name or a
+    binary file object)."""
+    from scipy.io import wavfile
+
+    y = np.asarray(y, dtype=np.float32)
+    y = np.clip(y, -1.0, 1.0)
+    wavfile.write(path, sr, (y * 32767.0).astype(np.int16))
+
+
+def resample(y: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
+    """Polyphase resampling (scipy's Kaiser-windowed FIR)."""
+    from math import gcd
+
+    from scipy.signal import resample_poly
+
+    g = gcd(int(orig_sr), int(target_sr))
+    return resample_poly(y, target_sr // g, orig_sr // g).astype(np.float32)
 
 
 def _rms_db(y: np.ndarray, frame_length: int, hop_length: int) -> np.ndarray:
@@ -23,7 +73,7 @@ def _rms_db(y: np.ndarray, frame_length: int, hop_length: int) -> np.ndarray:
     y = np.asarray(y, dtype=np.float32)
     padded = np.pad(y, frame_length // 2, mode="reflect") if len(y) > frame_length // 2 \
         else np.pad(y, frame_length // 2, mode="constant")
-    n_frames = _frame_count(len(padded), frame_length, hop_length)
+    n_frames = frame_indices(len(padded), frame_length, hop_length)
     if n_frames <= 0:
         return np.zeros((0,), dtype=np.float32)
     idx = np.arange(n_frames)[:, None] * hop_length + np.arange(frame_length)[None, :]
@@ -45,11 +95,63 @@ def trim_silence(y: np.ndarray, top_db: float, frame_length: int = 2048,
     return y[start:end], (start, end)
 
 
-def write_wav(path, y: np.ndarray, sr: int) -> None:
-    """Write float audio as 16-bit PCM wav to ``path`` (a file name or a
-    binary file object)."""
-    from scipy.io import wavfile
+def amplitude_to_db(S: np.ndarray, amin: float = 1e-5, top_db: float = 80.0) -> np.ndarray:
+    """librosa.amplitude_to_db(ref=1.0) semantics."""
+    db = 20.0 * np.log10(np.maximum(amin, np.abs(S)))
+    if top_db is not None:
+        db = np.maximum(db, db.max() - top_db)
+    return db.astype(np.float32)
 
-    y = np.asarray(y, dtype=np.float32)
-    y = np.clip(y, -1.0, 1.0)
-    wavfile.write(path, sr, (y * 32767.0).astype(np.int16))
+
+def preemphasis(y: np.ndarray, coeff: float) -> np.ndarray:
+    """First-difference pre-emphasis (``data/dataset.py:96``)."""
+    return np.append(y[0], y[1:] - coeff * y[:-1]).astype(np.float32)
+
+
+def deemphasis(y: np.ndarray, coeff: float) -> np.ndarray:
+    """Inverse of :func:`preemphasis`, the IIR ``y[n] = x[n] + c·y[n-1]``."""
+    from scipy.signal import lfilter
+
+    return lfilter([1.0], [1.0, -coeff], y).astype(np.float32)
+
+
+def stft(y: np.ndarray, n_fft: int, hop_length: int, win_length: Optional[int] = None,
+         center: bool = True) -> np.ndarray:
+    """Complex STFT, shape ``(1+n_fft//2, n_frames)`` (librosa layout)."""
+    if win_length is None:
+        win_length = n_fft
+    window = pad_center(hann_window(win_length), n_fft).astype(np.float32)
+    if center:
+        y = np.pad(y, n_fft // 2, mode="reflect")
+    n_frames = frame_indices(len(y), n_fft, hop_length)
+    idx = np.arange(n_frames)[:, None] * hop_length + np.arange(n_fft)[None, :]
+    return np.fft.rfft(y[idx] * window[None, :], axis=1).T
+
+
+def stft_mag(y: np.ndarray, n_fft: int, hop_length: int,
+             win_length: Optional[int] = None) -> np.ndarray:
+    return np.abs(stft(y, n_fft, hop_length, win_length)).astype(np.float32)
+
+
+def tts_features(y: np.ndarray, sr: int, cfg: Config) -> Tuple[np.ndarray, np.ndarray]:
+    """The reference feature pipeline → (coarse mel (Tr, M), lin (4·Tr, F)),
+    time-major: trim (22 dB) → pre-emphasis → |STFT| → Slaney mel → per-utterance
+    max-norm and power ``analysis_power`` (or the log-dB clip) → every r-th
+    mel frame, lin cut to r·Tr frames."""
+    y, _ = trim_silence(y, top_db=22.0)
+    y = preemphasis(y, cfg.preemph)
+    lin = stft_mag(y, cfg.stft.fft_length, cfg.stft.hop_length)     # (F, T)
+    fb = mel_filterbank(sr, cfg.stft.fft_length, cfg.mel.freq_bins)  # (M, F)
+    mel = fb @ lin                                                   # (M, T)
+    if cfg.norm.log_feature:
+        mel_db = 20.0 * np.log10(np.maximum(1e-5, mel))
+        lin_db = 20.0 * np.log10(np.maximum(1e-5, lin))
+        mel_n = np.clip((mel_db - cfg.norm.ref_db + cfg.norm.max_db) / cfg.norm.max_db, 1e-8, 1.0)
+        lin_n = np.clip((lin_db - cfg.norm.ref_db + cfg.norm.max_db) / cfg.norm.max_db, 1e-8, 1.0)
+    else:
+        mel_n = (mel / np.max(mel)) ** cfg.norm.analysis_power
+        lin_n = (lin / np.max(lin)) ** cfg.norm.analysis_power
+    r = cfg.mel.reduction
+    t_reduced = mel.shape[1] // r
+    coarse = mel_n[:, : t_reduced * r: r]
+    return coarse.T.astype(np.float32), lin_n[:, : t_reduced * r].T.astype(np.float32)

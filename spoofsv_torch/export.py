@@ -12,6 +12,9 @@ repo's parameter names and layouts:
     weight (in, out, k)
   * LayerNorm scale/bias          → weight/bias
   * Embed.embedding (vocab, emb) + bias → text ``Linear(vocab→emb)``
+
+``export_melsyn``, ``export_ssrn`` and ``export_critic`` are copies of the
+JAX package's (``spoofsv_tpu/utils/torch_export.py``).
 """
 
 from __future__ import annotations
@@ -114,4 +117,16 @@ def export_ssrn(params) -> Dict[str, np.ndarray]:
         _undeconv(sd, p[f"ups{u}"]["deconv"], f"ups{u}.deconv")
         _unhighway(sd, p[f"ups{u}"]["hc1"], f"ups{u}.hc1")
         _unhighway(sd, p[f"ups{u}"]["hc2"], f"ups{u}.hc2")
+    return sd
+
+
+def export_critic(params) -> Dict[str, np.ndarray]:
+    """Critic1D parameter tree → reference ``melDisc``/``linDisc`` state_dict arrays."""
+    p = _params(params)
+    sd: Dict[str, np.ndarray] = {}
+    for i in range(1, 6):
+        _undense(sd, p[f"conv{i}"], f"conv{i}")
+    for i in range(1, 5):
+        _unln(sd, p[f"ln{i}"], f"ln{i}")
+    _unhighway(sd, p["hc"], "hc")
     return sd

@@ -1,4 +1,5 @@
+from spoofsv_torch.models.discriminator import Critic1D, LinDisc, MelDisc
 from spoofsv_torch.models.ssrn import SSRN
 from spoofsv_torch.models.text2mel import MelSyn
 
-__all__ = ["MelSyn", "SSRN"]
+__all__ = ["Critic1D", "LinDisc", "MelDisc", "MelSyn", "SSRN"]

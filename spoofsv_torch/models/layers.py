@@ -12,12 +12,15 @@ process-wide as in the JAX package (``set_default_gate_impl``, or the
 block in kernel K4) and ``"fused_pair"`` (:func:`highway_pair` runs two
 consecutive blocks in kernel K5; a block without a fusable partner runs K4).
 The names are the JAX package's. CPU tensors take each kernel's plain version.
+A block built with its own ``gate_impl`` runs that one whatever the process
+default (the critics pin ``"xla"``: the gradient penalty differentiates them
+twice, which the kernels' backwards do not support).
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, Tuple
+from typing import Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -103,12 +106,18 @@ class HighwayConv(nn.Module):
 
     ``y = σ(LN1(h1))·LN2(h2) + (1−σ(LN1(h1)))·x`` where ``[h1, h2]`` is a
     width-``2·dim`` conv of the input. The causal variant left-pads
-    ``dilation·(kernel_size−1)`` zeros.
+    ``dilation·(kernel_size−1)`` zeros. ``gate_impl`` (one of
+    :data:`GATE_IMPLS`) overrides the process-wide implementation for this
+    block; None follows it.
     """
 
     def __init__(self, dim: int, kernel_size: int = 3, dilation: int = 1,
-                 causal: bool = False, dropout_rate: float = 0.0):
+                 causal: bool = False, dropout_rate: float = 0.0,
+                 gate_impl: Optional[str] = None):
         super().__init__()
+        if gate_impl is not None and gate_impl not in GATE_IMPLS:
+            raise ValueError(f"highway impl must be one of {GATE_IMPLS}, got {gate_impl!r}")
+        self.gate_impl = gate_impl
         self.dim = dim
         self.kernel_size = kernel_size
         self.dilation = dilation
@@ -134,7 +143,7 @@ class HighwayConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Full-sequence forward; ``x``: (B, T, C)."""
-        impl = _default_gate_impl
+        impl = self.gate_impl or _default_gate_impl
         if impl in ("fused_conv", "fused_pair") and self.pad <= min(PALLAS_BLOCK_T, x.shape[1]):
             # whole block in K4 (a "fused_pair" block with no fusable partner
             # lands here too); shorter inputs than the conv's halo take the
@@ -194,9 +203,10 @@ def pair_fusable(a: HighwayConv, b: HighwayConv, T: int, deterministic: bool) ->
 
 
 def highway_pair(a: HighwayConv, b: HighwayConv, x: torch.Tensor) -> torch.Tensor:
-    """``b(a(x))``; under ``"fused_pair"`` one K5 pass where the JAX package
-    fuses the pair (:func:`pair_fusable`)."""
-    if (_default_gate_impl == "fused_pair"
+    """``b(a(x))``; under ``"fused_pair"`` (``a``'s own impl, else the
+    process-wide one) one K5 pass where the JAX package fuses the pair
+    (:func:`pair_fusable`)."""
+    if ((a.gate_impl or _default_gate_impl) == "fused_pair"
             and pair_fusable(a, b, x.shape[1], deterministic=not a.training)):
         out = fused_highway_conv_pair(x, a.conv.weight, a.conv.bias, *a.ln_params(),
                                       b.conv.weight, b.conv.bias, *b.ln_params(),

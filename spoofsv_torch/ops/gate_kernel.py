@@ -79,7 +79,11 @@ def gate_launch(h: torch.Tensor, x: torch.Tensor, s1, b1, s2, b2,
 
 def recompute_grads(ctx, plain, grad_out: torch.Tensor, *static):
     """Backward of the fused wrappers: the gradient of the plain version,
-    recomputed from the saved inputs (the JAX package's custom_vjp design)."""
+    recomputed from the saved inputs (the JAX package's custom_vjp design).
+    It builds no graph of its own, so the wrappers' backwards are marked
+    ``once_differentiable``: a second derivative through one of them (a
+    gradient penalty's ``create_graph=True``) raises instead of silently
+    dropping its terms."""
     saved = ctx.saved_tensors
     need = ctx.needs_input_grad[:len(saved)]
     with torch.enable_grad():
@@ -99,6 +103,7 @@ class _FusedGate(torch.autograd.Function):
         return gate_launch(h, x, s1, b1, s2, b2)
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, grad_out):
         return recompute_grads(ctx, highway_gate_plain, grad_out)
 

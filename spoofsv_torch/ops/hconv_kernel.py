@@ -215,6 +215,7 @@ class _FusedConv(torch.autograd.Function):
         return hconv_launch(x, weight, bias, s1, b1, s2, b2, dilation, causal)
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, grad_out):
         return recompute_grads(ctx, highway_conv_plain, grad_out, *ctx.static) + (None, None)
 
@@ -231,6 +232,7 @@ class _FusedPair(torch.autograd.Function):
         return hconv_pair_launch(*args, *ctx.static)
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, grad_out):
         return recompute_grads(ctx, highway_pair_plain, grad_out, *ctx.static) + (None,) * 3
 

@@ -1,22 +1,27 @@
-"""Training orchestration, ordinary path: validation, checkpoint/resume, metrics.
+"""Training orchestration: validation, checkpoint/resume, metrics, plots.
 
-Port of :mod:`spoofsv_tpu.train.loop` for ordinary (non-adversarial)
-training:
+Port of :mod:`spoofsv_tpu.train.loop`:
 
+  * ordinary training, or adversarial training with the G/D alternation by
+    global iteration (G when ``iteration % (ratio+1) == 0``, D otherwise)
+    and the loss logs ``t_s``, ``t_s_o`` (G steps) and ``t_d``, ``wd`` (D
+    steps);
   * validation every ``val_every_iter`` iterations runs the real
     autoregressive decode (the decode kernel K1 on a card) for Text2Mel, the
     forward pass for SSRN, on the validation batches plus one train batch;
   * checkpoints keep the directory contract
-    ``<src_root>/checkpoints/<pattern>/not_adversarial/<ctime>/<tag>.tar.pth``
+    ``<src_root>/checkpoints/<pattern>/<adversarial|not_adversarial>/<ctime>/<tag>.tar.pth``
     (tag ``{text2mel|ssrn}_iteration_N`` or ``*_best_model``) and the
     reference ``.tar.pth`` schema (``train/ordinary.py:271-284`` of the
-    reference, written here by the port's own code):
-    ``model_state_dict``, ``optimizer_state_dict`` (here with the real Adam
-    moments), ``iteration``, ``epoch``, ``loss_val_log``;
-  * JSONL metrics.
+    reference, written here by the port's own code): ``model_state_dict``
+    (the generator), ``optimizer_state_dict`` (here with the real Adam
+    moments), ``iteration``, ``epoch``, ``loss_val_log``; an adversarial
+    checkpoint adds ``disc_state_dict`` (the critic),
+    ``disc_optimizer_state_dict`` (the critic's Adam) and ``loss_logs``;
+  * JSONL metrics and, when matplotlib is importable, the attention and
+    loss-curve PNGs.
 
-Not ported here: data-parallel training over a mesh, adversarial training,
-and the PNG plots.
+Not ported here: data-parallel training over a mesh (ROADMAP A.9).
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import json
 import os
 import re
 import time
-from typing import Any, Callable, Dict, Iterable, List, Optional
+from typing import Any, Callable, Dict, Iterable, List, Optional, Union
 
 import numpy as np
 import torch
@@ -34,8 +39,9 @@ from torch import nn
 from spoofsv_torch.config import Config
 from spoofsv_torch.ops.decode_kernel import make_fused_decoder
 from spoofsv_torch.train.losses import binary_divergence, guided_attention_loss, l1_loss
-from spoofsv_torch.train.state import TrainState
-from spoofsv_torch.train.steps import eval_mode, guided_attention_table, make_ordinary_step
+from spoofsv_torch.train.state import AdvTrainState, TrainState
+from spoofsv_torch.train.steps import (eval_mode, guided_attention_table, is_g_step,
+                                       make_fused_adversarial_step, make_ordinary_step)
 from spoofsv_torch.weights import load_state
 
 Batch = Dict[str, torch.Tensor]
@@ -63,6 +69,62 @@ class MetricsLogger:
             self._f = None
 
 
+def _pyplot():
+    """matplotlib's pyplot on the Agg backend, or None (printing that the PNG
+    is skipped) where matplotlib is not installed."""
+    try:
+        import matplotlib
+    except ImportError:
+        print("[plot] matplotlib is not installed: PNG skipped")
+        return None
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    return plt
+
+
+def plot_attention(att: np.ndarray, iters: int, fig_dir: str) -> None:
+    """Attention heatmap PNG (``train/ordinary.py:30-44``)."""
+    plt = _pyplot()
+    if plt is None:
+        return
+    os.makedirs(fig_dir, exist_ok=True)
+    fig, ax = plt.subplots()
+    img = ax.imshow(np.asarray(att))
+    fig.colorbar(img)
+    plt.title(f"{iters} iterations")
+    plt.savefig(os.path.join(fig_dir, f"att_iteration_{iters}.png"), format="png")
+    plt.close(fig)
+
+
+def plot_losses(losses: Dict[str, List[float]], iters: int, fig_dir: str) -> None:
+    """GAN loss curves (``train/adversarial_wasserstein_gp.py:45-63``)."""
+    plt = _pyplot()
+    if plt is None:
+        return
+    os.makedirs(fig_dir, exist_ok=True)
+    fig1, ax1 = plt.subplots(2, 1)
+    fig1.tight_layout()
+    ax1[0].set_title("Discriminator Train Loss")
+    ax1[1].set_title("Wasserstein Distance")
+    ax1[0].plot(losses.get("t_d", []), color="green")
+    ax1[1].plot(losses.get("wd", []), color="purple")
+    plt.savefig(os.path.join(fig_dir, f"DiscriminatorTrainLoss_iteration_{iters}.png"))
+    plt.close(fig1)
+    fig2, ax2 = plt.subplots(2, 1)
+    fig2.tight_layout()
+    ax2[0].set_title("Generator Train Loss")
+    ax2[1].set_title("Generator Train Loss (From Discriminator)")
+    ax2[0].plot(losses.get("t_s", []), color="blue")
+    ax2[1].plot(losses.get("t_s_o", []), color="orange")
+    plt.savefig(os.path.join(fig_dir, f"GeneratorTrainLoss_iteration_{iters}.png"))
+    plt.close(fig2)
+
+
+def _state_dict(module: nn.Module) -> Dict[str, torch.Tensor]:
+    return {k: v.detach().cpu() for k, v in module.state_dict().items()}
+
+
 class CheckpointManager:
     """Reference-schema ``.tar.pth`` checkpoints in the reference's directory layout."""
 
@@ -76,18 +138,24 @@ class CheckpointManager:
     def _path(self, tag: str) -> str:
         return os.path.abspath(os.path.join(self.base, f"{tag}.tar.pth"))
 
-    def save(self, state: TrainState, host_meta: Dict[str, Any], best: bool = False) -> str:
+    def save(self, state: Union[TrainState, AdvTrainState], host_meta: Dict[str, Any],
+             best: bool = False) -> str:
+        """Write ``state`` and ``host_meta`` (``epoch``, ``iteration``,
+        ``loss_val_log``, and ``loss_logs`` for an :class:`AdvTrainState`)."""
         tag = (f"{self.prefix}_best_model" if best
                else f"{self.prefix}_iteration_{host_meta['iteration']}")
         path = self._path(tag)
-        ckpt = {
-            "epoch": host_meta["epoch"],
-            "iteration": host_meta["iteration"],
-            "model_state_dict": {k: v.detach().cpu()
-                                 for k, v in state.model.state_dict().items()},
-            "optimizer_state_dict": state.optimizer.state_dict(),
-            "loss_val_log": list(host_meta["loss_val_log"]),
-        }
+        ckpt = {"epoch": host_meta["epoch"], "iteration": host_meta["iteration"],
+                "loss_val_log": list(host_meta["loss_val_log"])}
+        if isinstance(state, AdvTrainState):
+            ckpt.update(model_state_dict=_state_dict(state.gen),
+                        optimizer_state_dict=state.gen_optimizer.state_dict(),
+                        disc_state_dict=_state_dict(state.disc),
+                        disc_optimizer_state_dict=state.disc_optimizer.state_dict(),
+                        loss_logs={k: list(v) for k, v in host_meta["loss_logs"].items()})
+        else:
+            ckpt.update(model_state_dict=_state_dict(state.model),
+                        optimizer_state_dict=state.optimizer.state_dict())
         tmp = f"{path}.{os.getpid()}.tmp"
         torch.save(ckpt, tmp)
         os.replace(tmp, path)   # a reader never sees a half-written file
@@ -140,44 +208,71 @@ def make_ssrn_validator(ssrn: nn.Module, cfg: Config):
 
 
 class Trainer:
-    """Ordinary training with the reference's cadence: an optimizer step per
-    batch, validation and checkpoints every ``cfg.val_every_iter`` iterations.
-    The model's parameters fix the device; batches are moved there."""
+    """Ordinary or adversarial training with the reference's cadence: an
+    optimizer step per batch (adversarial: the fused step of
+    :func:`spoofsv_torch.train.steps.make_fused_adversarial_step`, a G step
+    when ``iteration % (ratio+1) == 0``, a D step otherwise, its metrics
+    padded to :data:`~spoofsv_torch.train.steps.FUSED_METRICS`), validation
+    and checkpoints every ``cfg.val_every_iter`` iterations. The generator's
+    parameters fix the device; batches are moved there. The WGAN-GP
+    penalty's mixing draws come from a ``torch.Generator`` on that device,
+    seeded by ``fit(rng_seed=...)``."""
 
     def __init__(self, cfg: Config, gen_model: nn.Module, train_kind: str,
-                 pattern: str = "conditional", ctime: str = "dev", use_masks: bool = False,
-                 validate_with_decode: bool = True, metrics_every: int = 1):
+                 pattern: str = "conditional", adversarial: bool = False,
+                 gan_type: str = "wgan-gp", disc_model: Optional[nn.Module] = None,
+                 ctime: str = "dev", use_masks: bool = False, validate_with_decode: bool = True,
+                 metrics_every: int = 1):
         self.cfg = cfg
         self.gen_model = gen_model
+        self.disc_model = disc_model
         self.train_kind = train_kind
+        self.adversarial = adversarial
         self.metrics_every = max(1, metrics_every)
         self.device = next(gen_model.parameters()).device
-        self.ckpt = CheckpointManager(cfg, pattern, False, ctime, train_kind)
+        self.ckpt = CheckpointManager(cfg, pattern, adversarial, ctime, train_kind)
+        self.fig_dir = os.path.join(self.ckpt.base, "fig")
         self.metrics = MetricsLogger(os.path.join(self.ckpt.base, "metrics.jsonl"))
         self.loss_val_log: List[float] = []
-        self.init_fn, self.step_fn = make_ordinary_step(gen_model, cfg, train_kind, use_masks)
+        self.loss_logs: Dict[str, list] = {"wd": [], "t_s": [], "t_s_o": [], "t_d": []}
+        if adversarial:
+            if disc_model is None:
+                raise ValueError("adversarial training needs a disc_model")
+            self.init_fn, self.adv_step = make_fused_adversarial_step(
+                gen_model, disc_model, cfg, train_kind, gan_type, use_masks)
+        else:
+            self.init_fn, self.step_fn = make_ordinary_step(gen_model, cfg, train_kind, use_masks)
         if train_kind == "train_text2mel" and validate_with_decode:
             self.validator = make_ar_validator(gen_model, cfg)
         elif train_kind == "train_ssrn":
             self.validator = make_ssrn_validator(gen_model, cfg)
         else:
             self.validator = None
-        self.state: Optional[TrainState] = None
+        self.mix_generator = torch.Generator(device=self.device).manual_seed(0)
+        self.state: Optional[Union[TrainState, AdvTrainState]] = None
         self.iteration = 0
         self.epoch = 0
 
     # -- lifecycle ----------------------------------------------------------
-    def init(self) -> TrainState:
+    def init(self) -> Union[TrainState, AdvTrainState]:
         self.state = self.init_fn()
         return self.state
 
     def resume(self, path: str) -> None:
-        """Model weights, Adam moments, iteration, epoch and validation log
-        from a checkpoint this trainer (or the reference) wrote."""
+        """Weights, Adam moments, iteration, epoch, validation log (and, when
+        adversarial, the critic, its Adam and the loss logs) from a
+        checkpoint this trainer (or the reference) wrote."""
         ckpt = self.ckpt.restore(path)
         load_state(self.gen_model, ckpt["model_state_dict"])
+        if self.adversarial:
+            load_state(self.disc_model, ckpt["disc_state_dict"])
         self.state = self.init_fn()
-        self.state.optimizer.load_state_dict(ckpt["optimizer_state_dict"])
+        if self.adversarial:
+            self.state.gen_optimizer.load_state_dict(ckpt["optimizer_state_dict"])
+            self.state.disc_optimizer.load_state_dict(ckpt["disc_optimizer_state_dict"])
+            self.loss_logs = {k: [float(v) for v in vs] for k, vs in ckpt["loss_logs"].items()}
+        else:
+            self.state.optimizer.load_state_dict(ckpt["optimizer_state_dict"])
         self.iteration = int(ckpt.get("iteration", 0))
         self.epoch = int(ckpt.get("epoch", 0))
         self.loss_val_log = [float(v) for v in ckpt.get("loss_val_log", [])]
@@ -186,9 +281,23 @@ class Trainer:
     def close(self) -> None:
         self.metrics.close()
 
+    def _flush_loss_logs(self) -> None:
+        """The loss logs as host floats, one device read per log."""
+        def host(vs: list) -> List[float]:
+            if not any(isinstance(v, torch.Tensor) for v in vs):
+                return [float(v) for v in vs]
+            return torch.stack([torch.as_tensor(v, dtype=torch.float32, device=self.device)
+                                for v in vs]).tolist()
+
+        self.loss_logs = {k: host(vs) for k, vs in self.loss_logs.items()}
+
     def _host_meta(self) -> Dict[str, Any]:
-        return {"iteration": self.iteration, "epoch": self.epoch,
+        meta = {"iteration": self.iteration, "epoch": self.epoch,
                 "loss_val_log": self.loss_val_log}
+        if self.adversarial:
+            self._flush_loss_logs()
+            meta["loss_logs"] = self.loss_logs
+        return meta
 
     def _place_batch(self, batch) -> Batch:
         return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
@@ -196,8 +305,16 @@ class Trainer:
     # -- one iteration ------------------------------------------------------
     def train_iteration(self, batch: Batch) -> Dict[str, float]:
         """One optimizer step. Metrics are read back (a device sync) every
-        ``metrics_every`` iterations and returned; ``{}`` otherwise."""
-        self.state, m = self.step_fn(self.state, batch)
+        ``metrics_every`` iterations and returned; ``{}`` otherwise. The loss
+        logs keep the device values of the other iterations."""
+        if not self.adversarial:
+            self.state, m = self.step_fn(self.state, batch)
+        else:
+            g = is_g_step(self.state.step, self.cfg.ratio)   # the branch the step takes
+            self.state, m = self.adv_step(self.state, batch, self.mix_generator)
+            for name, key in ((("t_s", "loss"), ("t_s_o", "loss_disc")) if g
+                              else (("t_d", "loss_d"), ("wd", "wd"))):
+                self.loss_logs[name].append(m[key])
         self.iteration += 1
         if self.iteration % self.metrics_every:
             return {}
@@ -227,9 +344,11 @@ class Trainer:
     # -- full loop ----------------------------------------------------------
     def fit(self, train_loader_factory: Callable[[], Iterable],
             val_loader_factory: Optional[Callable[[], Iterable]] = None,
-            max_epochs: Optional[int] = None,
-            max_iterations: Optional[int] = None) -> TrainState:
-        """``train_loader_factory()`` → the batches of one epoch (numpy or torch)."""
+            max_epochs: Optional[int] = None, max_iterations: Optional[int] = None,
+            rng_seed: int = 0, plot: bool = False) -> Union[TrainState, AdvTrainState]:
+        """``train_loader_factory()`` → the batches of one epoch (numpy or
+        torch). ``plot``: the loss-curve PNGs after each validation."""
+        self.mix_generator = torch.Generator(device=self.device).manual_seed(rng_seed)
         max_epochs = max_epochs or self.cfg.max_epochs
         last_batch = None
         window_t0 = time.perf_counter()
@@ -252,7 +371,10 @@ class Trainer:
                         and self.iteration > 0
                         and self.iteration % self.cfg.val_every_iter == 0):
                     vb = (self._place_batch(b) for b in val_loader_factory())
-                    self.maybe_validate_and_checkpoint(vb, last_batch)
+                    lv = self.maybe_validate_and_checkpoint(vb, last_batch)
+                    if lv is not None and plot:
+                        self._flush_loss_logs()
+                        plot_losses(self.loss_logs, self.iteration, self.fig_dir)
                     window_t0 = time.perf_counter()
                 if max_iterations and self.iteration >= max_iterations:
                     return self.state

@@ -1,8 +1,8 @@
-"""Train state of the ordinary trainer.
+"""Train states of the ordinary and adversarial trainers.
 
-Port of :class:`spoofsv_tpu.train.state.TrainState`: the step counter, the
-model (its parameters are the JAX state's ``params``) and the optimizer (its
-moments are ``opt_state``). PyTorch updates both in place.
+Port of :mod:`spoofsv_tpu.train.state`: the step counter, the modules (their
+parameters are the JAX states' params) and the Adam optimizers (their moments
+are the opt states). PyTorch updates them in place.
 """
 
 from __future__ import annotations
@@ -18,3 +18,13 @@ class TrainState:
     step: int
     model: nn.Module
     optimizer: torch.optim.Optimizer
+
+
+@dataclasses.dataclass
+class AdvTrainState:
+    """Generator and critic with one Adam each; ``step`` counts G and D steps."""
+    step: int
+    gen: nn.Module
+    gen_optimizer: torch.optim.Optimizer
+    disc: nn.Module
+    disc_optimizer: torch.optim.Optimizer

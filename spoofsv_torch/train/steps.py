@@ -1,10 +1,18 @@
-"""Ordinary (non-adversarial) train and eval steps for Text2Mel and SSRN.
+"""Train and eval steps for Text2Mel and SSRN: ordinary and adversarial.
 
-Port of the ordinary part of :mod:`spoofsv_tpu.train.steps`: teacher-forced
-Text2Mel or SSRN with L1 + binary-divergence (+ guided attention) losses and
-one Adam update per call. PyTorch runs eagerly, so a step is the forward,
-``backward()`` and ``optimizer.step()``; the highway blocks go through the
-process-wide implementation (:func:`spoofsv_torch.models.layers.gate_impl`).
+Port of :mod:`spoofsv_tpu.train.steps`:
+
+  * ordinary: teacher-forced Text2Mel or SSRN with L1 + binary-divergence
+    (+ guided attention) losses and one Adam update per call;
+  * adversarial (:func:`make_adversarial_steps`): WGAN-GP (the default),
+    weight-clip WGAN and vanilla GAN, a generator step with the reference's
+    adaptive critic weighting and a critic step, the gradient penalty's
+    nested gradient taken with ``torch.autograd.grad(create_graph=True)``.
+
+PyTorch runs eagerly, so a step is the forward, the backward and
+``optimizer.step()``; the generator's highway blocks go through the
+process-wide implementation (:func:`spoofsv_torch.models.layers.gate_impl`),
+the critic's are pinned to the plain one.
 
 Batches are dicts of time-major tensors on the model's device:
 ``mel`` (B, T, 80), ``lin`` (B, 4T, 513), ``text`` (B, N) int, ``spk``
@@ -22,10 +30,13 @@ from torch import nn
 
 from spoofsv_torch.config import Config
 from spoofsv_torch.train.losses import guided_attention_matrix, ssrn_losses, text2mel_losses
-from spoofsv_torch.train.state import TrainState
+from spoofsv_torch.train.state import AdvTrainState, TrainState
 
 Batch = Dict[str, torch.Tensor]
 TRAIN_KINDS = ("train_text2mel", "train_ssrn")
+GAN_TYPES = ("wgan-gp", "wgan", "vanilla")
+#: the fused step's metrics, every key present on both branches
+FUSED_METRICS = ("l1", "bd", "att", "loss", "loss_disc", "loss_d", "wd", "gp")
 
 
 def make_optimizer(cfg: Config, params) -> torch.optim.Adam:
@@ -130,3 +141,144 @@ def make_eval_step(model: nn.Module, cfg: Config, train_kind: str, use_masks: bo
         return {**parts, "loss": loss}
 
     return eval_fn
+
+
+# ----------------------------------------------------------------------
+# Adversarial training
+# ----------------------------------------------------------------------
+
+def draw_mixing(batch: int, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """The gradient penalty's per-sample mixing coefficients, (B, 1, 1) U[0, 1)
+    f32, drawn on ``device`` from ``generator`` (a generator of that device;
+    the device's default one when None), so no host copy stalls the step."""
+    return torch.rand((batch, 1, 1), generator=generator, device=device)
+
+
+def is_g_step(step: int, ratio: int) -> bool:
+    """The reference's alternation: a G step when ``step % (ratio+1) == 0``,
+    a D step otherwise (``train/adversarial_wasserstein_gp.py:267``)."""
+    return step % (ratio + 1) == 0
+
+
+def clip_weights(module: nn.Module) -> None:
+    """WGAN weight clipping to ±0.1 of every ``weight`` parameter (the
+    Dense, conv and LayerNorm weights, the JAX ``kernel`` and ``scale``
+    leaves), no bias (``train/adversarial_wasserstein.py:20-25``)."""
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name.rsplit(".", 1)[-1] == "weight":
+                p.clamp_(-0.1, 0.1)
+
+
+def make_adversarial_steps(gen: nn.Module, disc: nn.Module, cfg: Config, train_kind: str,
+                           gan_type: str = "wgan-gp", use_masks: bool = False):
+    """Returns ``(init_fn, g_step, d_step)``; ``gan_type`` is ``"wgan-gp"``
+    (the reference's default trainer), ``"wgan"`` (weight clip) or
+    ``"vanilla"`` (log loss on the time frames 1:9 of the mel, 1:33 of the
+    linear spectrogram; it needs a critic with ``sigmoid_out``).
+
+    * ``init_fn()`` → an :class:`AdvTrainState` with a fresh Adam for each net.
+    * ``g_step(state, batch)``: the reconstruction loss plus ``coeff·loss_disc``,
+      ``coeff = recon / (|loss_disc| + 1e-12)`` detached (no ``abs`` for
+      vanilla); only the generator is updated.
+    * ``d_step(state, batch, generator=None)``: the generator's forward
+      without gradients, then ``mean(D(fake) − D(real))`` plus, for WGAN-GP,
+      ``λ·mean((‖∇ₓD(x̂)‖₂ − 1)²)`` at ``x̂ = c·real + (1−c)·fake``, ``c`` from
+      :func:`draw_mixing` with ``generator``; only the critic is updated
+      (then clipped, for WGAN).
+
+    Both return ``(state, metrics)`` and update the modules and optimizers in
+    place. The critic is called as the JAX steps call it, deterministic.
+    """
+    if train_kind not in TRAIN_KINDS:
+        raise ValueError(f"train_kind must be one of {TRAIN_KINDS}, got {train_kind!r}")
+    if gan_type not in GAN_TYPES:
+        raise ValueError(f"gan_type must be one of {GAN_TYPES}, got {gan_type!r}")
+    gaw = guided_attention_table(cfg)
+    has_dropout = cfg.apply_dropout
+    n_slice = 8 if train_kind == "train_text2mel" else 32   # adversarial.py:298-300,329
+    real_key = "mel" if train_kind == "train_text2mel" else "lin"
+
+    def disc_in(x: torch.Tensor) -> torch.Tensor:
+        return x[:, 1: 1 + n_slice, :] if gan_type == "vanilla" else x
+
+    def init_fn() -> AdvTrainState:
+        return AdvTrainState(step=0, gen=gen, gen_optimizer=make_optimizer(cfg, gen.parameters()),
+                             disc=disc, disc_optimizer=make_optimizer(cfg, disc.parameters()))
+
+    def g_step(state: AdvTrainState, batch: Batch) -> Tuple[AdvTrainState, Dict[str, torch.Tensor]]:
+        gen.train(has_dropout)
+        y, a = _gen_forward(gen, batch, train_kind)
+        recon, parts = _recon_losses(batch, y, a, gaw, train_kind, use_masks)
+        d_out = disc(disc_in(y.float()))
+        if gan_type == "vanilla":
+            loss_disc = torch.mean(-torch.log(d_out + 1e-8))    # adversarial.py:307
+            denom = loss_disc                                    # no abs (adversarial.py:310)
+        else:
+            loss_disc = torch.mean(-d_out)                       # …wasserstein_gp.py:288
+            denom = loss_disc.abs()                              # …wasserstein_gp.py:290
+        coeff = (recon / (denom + 1e-12)).detach()
+        loss = recon + coeff * loss_disc
+        params = [p for p in gen.parameters() if p.requires_grad]
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        for p, g in zip(params, grads):
+            p.grad = g
+        state.gen_optimizer.step()
+        state.gen_optimizer.zero_grad(set_to_none=True)
+        state.step += 1
+        return state, {**{k: v.detach() for k, v in parts.items()},
+                       "loss_disc": loss_disc.detach(), "loss": loss.detach()}
+
+    def d_step(state: AdvTrainState, batch: Batch, generator: Optional[torch.Generator] = None
+               ) -> Tuple[AdvTrainState, Dict[str, torch.Tensor]]:
+        gen.train(has_dropout)
+        with torch.no_grad():
+            y, _ = _gen_forward(gen, batch, train_kind)
+        real, fake = batch[real_key].float(), y.float()
+        metrics: Dict[str, torch.Tensor] = {}
+        if gan_type == "vanilla":
+            d_real, d_fake = disc(disc_in(real)), disc(disc_in(fake))
+            loss = torch.mean(-torch.log(d_real + 1e-8) - torch.log(1.0 - d_fake + 1e-8))
+            metrics["wd"] = torch.zeros((), device=loss.device)
+        else:
+            loss = torch.mean(disc(fake) - disc(real))           # …wasserstein_gp.py:314
+            metrics["wd"] = -loss.detach()
+            if gan_type == "wgan-gp":
+                c = draw_mixing(real.shape[0], generator, real.device)  # …gp.py:300-301
+                x_mid = (c * real + (1.0 - c) * fake).requires_grad_(True)
+                grad_x, = torch.autograd.grad(disc(x_mid).sum(), x_mid, create_graph=True)
+                norms = torch.sqrt((grad_x ** 2).sum(dim=(1, 2)) + 1e-12)
+                gp = torch.mean(cfg.gp_lambda * (norms - 1.0) ** 2)   # …gp.py:306
+                metrics["gp"] = gp.detach()
+                loss = loss + gp
+        state.disc_optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.disc_optimizer.step()
+        state.disc_optimizer.zero_grad(set_to_none=True)
+        if gan_type == "wgan":
+            clip_weights(disc)
+        state.step += 1
+        return state, {**metrics, "loss_d": loss.detach()}
+
+    return init_fn, g_step, d_step
+
+
+def make_fused_adversarial_step(gen: nn.Module, disc: nn.Module, cfg: Config, train_kind: str,
+                                gan_type: str = "wgan-gp", use_masks: bool = False):
+    """Returns ``(init_fn, step)``: ``step(state, batch, generator=None)``
+    takes the G step when :func:`is_g_step` of ``state.step`` and the D step
+    otherwise, a choice made on the host, and returns every key of
+    :data:`FUSED_METRICS` (0 where the branch has none). It is the step
+    :class:`spoofsv_torch.train.loop.Trainer` takes."""
+    init_fn, g_step, d_step = make_adversarial_steps(gen, disc, cfg, train_kind, gan_type,
+                                                     use_masks)
+
+    def step(state: AdvTrainState, batch: Batch, generator: Optional[torch.Generator] = None):
+        if is_g_step(state.step, cfg.ratio):
+            state, m = g_step(state, batch)
+        else:
+            state, m = d_step(state, batch, generator)
+        zero = torch.zeros((), device=next(iter(m.values())).device)
+        return state, {k: m.get(k, zero) for k in FUSED_METRICS}
+
+    return init_fn, step

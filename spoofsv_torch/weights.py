@@ -15,7 +15,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from spoofsv_torch.export import export_melsyn, export_ssrn
+from spoofsv_torch.export import export_critic, export_melsyn, export_ssrn
 
 StateLike = Mapping[str, Union[np.ndarray, torch.Tensor]]
 
@@ -42,10 +42,16 @@ def load_ssrn_from_jax(module: nn.Module, params) -> nn.Module:
     return load_state(module, export_ssrn(params))
 
 
+def load_critic_from_jax(module: nn.Module, params) -> nn.Module:
+    """flax ``Critic1D`` params → the port's :class:`Critic1D` (``MelDisc``/``LinDisc``)."""
+    return load_state(module, export_critic(params))
+
+
 def load_reference_checkpoint(module: nn.Module, path: str,
                               key: str = "model_state_dict") -> nn.Module:
     """Load a reference ``*.tar.pth`` (the dict ``torch.save`` wrote, with the
-    state dict under ``key``)."""
+    state dict under ``key``: ``"model_state_dict"`` for a generator,
+    ``"disc_state_dict"`` for an adversarial checkpoint's critic)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     return load_state(module, ckpt[key])
 

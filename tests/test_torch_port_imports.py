@@ -28,7 +28,8 @@ def test_port_imports_no_jax():
     for m in ("ops.decode_kernel", "ops.gl_kernel", "ops.gate_kernel", "ops.hconv_kernel",
               "train.losses", "train.state", "train.steps", "train.loop", "cli.main",
               "config", "export", "weights", "serve", "spoofkit.spoofgen", "cli.serve",
-              "cli.generate_test_utterances"):
+              "cli.generate_test_utterances", "data.pipeline", "data.toy", "data.vctk",
+              "models.discriminator", "spoofkit.mcd"):
         assert f"spoofsv_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -122,7 +122,7 @@ def test_ordinary_step_matches_jax(tiny_cfg, jax_steps, kind, impl):
     schema: Adam's first steps move a parameter by about lr·sign(g), so a
     gradient differing by rounding moves it by rounding times lr."""
     batch, ref = jax_steps
-    melsyn, ssrn = cli.build_models(tiny_cfg, device="cpu")
+    melsyn, ssrn, _, _ = cli.build_models(tiny_cfg, device="cpu")
     model = load_state(melsyn if kind == "train_text2mel" else ssrn, ref[kind]["init"])
     tb = {k: _t(v) for k, v in batch.items()}
     with layers.gate_impl(impl):
@@ -198,10 +198,12 @@ def test_cli_helpers(tiny_cfg):
 
     assert cli.training_dtype(tiny_cfg, "cpu") == torch.float32
     assert cli.inference_dtype(tiny_cfg, "cpu") == torch.float32
-    melsyn, ssrn = cli.build_models(tiny_cfg.replace(apply_dropout=True), "unconditional",
-                                   device="cpu")
+    melsyn, ssrn, mel_disc, lin_disc = cli.build_models(tiny_cfg.replace(apply_dropout=True),
+                                                        "unconditional", device="cpu")
     assert not melsyn.condition and melsyn.text_encoder.dropout_rate == 0.05
     assert ssrn.dropout_rate == 0.05 and next(ssrn.parameters()).dtype == torch.float32
+    assert (mel_disc.conv1.weight.shape[1], lin_disc.conv1.weight.shape[1]) == (
+        tiny_cfg.mel.freq_bins, tiny_cfg.lin_bins)
     tpu = dataclasses.replace(tiny_cfg.tpu, highway_gate_impl="pallas",
                               highway_infer_impl="fused_pair")
     cfg = tiny_cfg.replace(tpu=tpu)
@@ -225,7 +227,7 @@ def test_synthesizer_takes_the_infer_impl(tiny_cfg):
     tpu = dataclasses.replace(tiny_cfg.tpu, highway_infer_impl="fused_pair", griffin_lim_iters=4)
     cfg = tiny_cfg.replace(tpu=tpu)
     torch.manual_seed(1)
-    melsyn, ssrn = cli.build_models(cfg, device="cpu")
+    melsyn, ssrn, _, _ = cli.build_models(cfg, device="cpu")
     b = _batch(cfg, 5)
     outs = []
     for infer in (False, True):
