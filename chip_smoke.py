@@ -48,7 +48,10 @@ Phases (any failure raises and exits non-zero):
   7. the ordinary training path: ``Trainer`` for Text2Mel and SSRN at full
      width, f32, B=16, N=186, T=325 (lin 1300 frames), 5 iterations from the
      same seed-0 weights under each highway impl, one validation (Text2Mel
-     through the f32 K1) and one checkpoint round trip each; launch counts
+     through the f32 K1) and one checkpoint round trip each; then the same
+     runs under bf16 autocast over the f32 parameters, K4-K6's bf16
+     instances held against their plain versions on each run's own first
+     call (5e-2), Text2Mel's validation through the bf16 K1; launch counts
      reset just before each run and read just after;
   8. serving: seed-0 bf16 weights saved as ``.tar.pth`` and loaded by
      ``load_generator_params``, a warmed ``BatchingSynthesizer`` (rungs
@@ -76,8 +79,23 @@ Phases (any failure raises and exits non-zero):
      ``synthesize`` from the best checkpoints (bf16 K1, K2, K3); each G and
      D step's launches and time; a G and a D step of each impl from the
      same weights against "xla"; no highway kernel in a critic's penalty;
-     steady G/D step times and one of each under ``torch.profiler``; the
-     "wgan" (clipped) and "vanilla" critics for 6 iterations.
+     steady G/D step times (Text2Mel's also under bf16 autocast) and one of
+     each under ``torch.profiler``; the
+     "wgan" (clipped) and "vanilla" critics for 6 iterations; 6 bf16
+     Text2Mel iterations (``train_compute_dtype="bfloat16"``, "fused_pair"),
+     K5 and K4 held on the run's own inputs, the validation's bf16 K1 on
+     its own batches against ``decode_plain``;
+ 11. the GE2E attack path through the CLIs' ``main(argv)``: a toy corpus of
+     12 speakers x 24 utterances prepared by ``cli/metagen.py``;
+     ``cli/generate_test_utterances.py`` with staging (bf16 synthesis of
+     the 20 Harvard sentences a speaker, K1-K3 held on each call's own
+     inputs; the i-vector, GE2E and anti-spoofing layouts, every staged
+     FLAC read back to its int16 samples); ``cli/ge2e.py`` ``preprocess``,
+     ``train`` at full width (LSTM 3x768, projection 256, N=6 x M=50 crops
+     of 120 x 40, 8 steps), ``test`` (EER, the clean threshold from the
+     staged real-only copy, the spoof rate) and ``dvector``; the GE2E step
+     time, the embedder's utterances/s at B=960 x 120 x 40 (bf16, f32), the
+     staging and preprocessing seconds.
 Prints a kernels JSON line (each kernel's time, plain time, launches on
 the main path, launches on each path, and bound), the card line, then the
 ``{"ok": true, ...}`` line last.
@@ -85,6 +103,7 @@ the main path, launches on each path, and bound), the card line, then the
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -638,18 +657,77 @@ def ssrn_impls(syn, mel, cuda_ms, smi: str) -> None:
         gate(err <= 5e-2 and bool(torch.isfinite(outs[impl].float()).all()), (impl, err))
 
 
+# K4-K6's launch functions: counter name -> (module, launch, plain version)
+HIGHWAY_LAUNCH = {"highway_gate": ("gate_kernel", "gate_launch", "highway_gate_plain"),
+                  "highway_conv": ("hconv_kernel", "hconv_launch", "highway_conv_plain"),
+                  "highway_conv_pair": ("hconv_kernel", "hconv_pair_launch",
+                                        "highway_pair_plain")}
+
+
+@contextlib.contextmanager
+def recording_highway(store: dict):
+    """Within the block, the first call of each of K4-K6's launch functions
+    records its arguments (tensors detached and copied) in ``store``."""
+    import torch
+
+    from spoofsv_torch.ops import gate_kernel, hconv_kernel
+
+    mods = {"gate_kernel": gate_kernel, "hconv_kernel": hconv_kernel}
+    saved = []
+    for name, (mod, fn, _) in HIGHWAY_LAUNCH.items():
+        orig = getattr(mods[mod], fn)
+
+        def run(*args, _orig=orig, _name=name, **kw):
+            if _name not in store:
+                store[_name] = [a.detach().clone() if isinstance(a, torch.Tensor) else a
+                                for a in args]
+            return _orig(*args, **kw)
+
+        setattr(mods[mod], fn, run)
+        saved.append((mods[mod], fn, orig))
+    try:
+        yield store
+    finally:
+        for mod, fn, orig in saved:
+            setattr(mod, fn, orig)
+
+
+def hold_highway(store: dict, tol: float, what: str, dtype) -> None:
+    """Each recorded kernel call again, against its plain version on the same
+    arguments (outside any counted run): max |d| <= ``tol``, inputs in ``dtype``."""
+    import torch
+
+    from spoofsv_torch.ops import gate_kernel, hconv_kernel
+
+    mods = {"gate_kernel": gate_kernel, "hconv_kernel": hconv_kernel}
+    for name, args in sorted(store.items()):
+        mod, fn, plain = HIGHWAY_LAUNCH[name]
+        with torch.no_grad():
+            got = getattr(mods[mod], fn)(*args)
+            want = getattr(mods[mod], plain)(*args)
+        d = float((got.float() - want.float()).abs().max())
+        log(f"[{what}] {name} on the run's own inputs {tuple(args[0].shape)} {args[0].dtype}: "
+            f"kernel vs plain max|d| {d:.3g} (gate {tol})")
+        gate(args[0].dtype == dtype and d <= tol, (what, name, args[0].dtype, d))
+
+
 def training_phase(cfg, dev, counters: dict, B: int, N: int, T: int):
     """Phase 7: the ordinary training path. For each train kind and highway
     impl, a ``Trainer`` takes 5 steps on one synthetic batch (B utterances,
     N text ids, T mel frames, 4T lin frames) from the same seed-0 weights,
     validates once and checkpoints; the checkpoint is reloaded and resumed.
-    Launch counts are reset just before each run and read just after.
-    Returns (K4/K5/K6 and f32 K1 launches summed over the runs, step ms per
-    run)."""
+    Then the same runs under bf16 autocast over the f32 parameters
+    (``train_compute_dtype="bfloat16"``): K4-K6's bf16 instances, each held
+    against its plain version on the first call's own inputs (5e-2), the
+    validation through the bf16 K1. Launch counts are reset just before each
+    run and read just after. Returns (K4/K5/K6 and f32 K1 launches summed
+    over the f32 runs, step ms per run, K4-K6 and K1 launches summed over
+    the bf16 runs)."""
     import torch
 
     from spoofsv_torch.cli.main import build_models
     from spoofsv_torch.models.layers import GATE_IMPLS, gate_impl
+    from spoofsv_torch.ops import decode_kernel
     from spoofsv_torch.train import Trainer
     from spoofsv_torch.weights import load_reference_checkpoint, load_state
 
@@ -665,6 +743,8 @@ def training_phase(cfg, dev, counters: dict, B: int, N: int, T: int):
     impl_kernel = {"pallas": "highway_gate", "fused_conv": "highway_conv",
                    "fused_pair": "highway_conv_pair"}
     totals = dict.fromkeys([*impl_kernel.values(), "decode_f32"], 0)
+    bf16_totals = dict.fromkeys([*impl_kernel.values(), "decode_bf16", "decode_f32"], 0)
+    cluster_counter = decode_kernel.cluster_kernel
     ckpt_keys = {"epoch", "iteration", "model_state_dict", "optimizer_state_dict",
                  "loss_val_log"}
     step_ms = {}
@@ -726,7 +806,50 @@ def training_phase(cfg, dev, counters: dict, B: int, N: int, T: int):
                 gate(same and again.iteration == 5 and again.state.step == 5,
                      (kind, impl, "checkpoint round trip", same, again.iteration))
                 del fresh, again, ck
-    return totals, step_ms
+            # bf16: autocast over the f32 parameters, every impl, 5 steps
+            for impl in GATE_IMPLS:
+                load_state(model, init_sd[kind])
+                trainer = Trainer(tcfg, model, kind, ctime=f"{kind}-{impl}-bf16",
+                                  compute_dtype=torch.bfloat16)
+                recorded = {}
+                for c in [*counters.values(), cluster_counter]:
+                    c.launches = 0
+                torch.cuda.synchronize()
+                with gate_impl(impl), recording_highway(recorded):
+                    trainer.fit(lambda: [batch] * 5, lambda: [batch], max_iterations=5)
+                torch.cuda.synchronize()
+                n = {k: c.launches for k, c in counters.items()}
+                n["decode_bf16"] = cluster_counter.launches
+                trainer.close()
+                with open(os.path.join(trainer.ckpt.base, "metrics.jsonl")) as f:
+                    recs = [json.loads(ln) for ln in f]
+                losses = [r["loss"] for r in recs if r["split"] == "train"]
+                secs = [r["sec_per_iter"] for r in recs if r["split"] == "train"]
+                val = [r["loss"] for r in recs if r["split"] == "validate"]
+                step_ms[f"{kind[6:]}/{impl}/bf16"] = round(1e3 * float(np.median(secs[1:])), 2)
+                for k in bf16_totals:
+                    bf16_totals[k] += n[k]
+                log(f"[train bf16] {kind} {impl}: losses {[round(v, 6) for v in losses]}; "
+                    f"validation {val}; step ms (iters 2-5) "
+                    f"{[round(1e3 * v, 2) for v in secs[1:]]} (f32: "
+                    f"{step_ms[f'{kind[6:]}/{impl}']}); launches {n}")
+                gate(len(losses) == 5 and len(val) == 1
+                     and bool(np.isfinite(losses + val).all()), (kind, impl, "bf16", losses, val))
+                gate(abs(losses[0] - first_loss["xla"]) <= 2e-2 * abs(first_loss["xla"]),
+                     (kind, impl, "bf16 step-1 loss vs f32", losses[0], first_loss["xla"]))
+                gate(all(p.dtype == torch.float32 for p in model.parameters())
+                     and all(v.dtype == torch.float32 for st in
+                             trainer.state.optimizer.state.values()
+                             for key, v in st.items() if key != "step"),
+                     (kind, impl, "bf16 training left f32 parameters or Adam state"))
+                if impl in impl_kernel:
+                    gate(n[impl_kernel[impl]] > 0 and impl_kernel[impl] in recorded,
+                         (kind, impl, "bf16 kernel not launched", n))
+                if kind == "train_text2mel":
+                    gate(n["decode_bf16"] > 0 and n["decode_f32"] == 0,
+                         (kind, impl, "bf16 validation did not run K1 bf16", n))
+                hold_highway(recorded, 5e-2, f"train bf16 {kind} {impl}", torch.bfloat16)
+    return totals, step_ms, bf16_totals
 
 
 # The serving phase's clients: argv url, a JSON file of request bodies. Fires
@@ -1258,6 +1381,49 @@ def spoofgen_phase(cfg, dev, state_dicts, counters: dict, cluster, smi: str) -> 
     return launches
 
 
+def hold_synthesis(syn_calls, gl_calls, dev, spectral_err, what: str) -> None:
+    """K1 bf16 on each recorded ``Synthesizer`` call's own inputs and weights,
+    under its plan, against ``decode_plain`` over frames 0-1 (mel 0.05,
+    attention 0.02); K2 against ``init_angles_plain`` (min cos Δφ >= 0.99995)
+    and K3 GL12 against ``griffin_lim_tc_plain`` (Δ spectral convergence
+    <= 0.02) on each call's vocoder input. Outside any counted run."""
+    import torch
+
+    from spoofsv_torch.ops import decode_kernel, gl_kernel
+
+    gate(len(syn_calls) == len(gl_calls) > 0, (what, "calls recorded", len(syn_calls),
+                                               len(gl_calls)))
+    for (syn, text_ids, spk_emb), (mag, int8) in zip(syn_calls, gl_calls):
+        m = syn.melsyn
+        F = m.freq_bins
+        with torch.no_grad():
+            K, V = m.encode_text(torch.as_tensor(text_ids).to(dev))
+            sb = torch.as_tensor(spk_emb, dtype=torch.float32).to(dev, K.dtype)
+            s1, s2 = m.audio_encoder.fc1(sb), m.audio_encoder.fc2(sb)
+        packed = decode_kernel.pack_decode_weights(m)
+        plan = decode_kernel.decode_cluster_plan(K.shape[0], K.shape[2], F, elem=K.element_size())
+        y, a, _ = decode_kernel.decode_fused(packed, K, V, s1, s2, n_frames=syn.n_frames,
+                                             freq_bins=F, plan=plan)
+        yq, aq, _ = decode_kernel.decode_plain(packed, K, V, s1, s2, n_frames=2, freq_bins=F)
+        mel2 = float((y[:, :2].float() - yq.float()).abs().max())
+        att2 = float((a[:, :, :2].float() - aq.float()).abs().max())
+        init = gl_kernel.init_angles_plain(mag, NFFT, HOP, "spsi")
+        k_re, k_im = gl_kernel.gl_init_angles(mag, NFFT, HOP, "spsi")
+        cos_dphi = float(((k_re * init[0] + k_im * init[1])
+                          / torch.sqrt(k_re ** 2 + k_im ** 2)).min())
+        g12 = gl_kernel.griffin_lim_tc(mag, NFFT, HOP, n_iter=12, init_angles=init, int8=int8)
+        p12 = gl_kernel.griffin_lim_tc_plain(mag, *init, NFFT, HOP, 12, 0.99, int8)
+        sc_k, sc_p = spectral_err(g12, mag), spectral_err(p12, mag)
+        log(f"[{what}] batch B={K.shape[0]} N={K.shape[1]} T={syn.n_frames} {K.dtype}: K1 plan "
+            f"{plan.cluster}x{plan.rows} vs decode_plain frames 0-1 mel max|d| {mel2:.3g} (gate "
+            f"0.05), attention {att2:.3g} (gate 0.02); lin frames {mag.shape[1]}: K2 spsi vs "
+            f"plain min cos dphi {cos_dphi:.7f} (gate >= 0.99995); K3 GL12 int8={int8} "
+            f"spectral conv {sc_k:.5f}, its plain version {sc_p:.5f} (gate delta <= 0.02)")
+        gate(mel2 <= 0.05 and att2 <= 0.02, (what, "K1 vs decode_plain", K.shape, mel2, att2))
+        gate(cos_dphi >= 0.99995 and abs(sc_k - sc_p) <= 0.02,
+             (what, "K2/K3 vs plain", mag.shape, cos_dphi, sc_k, sc_p))
+
+
 def train_cli_phase(cfg, dev, counters: dict, cluster, smi: str, onsets, before_onset,
                     spectral_err, n_speakers: int = 4, utts_per_spk: int = 24,
                     min_chars: int = 110, max_chars: int = 160) -> dict:
@@ -1288,8 +1454,8 @@ def train_cli_phase(cfg, dev, counters: dict, cluster, smi: str, onsets, before_
     each parameter's 5e-2), the losses (1e-4 relative); a critic's forward
     plus penalty launches no
     highway kernel; each kind's steady G and D step times (5 each after a
-    warm-up, at the epoch's largest batch) and one of each under
-    ``torch.profiler``;
+    warm-up, at the epoch's largest batch; Text2Mel's in f32 and under bf16
+    autocast) and one of each under ``torch.profiler``;
     ``Trainer`` with the "wgan" (weights within ±0.1) and "vanilla" critics
     for 6 iterations. Returns the launches of each kernel on the two CLI
     paths."""
@@ -1307,7 +1473,7 @@ def train_cli_phase(cfg, dev, counters: dict, cluster, smi: str, onsets, before_
     from spoofsv_torch.infer.decode import make_decoder
     from spoofsv_torch.models import MelDisc
     from spoofsv_torch.models.layers import GATE_IMPLS, gate_impl
-    from spoofsv_torch.ops import decode_kernel, gl_kernel
+    from spoofsv_torch.ops import decode_kernel
     from spoofsv_torch.train import Trainer, loop, steps
     from spoofsv_torch.weights import load_state
 
@@ -1556,6 +1722,47 @@ def train_cli_phase(cfg, dev, counters: dict, cluster, smi: str, onsets, before_
             log(f"[train-cli] -R latest: resumed at iteration 12 with both nets and both Adam "
                 f"states bit-equal to {os.path.basename(t2m_path)}")
 
+            # -- bf16 training: Text2Mel under "fused_pair", 6 iterations -------
+            recorded = {}
+            with recording_highway(recorded):
+                tr_b, wall, n, rows = cli_run(["train_text2mel", "-C", conf("t2m_bf16", {
+                    "highway_gate_impl": "fused_pair", "train_compute_dtype": "bfloat16"}),
+                    "-T", "t2m_bf16", "--adversarial", "--max_iterations", "6",
+                    "--save_spectrogram"])
+            bf16_cli = {k: n[k] for k in highway}
+            bf16_cli.update(decode=cluster.launches, decode_f32=n["decode_f32"])
+            check_training(tr_b, "text2mel (bf16)", "fused_pair", 6, 1, 5, rows, n, wall)
+            gate(cluster.launches > 0 and n["decode_f32"] == 0,
+                 ("bf16 training's validation did not run the bf16 K1", n, cluster.launches))
+            gate(all(p_.dtype == torch.float32 for p_ in tr_b.gen_model.parameters()),
+                 "bf16 training cast the parameters")
+            hold_highway(recorded, 5e-2, "train-cli bf16", torch.bfloat16)
+            bf16_ms = (median_ms(rows, "G"), median_ms(rows, "D"))
+            # its validation's bf16 K1 on the batches it decoded, frames 0-1
+            for c in val_calls:
+                m = c["model"]
+                gate(next(m.parameters()).dtype == torch.bfloat16,
+                     ("bf16 validation decoded an f32 model", next(m.parameters()).dtype))
+                with torch.no_grad():
+                    K, V = m.encode_text(c["text"])
+                    sb = c["spk"].to(K.dtype)
+                    s1, s2 = m.audio_encoder.fc1(sb), m.audio_encoder.fc2(sb)
+                packed = decode_kernel.pack_decode_weights(m)
+                y, a, _ = decode_kernel.decode_fused(packed, K, V, s1, s2, n_frames=c["T"],
+                                                     freq_bins=F)
+                yq, aq, _ = decode_kernel.decode_plain(packed, K, V, s1, s2, n_frames=2,
+                                                       freq_bins=F)
+                mel2 = float((y[:, :2].float() - yq.float()).abs().max())
+                att2 = float((a[:, :, :2].float() - aq.float()).abs().max())
+                log(f"[train-cli bf16 K1] validation batch B={K.shape[0]} N={K.shape[1]} "
+                    f"T={c['T']} vs decode_plain frames 0-1: mel max|d| {mel2:.3g} (gate "
+                    f"0.05), attention {att2:.3g} (gate 0.02)")
+                gate(mel2 <= 0.05 and att2 <= 0.02, ("bf16 validation K1", mel2, att2))
+            log(f"[train-cli] text2mel bf16 (autocast over f32) under fused_pair: G/D ms "
+                f"{bf16_ms} (f32 CLI run {t2m_ms}; first steps included), launches "
+                f"{bf16_cli} on [{smi}]")
+            del tr_b, recorded
+
             # -- synthesize from the two best checkpoints (bf16) ----------------
             best = {k: os.path.join(base.src_root_dir, "checkpoints", "conditional",
                                     "adversarial", k, f"{'text2mel' if k == 't2m' else k}"
@@ -1582,46 +1789,9 @@ def train_cli_phase(cfg, dev, counters: dict, cluster, smi: str, onsets, before_
             gate(n["decode"] == cluster.launches > 0 and n["decode_f32"] == 0
                  and n["gl_init"] > 0 and n["griffin_lim"] > 0 and n["griffin_lim_f32"] == 0,
                  ("synthesize launches", n, cluster.launches))
-            # K1 bf16 on each synthesize batch's own inputs and weights, its
-            # plan, against decode_plain over frames 0-1; K2 and K3 (GL12) on
-            # each batch's vocoder input against their plain versions
-            gate(len(syn_calls) == len(gl_calls) > 0, ("synthesize calls recorded",
-                                                       len(syn_calls), len(gl_calls)))
-            for (syn, text_ids, spk_emb), (mag, int8) in zip(syn_calls, gl_calls):
-                m = syn.melsyn
-                with torch.no_grad():
-                    K, V = m.encode_text(torch.as_tensor(text_ids).to(dev))
-                    sb = torch.as_tensor(spk_emb, dtype=torch.float32).to(dev, K.dtype)
-                    s1, s2 = m.audio_encoder.fc1(sb), m.audio_encoder.fc2(sb)
-                packed = decode_kernel.pack_decode_weights(m)
-                plan = decode_kernel.decode_cluster_plan(K.shape[0], K.shape[2], F,
-                                                         elem=K.element_size())
-                y, a, _ = decode_kernel.decode_fused(packed, K, V, s1, s2, n_frames=syn.n_frames,
-                                                     freq_bins=F, plan=plan)
-                yq, aq, _ = decode_kernel.decode_plain(packed, K, V, s1, s2, n_frames=2,
-                                                       freq_bins=F)
-                mel2 = float((y[:, :2].float() - yq.float()).abs().max())
-                att2 = float((a[:, :, :2].float() - aq.float()).abs().max())
-                init = gl_kernel.init_angles_plain(mag, NFFT, HOP, "spsi")
-                k_re, k_im = gl_kernel.gl_init_angles(mag, NFFT, HOP, "spsi")
-                cos_dphi = float(((k_re * init[0] + k_im * init[1])
-                                  / torch.sqrt(k_re ** 2 + k_im ** 2)).min())
-                g12 = gl_kernel.griffin_lim_tc(mag, NFFT, HOP, n_iter=12, init_angles=init,
-                                               int8=int8)
-                p12 = gl_kernel.griffin_lim_tc_plain(mag, *init, NFFT, HOP, 12, 0.99, int8)
-                sc_k, sc_p = spectral_err(g12, mag), spectral_err(p12, mag)
-                log(f"[train-cli synthesize] batch B={K.shape[0]} N={K.shape[1]} "
-                    f"T={syn.n_frames} {K.dtype}: K1 plan {plan.cluster}x{plan.rows} vs "
-                    f"decode_plain frames 0-1 mel max|d| {mel2:.3g} (gate 0.05), attention "
-                    f"{att2:.3g} (gate 0.02); lin frames {mag.shape[1]}: K2 spsi vs plain min "
-                    f"cos dphi {cos_dphi:.7f} (gate >= 0.99995); K3 GL12 int8={int8} spectral "
-                    f"conv {sc_k:.5f}, its plain version {sc_p:.5f} (gate delta <= 0.02)")
-                gate(mel2 <= 0.05 and att2 <= 0.02,
-                     ("synthesize K1 vs decode_plain", K.shape, syn.n_frames, mel2, att2))
-                gate(cos_dphi >= 0.99995 and abs(sc_k - sc_p) <= 0.02,
-                     ("synthesize K2/K3 vs plain", mag.shape, cos_dphi, sc_k, sc_p))
-            del syn_calls[:], gl_calls[:], syn, m, K, V, s1, s2, packed, y, a, yq, aq, mag
-            del init, k_re, k_im, g12, p12
+            # K1 bf16, K2 and K3 on each synthesize batch's own inputs
+            hold_synthesis(syn_calls, gl_calls, dev, spectral_err, "train-cli synthesize")
+            del syn_calls[:], gl_calls[:]
 
             # -- outside the counted runs: every impl against "xla" --------------
             loaders = {kind: DeviceReplayLoader(TTSDataSource(base, "train", spec, need_lin=lin),
@@ -1752,30 +1922,40 @@ def train_cli_phase(cfg, dev, counters: dict, cluster, smi: str, onsets, before_
                 log(f"[train-cli] {kind} critic forward + penalty under every impl: 0 highway "
                     f"kernel launches")
                 # steady-state step times under the impl the CLI run used: one warm-up
-                # step each, then 5 G and 5 D steps, host clock closed by a sync
+                # step each, then 5 G and 5 D steps, host clock closed by a sync;
+                # Text2Mel also under bf16 autocast, as its bf16 CLI run trains
                 impl = "fused_pair" if kind == "train_text2mel" else "fused_conv"
-                with gate_impl(impl):
-                    init_fn, g_step, d_step = make_steps(gen, disc, base, kind)
-                    state = init_fn()
-                    mix = torch.Generator(device=dev).manual_seed(2)
-                    times = {"G": [], "D": []}
-                    for which in ["G", "D"] + ["G"] * 5 + ["D"] * 5:
-                        torch.cuda.synchronize()
-                        t = time.perf_counter()
-                        state, _ = (g_step(state, batch) if which == "G"
-                                    else d_step(state, batch, mix))
-                        torch.cuda.synchronize()
-                        times[which].append(1e3 * (time.perf_counter() - t))
-                    for which, step in (("G", lambda: g_step(state, batch)),
-                                        ("D", lambda: d_step(state, batch, mix))):
-                        device_view(step, smi, f"[train-cli] {kind} device view of one "
-                                               f"{which} step under {impl}")
-                steady[kind] = {k: round(statistics.median(v[1:]), 3) for k, v in times.items()}
-                log(f"[train-cli] {kind} steady steps under {impl}, B={batch['mel'].shape[0]} "
-                    f"T={batch['mel'].shape[1]} N={batch['text'].shape[1]}: G ms "
-                    f"{[round(v, 2) for v in times['G'][1:]]}, D ms "
-                    f"{[round(v, 2) for v in times['D'][1:]]} (after one warm-up each; host "
-                    f"clock closed by synchronize) on [{smi}]")
+                dts = ((torch.float32, torch.bfloat16) if kind == "train_text2mel"
+                       else (torch.float32,))
+                for dt in dts:
+                    tag = kind if dt == torch.float32 else f"{kind} bf16"
+                    for m, sd in zip((gen, disc), init):
+                        load_state(m, sd)
+                    with gate_impl(impl):
+                        init_fn, g_step, d_step = make_steps(gen, disc, base, kind,
+                                                             compute_dtype=dt)
+                        state = init_fn()
+                        mix = torch.Generator(device=dev).manual_seed(2)
+                        times = {"G": [], "D": []}
+                        for which in ["G", "D"] + ["G"] * 5 + ["D"] * 5:
+                            torch.cuda.synchronize()
+                            t = time.perf_counter()
+                            state, _ = (g_step(state, batch) if which == "G"
+                                        else d_step(state, batch, mix))
+                            torch.cuda.synchronize()
+                            times[which].append(1e3 * (time.perf_counter() - t))
+                        for which, step in (("G", lambda: g_step(state, batch)),
+                                            ("D", lambda: d_step(state, batch, mix))):
+                            device_view(step, smi, f"[train-cli] {tag} device view of one "
+                                                   f"{which} step under {impl}")
+                    steady[tag] = {k: round(statistics.median(v[1:]), 3)
+                                   for k, v in times.items()}
+                    log(f"[train-cli] {tag} steady steps under {impl}, "
+                        f"B={batch['mel'].shape[0]} T={batch['mel'].shape[1]} "
+                        f"N={batch['text'].shape[1]}: G ms "
+                        f"{[round(v, 2) for v in times['G'][1:]]}, D ms "
+                        f"{[round(v, 2) for v in times['D'][1:]]} (after one warm-up each; "
+                        f"host clock closed by synchronize) on [{smi}]")
             data_bytes = {kind: ld.nbytes for kind, ld in loaders.items()}
             del loaders, melsyn, ssrn, mel_disc, lin_disc, nets, batch, x, gx
 
@@ -1812,13 +1992,327 @@ def train_cli_phase(cfg, dev, counters: dict, cluster, smi: str, onsets, before_
                 f"{feature_s:.2f} s; synthesize wall {syn_wall:.3f} s; device-resident "
                 f"training sets: text2mel {t2m_bytes} bytes, ssrn {ssrn_bytes} bytes (loaders "
                 f"{data_bytes}) on [{smi}]")
-            out = {"train_cli": train_launches, "synthesize_cli": syn_launches}
+            out = {"train_cli": train_launches, "synthesize_cli": syn_launches,
+                   "train_cli_bf16": bf16_cli}
     finally:
         steps.make_adversarial_steps = make_steps
         loop.make_fused_decoder = make_fused
         syn_mod.Synthesizer.__call__ = syn_call
         syn_mod.griffin_lim_tc = gl_tc
     return out
+
+
+GE2E_YAML = """training: !!bool "true"
+device: "cuda"
+unprocessed_data: '{unprocessed}'
+---
+data:
+    train_path: '{root}/tisv/train'
+    test_path: '{root}/tisv/test'
+    sr: 16000
+    nfft: 512 # the reference's GE2E features: 25 ms window, 10 ms hop, 40 mels
+    window: 0.025
+    hop: 0.01
+    nmels: 40
+    tisv_frame: 120
+---
+model:
+    hidden: 768
+    num_layer: 3
+    proj: 256
+    model_path: '{root}/ge2e_ckpt/final_epoch_{epochs}.npz'
+---
+train:
+    N : 6
+    M : 50
+    lr: 0.01
+    epochs: {epochs}
+    log_interval: 1
+    log_file: '{root}/ge2e_train.log'
+    checkpoint_interval: {epochs}
+    checkpoint_dir: '{root}/ge2e_ckpt'
+---
+test:
+    N : 6
+    M : 86
+    epochs: 1
+save_simmat_dir: '{root}/simmat'
+"""
+
+
+@contextlib.contextmanager
+def quiet():
+    """The block's standard output (the CLIs' per-file progress) dropped."""
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        yield
+
+
+def ge2e_attack_phase(cfg, dev, state_dicts, counters: dict, cluster, smi: str, spectral_err,
+                      n_speakers: int = 12, utts_per_spk: int = 24, epochs: int = 8) -> dict:
+    """Phase 11: the GE2E attack path, through the CLIs' own ``main(argv)``.
+    A toy corpus in VCTK's layout (12 speakers x 24 utterances of 20-32
+    characters, ~2-3 s each) prepared by ``cli/metagen.py``;
+    ``cli/generate_test_utterances.py`` with staging from the seed-0 weights
+    (``.tar.pth``): bf16 synthesis of the 20 Harvard sentences for every
+    speaker (K1-K3, held on each call's own inputs), then the i-vector, GE2E
+    and anti-spoofing layouts, every staged FLAC read back to the int16
+    samples it was written from; ``cli/ge2e.py preprocess`` (6 train, 6
+    test speakers of 3 enroll + 20 eval real and 20 spoof utterances), then
+    ``train`` at full width (LSTM 3x768, projection 256, 40 mels, 120-frame
+    crops, N=6 x M=50 crops a step) for ``epochs`` steps, ``test`` (EER, the
+    clean threshold from the staged real-only copy, the spoof rate) and
+    ``dvector``. Times: the GE2E step (median of 5 after a warm-up), the
+    embedder's utterances/s at B=960 x 120 x 40 in bf16 and f32, the
+    staging, the preprocessing. Returns K1-K3's launches on the staging run."""
+    import copy
+    import statistics
+
+    import torch
+    from scipy.io import wavfile
+
+    from spoofsv_torch.cli import ge2e as cli_ge2e
+    from spoofsv_torch.cli import generate_test_utterances as cli_gen
+    from spoofsv_torch.cli import metagen as cli_metagen
+    from spoofsv_torch.config import GE2EConfig
+    from spoofsv_torch.data.toy import generate_toy_corpus
+    from spoofsv_torch.dsp import host as dsp_host
+    from spoofsv_torch.infer import synthesize as syn_mod
+    from spoofsv_torch.spoofkit import flacio, ge2e_harness, spoofgen
+
+    def reset() -> None:
+        for c in [*counters.values(), cluster]:
+            c.launches = 0
+
+    syn_calls, gl_calls, stage_s = [], [], {}
+    syn_call, gl_tc = syn_mod.Synthesizer.__call__, syn_mod.griffin_lim_tc
+    stagers = {k: getattr(spoofgen, k) for k in ("generate_spoof_set", "stage_ivector_data",
+                                                 "stage_ge2e_data", "stage_antispoof_data")}
+
+    def recorded_call(self, text_ids, spk_emb, seeds=None):
+        syn_calls.append((self, text_ids, spk_emb))
+        return syn_call(self, text_ids, spk_emb, seeds)
+
+    def recorded_gl(spec, *a, **kw):
+        gl_calls.append((spec, kw["int8"]))
+        return gl_tc(spec, *a, **kw)
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            stage_s[name] = time.perf_counter() - t
+            return out
+        return run
+
+    syn_mod.Synthesizer.__call__ = recorded_call
+    syn_mod.griffin_lim_tc = recorded_gl
+    for k, fn in stagers.items():
+        setattr(spoofgen, k, timed(k, fn))
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            # -- corpus, metagen, the generators' checkpoints ------------------
+            t0 = time.perf_counter()
+            speakers = generate_toy_corpus(os.path.join(root, "data"), os.path.join(root, "emb"),
+                                           n_speakers=n_speakers, utts_per_spk=utts_per_spk,
+                                           spk_emb_dim=cfg.spk_emb_dim, seed=1, min_chars=20,
+                                           max_chars=32, rich_speakers=True)
+            with open(os.path.join(root, "havard.txt"), "w") as f:
+                f.write("\n".join(SENTENCES) + "\n")
+            ckpt = {}
+            for kind, sd in state_dicts.items():
+                ckpt[kind] = os.path.join(root, f"{kind}_iteration_0.tar.pth")
+                torch.save({"model_state_dict": sd}, ckpt[kind])
+            c11 = cfg.replace(data_root_dir=os.path.join(root, "data"),
+                              spk_emb_dir=os.path.join(root, "emb"), src_root_dir=root + "/",
+                              tts_texts=os.path.join(root, "havard.txt"),
+                              antispoof_dir=os.path.join(root, "cm"),
+                              inference_text2mel_model=ckpt["text2mel"],
+                              inference_ssrn_model=ckpt["ssrn"])
+            conf = os.path.join(root, "config.json")
+            with open(conf, "w") as f:
+                json.dump(c11.to_reference_dict(), f)
+            with quiet():
+                cli_metagen.main(["-c", conf])
+            wav22 = os.path.join(root, "data", "wav22")
+            gate(sorted(os.listdir(wav22)) == speakers
+                 and all(len(os.listdir(os.path.join(wav22, s))) == utts_per_spk
+                         for s in speakers), ("metagen wav22", sorted(os.listdir(wav22))))
+            corpus_s = time.perf_counter() - t0
+
+            # -- the spoof set and its staging: the counted run ---------------
+            reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with quiet():
+                cli_gen.main(["-C", conf, "-T", "attack", "--train_spk_num", "6",
+                              "--enroll_utt_num", "3", "--eval_utt_num", "20",
+                              "--speaker_batch", "8"], device=dev)
+            torch.cuda.synchronize()
+            gen_wall = time.perf_counter() - t0
+            n = {k: c.launches for k, c in counters.items()}
+            launches = {"decode": cluster.launches, "gl_init": n["gl_init"],
+                        "griffin_lim": n["griffin_lim"], "griffin_lim_f32": n["griffin_lim_f32"],
+                        "decode_f32": n["decode_f32"]}
+            log(f"[attack] generate_test_utterances ({n_speakers} speakers x 20 sentences, "
+                f"bf16, speaker batch 8) with staging: {gen_wall:.3f} s wall; synthesis "
+                f"{stage_s['generate_spoof_set']:.3f} s, i-vector staging "
+                f"{stage_s['stage_ivector_data']:.3f} s, GE2E staging "
+                f"{stage_s['stage_ge2e_data']:.3f} s, anti-spoofing staging (16 kHz FLAC) "
+                f"{stage_s['stage_antispoof_data']:.3f} s; calls (B) "
+                f"{[len(t) for _, t, _ in syn_calls]}; launches {launches} on [{smi}]")
+            gate(len(syn_calls) == 2 and launches["decode"] == n["decode"] == 2
+                 and launches["gl_init"] == 2 and launches["griffin_lim"] == 2
+                 and launches["griffin_lim_f32"] == 0 and launches["decode_f32"] == 0,
+                 ("staging run launches", launches, n))
+            hold_synthesis(syn_calls, gl_calls, dev, spectral_err, "attack synthesis")
+            syn_calls.clear()
+            gl_calls.clear()
+            test_root = os.path.join(root, "test", "attack")
+            spoof_dir = os.path.join(test_root, "spoof_data")
+            spoofs = [os.path.join(spoof_dir, d, f) for d in sorted(os.listdir(spoof_dir))
+                      for f in sorted(os.listdir(os.path.join(spoof_dir, d)))]
+            gate(len(spoofs) == 20 * n_speakers, ("spoof set", len(spoofs)))
+            iv = os.path.join(test_root, "ivector_data")
+            sids = [s[1:] for s in speakers]
+            gate(sorted(os.listdir(os.path.join(iv, "wav", "train"))) == sids[:6]
+                 and sorted(os.listdir(os.path.join(iv, "wav", "test"))) == sids[6:]
+                 and all(len(os.listdir(os.path.join(iv, "wav", "test", s))) == 43
+                         for s in sids[6:])
+                 and all(len(os.listdir(os.path.join(iv, "test_nospoof", s))) == 23
+                         for s in sids[6:])
+                 and sorted(os.listdir(os.path.join(test_root, "ge2e_data"))) == sids,
+                 ("i-vector / GE2E layouts", sorted(os.listdir(os.path.join(iv, "wav")))))
+            flac_dir = os.path.join(root, "cm", "attack", "flac")
+            flacs = sorted(os.listdir(flac_dir))
+            gate(flacs == [f"LA_D_{i + 1:07d}.flac" for i in range(len(spoofs))],
+                 ("CM layout", flacs[:3], len(flacs)))
+            for path, name in zip(spoofs, flacs):
+                y, _ = dsp_host.load_wav(path, sr=16000)
+                want = (np.clip(y, -1.0, 1.0) * 32767.0).astype(np.int32)
+                got, sr = flacio.decode_flac(os.path.join(flac_dir, name))
+                gate(sr == 16000 and np.array_equal(np.round(got * 32768.0).astype(np.int32),
+                                                    want), ("staged FLAC", name))
+            with open(os.path.join(root, "cm", "ASVspoof2019_LA_cm_protocols",
+                                   "customized_data_attack.txt")) as f:
+                proto = f.read().splitlines()
+            gate(len(proto) == len(spoofs) and all(ln.endswith(" - - spoof") for ln in proto),
+                 ("CM protocol", proto[:2]))
+            audio_s = sum(len(wavfile.read(p_)[1]) / cfg.sampling_rate for p_ in spoofs)
+            log(f"[attack] staged: {len(spoofs)} spoof wavs ({audio_s:.1f} s of audio), "
+                f"i-vector train/test/test_nospoof, {len(sids)} GE2E links, {len(flacs)} FLACs "
+                f"each read back to its int16 samples; corpus + metagen {corpus_s:.2f} s")
+
+            # -- GE2E: preprocess, train, test, dvector -------------------------
+            yaml_path = os.path.join(root, "ge2e.yaml")
+            with open(yaml_path, "w") as f:
+                f.write(GE2E_YAML.format(root=root, epochs=epochs, unprocessed=os.path.join(
+                    test_root, "ge2e_data", "*", "*.wav")))
+            ge2e = GE2EConfig.from_yaml(yaml_path)
+            gate(ge2e.model.hidden == 768 and ge2e.train.N == 6 and ge2e.train.M == 50
+                 and ge2e.data.tisv_frame == 120, ("GE2E config", ge2e))
+            reset()
+            t0 = time.perf_counter()
+            with quiet():
+                cli_ge2e.main(["preprocess", "--config", yaml_path, "--train_spk_num", "6",
+                               "--enroll_num", "3", "--eval_num", "20"])
+            prep_s = time.perf_counter() - t0
+            tisv = {k: sorted(os.listdir(os.path.join(root, "tisv", k)))
+                    for k in ("train", "test")}
+            shapes = {k: [np.load(os.path.join(root, "tisv", k, f), mmap_mode="r").shape
+                          for f in fs] for k, fs in tisv.items()}
+            log(f"[attack] ge2e preprocess: {prep_s:.3f} s; crops {shapes}")
+            gate(len(tisv["train"]) == len(tisv["test"]) == 6
+                 and all(sh == (86, 40, 120) for sh in shapes["test"])
+                 and all(sh[0] >= 2 and sh[1:] == (40, 120) for sh in shapes["train"]),
+                 ("TI-SV crops", shapes))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with quiet():
+                emb, loss_mod = cli_ge2e.main(["train", "--config", yaml_path], device=dev)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            with open(ge2e.train.log_file) as f:
+                losses = [float(ln.split("Loss:")[1].split()[0]) for ln in f if "Loss:" in ln]
+            gate(len(losses) == epochs and bool(np.isfinite(losses).all())
+                 and next(emb.parameters()).device.type == "cuda",
+                 ("GE2E training", losses))
+            gate(os.path.exists(ge2e.model.model_path), ("final checkpoint", ge2e.model.model_path))
+            with quiet():
+                result = cli_ge2e.main(
+                    ["test", "--config", yaml_path, "--enroll_num", "3", "--eval_num", "20",
+                     "--nospoof_data", os.path.join(iv, "test_nospoof", "*", "*.wav")],
+                    device=dev)
+            gate(all(np.isfinite(v) for v in result.values()) and 0 <= result["EER"] <= 1
+                 and 0.5 <= result["clean_threshold"] <= 0.99, ("GE2E test", result))
+            dvec_yaml = os.path.join(root, "dvec.yaml")
+            with open(dvec_yaml, "w") as f:
+                f.write(GE2E_YAML.format(root=root, epochs=epochs, unprocessed=os.path.join(
+                    iv, "test_nospoof", "*", "*.wav")))
+            out_dir = os.path.join(root, "dvec")
+            os.makedirs(out_dir)
+            t0 = time.perf_counter()
+            with quiet():
+                seq, ids = cli_ge2e.main(["dvector", "--config", dvec_yaml, "--out_dir",
+                                          out_dir], device=dev)
+            dvec_s = time.perf_counter() - t0
+            gate(seq.shape[1] == 256 and len(seq) == len(ids) > 0 and bool(np.isfinite(seq).all())
+                 and set(ids) == set(sids[6:]), ("d-vectors", seq.shape, sorted(set(ids))))
+            n = {k: c.launches for k, c in counters.items()}
+            gate(all(v == 0 for v in n.values()) and cluster.launches == 0,
+                 ("a hand-written kernel ran in the GE2E commands", n))
+            log(f"[attack] ge2e train: {epochs} steps (N=6 x M=50 crops of 120 x 40, LSTM "
+                f"3x768, projection 256, f32) in {train_s:.3f} s, losses "
+                f"{[round(v, 4) for v in losses]}; test (slice and staged real-only threshold) "
+                f"{json.dumps(result)}; dvector {seq.shape} in {dvec_s:.3f} s. EER and spoof "
+                f"rate after {epochs} steps on a toy corpus with a random-weight synthesizer "
+                f"prove the path runs, not the verifier or the attack")
+
+            # -- timings: the train step, the embedder's throughput -------------
+            bank = ge2e_harness.DeviceSpeakerBank(ge2e.data.train_path, 50, seed=1, device=dev)
+            e2, l2 = ge2e_harness.build_ge2e(ge2e, dev, seed=1)
+            step = ge2e_harness.make_ge2e_train_step(e2, l2, ge2e.train.lr, n_speakers=6)
+            times = []
+            for _ in range(6):
+                batch = bank.sample_batch(6)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                float(step(batch))
+                times.append(1e3 * (time.perf_counter() - t))
+            x = torch.from_numpy(np.random.default_rng(0).normal(size=(960, 120, 40)).astype(
+                np.float32)).to(dev)
+            rates = {}
+            for name, model in (("bf16", copy.deepcopy(emb).to(torch.bfloat16)), ("f32", emb)):
+                model.eval()
+                with torch.no_grad():
+                    xs = x.to(next(model.parameters()).dtype)
+                    e = model(xs)
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    for i in range(5):
+                        e = model(xs * (1.0 + 1e-3 * i))
+                    torch.cuda.synchronize()
+                    rates[name] = round(960 * 5 / (time.perf_counter() - t), 1)
+                gate(e.shape == (960, 256) and bool(torch.isfinite(e.float()).all()),
+                     ("embedder", name, e.shape))
+            log(f"[attack] GE2E train step N=6 M=50 (300 x 120 x 40, f32, device-resident crops "
+                f"{bank.nbytes} bytes): {[round(v, 2) for v in times[1:]]} ms, median "
+                f"{statistics.median(times[1:]):.2f} ms (after a warm-up; host clock closed by "
+                f"synchronize) on [{smi}]")
+            log(f"[attack] GE2E embedder B=960 x 120 x 40 (bench.py's shape): {rates} utterances/s "
+                f"(5 calls, host clock closed by synchronize) on [{smi}]")
+            staging = sum(v for k, v in stage_s.items() if k != "generate_spoof_set")
+            log(f"[attack] staging {staging:.3f} s, preprocessing {prep_s:.3f} s on [{smi}]")
+            del emb, loss_mod, e2, l2, bank, x, e
+    finally:
+        syn_mod.Synthesizer.__call__ = syn_call
+        syn_mod.griffin_lim_tc = gl_tc
+        for k, fn in stagers.items():
+            setattr(spoofgen, k, fn)
+    return launches
 
 
 def main() -> None:
@@ -2109,12 +2603,13 @@ def main() -> None:
                      "highway_conv_pair": hconv_kernel.hconv_pair_kernel,
                      "decode_f32": decode_kernel.f32_kernel})
     t0 = time.perf_counter()
-    train_launches, step_ms = training_phase(cfg, dev, counters, B=16, N=186, T=325)
+    train_launches, step_ms, bf16_launches = training_phase(cfg, dev, counters, B=16, N=186,
+                                                            T=325)
     log(f"[time] phase 7 {time.perf_counter() - t0:.1f} s")
     for k, v in train_launches.items():
         kernels[k]["launches"] = v
-    log(f"[train] step ms per impl, B=16 N=186 T=325 f32 (median of iterations 2-5): "
-        f"{step_ms} on [{smi}]")
+    log(f"[train] step ms per impl, B=16 N=186 T=325, f32 and bf16 autocast (median of "
+        f"iterations 2-5): {step_ms}; bf16 launches {bf16_launches} on [{smi}]")
 
     # ---- phases 8-9: serving and spoof-set synthesis, bf16, seed-0 weights ----
     m0, s0 = build_models(torch.float32, seed=0)
@@ -2134,8 +2629,16 @@ def main() -> None:
     cli_launches = train_cli_phase(cfg, dev, counters, cluster, smi, onsets, before_onset,
                                    spectral_err)
     log(f"[time] phase 10 {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 11: the GE2E attack path ---------------------------------------
+    t0 = time.perf_counter()
+    attack_launches = ge2e_attack_phase(cfg, dev, state_dicts, counters, cluster, smi,
+                                        spectral_err)
+    log(f"[time] phase 11 {time.perf_counter() - t0:.1f} s")
+    training_bf16 = {"decode": bf16_launches.pop("decode_bf16"), **bf16_launches}
     paths = {"synthesis": launches, "training": train_launches, "serving": serve_launches,
-             "spoofgen": gen_launches, **cli_launches}
+             "spoofgen": gen_launches, **cli_launches, "training_bf16": training_bf16,
+             "ge2e_attack": attack_launches}
     for k, entry in kernels.items():
         entry["launches_by_path"] = {p: n[k] for p, n in paths.items() if k in n}
 

@@ -9,10 +9,13 @@ the positional step and ``-P/--pattern``, ``-R/--resume`` (a path or
 knobs, ``build_models``) are here too.
 
 Everything runs on the card unless :func:`main` is given ``device="cpu"``.
-Training builds f32 parameters; bf16 training (``train_compute_dtype``)
-waits for autocast with f32 master weights (ROADMAP A.5) and data-parallel
-training or synthesis (``--mesh`` other than 1, ``MULTI_GPU``) for the
-port's mesh layer (ROADMAP A.9): both raise ``NotImplementedError``.
+Training keeps f32 parameters and Adam state; ``train_compute_dtype=
+"bfloat16"`` computes the steps under ``torch.autocast`` to bf16, as the JAX
+package builds its models with ``dtype=bfloat16`` over f32 parameters (the
+port does so on the CPU too, where JAX computes in f32). ``--mesh all`` and
+``MULTI_GPU`` run on the one device when only one is visible, as in the JAX
+package; a mesh of more devices waits for the port's mesh layer (ROADMAP
+A.9) and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,11 +45,11 @@ def inference_dtype(cfg: Config, device) -> torch.dtype:
 
 
 def training_dtype(cfg: Config, device) -> torch.dtype:
-    """``cfg.tpu.train_compute_dtype`` (f32 by default) on a CUDA device, f32
-    elsewhere."""
-    if torch.device(device).type == "cuda" and cfg.tpu.train_compute_dtype == "bfloat16":
-        return torch.bfloat16
-    return torch.float32
+    """``cfg.tpu.train_compute_dtype`` (f32 by default) on any device: the
+    steps' autocast dtype over f32 parameters. The JAX package takes bf16 on
+    a TPU only; the port takes it on the CPU too, so that its tests can."""
+    del device
+    return torch.bfloat16 if cfg.tpu.train_compute_dtype == "bfloat16" else torch.float32
 
 
 def apply_runtime_knobs(cfg: Config, infer: bool = False) -> None:
@@ -75,14 +78,24 @@ def build_models(cfg: Config, pattern: str = "conditional", dtype: Optional[torc
     return tuple(m.to(device, dtype) for m in (melsyn, ssrn, mel_disc, lin_disc))
 
 
-def check_mesh(args, cfg: Config) -> None:
-    """Refuse data-parallel runs (``--mesh`` other than 1, or ``MULTI_GPU``),
-    which wait for the port's mesh layer (ROADMAP A.9)."""
+def check_mesh(args, cfg: Config, device) -> None:
+    """Resolve a data-parallel request as the JAX ``resolve_mesh`` does:
+    ``--mesh N``, ``--mesh all`` (every visible device: the CUDA devices on a
+    card, 1 on the CPU) or ``MULTI_GPU`` (all) on at most one device runs on
+    the one device; a mesh of more raises ``NotImplementedError``, as it
+    waits for the port's mesh layer (ROADMAP A.9)."""
     spec = getattr(args, "mesh", None)
-    if spec not in (None, "1") or (spec is None and cfg.multi_gpu):
+    if spec is None and cfg.multi_gpu:
+        spec = "all"
+    if spec in (None, "1"):
+        return
+    visible = torch.cuda.device_count() if torch.device(device).type == "cuda" else 1
+    n = visible if spec == "all" else int(spec)
+    if n > 1:
         raise NotImplementedError(
-            f"data-parallel runs (--mesh {spec}, MULTI_GPU {cfg.multi_gpu}) wait for the "
-            "port's mesh layer (ROADMAP A.9); run with --mesh 1")
+            f"data-parallel runs over {n} devices (--mesh {getattr(args, 'mesh', None)}, "
+            f"MULTI_GPU {cfg.multi_gpu}) wait for the port's mesh layer (ROADMAP A.9); "
+            "run with --mesh 1")
 
 
 def run_training(args, cfg: Config, spec_dir: Optional[str], device):
@@ -91,11 +104,7 @@ def run_training(args, cfg: Config, spec_dir: Optional[str], device):
     from spoofsv_torch.data.pipeline import BucketedLoader, DeviceReplayLoader, TTSDataSource
     from spoofsv_torch.train import Trainer
 
-    if cfg.tpu.train_compute_dtype == "bfloat16":
-        raise NotImplementedError(
-            "train_compute_dtype='bfloat16' needs autocast with f32 master parameters, not "
-            "ported yet (ROADMAP A.5); train with 'float32'")
-    check_mesh(args, cfg)
+    check_mesh(args, cfg, device)
     melsyn, ssrn, mel_disc, lin_disc = build_models(cfg, args.pattern, device=device)
     with_lin = args.step == "train_ssrn"
     gen, disc = (ssrn, lin_disc) if with_lin else (melsyn, mel_disc)
@@ -105,7 +114,8 @@ def run_training(args, cfg: Config, spec_dir: Optional[str], device):
                             stage=args.stage)
     trainer = Trainer(cfg, gen, args.step, pattern=args.pattern, adversarial=args.adversarial,
                       disc_model=disc if args.adversarial else None, ctime=args.current_time,
-                      use_masks=args.masked_loss, metrics_every=args.metrics_every)
+                      use_masks=args.masked_loss, metrics_every=args.metrics_every,
+                      compute_dtype=training_dtype(cfg, device))
     if args.resume:
         path = args.resume
         if path == "latest":
@@ -160,7 +170,7 @@ def run_synthesize(args, cfg: Config, spec_dir: Optional[str], device) -> str:
     from spoofsv_torch.train.steps import guided_attention_table
     from spoofsv_torch.weights import load_generator_params
 
-    check_mesh(args, cfg)
+    check_mesh(args, cfg, device)
     melsyn, ssrn, _, _ = build_models(cfg, args.pattern, dtype=inference_dtype(cfg, device),
                                       device=device)
     load_generator_params(cfg.inference_text2mel_model, melsyn)
@@ -245,7 +255,7 @@ def main(argv=None, device=None):
                     help="keep the bucket-padded training set on the device and gather "
                          "batches there (auto: on for a CUDA device)")
     ps.add_argument("--mesh", type=str, default=None, metavar="N|all",
-                    help="data-parallel over N devices: only 1 is taken yet")
+                    help="data-parallel over N devices: one device only yet")
     ps.add_argument("--metrics_every", type=int, default=1,
                     help="read back and log train metrics every N iterations")
     args = ps.parse_args(argv)

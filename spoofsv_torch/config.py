@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Mapping, Tuple
+import re
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -251,5 +252,228 @@ def load_config(path: str, **overrides: Any) -> Config:
     return Config.from_reference_dict(d, **overrides)
 
 
-__all__ = ["AdamConfig", "Config", "MelConfig", "NormConfig", "STFTConfig", "TPUConfig",
-           "load_config"]
+# ----------------------------------------------------------------------
+# GE2E subsystem config (reference: GE2E/config/config.yaml, GE2E/hparam.py)
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class GE2EDataConfig:
+    train_path: str = "./train_tisv"
+    train_path_unprocessed: str = ""
+    test_path: str = "./test_tisv"
+    test_path_unprocessed: str = ""
+    data_preprocessed: bool = True
+    sr: int = 16000
+    nfft: int = 512
+    window: float = 0.025
+    hop: float = 0.01
+    nmels: int = 40
+    tisv_frame: int = 120
+
+
+@dataclasses.dataclass(frozen=True)
+class GE2EModelConfig:
+    hidden: int = 768
+    num_layer: int = 3
+    proj: int = 256
+    model_path: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
+class GE2ETrainConfig:
+    N: int = 6
+    M: int = 50
+    num_workers: int = 0
+    lr: float = 0.01
+    epochs: int = 950
+    log_interval: int = 5
+    log_file: str = ""
+    checkpoint_interval: int = 120
+    checkpoint_dir: str = "./speech_id_checkpoint"
+    restore: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class GE2ETestConfig:
+    N: int = 20
+    M: int = 86
+    num_workers: int = 0
+    epochs: int = 10
+
+
+@dataclasses.dataclass(frozen=True)
+class GE2EConfig:
+    training: bool = False
+    device: str = "tpu"
+    unprocessed_data: str = ""
+    save_simmat_dir: str = "./simmat"
+    data: GE2EDataConfig = dataclasses.field(default_factory=GE2EDataConfig)
+    model: GE2EModelConfig = dataclasses.field(default_factory=GE2EModelConfig)
+    train: GE2ETrainConfig = dataclasses.field(default_factory=GE2ETrainConfig)
+    test: GE2ETestConfig = dataclasses.field(default_factory=GE2ETestConfig)
+
+    @classmethod
+    def from_yaml(cls, path: str) -> "GE2EConfig":
+        """Parse the reference's multi-document YAML (``GE2E/hparam.py:7-14``)
+        with :func:`parse_reference_yaml`; later documents update earlier ones."""
+        merged: dict = {}
+        with open(path, "r") as stream:
+            for doc in parse_reference_yaml(stream.read()):
+                merged.update(doc)
+
+        def sub(name: str, klass):
+            known = {f.name for f in dataclasses.fields(klass)}
+            return klass(**{k: v for k, v in (merged.get(name) or {}).items() if k in known})
+
+        return cls(
+            training=bool(merged.get("training", False)),
+            device=str(merged.get("device", "tpu")),
+            unprocessed_data=str(merged.get("unprocessed_data", "")),
+            save_simmat_dir=str(merged.get("save_simmat_dir", "./simmat")),
+            data=sub("data", GE2EDataConfig),
+            model=sub("model", GE2EModelConfig),
+            train=sub("train", GE2ETrainConfig),
+            test=sub("test", GE2ETestConfig),
+        )
+
+    def replace(self, **kw: Any) -> "GE2EConfig":
+        return dataclasses.replace(self, **kw)
+
+
+# PyYAML's (YAML 1.1) implicit scalars, the forms the reference config uses
+_YAML_BOOL = {**dict.fromkeys("yes Yes YES true True TRUE on On ON".split(), True),
+              **dict.fromkeys("no No NO false False FALSE off Off OFF".split(), False)}
+_YAML_NULL = {"", "~", "null", "Null", "NULL"}
+_YAML_INT = re.compile(r"[-+]?(?:0|[1-9][0-9_]*)$")
+_YAML_FLOAT = re.compile(r"[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?$"
+                         r"|[-+]?\.[0-9_]+(?:[eE][-+][0-9]+)?$")
+_YAML_SPECIAL_FLOAT = {".inf": float("inf"), ".Inf": float("inf"), ".INF": float("inf"),
+                       "-.inf": float("-inf"), "-.Inf": float("-inf"), "-.INF": float("-inf"),
+                       "+.inf": float("inf"), ".nan": float("nan"), ".NaN": float("nan"),
+                       ".NAN": float("nan")}
+# other implicit scalars (hex, octal, binary, sexagesimal, timestamps): not read here
+_YAML_UNREAD = re.compile(r"[-+]?(?:0[xXbBoO0-7]|[0-9][0-9_]*:[0-5]?[0-9])"
+                          r"|[0-9]{4}-[0-9]{1,2}-[0-9]{1,2}")
+
+
+def _yaml_scalar(text: str, where: str):
+    """One scalar: a quoted string, a ``!!bool``/``!!int``/``!!float``/``!!str``
+    tag, or an implicit bool, null, int, float or plain string."""
+    tag = None
+    if text.startswith("!"):
+        tag, _, text = text.partition(" ")
+        text = text.strip()
+        if tag not in ("!!bool", "!!int", "!!float", "!!str"):
+            raise ValueError(f"{where}: unsupported YAML tag {tag!r}")
+    if len(text) >= 2 and text[0] == text[-1] and text[0] in "'\"":
+        quoted = text[1:-1]
+        if text[0] == "'":
+            quoted = quoted.replace("''", "'")
+        elif "\\" in quoted:
+            raise ValueError(f"{where}: escapes in double-quoted YAML strings are not read")
+        if tag is None or tag == "!!str":
+            return quoted
+        text = quoted
+    elif text[:1] in "'\"[]{}&*|>%@`" and text:
+        raise ValueError(f"{where}: unsupported YAML scalar {text!r}")
+    if tag == "!!str":
+        return text
+    if tag == "!!bool" or (tag is None and text in _YAML_BOOL):
+        if text not in _YAML_BOOL:
+            raise ValueError(f"{where}: not a YAML bool: {text!r}")
+        return _YAML_BOOL[text]
+    if tag is None and text in _YAML_NULL:
+        return None
+    if tag in (None, "!!int") and _YAML_INT.match(text):
+        return int(text.replace("_", ""))
+    if tag in (None, "!!float") and (_YAML_FLOAT.match(text) or text in _YAML_SPECIAL_FLOAT
+                                     or (tag and _YAML_INT.match(text))):
+        return _YAML_SPECIAL_FLOAT.get(text) or float(text.replace("_", ""))
+    if tag is not None or _YAML_UNREAD.match(text):
+        raise ValueError(f"{where}: YAML scalar {text!r} is not read here")
+    return text
+
+
+def _strip_comment(line: str) -> str:
+    """``line`` without its comment: a ``#`` at the start or after a blank,
+    outside quotes."""
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "'\"" and (i == 0 or line[i - 1] in " \t:"):
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i].rstrip()
+    return line.rstrip()
+
+
+def parse_reference_yaml(text: str) -> List[Dict[str, Any]]:
+    """The documents of a multi-document YAML in the reference GE2E config's
+    schema: ``---`` separators, ``key: value`` pairs at two levels (a key
+    with no value opens an indented block of scalars), comments, quoted and
+    tagged scalars. Anything else (lists, flow collections, anchors,
+    multi-line scalars, deeper nesting) raises ``ValueError``. What it reads,
+    it reads as ``yaml.safe_load_all`` would."""
+    docs: List[Dict[str, Any]] = []
+    doc: Optional[Dict[str, Any]] = None
+    block: Optional[Dict[str, Any]] = None
+    block_indent: Optional[int] = None
+    for n, raw in enumerate(text.splitlines(), 1):
+        where = f"line {n}"
+        if raw.startswith("---"):
+            if _strip_comment(raw) != "---":
+                raise ValueError(f"{where}: content after '---' is not read")
+            if doc is not None:
+                docs.append(doc)
+            doc, block, block_indent = {}, None, None
+            continue
+        if raw.startswith("...") and not raw[3:].strip():
+            continue
+        line = _strip_comment(raw)
+        if not line.strip():
+            continue
+        if "\t" in line[: len(line) - len(line.lstrip())]:
+            raise ValueError(f"{where}: tabs in YAML indentation")
+        indent = len(line) - len(line.lstrip(" "))
+        body = line.strip()
+        if body.startswith(("- ", "-\t")) or body == "-" or body.startswith("%"):
+            raise ValueError(f"{where}: only mappings of scalars are read, got {body!r}")
+        key, sep, value = body.partition(":")
+        if not sep or (value and value[0] not in " \t"):
+            raise ValueError(f"{where}: expected 'key: value', got {body!r}")
+        key, value = key.strip(), value.strip()
+        if not key or key[0] in "'\"?&*!{[":
+            raise ValueError(f"{where}: unsupported YAML key {key!r}")
+        if doc is None:
+            doc = {}
+        if indent == 0:
+            block, block_indent = None, None
+            if key in doc:
+                raise ValueError(f"{where}: duplicate key {key!r}")
+            if value:
+                doc[key] = _yaml_scalar(value, where)
+            else:
+                block = doc[key] = {}
+        else:
+            if block is None:
+                raise ValueError(f"{where}: indented line outside a block")
+            if block_indent is None:
+                block_indent = indent
+            if indent != block_indent:
+                raise ValueError(f"{where}: only two levels of nesting are read")
+            if not value:
+                raise ValueError(f"{where}: only two levels of nesting are read")
+            if key in block:
+                raise ValueError(f"{where}: duplicate key {key!r}")
+            block[key] = _yaml_scalar(value, where)
+    if doc is not None:
+        docs.append(doc)
+    # an opened block that received nothing is null, as in YAML
+    return [{k: (None if v == {} else v) for k, v in d.items()} for d in docs if d]
+
+
+__all__ = ["AdamConfig", "Config", "GE2EConfig", "GE2EDataConfig", "GE2EModelConfig",
+           "GE2ETestConfig", "GE2ETrainConfig", "MelConfig", "NormConfig", "STFTConfig",
+           "TPUConfig", "load_config", "parse_reference_yaml"]

@@ -1,14 +1,14 @@
-"""Host-side (numpy) DSP: wav I/O, trimming and the training features.
+"""Host-side (numpy) DSP: audio I/O, trimming and the features.
 
 Copies of :mod:`spoofsv_tpu.dsp.host` (importing ``spoofsv_tpu.dsp`` loads
-jax): ``load_wav``/``write_wav``/``resample`` through scipy,
-``trim_silence`` (librosa.effects.trim semantics), pre- and de-emphasis,
-``amplitude_to_db``, the centered magnitude STFT and ``tts_features``, the
-reference dataset's feature pipeline (``data/dataset.py:94-118``). This is
-host code in both packages; ``--save_spectrogram`` caches its output.
-
-FLAC is not read here: the JAX package decodes it with its native
-``libspoofkit`` codec, which is not built for the port yet (ROADMAP A.3).
+jax): ``load_wav``/``write_wav``/``resample`` through scipy, ``load_flac``/
+``write_flac`` through the native codec (:mod:`spoofsv_torch.spoofkit.flacio`),
+``trim_silence`` and ``split_nonsilent`` (librosa.effects.trim/split
+semantics), pre- and de-emphasis, ``amplitude_to_db``, the centered STFT,
+``tts_features`` (the reference dataset's pipeline, ``data/dataset.py:94-118``),
+and GE2E's features: ``mfccs_and_spec`` (``GE2E/utils.py:61-87``) and
+``ge2e_logmel`` (``GE2E/data_preprocess.py:49-52``). This is host code in
+both packages; ``--save_spectrogram`` caches the training features.
 """
 
 from __future__ import annotations
@@ -22,15 +22,12 @@ from spoofsv_torch.dsp.primitives import frame_indices, hann_window, mel_filterb
 
 
 def load_wav(path: str, sr: Optional[int] = None, mono: bool = True) -> Tuple[np.ndarray, int]:
-    """Read a wav file → (float32 in [-1, 1], sample rate), resampled to
-    ``sr`` when given and different. A ``.flac`` path raises
-    ``NotImplementedError``."""
+    """Read a wav (or FLAC) file → (float32 in [-1, 1], sample rate),
+    resampled to ``sr`` when given and different."""
     from scipy.io import wavfile
 
     if path.lower().endswith(".flac"):
-        raise NotImplementedError(
-            f"{path}: FLAC needs the native libspoofkit codec, not built for the port yet "
-            "(ROADMAP A.3)")
+        return load_flac(path, sr=sr, mono=mono)
     rate, data = wavfile.read(path)
     if data.dtype == np.int16:
         y = data.astype(np.float32) / 32768.0
@@ -56,6 +53,28 @@ def write_wav(path, y: np.ndarray, sr: int) -> None:
     y = np.asarray(y, dtype=np.float32)
     y = np.clip(y, -1.0, 1.0)
     wavfile.write(path, sr, (y * 32767.0).astype(np.int16))
+
+
+def load_flac(path: str, sr: Optional[int] = None, mono: bool = True) -> Tuple[np.ndarray, int]:
+    """Decode a FLAC file with the native codec → (float32 in [-1, 1], rate)."""
+    from spoofsv_torch.spoofkit.flacio import decode_flac
+
+    y, rate = decode_flac(path)
+    if mono and y.ndim > 1:
+        y = y.mean(axis=1)
+    if sr is not None and sr != rate:
+        y = resample(y, rate, sr)
+        rate = sr
+    return y.astype(np.float32), rate
+
+
+def write_flac(path: str, y: np.ndarray, sr: int) -> None:
+    """Write float audio as 16-bit FLAC with the native codec (the format the
+    reference stages for the anti-spoofing CM, ``generate_test_utterances.py:246-255``)."""
+    from spoofsv_torch.spoofkit.flacio import encode_flac
+
+    y = np.clip(np.asarray(y, dtype=np.float32), -1.0, 1.0)
+    encode_flac(path, (y * 32767.0).astype(np.int32), sr)
 
 
 def resample(y: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
@@ -95,12 +114,54 @@ def trim_silence(y: np.ndarray, top_db: float, frame_length: int = 2048,
     return y[start:end], (start, end)
 
 
+def split_nonsilent(y: np.ndarray, top_db: float = 30.0, frame_length: int = 2048,
+                    hop_length: int = 512) -> np.ndarray:
+    """Non-silent (start, end) sample intervals, (n, 2) int64
+    (librosa.effects.split semantics, ``GE2E/synthetic_data_preprocess.py:36``)."""
+    nonsilent = _rms_db(y, frame_length, hop_length) > -top_db
+    intervals = []
+    in_run, s = False, 0
+    for i, v in enumerate(nonsilent):
+        if v and not in_run:
+            in_run, s = True, i
+        elif not v and in_run:
+            in_run = False
+            intervals.append((s, i))
+    if in_run:
+        intervals.append((s, len(nonsilent)))
+    return np.asarray([[int(a * hop_length), int(min(len(y), b * hop_length))]
+                       for a, b in intervals], dtype=np.int64).reshape(-1, 2)
+
+
 def amplitude_to_db(S: np.ndarray, amin: float = 1e-5, top_db: float = 80.0) -> np.ndarray:
     """librosa.amplitude_to_db(ref=1.0) semantics."""
     db = 20.0 * np.log10(np.maximum(amin, np.abs(S)))
     if top_db is not None:
         db = np.maximum(db, db.max() - top_db)
     return db.astype(np.float32)
+
+
+def mfccs_and_spec(y: np.ndarray, sr: int, n_fft: int, window_s: float, hop_s: float,
+                   n_mels: int, tisv_frame: int, wav_process: bool = False,
+                   calc_mfccs: bool = False):
+    """(mfccs or None, mel_db (T, n_mels), mag_db (F, T)): the reference's
+    on-the-fly GE2E features (``GE2E/utils.py:61-87``)."""
+    win = int(window_s * sr)
+    hop = int(hop_s * sr)
+    if wav_process:
+        y, _ = trim_silence(y, 60.0, frame_length=win, hop_length=hop)
+        target = int(sr * (tisv_frame * hop_s + window_s))
+        y = np.pad(y[:target], (0, max(0, target - len(y))))
+    mag = np.abs(stft(y, n_fft, hop, win_length=win))
+    mel = mel_filterbank(sr, n_fft, n_mels) @ mag
+    mag_db = amplitude_to_db(mag)
+    mel_db = amplitude_to_db(mel).T
+    mfccs = None
+    if calc_mfccs:
+        from scipy.fftpack import dct
+
+        mfccs = dct(mel_db.T, type=2, axis=0, norm="ortho")[:40].T
+    return mfccs, mel_db.astype(np.float32), mag_db
 
 
 def preemphasis(y: np.ndarray, coeff: float) -> np.ndarray:
@@ -155,3 +216,11 @@ def tts_features(y: np.ndarray, sr: int, cfg: Config) -> Tuple[np.ndarray, np.nd
     t_reduced = mel.shape[1] // r
     coarse = mel_n[:, : t_reduced * r: r]
     return coarse.T.astype(np.float32), lin_n[:, : t_reduced * r].T.astype(np.float32)
+
+
+def ge2e_logmel(y: np.ndarray, sr: int, n_fft: int, window_s: float, hop_s: float,
+                n_mels: int) -> np.ndarray:
+    """GE2E's log10 mel power, (n_mels, T) (``GE2E/data_preprocess.py:49-52``):
+    the power STFT (25 ms window, 10 ms hop), Slaney mel, ``log10(mel + 1e-6)``."""
+    S = np.abs(stft(y, n_fft, int(hop_s * sr), win_length=int(window_s * sr))) ** 2
+    return np.log10(mel_filterbank(sr, n_fft, n_mels) @ S + 1e-6).astype(np.float32)

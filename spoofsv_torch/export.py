@@ -13,7 +13,8 @@ repo's parameter names and layouts:
   * LayerNorm scale/bias          → weight/bias
   * Embed.embedding (vocab, emb) + bias → text ``Linear(vocab→emb)``
 
-``export_melsyn``, ``export_ssrn`` and ``export_critic`` are copies of the
+``export_melsyn``, ``export_ssrn``, ``export_critic`` and
+``export_ge2e_embedder`` are copies of the
 JAX package's (``spoofsv_tpu/utils/torch_export.py``).
 """
 
@@ -129,4 +130,28 @@ def export_critic(params) -> Dict[str, np.ndarray]:
     for i in range(1, 5):
         _unln(sd, p[f"ln{i}"], f"ln{i}")
     _unhighway(sd, p["hc"], "hc")
+    return sd
+
+
+def export_ge2e_embedder(params) -> Dict[str, np.ndarray]:
+    """flax ``SpeechEmbedder`` params → the reference ``SpeechEmbedder``
+    state dict. flax's ``OptimizedLSTMCell`` keeps one dense kernel a gate
+    (i, f, g, o), the bias on the recurrent side; the stacked torch matrices
+    take them in the same gate order, the bias as ``bias_ih`` with
+    ``bias_hh`` zero."""
+    p = _params(params)
+    sd: Dict[str, np.ndarray] = {}
+    k = 0
+    while f"lstm{k}" in p:
+        g = p[f"lstm{k}"]
+        gates = ("i", "f", "g", "o")
+        b = np.concatenate([_np(g[f"h{x}"]["bias"]) for x in gates], axis=0)
+        sd[f"LSTM_stack.weight_ih_l{k}"] = np.concatenate(
+            [_np(g[f"i{x}"]["kernel"]).T for x in gates], axis=0)
+        sd[f"LSTM_stack.weight_hh_l{k}"] = np.concatenate(
+            [_np(g[f"h{x}"]["kernel"]).T for x in gates], axis=0)
+        sd[f"LSTM_stack.bias_ih_l{k}"] = b
+        sd[f"LSTM_stack.bias_hh_l{k}"] = np.zeros_like(b)
+        k += 1
+    _undense(sd, p["projection"], "projection", conv1d=False)
     return sd

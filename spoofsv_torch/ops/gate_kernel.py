@@ -94,6 +94,18 @@ def recompute_grads(ctx, plain, grad_out: torch.Tensor, *static):
     return tuple(next(grads) if n else None for n in need)
 
 
+def autocast_inputs(*tensors):
+    """The tensors as an ``autocast`` region hands them to a kernel: its
+    floating tensors cast to the region's dtype when autocast is on for
+    their device (an ``autograd.Function`` is not cast by autocast itself),
+    so the kernel's bf16 instance runs on bf16 inputs only."""
+    dev = tensors[0].device.type
+    if not torch.is_autocast_enabled(dev):
+        return tensors
+    dt = torch.get_autocast_dtype(dev)
+    return tuple(t.to(dt) if t.is_floating_point() else t for t in tensors)
+
+
 class _FusedGate(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, x, s1, b1, s2, b2):
@@ -112,5 +124,6 @@ def fused_highway_gate(h: torch.Tensor, x: torch.Tensor, ln1_scale: torch.Tensor
                        ln1_bias: torch.Tensor, ln2_scale: torch.Tensor,
                        ln2_bias: torch.Tensor) -> torch.Tensor:
     """``h`` (..., 2C), ``x`` (..., C) → (..., C): K6 on CUDA tensors, the
-    plain version on CPU tensors; differentiable in every input."""
-    return _FusedGate.apply(h, x, ln1_scale, ln1_bias, ln2_scale, ln2_bias)
+    plain version on CPU tensors; differentiable in every input. Under
+    autocast every input is cast to its dtype first."""
+    return _FusedGate.apply(*autocast_inputs(h, x, ln1_scale, ln1_bias, ln2_scale, ln2_bias))

@@ -25,7 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from spoofsv_torch.ops import _build
-from spoofsv_torch.ops.gate_kernel import LN_EPS, aligned, highway_gate_plain, recompute_grads
+from spoofsv_torch.ops.gate_kernel import (LN_EPS, aligned, autocast_inputs, highway_gate_plain,
+                                            recompute_grads)
 
 hconv_kernel = _build.LaunchCounter()        # K4
 hconv_pair_kernel = _build.LaunchCounter()   # K5
@@ -241,9 +242,10 @@ def fused_highway_conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor
                        ln1_scale, ln1_bias, ln2_scale, ln2_bias, dilation: int = 1,
                        causal: bool = False) -> torch.Tensor:
     """One whole highway block, ``x`` (B, T, C), ``weight`` (2C, C, K): K4 on
-    CUDA tensors, :func:`highway_conv_plain` on CPU tensors."""
-    return _FusedConv.apply(x, weight, bias, ln1_scale, ln1_bias, ln2_scale, ln2_bias,
-                            dilation, causal)
+    CUDA tensors, :func:`highway_conv_plain` on CPU tensors (inputs cast to
+    the autocast dtype under autocast)."""
+    return _FusedConv.apply(*autocast_inputs(x, weight, bias, ln1_scale, ln1_bias, ln2_scale,
+                                             ln2_bias), dilation, causal)
 
 
 def fused_highway_conv_pair(x, wa, ba, s1a, b1a, s2a, b2a, wb, bb, s1b, b1b, s2b, b2b,
@@ -251,6 +253,7 @@ def fused_highway_conv_pair(x, wa, ba, s1a, b1a, s2a, b2a, wb, bb, s1b, b1b, s2b
                             causal: bool = False) -> torch.Tensor:
     """Two consecutive highway blocks (same C, K and causality): K5 on CUDA
     tensors, :func:`highway_pair_plain` on CPU tensors. Computes what two
-    chained :func:`fused_highway_conv` calls compute, up to summation order."""
-    return _FusedPair.apply(x, wa, ba, s1a, b1a, s2a, b2a, wb, bb, s1b, b1b, s2b, b2b,
-                            dilation_a, dilation_b, causal)
+    chained :func:`fused_highway_conv` calls compute, up to summation order
+    (inputs cast to the autocast dtype under autocast)."""
+    return _FusedPair.apply(*autocast_inputs(x, wa, ba, s1a, b1a, s2a, b2a, wb, bb, s1b, b1b,
+                                             s2b, b2b), dilation_a, dilation_b, causal)

@@ -26,6 +26,7 @@ Not ported here: data-parallel training over a mesh (ROADMAP A.9).
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import re
@@ -40,7 +41,7 @@ from spoofsv_torch.config import Config
 from spoofsv_torch.ops.decode_kernel import make_fused_decoder
 from spoofsv_torch.train.losses import binary_divergence, guided_attention_loss, l1_loss
 from spoofsv_torch.train.state import AdvTrainState, TrainState
-from spoofsv_torch.train.steps import (eval_mode, guided_attention_table, is_g_step,
+from spoofsv_torch.train.steps import (autocast_to, eval_mode, guided_attention_table, is_g_step,
                                        make_fused_adversarial_step, make_ordinary_step)
 from spoofsv_torch.weights import load_state
 
@@ -172,39 +173,53 @@ class CheckpointManager:
         return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def make_ar_validator(melsyn: nn.Module, cfg: Config):
-    """Decode a batch autoregressively to its mel length and score L1 + BD +
-    guided attention against it. The decoder is
-    :func:`spoofsv_torch.ops.decode_kernel.make_fused_decoder`, built anew
-    each call so it packs the current weights: kernel K1 for CUDA tensors,
-    its plain version for CPU tensors."""
+def make_ar_validator(melsyn: nn.Module, cfg: Config,
+                      compute_dtype: torch.dtype = torch.float32):
+    """Returns ``begin``: ``begin()``, once per validation call, gives the
+    function that decodes a batch autoregressively to its mel length and
+    scores L1 + BD + guided attention against it. The decoder is
+    :func:`spoofsv_torch.ops.decode_kernel.make_fused_decoder`, built for
+    each batch so it packs the current weights: kernel K1 for CUDA tensors,
+    its plain version for CPU tensors. Under a bf16 ``compute_dtype`` it
+    decodes a bf16 copy of the model, made once per call, as the JAX
+    Trainer's validation decodes with its bf16 module (bf16 K1 on the
+    card)."""
     gaw = guided_attention_table(cfg)
 
+    def begin() -> Callable[[Batch], Dict[str, float]]:
+        model = melsyn if compute_dtype == torch.float32 else copy.deepcopy(melsyn).to(
+            compute_dtype)
+
+        def validate_batch(batch: Batch) -> Dict[str, float]:
+            with eval_mode(model):
+                y, a, _ = make_fused_decoder(model, batch["mel"].shape[1])(batch["text"],
+                                                                          batch["spk"])
+            y, a = y.float(), a.float()
+            l1 = l1_loss(batch["mel"], y)
+            bd = binary_divergence(batch["mel"], y)
+            att = guided_attention_loss(a, gaw(a.device))
+            return {"l1": float(l1), "bd": float(bd), "att": float(att),
+                    "loss": float(l1 + bd + att)}
+
+        return validate_batch
+
+    return begin
+
+
+def make_ssrn_validator(ssrn: nn.Module, cfg: Config,
+                        compute_dtype: torch.dtype = torch.float32):
+    """Returns ``begin``: ``begin()`` gives the function that scores L1 + BD
+    of the SSRN forward (under :func:`autocast_to` ``compute_dtype``)
+    against a batch's linear magnitudes."""
+
     def validate_batch(batch: Batch) -> Dict[str, float]:
-        with eval_mode(melsyn):
-            y, a, _ = make_fused_decoder(melsyn, batch["mel"].shape[1])(batch["text"],
-                                                                       batch["spk"])
-        y, a = y.float(), a.float()
-        l1 = l1_loss(batch["mel"], y)
-        bd = binary_divergence(batch["mel"], y)
-        att = guided_attention_loss(a, gaw(a.device))
-        return {"l1": float(l1), "bd": float(bd), "att": float(att),
-                "loss": float(l1 + bd + att)}
-
-    return validate_batch
-
-
-def make_ssrn_validator(ssrn: nn.Module, cfg: Config):
-    """L1 + BD of the SSRN forward against the batch's linear magnitudes."""
-
-    def validate_batch(batch: Batch) -> Dict[str, float]:
-        with eval_mode(ssrn):
+        with eval_mode(ssrn), autocast_to(batch["mel"].device, compute_dtype):
             y = ssrn(batch["mel"].to(next(ssrn.parameters()).dtype)).float()
         l1 = l1_loss(batch["lin"], y)
         bd = binary_divergence(batch["lin"], y)
         return {"l1": float(l1), "bd": float(bd), "loss": float(l1 + bd)}
 
-    return validate_batch
+    return lambda: validate_batch
 
 
 class Trainer:
@@ -216,13 +231,15 @@ class Trainer:
     and checkpoints every ``cfg.val_every_iter`` iterations. The generator's
     parameters fix the device; batches are moved there. The WGAN-GP
     penalty's mixing draws come from a ``torch.Generator`` on that device,
-    seeded by ``fit(rng_seed=...)``."""
+    seeded by ``fit(rng_seed=...)``. ``compute_dtype`` is the steps' and the
+    validation's autocast dtype (``train_compute_dtype``); the parameters
+    and optimizer state stay f32."""
 
     def __init__(self, cfg: Config, gen_model: nn.Module, train_kind: str,
                  pattern: str = "conditional", adversarial: bool = False,
                  gan_type: str = "wgan-gp", disc_model: Optional[nn.Module] = None,
                  ctime: str = "dev", use_masks: bool = False, validate_with_decode: bool = True,
-                 metrics_every: int = 1):
+                 metrics_every: int = 1, compute_dtype: torch.dtype = torch.float32):
         self.cfg = cfg
         self.gen_model = gen_model
         self.disc_model = disc_model
@@ -239,13 +256,14 @@ class Trainer:
             if disc_model is None:
                 raise ValueError("adversarial training needs a disc_model")
             self.init_fn, self.adv_step = make_fused_adversarial_step(
-                gen_model, disc_model, cfg, train_kind, gan_type, use_masks)
+                gen_model, disc_model, cfg, train_kind, gan_type, use_masks, compute_dtype)
         else:
-            self.init_fn, self.step_fn = make_ordinary_step(gen_model, cfg, train_kind, use_masks)
+            self.init_fn, self.step_fn = make_ordinary_step(gen_model, cfg, train_kind, use_masks,
+                                                            compute_dtype)
         if train_kind == "train_text2mel" and validate_with_decode:
-            self.validator = make_ar_validator(gen_model, cfg)
+            self.validator = make_ar_validator(gen_model, cfg, compute_dtype)
         elif train_kind == "train_ssrn":
-            self.validator = make_ssrn_validator(gen_model, cfg)
+            self.validator = make_ssrn_validator(gen_model, cfg, compute_dtype)
         else:
             self.validator = None
         self.mix_generator = torch.Generator(device=self.device).manual_seed(0)
@@ -326,12 +344,13 @@ class Trainer:
         if self.iteration % self.cfg.val_every_iter != 0 or self.iteration == 0:
             return None
         losses = []
+        validate = self.validator() if self.validator is not None else None
         for vb in val_batches:
-            r = self.validator(vb)
+            r = validate(vb)
             self.metrics.log(dict(r, split="validate", iteration=self.iteration))
             losses.append(r["loss"])
-        if train_batch is not None and self.validator is not None:
-            r = self.validator(train_batch)
+        if train_batch is not None and validate is not None:
+            r = validate(train_batch)
             self.metrics.log(dict(r, split="train_probe", iteration=self.iteration))
         loss_val = float(np.mean(losses)) if losses else float("nan")
         self.loss_val_log.append(loss_val)

@@ -12,7 +12,10 @@ Port of :mod:`spoofsv_tpu.train.steps`:
 PyTorch runs eagerly, so a step is the forward, the backward and
 ``optimizer.step()``; the generator's highway blocks go through the
 process-wide implementation (:func:`spoofsv_torch.models.layers.gate_impl`),
-the critic's are pinned to the plain one.
+the critic's are pinned to the plain one. With ``compute_dtype=bfloat16``
+the forwards and losses run under ``torch.autocast`` over the f32
+parameters and Adam state (the JAX package's models built with
+``dtype=bfloat16``); the backwards run outside it.
 
 Batches are dicts of time-major tensors on the model's device:
 ``mel`` (B, T, 80), ``lin`` (B, 4T, 513), ``text`` (B, N) int, ``spk``
@@ -44,6 +47,17 @@ def make_optimizer(cfg: Config, params) -> torch.optim.Adam:
     lr·m̂/(√v̂ + ε)."""
     a = cfg.adam
     return torch.optim.Adam(params, lr=a.alpha, betas=(a.beta_1, a.beta_2), eps=a.epsilon)
+
+
+def autocast_to(device: torch.device, dtype: torch.dtype):
+    """``torch.autocast`` to ``dtype`` on ``device``'s type, or nothing for f32."""
+    if dtype == torch.float32:
+        return contextlib.nullcontext()
+    return torch.autocast(device.type, dtype=dtype)
+
+
+def _device(model: nn.Module) -> torch.device:
+    return next(model.parameters()).device
 
 
 def shift_right(mel: torch.Tensor) -> torch.Tensor:
@@ -103,11 +117,12 @@ def eval_mode(model: nn.Module) -> Iterator[nn.Module]:
 
 
 def make_ordinary_step(model: nn.Module, cfg: Config, train_kind: str,
-                       use_masks: bool = False):
+                       use_masks: bool = False, compute_dtype: torch.dtype = torch.float32):
     """Returns ``(init_fn, step_fn)``: ``init_fn()`` → a :class:`TrainState`
     with a fresh Adam over ``model``'s parameters; ``step_fn(state, batch)``
-    → ``(state, metrics)``, updating the model and optimizer in place.
-    Dropout (``cfg.apply_dropout``) draws from PyTorch's default generator."""
+    → ``(state, metrics)``, updating the model and optimizer in place, the
+    forward under :func:`autocast_to` ``compute_dtype``. Dropout
+    (``cfg.apply_dropout``) draws from PyTorch's default generator."""
     if train_kind not in TRAIN_KINDS:
         raise ValueError(f"train_kind must be one of {TRAIN_KINDS}, got {train_kind!r}")
     gaw = guided_attention_table(cfg)
@@ -118,8 +133,9 @@ def make_ordinary_step(model: nn.Module, cfg: Config, train_kind: str,
 
     def step_fn(state: TrainState, batch: Batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         model.train(has_dropout)
-        y, a = _gen_forward(model, batch, train_kind)
-        loss, parts = _recon_losses(batch, y, a, gaw, train_kind, use_masks)
+        with autocast_to(_device(model), compute_dtype):
+            y, a = _gen_forward(model, batch, train_kind)
+            loss, parts = _recon_losses(batch, y, a, gaw, train_kind, use_masks)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         state.optimizer.step()
@@ -171,7 +187,8 @@ def clip_weights(module: nn.Module) -> None:
 
 
 def make_adversarial_steps(gen: nn.Module, disc: nn.Module, cfg: Config, train_kind: str,
-                           gan_type: str = "wgan-gp", use_masks: bool = False):
+                           gan_type: str = "wgan-gp", use_masks: bool = False,
+                           compute_dtype: torch.dtype = torch.float32):
     """Returns ``(init_fn, g_step, d_step)``; ``gan_type`` is ``"wgan-gp"``
     (the reference's default trainer), ``"wgan"`` (weight clip) or
     ``"vanilla"`` (log loss on the time frames 1:9 of the mel, 1:33 of the
@@ -188,7 +205,9 @@ def make_adversarial_steps(gen: nn.Module, disc: nn.Module, cfg: Config, train_k
       (then clipped, for WGAN).
 
     Both return ``(state, metrics)`` and update the modules and optimizers in
-    place. The critic is called as the JAX steps call it, deterministic.
+    place. The critic is called as the JAX steps call it, deterministic. The
+    forwards, the penalty's inner gradient and the losses run under
+    :func:`autocast_to` ``compute_dtype``.
     """
     if train_kind not in TRAIN_KINDS:
         raise ValueError(f"train_kind must be one of {TRAIN_KINDS}, got {train_kind!r}")
@@ -208,17 +227,18 @@ def make_adversarial_steps(gen: nn.Module, disc: nn.Module, cfg: Config, train_k
 
     def g_step(state: AdvTrainState, batch: Batch) -> Tuple[AdvTrainState, Dict[str, torch.Tensor]]:
         gen.train(has_dropout)
-        y, a = _gen_forward(gen, batch, train_kind)
-        recon, parts = _recon_losses(batch, y, a, gaw, train_kind, use_masks)
-        d_out = disc(disc_in(y.float()))
-        if gan_type == "vanilla":
-            loss_disc = torch.mean(-torch.log(d_out + 1e-8))    # adversarial.py:307
-            denom = loss_disc                                    # no abs (adversarial.py:310)
-        else:
-            loss_disc = torch.mean(-d_out)                       # …wasserstein_gp.py:288
-            denom = loss_disc.abs()                              # …wasserstein_gp.py:290
-        coeff = (recon / (denom + 1e-12)).detach()
-        loss = recon + coeff * loss_disc
+        with autocast_to(_device(gen), compute_dtype):
+            y, a = _gen_forward(gen, batch, train_kind)
+            recon, parts = _recon_losses(batch, y, a, gaw, train_kind, use_masks)
+            d_out = disc(disc_in(y.float())).float()
+            if gan_type == "vanilla":
+                loss_disc = torch.mean(-torch.log(d_out + 1e-8))    # adversarial.py:307
+                denom = loss_disc                                    # no abs (adversarial.py:310)
+            else:
+                loss_disc = torch.mean(-d_out)                       # …wasserstein_gp.py:288
+                denom = loss_disc.abs()                              # …wasserstein_gp.py:290
+            coeff = (recon / (denom + 1e-12)).detach()
+            loss = recon + coeff * loss_disc
         params = [p for p in gen.parameters() if p.requires_grad]
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         for p, g in zip(params, grads):
@@ -232,25 +252,30 @@ def make_adversarial_steps(gen: nn.Module, disc: nn.Module, cfg: Config, train_k
     def d_step(state: AdvTrainState, batch: Batch, generator: Optional[torch.Generator] = None
                ) -> Tuple[AdvTrainState, Dict[str, torch.Tensor]]:
         gen.train(has_dropout)
-        with torch.no_grad():
+        with torch.no_grad(), autocast_to(_device(gen), compute_dtype):
             y, _ = _gen_forward(gen, batch, train_kind)
         real, fake = batch[real_key].float(), y.float()
         metrics: Dict[str, torch.Tensor] = {}
-        if gan_type == "vanilla":
-            d_real, d_fake = disc(disc_in(real)), disc(disc_in(fake))
-            loss = torch.mean(-torch.log(d_real + 1e-8) - torch.log(1.0 - d_fake + 1e-8))
-            metrics["wd"] = torch.zeros((), device=loss.device)
-        else:
-            loss = torch.mean(disc(fake) - disc(real))           # …wasserstein_gp.py:314
-            metrics["wd"] = -loss.detach()
-            if gan_type == "wgan-gp":
-                c = draw_mixing(real.shape[0], generator, real.device)  # …gp.py:300-301
-                x_mid = (c * real + (1.0 - c) * fake).requires_grad_(True)
-                grad_x, = torch.autograd.grad(disc(x_mid).sum(), x_mid, create_graph=True)
-                norms = torch.sqrt((grad_x ** 2).sum(dim=(1, 2)) + 1e-12)
-                gp = torch.mean(cfg.gp_lambda * (norms - 1.0) ** 2)   # …gp.py:306
-                metrics["gp"] = gp.detach()
-                loss = loss + gp
+
+        def critic(x: torch.Tensor) -> torch.Tensor:
+            return disc(x).float()
+
+        with autocast_to(real.device, compute_dtype):
+            if gan_type == "vanilla":
+                d_real, d_fake = critic(disc_in(real)), critic(disc_in(fake))
+                loss = torch.mean(-torch.log(d_real + 1e-8) - torch.log(1.0 - d_fake + 1e-8))
+                metrics["wd"] = torch.zeros((), device=loss.device)
+            else:
+                loss = torch.mean(critic(fake) - critic(real))       # …wasserstein_gp.py:314
+                metrics["wd"] = -loss.detach()
+                if gan_type == "wgan-gp":
+                    c = draw_mixing(real.shape[0], generator, real.device)  # …gp.py:300-301
+                    x_mid = (c * real + (1.0 - c) * fake).requires_grad_(True)
+                    grad_x, = torch.autograd.grad(critic(x_mid).sum(), x_mid, create_graph=True)
+                    norms = torch.sqrt((grad_x.float() ** 2).sum(dim=(1, 2)) + 1e-12)
+                    gp = torch.mean(cfg.gp_lambda * (norms - 1.0) ** 2)   # …gp.py:306
+                    metrics["gp"] = gp.detach()
+                    loss = loss + gp
         state.disc_optimizer.zero_grad(set_to_none=True)
         loss.backward()
         state.disc_optimizer.step()
@@ -264,14 +289,15 @@ def make_adversarial_steps(gen: nn.Module, disc: nn.Module, cfg: Config, train_k
 
 
 def make_fused_adversarial_step(gen: nn.Module, disc: nn.Module, cfg: Config, train_kind: str,
-                                gan_type: str = "wgan-gp", use_masks: bool = False):
+                                gan_type: str = "wgan-gp", use_masks: bool = False,
+                                compute_dtype: torch.dtype = torch.float32):
     """Returns ``(init_fn, step)``: ``step(state, batch, generator=None)``
     takes the G step when :func:`is_g_step` of ``state.step`` and the D step
     otherwise, a choice made on the host, and returns every key of
     :data:`FUSED_METRICS` (0 where the branch has none). It is the step
     :class:`spoofsv_torch.train.loop.Trainer` takes."""
     init_fn, g_step, d_step = make_adversarial_steps(gen, disc, cfg, train_kind, gan_type,
-                                                     use_masks)
+                                                     use_masks, compute_dtype)
 
     def step(state: AdvTrainState, batch: Batch, generator: Optional[torch.Generator] = None):
         if is_g_step(state.step, cfg.ratio):

@@ -4,18 +4,20 @@ JAX parameter trees go through :mod:`spoofsv_torch.export` (numpy) →
 ``load_state_dict(strict=True)``; a reference ``*.tar.pth`` goes through the
 same loader, so both sources must match the reference schema exactly.
 :func:`load_generator_params` is the entry points' loader of a configured
-checkpoint path.
+checkpoint path; :func:`load_ge2e_params` and :func:`save_ge2e_checkpoint`
+read and write the GE2E embedder's (``.npz`` in the JAX harness's layout, or
+a reference ``.model``/``.pth`` state dict).
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Union
+from typing import Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
 from torch import nn
 
-from spoofsv_torch.export import export_critic, export_melsyn, export_ssrn
+from spoofsv_torch.export import export_critic, export_ge2e_embedder, export_melsyn, export_ssrn
 
 StateLike = Mapping[str, Union[np.ndarray, torch.Tensor]]
 
@@ -74,3 +76,74 @@ def load_generator_params(path: str, module: nn.Module) -> nn.Module:
             f"{path!r} is not a reference checkpoint ({', '.join(CHECKPOINT_SUFFIXES)}); "
             "convert an orbax checkpoint with the JAX package's cli/export.py first")
     return load_reference_checkpoint(module, path)
+
+
+GE2E_TORCH_SUFFIXES = (".model", ".pth", ".pt")
+
+
+def _unflatten(flat: Mapping[str, np.ndarray]) -> dict:
+    tree: dict = {}
+    for key, v in flat.items():
+        *parents, leaf = key.split("/")
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = v
+    return tree
+
+
+def load_ge2e_params(path: str, embedder: nn.Module, loss: Optional[nn.Module] = None
+                     ) -> nn.Module:
+    """Load a GE2E checkpoint into ``embedder`` (strictly) and, when given and
+    present, ``(w, b)`` into ``loss``: a reference state dict
+    (``.model``/``.pth``/``.pt``, bare or under ``"model_state_dict"``) or
+    an ``.npz`` of the JAX harness's layout (``"<group>/params/..."`` keys,
+    ``spoofsv_tpu/spoofkit/ge2e_harness.py:406-441``), as
+    :func:`save_ge2e_checkpoint` also writes it."""
+    if path.endswith(GE2E_TORCH_SUFFIXES):
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        sd = ckpt["model_state_dict"] if "model_state_dict" in ckpt else ckpt
+        return load_state(embedder, sd)
+    with np.load(path) as data:
+        tree = _unflatten({k: data[k] for k in data.files})
+    if loss is not None and "loss" in tree:
+        p = tree["loss"]["params"]
+        load_state(loss, {"w": np.asarray(p["w"]), "b": np.asarray(p["b"])})
+    return load_state(embedder, export_ge2e_embedder(tree.get("embedder", tree)))
+
+
+def ge2e_flax_arrays(embedder: nn.Module, loss: Optional[nn.Module] = None
+                     ) -> Dict[str, np.ndarray]:
+    """The embedder (and ``(w, b)``) as the JAX harness's flat ``.npz``
+    arrays: per layer and gate, flax's input kernel ``i<g>`` (in, H) and
+    recurrent kernel ``h<g>`` (H, H) with the summed bias."""
+    sd = {k: v.detach().float().cpu().numpy() for k, v in embedder.state_dict().items()}
+    out: Dict[str, np.ndarray] = {}
+    k = 0
+    while f"LSTM_stack.weight_ih_l{k}" in sd:
+        wih, whh = sd[f"LSTM_stack.weight_ih_l{k}"], sd[f"LSTM_stack.weight_hh_l{k}"]
+        b = sd[f"LSTM_stack.bias_ih_l{k}"] + sd[f"LSTM_stack.bias_hh_l{k}"]
+        h = whh.shape[1]
+        base = f"embedder/params/lstm{k}"
+        for gi, g in enumerate("ifgo"):
+            out[f"{base}/i{g}/kernel"] = np.ascontiguousarray(wih[gi * h:(gi + 1) * h].T)
+            out[f"{base}/h{g}/kernel"] = np.ascontiguousarray(whh[gi * h:(gi + 1) * h].T)
+            out[f"{base}/h{g}/bias"] = b[gi * h:(gi + 1) * h]
+        k += 1
+    out["embedder/params/projection/kernel"] = np.ascontiguousarray(sd["projection.weight"].T)
+    out["embedder/params/projection/bias"] = sd["projection.bias"]
+    if loss is not None:
+        out["loss/params/w"] = loss.w.detach().float().cpu().numpy()
+        out["loss/params/b"] = loss.b.detach().float().cpu().numpy()
+    return out
+
+
+def save_ge2e_checkpoint(path: str, embedder: nn.Module, loss: Optional[nn.Module] = None
+                         ) -> None:
+    """Write ``.npz`` in the JAX harness's layout (which its
+    ``load_ge2e_params`` reads), or a reference state dict for a
+    ``.model``/``.pth``/``.pt`` path."""
+    if path.endswith(GE2E_TORCH_SUFFIXES):
+        torch.save({k: v.detach().cpu() for k, v in embedder.state_dict().items()}, path)
+    else:
+        np.savez(path, **ge2e_flax_arrays(embedder, loss))

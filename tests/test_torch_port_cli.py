@@ -1,7 +1,8 @@
 """``python -m spoofsv_torch.cli.main`` on the CPU, on a 2-speaker toy corpus.
 
 Training (``train_text2mel --adversarial``, ``train_ssrn`` with the batches
-on the device, ``-R latest``), the refusals (``--mesh 2``, ``MULTI_GPU``,
+on the device, ``-R latest``), the mesh refusal (``--mesh 2``) beside the
+runs it does not refuse (``--mesh all`` and ``MULTI_GPU`` on one device,
 bf16 training, a FLAC corpus), and ``synthesize`` from reference ``.tar.pth``
 checkpoints written from JAX parameters, against the JAX CLI's own
 ``synthesize`` on the same checkpoints: the same wav files, samples within
@@ -22,12 +23,14 @@ import jax.numpy as jnp
 
 from spoofsv_tpu.cli import main as jcli
 from spoofsv_tpu.config import load_config as jload_config
+from spoofsv_tpu.dsp import host as jhost
 from spoofsv_tpu.train.steps import shift_right
 from spoofsv_tpu.utils.torch_export import (export_melsyn, export_ssrn,
                                             save_reference_checkpoint)
 from spoofsv_torch.cli import main as cli
 from spoofsv_torch.data.toy import generate_toy_corpus, toy_config
 from spoofsv_torch.data.vctk import prepare_vctk
+from spoofsv_torch.dsp import host
 from spoofsv_torch.models import layers
 
 TINY = dict(hidden_dim=16, text_emb_dim=8, ssrn_dim=8, disc_dim=8, batch_size=4,
@@ -108,31 +111,48 @@ def test_train_ssrn_with_device_data_and_cache(toy_root):
 
 
 def test_refusals(toy_root, tmp_path):
+    """``--mesh 2`` on one device is refused (ROADMAP A.9). What this test
+    refused before now runs: ``--mesh all`` and ``MULTI_GPU`` on the one
+    visible (CPU) device train single-device, as the JAX ``resolve_mesh``
+    runs them; ``train_compute_dtype="bfloat16"`` trains under autocast; a
+    corpus of FLAC files is read, to the JAX reader's samples."""
     conf = _config(toy_root, "refuse")
     base = ["train_text2mel", "-C", conf, "-T", "r", "--max_iterations", "1"]
     with pytest.raises(NotImplementedError, match="A.9"):
         cli.main(base + ["--mesh", "2"], device="cpu")
-    with pytest.raises(NotImplementedError, match="A.9"):
-        cli.main(["train_ssrn", "-C", _config(toy_root, "multi", multi_gpu=True), "-T", "r"],
-                 device="cpu")
-    with pytest.raises(NotImplementedError, match="A.9"):
-        cli.main(["synthesize", "-C", conf, "-T", "r", "--mesh", "all"], device="cpu")
     bf16 = _config(toy_root, "bf16")
     d = json.loads(open(bf16).read())
     d["TPU"] = {"train_compute_dtype": "bfloat16"}
     open(bf16, "w").write(json.dumps(d))
-    with pytest.raises(NotImplementedError, match="A.5"):
-        cli.main(["train_ssrn", "-C", bf16, "-T", "r"], device="cpu")
-    # a corpus of FLAC files: the reader refuses it
+    with layers.gate_impl("xla"):
+        assert cli.main(base + ["--mesh", "all"], device="cpu").iteration == 1
+        multi = _config(toy_root, "multi", multi_gpu=True)
+        assert cli.main(["train_ssrn", "-C", multi, "-T", "r", "--max_iterations", "1"],
+                        device="cpu").iteration == 1
+        trainer = cli.main(["train_ssrn", "-C", bf16, "-T", "r", "--max_iterations", "1"],
+                           device="cpu")
+    assert trainer.iteration == 1 and next(trainer.gen_model.parameters()).dtype == torch.float32
+    train = [r for r in _metrics(trainer.ckpt.base) if r["split"] == "train"]
+    assert len(train) == 1 and np.isfinite(train[0]["loss"])
+    # a corpus of FLAC files: read, and read as the JAX package reads it
+    lists = toy_root / "data" / "data_path" / "ordinary"
+    wav = open(lists / "wav.path.train").readline().strip()
+    txt = open(lists / "txt.path.train").readline().strip()
     flac_root = tmp_path / "flac"
-    lists = flac_root / "data_path" / "ordinary"
-    lists.mkdir(parents=True)
+    flac_lists = flac_root / "data_path" / "ordinary"
+    flac_lists.mkdir(parents=True)
+    y, sr = host.load_wav(wav)
+    flac = str(flac_root / (os.path.basename(wav)[:-4] + ".flac"))
+    host.write_flac(flac, y, sr)
+    np.testing.assert_array_equal(host.load_wav(flac)[0], jhost.load_wav(flac)[0])
     for mode in ("train", "validate", "synthesize"):
-        (lists / f"wav.path.{mode}").write_text(str(flac_root / "p900_001.flac") + "\n")
-        (lists / f"txt.path.{mode}").write_text(str(flac_root / "p900_001.txt") + "\n")
-    flac = _config(toy_root, "flac", data_root_dir=str(flac_root))
-    with pytest.raises(NotImplementedError, match="A.3"):
-        cli.main(["train_text2mel", "-C", flac, "-T", "r", "--device_data", "on"], device="cpu")
+        (flac_lists / f"wav.path.{mode}").write_text(flac + "\n")
+        (flac_lists / f"txt.path.{mode}").write_text(txt + "\n")
+    flac_conf = _config(toy_root, "flac", data_root_dir=str(flac_root))
+    with layers.gate_impl("xla"):
+        got = cli.main(["train_text2mel", "-C", flac_conf, "-T", "r", "--device_data", "on",
+                        "--max_iterations", "1"], device="cpu")
+    assert got.iteration == 1
     with pytest.raises(SystemExit):
         cli.main(["train_text2mel", "-P", "bogus", "-T", "x"], device="cpu")
     with pytest.raises(SystemExit) as e:

@@ -108,8 +108,18 @@ def test_host_helpers_match_jax(corpus, tmp_path):
 
 
 def test_load_wav_refuses_flac(tmp_path):
-    with pytest.raises(NotImplementedError, match="A.3"):
-        host.load_wav(str(tmp_path / "a.FLAC"))
+    """Once refused (the port had no FLAC codec); now ``load_wav`` reads a
+    ``.FLAC`` the port wrote, to the JAX reader's samples and resampling."""
+    y = np.sin(np.arange(8000) * 0.05).astype(np.float32) * 0.5
+    path = str(tmp_path / "a.FLAC")
+    host.write_flac(path, y, 16000)
+    for sr in (None, 22050):
+        got, got_sr = host.load_wav(path, sr=sr)
+        want, want_sr = jhost.load_wav(path, sr=sr)
+        assert got_sr == want_sr
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(host.load_wav(path)[0],
+                                  (np.clip(y, -1, 1) * 32767.0).astype(np.int32) / 32768.0)
 
 
 # ---------------------------------------------------------------------------

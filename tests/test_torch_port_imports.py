@@ -1,4 +1,5 @@
-"""spoofsv_torch imports no jax, and its kernel wrappers never fall back.
+"""spoofsv_torch imports no jax (nor flax, yaml or spoofsv_tpu), and its
+kernel wrappers never fall back.
 
 A CUDA request with no card raises; a non-CPU tensor reaches the kernel path
 (where it launches or raises), never the plain version.
@@ -29,12 +30,17 @@ def test_port_imports_no_jax():
               "train.losses", "train.state", "train.steps", "train.loop", "cli.main",
               "config", "export", "weights", "serve", "spoofkit.spoofgen", "cli.serve",
               "cli.generate_test_utterances", "data.pipeline", "data.toy", "data.vctk",
-              "models.discriminator", "spoofkit.mcd"):
+              "models.discriminator", "spoofkit.mcd", "native", "spoofkit.flacio",
+              "spoofkit.vad", "spoofkit.ge2e_harness", "spoofkit.dvector", "models.ge2e",
+              "cli.ge2e", "cli.metagen"):
         assert f"spoofsv_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax')))\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', 'yaml')\n"
+            "             or m.startswith(('jax.', 'flax', 'yaml.')))\n"
             "assert not bad, bad\n"
+            "import spoofsv_torch.native as native\n"
+            "assert native._LIB is None, 'importing built libspoofkit'\n"
             "ref = sorted(m for m in sys.modules if m.startswith('spoofsv_tpu'))\n"
             "assert not ref, ref\n"
             "print('ok', len(sys.modules))\n")
@@ -46,7 +52,7 @@ def test_port_imports_no_jax():
 
 
 def test_chip_smoke_imports_nothing_of_the_jax_package():
-    """chip_smoke.py imports neither jax/flax nor spoofsv_tpu, at any depth."""
+    """chip_smoke.py imports neither jax/flax/yaml nor spoofsv_tpu, at any depth."""
     tree = ast.parse((REPO / "chip_smoke.py").read_text())
     names = []
     for node in ast.walk(tree):
@@ -58,7 +64,7 @@ def test_chip_smoke_imports_nothing_of_the_jax_package():
               and node.args and isinstance(node.args[0], ast.Constant)):
             names.append(str(node.args[0].value))
     assert "spoofsv_torch.ops" in names
-    bad = [n for n in names if n.split(".")[0] in ("spoofsv_tpu", "jax", "flax")]
+    bad = [n for n in names if n.split(".")[0] in ("spoofsv_tpu", "jax", "flax", "yaml")]
     assert not bad, bad
 
 

@@ -5,7 +5,7 @@
 (the tiny configuration of ``test_torch_port_serve.py``, JAX parameters
 carried into the port) writes the same file tree as the JAX one, with
 samples within 2e-3 (spsi init). The port's ``generate_test_utterances``
-CLI writes the set with ``--skip_staging`` and raises without it;
+CLI writes the same set with ``--skip_staging`` and refuses a mesh;
 ``load_generator_params`` round-trips the port's ``CheckpointManager``
 checkpoints and refuses any other path.
 """
@@ -167,8 +167,11 @@ def test_checkpoint_round_trip_and_refusals(layout, tmp_path):
 def test_cli_writes_the_set_and_refuses_staging(layout, tmp_path):
     """The CLI with --skip_staging, from a config.json naming the port's
     checkpoints, writes the same set as generate_spoof_set from the same
-    models; without --skip_staging it raises NotImplementedError before any
-    work, and it refuses the staging-only flags and --skip_synthesis."""
+    models. It once refused to stage; staging is ported now
+    (``tests/test_torch_port_staging.py`` runs it), so what is refused is a
+    mesh of more than one device, before any work; the staging flags are
+    taken, and --skip_synthesis with --skip_staging does nothing, as in the
+    JAX CLI."""
     s = layout
     ckpt = {}
     for kind, model in (("text2mel", s.melsyn), ("ssrn", s.ssrn)):
@@ -182,14 +185,13 @@ def test_cli_writes_the_set_and_refuses_staging(layout, tmp_path):
     cfg_path = tmp_path / "config.json"
     cfg_path.write_text(json.dumps(cfg.to_reference_dict()))
     argv = ["-C", str(cfg_path), "-T", "c1", "--eval_utt_num", "4", "--speaker_batch", "3"]
-    with pytest.raises(NotImplementedError, match="A.10"):
-        cli_gen.main(argv, device="cpu")
-    # staging-only flags, and a run that would do nothing, are usage errors
-    for extra in (["--train_spk_num", "5"], ["--enroll_utt_num", "2"], ["--skip_synthesis"]):
-        with pytest.raises(SystemExit):
-            cli_gen.main(argv + ["--skip_staging"] + extra, device="cpu")
+    with pytest.raises(NotImplementedError, match="A.9"):
+        cli_gen.main(argv + ["--mesh", "2"], device="cpu")
+    cli_gen.main(argv + ["--skip_staging", "--skip_synthesis", "--train_spk_num", "5"],
+                 device="cpu")
     assert not (tmp_path / "cli").exists()
-    cli_gen.main(argv + ["--skip_staging"], device="cpu")
+    cli_gen.main(argv + ["--skip_staging", "--enroll_utt_num", "2", "--mesh", "all"],
+                 device="cpu")
     ref_dir = spoofgen.generate_spoof_set(s.cfg.replace(src_root_dir=str(tmp_path / "ref") + "/"),
                                           "c1", s.syn, eval_utt_num=4, speaker_batch=3,
                                           verbose=False)
