@@ -15,7 +15,11 @@ repo's parameter names and layouts:
 
 ``export_melsyn``, ``export_ssrn``, ``export_critic`` and
 ``export_ge2e_embedder`` are copies of the
-JAX package's (``spoofsv_tpu/utils/torch_export.py``).
+JAX package's (``spoofsv_tpu/utils/torch_export.py``); ``export_critic`` also
+carries the countermeasure's v2 stage (``conv3_2``/``ln3_2``), which the
+JAX exporter drops. ``export_drs`` is the port's own: flax ``DRS`` variables
+(``params`` and ``batch_stats``) → the port's :class:`DRS` state dict, 2-D
+conv kernels (kh, kw, in, out) → (out, in, kh, kw).
 """
 
 from __future__ import annotations
@@ -130,6 +134,42 @@ def export_critic(params) -> Dict[str, np.ndarray]:
     for i in range(1, 5):
         _unln(sd, p[f"ln{i}"], f"ln{i}")
     _unhighway(sd, p["hc"], "hc")
+    if "conv3_2" in p:       # the countermeasure's v2 stage
+        _undense(sd, p["conv3_2"], "conv3_2")
+        _unln(sd, p["ln3_2"], "ln3_2")
+    return sd
+
+
+def _unconv2d(out, p, name) -> None:
+    out[f"{name}.weight"] = _np(np.transpose(_np(p["kernel"]), (3, 2, 0, 1)))
+    if "bias" in p:
+        out[f"{name}.bias"] = _np(p["bias"])
+
+
+def _unbn(out, p, stats, name) -> None:
+    out[f"{name}.weight"] = _np(p["scale"])
+    out[f"{name}.bias"] = _np(p["bias"])
+    out[f"{name}.running_mean"] = _np(stats["mean"])
+    out[f"{name}.running_var"] = _np(stats["var"])
+    out[f"{name}.num_batches_tracked"] = np.zeros((), np.int64)
+
+
+def export_drs(variables) -> Dict[str, np.ndarray]:
+    """flax ``DRS`` variables (``{"params": ..., "batch_stats": ...}``) → the
+    port's ``DRS`` state dict."""
+    p, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, np.ndarray] = {}
+    _unconv2d(sd, p["expansion"], "expansion")
+    for name in sorted(k for k in p if k.startswith("block")):
+        for bn in ("bn1", "bn2"):
+            _unbn(sd, p[name][bn], stats[name][bn], f"{name}.{bn}")
+        for conv in ("cnn1", "cnn2"):
+            _unconv2d(sd, p[name][conv], f"{name}.{conv}")
+    for i in range(1, 5):
+        _unconv2d(sd, p[f"cnn{i}"], f"cnn{i}")
+    _undense(sd, p["fc"], "fc", conv1d=False)
+    _unbn(sd, p["bn"], stats["bn"], "bn")
+    _undense(sd, p["fc_out"], "fc_out", conv1d=False)
     return sd
 
 

@@ -6,7 +6,10 @@ same loader, so both sources must match the reference schema exactly.
 :func:`load_generator_params` is the entry points' loader of a configured
 checkpoint path; :func:`load_ge2e_params` and :func:`save_ge2e_checkpoint`
 read and write the GE2E embedder's (``.npz`` in the JAX harness's layout, or
-a reference ``.model``/``.pth`` state dict).
+a reference ``.model``/``.pth`` state dict); :func:`load_critic_params` and
+:func:`save_critic_params` the anti-spoofing countermeasure's (the JAX CLI's
+flat ``.npz`` keyed by flax paths, ``spoofsv_tpu/cli/antispoof.py:102-122``);
+:func:`load_drs_from_jax` carries flax ``DRS`` variables over.
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from spoofsv_torch.export import export_critic, export_ge2e_embedder, export_melsyn, export_ssrn
+from spoofsv_torch.export import (export_critic, export_drs, export_ge2e_embedder,
+                                  export_melsyn, export_ssrn)
 
 StateLike = Mapping[str, Union[np.ndarray, torch.Tensor]]
 
@@ -47,6 +51,47 @@ def load_ssrn_from_jax(module: nn.Module, params) -> nn.Module:
 def load_critic_from_jax(module: nn.Module, params) -> nn.Module:
     """flax ``Critic1D`` params → the port's :class:`Critic1D` (``MelDisc``/``LinDisc``)."""
     return load_state(module, export_critic(params))
+
+
+def load_drs_from_jax(module: nn.Module, variables) -> nn.Module:
+    """flax ``DRS`` variables (``params`` and ``batch_stats``) → the port's :class:`DRS`."""
+    return load_state(module, export_drs(variables))
+
+
+def critic_flax_arrays(module: nn.Module) -> Dict[str, np.ndarray]:
+    """A :class:`Critic1D` as the flat ``"params/<layer>/<leaf>"`` arrays of
+    the flax critic (the inverse of ``export_critic``): Dense kernels (in,
+    out), the highway conv's kernel (k, in, out), LayerNorm scale/bias."""
+    sd = {k: v.detach().float().cpu().numpy() for k, v in module.state_dict().items()}
+    out: Dict[str, np.ndarray] = {}
+    for name in sorted({k.split(".")[0] for k in sd}):
+        if name == "hc":
+            out["params/hc/conv/kernel"] = np.ascontiguousarray(
+                np.transpose(sd["hc.conv.weight"], (2, 1, 0)))
+            out["params/hc/conv/bias"] = sd["hc.conv.bias"]
+            for ln in ("ln1", "ln2"):
+                out[f"params/hc/{ln}/scale"] = sd[f"hc.{ln}.weight"]
+                out[f"params/hc/{ln}/bias"] = sd[f"hc.{ln}.bias"]
+        elif name.startswith("conv"):
+            out[f"params/{name}/kernel"] = np.ascontiguousarray(sd[f"{name}.weight"][..., 0].T)
+            out[f"params/{name}/bias"] = sd[f"{name}.bias"]
+        else:
+            out[f"params/{name}/scale"] = sd[f"{name}.weight"]
+            out[f"params/{name}/bias"] = sd[f"{name}.bias"]
+    return out
+
+
+def save_critic_params(path: str, module: nn.Module) -> None:
+    """Write a countermeasure checkpoint as the JAX CLI's ``_save`` does."""
+    np.savez(path, **critic_flax_arrays(module))
+
+
+def load_critic_params(path: str, module: nn.Module) -> nn.Module:
+    """Load a countermeasure ``.npz`` (the JAX CLI's or :func:`save_critic_params`'s)
+    into ``module`` strictly."""
+    with np.load(path) as data:
+        tree = _unflatten({k: data[k] for k in data.files})
+    return load_state(module, export_critic(tree))
 
 
 def load_reference_checkpoint(module: nn.Module, path: str,

@@ -1,4 +1,4 @@
-"""spoofsv_torch imports no jax (nor flax, yaml or spoofsv_tpu), and its
+"""spoofsv_torch imports no jax (nor flax, optax, yaml or spoofsv_tpu), and its
 kernel wrappers never fall back.
 
 A CUDA request with no card raises; a non-CPU tensor reaches the kernel path
@@ -32,13 +32,16 @@ def test_port_imports_no_jax():
               "cli.generate_test_utterances", "data.pipeline", "data.toy", "data.vctk",
               "models.discriminator", "spoofkit.mcd", "native", "spoofkit.flacio",
               "spoofkit.vad", "spoofkit.ge2e_harness", "spoofkit.dvector", "models.ge2e",
-              "cli.ge2e", "cli.metagen"):
+              "cli.ge2e", "cli.metagen", "spoofkit.ivector", "spoofkit.ivector_torch",
+              "spoofkit.antispoof", "spoofkit.curve", "cli.ivector", "cli.antispoof",
+              "cli.curve"):
         assert f"spoofsv_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
-            "bad = sorted(m for m in sys.modules if m in ('jax', 'yaml')\n"
-            "             or m.startswith(('jax.', 'flax', 'yaml.')))\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.startswith(('jax', 'flax', 'optax', 'yaml')))\n"
             "assert not bad, bad\n"
+            "from spoofsv_torch.models.discriminator import DRS, ResBasicBlock\n"
             "import spoofsv_torch.native as native\n"
             "assert native._LIB is None, 'importing built libspoofkit'\n"
             "ref = sorted(m for m in sys.modules if m.startswith('spoofsv_tpu'))\n"
@@ -52,7 +55,7 @@ def test_port_imports_no_jax():
 
 
 def test_chip_smoke_imports_nothing_of_the_jax_package():
-    """chip_smoke.py imports neither jax/flax/yaml nor spoofsv_tpu, at any depth."""
+    """chip_smoke.py imports neither jax/flax/optax/yaml nor spoofsv_tpu, at any depth."""
     tree = ast.parse((REPO / "chip_smoke.py").read_text())
     names = []
     for node in ast.walk(tree):
@@ -64,7 +67,7 @@ def test_chip_smoke_imports_nothing_of_the_jax_package():
               and node.args and isinstance(node.args[0], ast.Constant)):
             names.append(str(node.args[0].value))
     assert "spoofsv_torch.ops" in names
-    bad = [n for n in names if n.split(".")[0] in ("spoofsv_tpu", "jax", "flax", "yaml")]
+    bad = [n for n in names if n.split(".")[0] in ("spoofsv_tpu", "jax", "flax", "optax", "yaml")]
     assert not bad, bad
 
 
@@ -78,6 +81,11 @@ def test_cuda_request_without_card_raises():
     with pytest.raises(RuntimeError):
         spoofsv_torch.resolve_device(None)
     assert spoofsv_torch.resolve_device("cpu") == torch.device("cpu")
+    # the countermeasure's CLI asks for the card before it reads anything
+    from spoofsv_torch.cli import antispoof
+
+    with pytest.raises(RuntimeError):
+        antispoof.main(["train", "-C", "no-such-config.json", "-T", "t"])
 
 
 def test_wrappers_take_the_kernel_path_for_non_cpu_tensors():
