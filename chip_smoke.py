@@ -107,7 +107,19 @@ Phases (any failure raises and exits non-zero):
      mel, each timed; one step of v1, v2 and lin), ``dev`` on the staged
      spoofs (CM EER), a checkpoint round trip; the GE2E and i-vector curves
      against numpy recomputations, the PNG when matplotlib is installed; no
-     hand-written kernel launches.
+     hand-written kernel launches;
+ 13. the mesh layer (``spoofsv_torch.parallel``): two ranks time-sharing
+     the card over gloo (NCCL refuses two ranks on one device), each a
+     process of its own: sharded synthesis at phase 5's shape (each rank's
+     rows bit-equal to a single-rank call at B=32, the gathered batch
+     bit-equal to the B=64 call with cuDNN off, K1-K3 against their plain
+     versions at the shard's shapes); sharded WGAN-GP Text2Mel training
+     ("fused_pair", f32, B=16, plain and masked: ranks bit-equal, the first
+     steps' gradients within phase 10's gates of one rank's, K4-K6 at the
+     shard's shapes); ``generate_test_utterances`` and ``serve`` with
+     ``--mesh 2 --mesh_share`` (wavs and a burst of 8 replies against
+     single-rank synthesis of the same rows); the NCCL path at world size 1.
+     Each rank reports its launches; they are summed under the path "mesh".
 Prints a kernels JSON line (each kernel's time, plain time, launches on
 the main path, launches on each path, and bound), the card line, then the
 ``{"ok": true, ...}`` line last.
@@ -118,6 +130,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1483,7 +1496,7 @@ def train_cli_phase(cfg, dev, counters: dict, cluster, smi: str, onsets, before_
     from spoofsv_torch.data.vctk import prepare_vctk
     from spoofsv_torch.infer import synthesize as syn_mod
     from spoofsv_torch.infer.decode import make_decoder
-    from spoofsv_torch.models import MelDisc
+    from spoofsv_torch.models import LinDisc, MelDisc
     from spoofsv_torch.models.layers import GATE_IMPLS, gate_impl
     from spoofsv_torch.ops import decode_kernel
     from spoofsv_torch.train import Trainer, loop, steps
@@ -2717,6 +2730,413 @@ def scoring_phase(conf: str, root: str, dev, counters: dict, cluster, smi: str,
     return launches
 
 
+def mesh_phase(cfg, dev, state_dicts, counters: dict, cluster, smi: str, spectral_err,
+               texts, spk, iterations: int = 7) -> dict:
+    """Phase 13: the mesh layer on the card. Two ranks share ``cuda:0`` over
+    gloo (NCCL refuses two ranks on one device): (a) sharded synthesis at
+    the main path's shape (bf16, B=64, N=100, T=325, GL12 from SPSI), each
+    rank's rows bit-equal to a single-rank call on the same rows at the
+    same batch, the gathered batch bit-equal to the single-rank B=64 call
+    with cuDNN off on both sides (the cuDNN-on difference reported), K1-K3
+    held against their plain versions at the shard's shapes; (b) sharded
+    adversarial training (Text2Mel "fused_pair", f32, B=16 global, N=186,
+    T=325, WGAN-GP, ``iterations`` iterations and a validation), plain and
+    with ``use_masks``: the ranks' parameters bit-equal, the first G and D
+    steps' all-reduced gradients within phase 10's gates (1e-2 whole, 5e-2
+    a parameter) of the single-rank run's, K4-K6 held against their plain
+    versions at the shard's shapes; (c) the spoof-set CLI and the serve CLI
+    with ``--mesh 2 --mesh_share``: wavs and a burst of 8 replies against
+    single-rank synthesis of the same rows at the same batch; (d) the NCCL
+    path at world size 1: one synthesis call and one training step against
+    the single-device ones. Returns the kernels' launches summed over the
+    ranks of (a) and (b) and rank 0 of (c)'s spoof-set CLI."""
+    import signal
+    import threading
+    import urllib.request
+
+    import torch
+    import torch.distributed as dist
+
+    from spoofsv_torch import serve as tserve
+    from spoofsv_torch.cli import generate_test_utterances as cli_gen
+    from spoofsv_torch.cli.main import apply_runtime_knobs, inference_dtype
+    from spoofsv_torch.data.text import encode_texts
+    from spoofsv_torch.dsp import host as dsp_host
+    from spoofsv_torch.infer import synthesize as syn_mod
+    from spoofsv_torch.infer.synthesize import Synthesizer, finalize_audio
+    from spoofsv_torch.models import LinDisc, MelDisc
+    from spoofsv_torch.models.layers import gate_impl
+    from spoofsv_torch.ops import gl_kernel
+    from spoofsv_torch.parallel import mesh as mesh_lib
+    from spoofsv_torch.parallel import multihost, ranks
+    from spoofsv_torch.train import TrainState
+    from spoofsv_torch.train.loop import CheckpointManager
+    from spoofsv_torch.train.steps import shift_right
+
+    share = {"devices": [str(dev)] * 2, "backend": "gloo", "timeout_s": 600}
+    total = {}
+
+    def add(launches: dict) -> None:
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    T, B = cfg.max_frame_num, len(texts)
+    half = B // 2
+    root = tempfile.mkdtemp(prefix="mesh_phase_")
+    apply_runtime_knobs(cfg, infer=True)   # the synthesis impl the ranks and the CLIs run
+    dt = inference_dtype(cfg, dev)          # bf16 on the card, as the CLIs load it
+    dtype = {torch.bfloat16: "bfloat16", torch.float32: "float32"}[dt]
+    mbf, sbf = ranks.build_generators(cfg, state_dicts, dev, dt)
+    single = Synthesizer(cfg, mbf, sbf, n_frames=T)
+
+    # ---- (a) sharded synthesis ---------------------------------------------
+    part_t0 = time.perf_counter()
+    part_s = {}
+    gl_tc = syn_mod.griffin_lim_tc
+
+    def reference(text, spk_rows, cudnn: bool = True):
+        """The single-rank call on these rows: (audio, mel, attn) on the CPU
+        and the magnitudes its vocoder took."""
+        mags = []
+
+        def recorded_gl(spec, *a, **kw):
+            mags.append(spec)
+            return gl_tc(spec, *a, **kw)
+
+        syn_mod.griffin_lim_tc = recorded_gl
+        try:
+            with torch.backends.cudnn.flags(enabled=cudnn):
+                out = [t.float().cpu() for t in single.call_local(text, spk_rows)]
+        finally:
+            syn_mod.griffin_lim_tc = gl_tc
+        return out, mags[0]
+
+    def held(got, want) -> dict:
+        """audio, mel and attention max|d| (bit-equal: 0)."""
+        return {k: float((g - w).abs().max())
+                for k, g, w in zip(("audio", "mel", "attn"), got, want)}
+
+    def gate_held(h: dict, what) -> None:
+        gate(h["audio"] == 0.0 and h["mel"] == 0.0 and h["attn"] == 0.0, (what, h))
+
+    t0 = time.perf_counter()
+    res = multihost.spawn(2, ranks.synth_rank, cfg, state_dicts, texts, spk, None, n_frames=T,
+                          dtype=dtype, reps=3, run_dir=os.path.join(root, "a"), **share)
+    spawn_s = time.perf_counter() - t0
+    for r in res:
+        add(r["launches"])
+    gate(all(torch.equal(res[0][k], res[1][k]) for k in ("audio", "mel", "attn")),
+         "the ranks' gathered outputs differ")
+    rows_held, syn_calls, gl_calls = [], [], []
+    for r, out in enumerate(res):
+        rows = slice(*out["rows"])
+        gate((rows.start, rows.stop) == (r * half, (r + 1) * half), ("rows", r, out["rows"]))
+        gate(all(torch.equal(out[k][rows], v) for k, v in zip(("mel", "attn"),
+                                                               out["local"][1:])),
+             ("a rank's gathered rows are not its own output", r))
+        want, mag = reference(texts[rows], spk[rows])
+        rows_held.append(held([out[k][rows] for k in ("audio", "mel", "attn")], want))
+        syn_calls.append((single, texts[rows], spk[rows]))
+        gl_calls.append((mag, cfg.tpu.griffin_lim_int8))
+    hold_synthesis(syn_calls, gl_calls, dev, spectral_err, "mesh shard")
+    mag = gl_calls[0][0]
+    init = gl_kernel.init_angles_plain(mag, NFFT, HOP, "spsi")
+    k3 = [gl_tc(mag, NFFT, HOP, n_iter=12, init_angles=init, int8=cfg.tpu.griffin_lim_int8)
+          for _ in range(2)]
+    k3_twice = float((k3[0] - k3[1]).abs().max())
+    gate(k3_twice == 0.0, ("K3 twice on one shard's magnitudes", k3_twice))
+    del syn_calls[:], gl_calls[:], k3
+    want, _ = reference(texts, spk)
+    on = held([res[0][k] for k in ("audio", "mel", "attn")], want)
+    off = multihost.spawn(2, ranks.synth_rank, cfg, state_dicts, texts, spk, None, n_frames=T,
+                          dtype=dtype, cudnn=False, run_dir=os.path.join(root, "a_off"),
+                          **share)
+    want, _ = reference(texts, spk, cudnn=False)
+    off = held([off[0][k] for k in ("audio", "mel", "attn")], want)
+    log(f"[mesh a] 2 gloo ranks on {dev}, {dtype} B={B} N={texts.shape[1]} T={T} GL12 spsi: "
+        f"each rank's rows vs a single-rank call at B={half}: {rows_held}; the gathered batch vs "
+        f"the single-rank B={B} call, cuDNN off: {off}; cuDNN on (reported, ROADMAP C.1): {on} "
+        f"(gates: audio, mel and attention max|d| 0; K3 alone twice on one shard's magnitudes "
+        f"max|d| {k3_twice:.4g}, gate 0); launches rank 0 {res[0]['launches']}, rank 1 "
+        f"{res[1]['launches']}; spawn and first call {spawn_s:.1f} s")
+    for r, h in enumerate(rows_held):
+        gate_held(h, ("rank rows vs a single-rank call at B/2", r))
+    gate_held(off, "gathered vs the single-rank B=64 call, cuDNN off")
+    for r in res:
+        gate(r["launches"]["decode"] == 1 and r["launches"]["griffin_lim"] == 1
+             and r["launches"]["gl_init"] == 1 and r["launches"]["griffin_lim_f32"] == 0,
+             ("a rank's synthesis launches", r["launches"]))
+    synth_ms = [[round(v, 2) for v in r["local_ms"]] for r in res]
+    gather_ms = [[round(v, 3) for v in r["gather_ms"]] for r in res]
+    del res, want
+
+    # ---- (b) sharded adversarial training ----------------------------------
+    part_s["a"] = round(time.perf_counter() - part_t0, 1)
+    N, Bt = 186, 16
+    rng = np.random.default_rng(13)
+    torch.manual_seed(5)
+    disc_sd = {k: v.cpu() for k, v in MelDisc(cfg.disc_dim,
+                                              freq_bins=cfg.mel.freq_bins).state_dict().items()}
+
+    def batch(b: int, masks: bool) -> dict:
+        out = {"mel": rng.uniform(0.05, 0.95, (b, T, cfg.mel.freq_bins)).astype(np.float32),
+               "text": rng.integers(1, cfg.vocab_len - 1, (b, N)).astype(np.int32),
+               "spk": rng.normal(size=(b, cfg.spk_emb_dim)).astype(np.float32)}
+        if masks:
+            fl, tl = rng.integers(T // 3, T + 1, b), rng.integers(N // 2, N + 1, b)
+            out["mel_mask"] = (np.arange(T)[None] < fl[:, None]).astype(np.float32)
+            tm = (np.arange(N)[None] < tl[:, None]).astype(np.float32)
+            out["att_mask"] = tm[:, :, None] * out["mel_mask"][:, None, :]
+        return out
+
+    torch.manual_seed(6)
+    lin_disc_sd = {k: v.cpu() for k, v in LinDisc(cfg.disc_dim,
+                                                  lin_bins=cfg.lin_bins).state_dict().items()}
+
+    def lin_batch(b: int) -> dict:
+        return {"mel": rng.uniform(0.05, 0.95, (b, T, cfg.mel.freq_bins)).astype(np.float32),
+                "lin": rng.uniform(0.05, 0.95, (b, 4 * T, cfg.lin_bins)).astype(np.float32)}
+
+    # Text2Mel "fused_pair" (K5, and the f32 K1 in its validation), plain and
+    # masked; SSRN "fused_conv" (K4), one G and two D steps
+    # phase 10's gates hold the gradients of the first step taken from the
+    # weights both runs were given: the generator's in the Text2Mel runs (G
+    # first), the critic's in the SSRN run (D first); the other net's first
+    # step follows a step that rounding already parted, so it is reported
+    runs = [("train_text2mel", False, "fused_pair", iterations, 0),
+            ("train_text2mel", True, "fused_pair", iterations, 0),
+            ("train_ssrn", False, "fused_conv", 3, 1)]
+    def grad_gap(g2: dict, g1: dict) -> tuple:
+        """Relative gradient difference: all parameters as one vector, and
+        the worst parameter."""
+        gate(sorted(g2) == sorted(g1) and len(g1) > 0, "first-step gradients")
+        num = sum(float((g2[k].double() - g1[k].double()).norm() ** 2) for k in g1)
+        den = sum(float(g1[k].double().norm() ** 2) for k in g1)
+        per = max(float((g2[k].double() - g1[k].double()).norm())
+                  / max(float(g1[k].double().norm()), 1e-30) for k in g1)
+        return num ** 0.5 / den ** 0.5, per
+
+    step_ms, allreduce_ms = {}, {}
+    for kind, masks, impl, iters, start in runs:
+        name = f"{kind[6:]}{'/masks' if masks else ''}"
+        if kind == "train_text2mel":
+            batches, val = [batch(Bt, masks) for _ in range(2)], [batch(8, False)]
+            args = (cfg, kind, state_dicts["text2mel"], disc_sd, batches, iters)
+        else:
+            batches, val = [lin_batch(Bt) for _ in range(2)], None
+            args = (cfg, kind, state_dicts["ssrn"], lin_disc_sd, batches, iters)
+        kw = dict(use_masks=masks, impl=impl, val_batches=val, start_step=start)
+        held_net = "disc" if start else "gen"
+        tag = name.replace("/", "_")
+        t0 = time.perf_counter()
+        two = multihost.spawn(2, ranks.train_rank, *args, run_dir=os.path.join(root, tag),
+                              workdir=os.path.join(root, tag + "_run"), **kw, **share)
+        spawn_s = time.perf_counter() - t0
+        one = ranks.train_rank(mesh_lib.make_mesh(device=dev), *args,
+                               workdir=os.path.join(root, tag + "_one"), **kw)
+        for r in two:
+            add(r["launches"])
+        same = all(torch.equal(two[0][p][k], two[1][p][k])
+                   for p in ("gen", "disc", "moments") for k in two[0][p])
+        gate(same and two[0]["iteration"] == iters, ("ranks' states differ", name))
+        worst = {net: grad_gap(two[0]["first_grads"][net], one["first_grads"][net])
+                 for net in sorted(two[0]["first_grads"])}
+        params = max(float((two[0][p][k].double() - one[p][k].double()).abs().max())
+                     for p in ("gen", "disc") for k in one[p])
+        log(f"[mesh b] {name} {impl} f32 B={Bt} (2 x {Bt // 2}) N={N} T={T} WGAN-GP, {iters} "
+            f"iterations from step {start}: ranks bit-equal; each net's first-step gradients "
+            f"vs the single-rank run, relative (whole, worst parameter): "
+            f"{ {k: (f'{a:.3g}', f'{b:.3g}') for k, (a, b) in worst.items()} } (gates 1e-2, "
+            f"5e-2 on the {held_net}'s, from the same weights; the other's reported); "
+            f"parameters after the run max|d| {params:.3g} (reported); losses "
+            f"{two[0]['loss_logs']}; validation {two[0]['val']} vs single {one['val']}; "
+            f"launches rank 0 {two[0]['launches']}, rank 1 {two[1]['launches']}; two ranks' "
+            f"run with their start {spawn_s:.1f} s")
+        gate(worst[held_net][0] <= 1e-2 and worst[held_net][1] <= 5e-2,
+             ("mesh gradients", name, held_net, worst))
+        own = {"fused_pair": ("highway_conv_pair", "decode_f32"), "fused_conv": ("highway_conv",)}
+        gate(all(two[0]["launches"][k] > 0 for k in own[impl]),
+             ("sharded training did not run its kernels", name, two[0]["launches"]))
+        step_ms[name] = [[round(v, 1) for v in r["step_ms"]] for r in two]
+        step_ms[f"single {name}"] = [round(v, 1) for v in one["step_ms"]]
+        allreduce_ms[name] = [round(r["allreduce_ms"], 3) for r in two]
+        del two, one
+    # K4-K6 at the shard's shapes: a rank's 8 rows through the generators' forwards
+    m32, s32 = ranks.build_generators(cfg, state_dicts, dev, torch.float32)
+    shard = {k: torch.from_numpy(v[:Bt // 2]).to(dev) for k, v in batch(Bt, False).items()}
+    for impl, kernels in (("pallas", {"highway_gate"}), ("fused_pair", {"highway_conv_pair"}),
+                          ("fused_conv", {"highway_conv"})):
+        recorded = {}
+        with gate_impl(impl), recording_highway(recorded), torch.no_grad():
+            m32(shift_right(shard["mel"]), shard["text"], shard["spk"])
+            if impl == "fused_conv":
+                s32(shard["mel"])
+        gate(kernels <= set(recorded), (impl, "kernels not recorded", sorted(recorded)))
+        hold_highway(recorded, 1e-4, f"mesh shard {impl}", torch.float32)
+    del m32, s32
+
+    # ---- (c) the CLIs with --mesh 2 --mesh_share ---------------------------
+    part_s["b"] = round(time.perf_counter() - part_t0 - sum(part_s.values()), 1)
+    names = [f"p{225 + i}" for i in range(4)]
+    emb_dir, data_dir = os.path.join(root, "spk_emb"), os.path.join(root, "data")
+    os.makedirs(emb_dir)
+    for i, name in enumerate(names):
+        os.makedirs(os.path.join(data_dir, "wav22", name))
+        np.save(os.path.join(emb_dir, name + ".npy"),
+                np.random.default_rng(20 + i).normal(size=cfg.spk_emb_dim).astype(np.float32))
+    with open(os.path.join(root, "havard.txt"), "w") as f:
+        f.write("\n".join(SENTENCES) + "\n")
+    # the CLIs run the configuration's own route (K1-K3); wavs held bit for bit
+    ccfg = cfg.replace(src_root_dir=os.path.join(root, "cli") + "/", data_root_dir=data_dir,
+                        spk_emb_dir=emb_dir, tts_texts=os.path.join(root, "havard.txt"))
+    m32, s32 = ranks.build_generators(cfg, state_dicts, "cpu", torch.float32)
+    ckpt = {}
+    for kind, model in (("text2mel", m32), ("ssrn", s32)):
+        mgr = CheckpointManager(ccfg, "conditional", False, "ck", f"train_{kind}")
+        ckpt[kind] = mgr.save(TrainState(0, model, torch.optim.Adam(model.parameters())),
+                              {"epoch": 0, "iteration": 1, "loss_val_log": []})
+    ccfg = ccfg.replace(inference_text2mel_model=ckpt["text2mel"],
+                        inference_ssrn_model=ckpt["ssrn"])
+    conf = os.path.join(root, "config.json")
+    with open(conf, "w") as f:
+        json.dump(ccfg.to_reference_dict(), f)
+    for c in [*counters.values(), cluster]:
+        c.launches = 0
+    t0 = time.perf_counter()
+    cli_gen.main(["-C", conf, "-T", "mesh", "--eval_utt_num", "20", "--speaker_batch", "4",
+                  "--skip_staging", "--mesh", "2", "--mesh_share"], device=str(dev))
+    gen_s = time.perf_counter() - t0
+    gen_launches = {k: c.launches for k, c in counters.items()}
+    add(gen_launches)   # rank 0 of the CLI is this process; rank 1's are in its log only
+    gate(gen_launches["decode"] > 0 and gen_launches["gl_init"] > 0
+         and gen_launches["griffin_lim"] > 0, ("the spoof-set CLI's K1-K3 launches", gen_launches))
+    ids = encode_texts(SENTENCES[:20], cfg.vocabulary)
+    text = np.tile(ids, (4, 1))
+    embs = np.repeat(np.stack([np.load(os.path.join(emb_dir, n + ".npy")) for n in names]), 20, 0)
+    rows = len(text) // 2
+    want = np.concatenate([single.call_local(text[r * rows:(r + 1) * rows],
+                                             embs[r * rows:(r + 1) * rows])[0].float().cpu().numpy()
+                           for r in range(2)])
+    bad = []
+    for i, name in enumerate(names):
+        for k in range(20):
+            rel = os.path.join(f"s{name[1:]}", f"s{name[1:]}_{k + 1:03d}.wav")
+            got = dsp_host.load_wav(os.path.join(ccfg.src_root_dir, "test", "mesh", "spoof_data",
+                                                 rel))[0]
+            ref_path = os.path.join(root, "ref.wav")
+            dsp_host.write_wav(ref_path, finalize_audio(want[i * 20 + k], cfg, trim_db=30.0,
+                                                        max_seconds=9.0), cfg.sampling_rate)
+            if not np.array_equal(got, dsp_host.load_wav(ref_path)[0]):
+                bad.append(rel)
+    log(f"[mesh c] generate_test_utterances --mesh 2 --mesh_share "
+        f"(griffin_lim_impl {cfg.tpu.griffin_lim_impl}): 4 speakers x 20 sentences, "
+        f"one call of {len(text)} rows ({rows} a rank) in {gen_s:.1f} s (two processes' start "
+        f"included); wavs not bit-equal to single-rank synthesis of the same rows at B={rows}: "
+        f"{len(bad)} of 80 {bad[:3]}; rank 0's launches {gen_launches}")
+    gate(not bad, ("spoof-set CLI over 2 ranks vs single-rank rows", bad[:5]))
+
+    # a served burst of 8 through the serve CLI, in its own process
+    log_path = os.path.join(root, "serve.log")
+    with open(log_path, "w") as out:
+        server = subprocess.Popen(
+            [sys.executable, "-m", "spoofsv_torch.cli.serve", "-C", conf, "--port", "0",
+             "--mesh", "2", "--mesh_share", "--max_batch", "8", "--batch_wait_ms", "3000"],
+            stdout=out, stderr=subprocess.STDOUT, stdin=subprocess.DEVNULL,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        url = None
+        deadline = time.time() + 300
+        while url is None and time.time() < deadline and server.poll() is None:
+            time.sleep(0.5)
+            for ln in open(log_path).read().splitlines():
+                if "[serve] listening on " in ln:
+                    url = ln.split("listening on ")[1].split()[0]
+        gate(url is not None, ("the mesh server did not start", open(log_path).read()[-3000:]))
+        reqs = [{"text": SENTENCES[i], "speaker": names[i % 4]} for i in range(8)]
+        replies = [None] * 8
+
+        def post(i: int) -> None:
+            r = urllib.request.Request(url + "/synthesize", data=json.dumps(reqs[i]).encode(),
+                                       headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(r, timeout=300) as resp:
+                replies[i] = (resp.status, resp.read())
+
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(8)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        burst_s = time.perf_counter() - t0
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as resp:
+            stats = json.loads(resp.read())["stats"]
+    finally:
+        server.send_signal(signal.SIGINT)
+        try:
+            server.wait(120)
+        except subprocess.TimeoutExpired:
+            server.kill()
+            server.wait(30)
+    gate(all(r is not None and r[0] == 200 for r in replies), ("burst replies", replies))
+    gate(server.returncode == 0, ("the mesh server's exit", server.returncode,
+                                  open(log_path).read()[-3000:]))
+    # all 8 ran as one batch (rung 8: 4 rows a rank); a row's output at a
+    # fixed shape does not depend on its neighbours, so each reply is the
+    # single-rank B=4 call's row of its own request
+    ids = encode_texts([q["text"] for q in reqs], cfg.vocabulary, max_len=cfg.max_text_len)
+    sp = np.stack([np.load(os.path.join(emb_dir, q["speaker"] + ".npy")) for q in reqs])
+    ref = torch.cat([single.call_local(ids[g:g + 4], sp[g:g + 4])[0] for g in (0, 4)])
+    pcm = tserve.pcm16(ref).cpu().numpy()
+    mismatch = [i for i in range(8) if replies[i][1] != tserve.wav_bytes(
+        finalize_audio(pcm[i].astype(np.float32) / 32767.0, cfg, trim_db=30.0),
+        cfg.sampling_rate)]
+    log(f"[mesh c] serve --mesh 2 --mesh_share: a burst of 8 in {burst_s:.2f} s, stats "
+        f"{ {k: stats[k] for k in ('n_batches', 'max_batch_seen', 'n_requests')} }; replies "
+        f"200; wav bytes unlike single-rank B=4 synthesis of the same rows: {mismatch}")
+    gate(stats["n_batches"] == 1 and stats["max_batch_seen"] == 8, ("one batch of 8", stats))
+    gate(not mismatch, ("served replies vs single-rank rows", mismatch))
+
+    # ---- (d) the NCCL path at world size 1 --------------------------------
+    part_s["c"] = round(time.perf_counter() - part_t0 - sum(part_s.values()), 1)
+    port, lock = multihost.reserve_port()
+    try:
+        multihost.initialize_distributed(f"tcp://localhost:{port}", 1, 0, "nccl", dev)
+    finally:
+        lock.close()
+    try:
+        mesh = mesh_lib.make_mesh(1, dev)
+        gate(mesh.backend == "nccl" and mesh.grouped, ("an NCCL group of one", mesh))
+        got = Synthesizer(cfg, mbf, sbf, n_frames=T, mesh=mesh)(texts, spk)
+        want = single(texts, spk)
+        syn_ok = all(torch.equal(g, w) for g, w in zip(got, want))
+        b1 = [batch(Bt, False)]
+        args = (cfg, "train_text2mel", state_dicts["text2mel"], disc_sd, b1, 1)
+        nccl = ranks.train_rank(mesh, *args, impl="fused_pair",
+                                workdir=os.path.join(root, "d_nccl"))
+        ref1 = ranks.train_rank(mesh_lib.make_mesh(device=dev), *args, impl="fused_pair",
+                                workdir=os.path.join(root, "d_one"))
+        # a step's backward is not bit-reproducible (atomic accumulations in
+        # cuDNN's and the embedding's gradients), so the step is held as (b)'s
+        gap = grad_gap(nccl["first_grads"]["gen"], ref1["first_grads"]["gen"])
+        log(f"[mesh d] NCCL world size 1 on {dev}: synthesis B={B} "
+            f"bit-equal to the single-device call: {syn_ok}; one G step's gradients vs the "
+            f"single-device step, relative (whole, worst parameter): ({gap[0]:.3g}, "
+            f"{gap[1]:.3g}) (gates 1e-2, 5e-2); step ms {[round(v, 1) for v in nccl['step_ms']]}, "
+            f"gradient all-reduce {nccl['allreduce_ms']:.3f} ms")
+        gate(syn_ok and gap[0] <= 1e-2 and gap[1] <= 5e-2,
+             ("the NCCL path at world size 1", syn_ok, gap))
+    finally:
+        dist.destroy_process_group()
+    part_s["d"] = round(time.perf_counter() - part_t0 - sum(part_s.values()), 1)
+    log(f"[time] phase 13 parts (s) {part_s}")
+    log(f"[mesh] two ranks time-sharing one card: overhead, not scaling. Per rank "
+        f"synthesis ms (B={half}, 3 calls) {synth_ms}; audio all-gather ms (host staged) "
+        f"{gather_ms}; training step ms (ranks) and single-rank {step_ms}; one gradient "
+        f"all-reduce ms {allreduce_ms} on [{smi}]")
+    shutil.rmtree(root, ignore_errors=True)
+    return total
+
+
 def main() -> None:
     import torch
 
@@ -3041,10 +3461,16 @@ def main() -> None:
         t0 = time.perf_counter()
         scoring_launches = scoring_phase(attack_conf, root, dev, counters, cluster, smi)
         log(f"[time] phase 12 {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 13: the mesh layer, two ranks sharing the card ----------------
+    t0 = time.perf_counter()
+    mesh_launches = mesh_phase(cfg, dev, state_dicts, counters, cluster, smi, spectral_err,
+                               texts, spk)
+    log(f"[time] phase 13 {time.perf_counter() - t0:.1f} s")
     training_bf16 = {"decode": bf16_launches.pop("decode_bf16"), **bf16_launches}
     paths = {"synthesis": launches, "training": train_launches, "serving": serve_launches,
              "spoofgen": gen_launches, **cli_launches, "training_bf16": training_bf16,
-             "ge2e_attack": attack_launches, "scoring": scoring_launches}
+             "ge2e_attack": attack_launches, "scoring": scoring_launches, "mesh": mesh_launches}
     for k, entry in kernels.items():
         entry["launches_by_path"] = {p: n[k] for p, n in paths.items() if k in n}
 

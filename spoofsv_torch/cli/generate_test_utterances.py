@@ -3,10 +3,10 @@
 Port of :mod:`spoofsv_tpu.cli.generate_test_utterances` with the same flags
 (``generate_test_utterances.py:44-51``: ``-C``, ``--train_spk_num``,
 ``--enroll_utt_num``, ``--eval_utt_num``, ``-T``; and ``--speaker_batch``,
-``--skip_synthesis``, ``--skip_staging``), on one card: the spoof set's
-synthesis, then the i-vector, GE2E and anti-spoofing layouts.
-Data-parallel synthesis (``--mesh`` over more than one device) waits for
-the port's mesh layer (ROADMAP A.9).
+``--skip_synthesis``, ``--skip_staging``, ``--mesh``): the spoof set's
+synthesis (data-parallel over the ``--mesh`` ranks, each call padded to the
+rank multiple, :func:`spoofsv_torch.cli.main.data_parallel`), then, on rank
+0, the i-vector, GE2E and anti-spoofing layouts.
 """
 
 from __future__ import annotations
@@ -26,33 +26,39 @@ def main(argv=None, device=None) -> None:
                     help="speakers synthesized per device batch")
     ps.add_argument("--skip_synthesis", action="store_true")
     ps.add_argument("--skip_staging", action="store_true")
-    ps.add_argument("--mesh", type=str, default=None, metavar="N|all",
-                    help="data-parallel synthesis over N devices: one device only yet")
+    from spoofsv_torch.cli.main import add_mesh_args
+
+    add_mesh_args(ps, "data-parallel spoof-set synthesis")
     args = ps.parse_args(argv)
 
-    from spoofsv_torch.cli.main import check_mesh
     from spoofsv_torch.config import load_config
     from spoofsv_torch.spoofkit import spoofgen
 
     cfg = load_config(args.configuration)
+    primary = True
     if not args.skip_synthesis:
         from spoofsv_torch import resolve_device
-        from spoofsv_torch.cli.main import apply_runtime_knobs, build_models, inference_dtype
+        from spoofsv_torch.cli.main import (apply_runtime_knobs, build_models, data_parallel,
+                                            inference_dtype)
         from spoofsv_torch.infer.synthesize import Synthesizer
         from spoofsv_torch.weights import load_generator_params
 
         apply_runtime_knobs(cfg, infer=True)
         dev = resolve_device(device)
-        check_mesh(args, cfg, dev)
-        melsyn, ssrn, _, _ = build_models(cfg, "conditional", dtype=inference_dtype(cfg, dev),
-                                          device=dev)
-        load_generator_params(cfg.inference_text2mel_model, melsyn)
-        load_generator_params(cfg.inference_ssrn_model, ssrn)
-        syn = Synthesizer(cfg, melsyn, ssrn, n_frames=cfg.max_frame_num)
-        spoofgen.generate_spoof_set(cfg, args.current_time, syn, eval_utt_num=args.eval_utt_num,
-                                    speaker_batch=args.speaker_batch)
+        with data_parallel(args, cfg, dev, "spoofsv_torch.cli.generate_test_utterances",
+                           argv) as mesh:
+            dev = dev if mesh is None else mesh.device
+            primary = mesh is None or mesh.rank == 0
+            melsyn, ssrn, _, _ = build_models(cfg, "conditional",
+                                              dtype=inference_dtype(cfg, dev), device=dev)
+            load_generator_params(cfg.inference_text2mel_model, melsyn)
+            load_generator_params(cfg.inference_ssrn_model, ssrn)
+            syn = Synthesizer(cfg, melsyn, ssrn, n_frames=cfg.max_frame_num, mesh=mesh)
+            spoofgen.generate_spoof_set(cfg, args.current_time, syn,
+                                        eval_utt_num=args.eval_utt_num,
+                                        speaker_batch=args.speaker_batch, verbose=primary)
 
-    if not args.skip_staging:
+    if not args.skip_staging and primary:
         print("I-VECTORs test data generation")
         spoofgen.stage_ivector_data(cfg, args.current_time, args.train_spk_num,
                                     args.enroll_utt_num, args.eval_utt_num)

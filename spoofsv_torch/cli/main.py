@@ -12,18 +12,29 @@ Everything runs on the card unless :func:`main` is given ``device="cpu"``.
 Training keeps f32 parameters and Adam state; ``train_compute_dtype=
 "bfloat16"`` computes the steps under ``torch.autocast`` to bf16, as the JAX
 package builds its models with ``dtype=bfloat16`` over f32 parameters (the
-port does so on the CPU too, where JAX computes in f32). ``--mesh all`` and
-``MULTI_GPU`` run on the one device when only one is visible, as in the JAX
-package; a mesh of more devices waits for the port's mesh layer (ROADMAP
-A.9) and raises ``NotImplementedError``.
+port does so on the CPU too, where JAX computes in f32).
+
+Data parallelism (:func:`resolve_mesh`, :func:`data_parallel`): ``--mesh N``
+runs N ranks, one process and one device each (``cuda:0..N−1`` over NCCL,
+or N gloo processes on the CPU's cores). Outside a process group the
+command spawns the other N−1 ranks itself and runs as rank 0; under
+``torchrun`` it joins the group the environment names. ``--mesh all`` and
+``MULTI_GPU`` mean every visible CUDA device (one device, the CPU
+included, runs single-device, as in the JAX package). More ranks than
+devices raise, unless ``--mesh_share`` asks for ranks that time-share the
+one device given, over gloo: a check of the data-parallel path on one
+card, not a speed-up.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import importlib
 import os
+import sys
 import time
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -78,33 +89,93 @@ def build_models(cfg: Config, pattern: str = "conditional", dtype: Optional[torc
     return tuple(m.to(device, dtype) for m in (melsyn, ssrn, mel_disc, lin_disc))
 
 
-def check_mesh(args, cfg: Config, device) -> None:
-    """Resolve a data-parallel request as the JAX ``resolve_mesh`` does:
-    ``--mesh N``, ``--mesh all`` (every visible device: the CUDA devices on a
-    card, 1 on the CPU) or ``MULTI_GPU`` (all) on at most one device runs on
-    the one device; a mesh of more raises ``NotImplementedError``, as it
-    waits for the port's mesh layer (ROADMAP A.9)."""
+def add_mesh_args(ps: argparse.ArgumentParser, what: str = "data-parallel") -> None:
+    ps.add_argument("--mesh", type=str, default=None, metavar="N|all",
+                    help=f"{what} over N ranks, one device each ('all': every visible "
+                         "CUDA device)")
+    ps.add_argument("--mesh_share", action="store_true",
+                    help="the --mesh ranks time-share the one device given, over gloo (a "
+                         "check of the data-parallel path on one card, not a speed-up)")
+
+
+def resolve_mesh(args, cfg: Config, device) -> int:
+    """The rank count a data-parallel request asks for, as the JAX
+    ``resolve_mesh`` reads it: ``--mesh N``, ``--mesh all`` or ``MULTI_GPU``
+    (every visible CUDA device; the CPU is one device). 1 means
+    single-device. A count above the visible devices (for ``--mesh N`` on
+    the CPU: its cores) raises ``ValueError``, unless ``args.mesh_share``."""
+    from spoofsv_torch.parallel import multihost
+
     spec = getattr(args, "mesh", None)
     if spec is None and cfg.multi_gpu:
         spec = "all"
     if spec in (None, "1"):
-        return
-    visible = torch.cuda.device_count() if torch.device(device).type == "cuda" else 1
-    n = visible if spec == "all" else int(spec)
+        return 1
+    device = torch.device(device)
+    if spec == "all":
+        n = torch.cuda.device_count() if device.type == "cuda" else 1
+    else:
+        n = int(spec)
     if n > 1:
-        raise NotImplementedError(
-            f"data-parallel runs over {n} devices (--mesh {getattr(args, 'mesh', None)}, "
-            f"MULTI_GPU {cfg.multi_gpu}) wait for the port's mesh layer (ROADMAP A.9); "
-            "run with --mesh 1")
+        multihost.rank_devices(n, device, share=getattr(args, "mesh_share", False))
+    return max(n, 1)
 
 
-def run_training(args, cfg: Config, spec_dir: Optional[str], device):
+def _cli_rank(mesh, entry: str, argv) -> None:
+    """A spawned rank of a ``--mesh`` command: the same CLI, in the group."""
+    importlib.import_module(entry).main(list(argv), device=str(mesh.device))
+
+
+@contextlib.contextmanager
+def data_parallel(args, cfg: Config, device, entry: str, argv) -> Iterator[Optional[object]]:
+    """The :class:`~spoofsv_torch.parallel.mesh.Mesh` this command runs on,
+    or None for single-device. Inside a process group (a spawned rank, or
+    ``torchrun``'s environment) it is the group's mesh; otherwise this
+    process spawns ranks 1..N−1 of ``python -m <entry>``'s ``main(argv)``
+    and runs as rank 0, and the ranks are joined on exit (each logs to
+    ``rank<r>.log`` under a fresh temporary directory)."""
+    from spoofsv_torch.parallel import multihost
+    from spoofsv_torch.parallel.mesh import make_mesh
+
+    n = resolve_mesh(args, cfg, device)
+    if n == 1:
+        yield None
+        return
+    share = getattr(args, "mesh_share", False)
+    # a bare "cuda" is this rank's card: cuda:LOCAL_RANK
+    dev = device if device.type == "cpu" or device.index is not None or share else None
+    joined = not torch.distributed.is_initialized()   # torchrun's group, joined here
+    if multihost.initialize_distributed(backend="gloo" if share else None, device=dev):
+        mesh = make_mesh(n, dev)
+        print(f"[mesh] rank {mesh.rank} of {n} on {mesh.device} ({mesh.backend})")
+        try:
+            yield mesh
+        finally:
+            if joined:
+                torch.distributed.destroy_process_group()
+        return
+    devices = multihost.rank_devices(n, device, share=share)
+    group = multihost.start_group(n, _cli_rank, entry,
+                                  list(argv if argv is not None else sys.argv[1:]),
+                                  devices=devices, backend="gloo" if share else None)
+    print(f"[mesh] data-parallel over {n} ranks ({group.mesh.backend}, devices "
+          f"{[str(d) for d in devices]}); ranks 1-{n - 1} log to "
+          f"{os.path.dirname(group.logs[0])}")
+    ok = False
+    try:
+        yield group.mesh
+        ok = True
+    finally:
+        group.finish(ok)
+
+
+def run_training(args, cfg: Config, spec_dir: Optional[str], device, mesh=None):
     """Train Text2Mel or SSRN (adversarially with ``--adversarial``) on the
-    configured corpus; returns the :class:`~spoofsv_torch.train.Trainer`."""
+    configured corpus, data-parallel over ``mesh``'s ranks when given;
+    returns the :class:`~spoofsv_torch.train.Trainer`."""
     from spoofsv_torch.data.pipeline import BucketedLoader, DeviceReplayLoader, TTSDataSource
     from spoofsv_torch.train import Trainer
 
-    check_mesh(args, cfg, device)
     melsyn, ssrn, mel_disc, lin_disc = build_models(cfg, args.pattern, device=device)
     with_lin = args.step == "train_ssrn"
     gen, disc = (ssrn, lin_disc) if with_lin else (melsyn, mel_disc)
@@ -115,7 +186,7 @@ def run_training(args, cfg: Config, spec_dir: Optional[str], device):
     trainer = Trainer(cfg, gen, args.step, pattern=args.pattern, adversarial=args.adversarial,
                       disc_model=disc if args.adversarial else None, ctime=args.current_time,
                       use_masks=args.masked_loss, metrics_every=args.metrics_every,
-                      compute_dtype=training_dtype(cfg, device))
+                      compute_dtype=training_dtype(cfg, device), mesh=mesh)
     if args.resume:
         path = args.resume
         if path == "latest":
@@ -132,7 +203,7 @@ def run_training(args, cfg: Config, spec_dir: Optional[str], device):
         # continues the shuffle sequence instead of replaying a fresh one
         t0 = time.perf_counter()
         loader = DeviceReplayLoader(train_src, cfg.batch_size, with_lin=with_lin, shuffle=True,
-                                    seed=trainer.epoch, device=device)
+                                    seed=trainer.epoch, mesh=mesh, device=device)
         feature_s = time.perf_counter() - t0
         print(f"[data] {len(loader)} training utterances on {device}: {loader.nbytes} bytes "
               f"resident, built in {feature_s:.3f} s")
@@ -157,11 +228,14 @@ def run_training(args, cfg: Config, spec_dir: Optional[str], device):
     return trainer
 
 
-def run_synthesize(args, cfg: Config, spec_dir: Optional[str], device) -> str:
+def run_synthesize(args, cfg: Config, spec_dir: Optional[str], device, mesh=None) -> str:
     """Synthesize the ``synthesize`` split from the configured checkpoints
     (``synthesize.py:41-147``): ``S{k}_B{i}.wav`` under
     ``<src_root>/samples/<ctime>/``, the losses against the ground truth and,
-    with ``--mcd``, the mel-cepstral distortion. Returns the sample directory."""
+    with ``--mcd``, the mel-cepstral distortion. Returns the sample directory.
+    Over ``mesh``'s ranks the loader's batch is a multiple of the rank count
+    (a flush batch is padded up to one and the padding sliced off), and only
+    rank 0 writes wavs and figures."""
     from spoofsv_torch.data.pipeline import BucketedLoader, TTSDataSource
     from spoofsv_torch.dsp import host as dsp_host
     from spoofsv_torch.infer.synthesize import Synthesizer, finalize_audio, gl_seeds
@@ -170,16 +244,17 @@ def run_synthesize(args, cfg: Config, spec_dir: Optional[str], device) -> str:
     from spoofsv_torch.train.steps import guided_attention_table
     from spoofsv_torch.weights import load_generator_params
 
-    check_mesh(args, cfg, device)
     melsyn, ssrn, _, _ = build_models(cfg, args.pattern, dtype=inference_dtype(cfg, device),
                                       device=device)
     load_generator_params(cfg.inference_text2mel_model, melsyn)
     load_generator_params(cfg.inference_ssrn_model, ssrn)
+    n = 1 if mesh is None else mesh.size
+    primary = mesh is None or mesh.rank == 0
     sample_dir = os.path.join(cfg.src_root_dir, "samples", args.current_time)
     os.makedirs(sample_dir, exist_ok=True)
     fig_dir = os.path.join(sample_dir, "fig")
-    loader = BucketedLoader(TTSDataSource(cfg, "synthesize", spec_dir, need_lin=True), 8,
-                            with_lin=True, shuffle=False)
+    loader = BucketedLoader(TTSDataSource(cfg, "synthesize", spec_dir, need_lin=True),
+                            max(8 // n, 1) * n, with_lin=True, shuffle=False)
     seeds = torch.Generator().manual_seed(0)   # GL phase seeds, read by the "random" init only
     gaw = guided_attention_table(cfg)
     synthesizers = {}
@@ -189,7 +264,7 @@ def run_synthesize(args, cfg: Config, spec_dir: Optional[str], device) -> str:
     for i, batch in enumerate(loader):
         t = batch["mel"].shape[1]
         if t not in synthesizers:   # one pipeline per bucket length
-            synthesizers[t] = Synthesizer(cfg, melsyn, ssrn, n_frames=t)
+            synthesizers[t] = Synthesizer(cfg, melsyn, ssrn, n_frames=t, mesh=mesh)
         syn = synthesizers[t]
         audio, mel, attn = syn(batch["text"], batch["spk"], gl_seeds(len(batch["text"]), seeds))
         mel_gt = torch.from_numpy(batch["mel"]).to(device)
@@ -197,7 +272,7 @@ def run_synthesize(args, cfg: Config, spec_dir: Optional[str], device) -> str:
         bd = float(binary_divergence(mel_gt, mel.float()))
         att = float(guided_attention_loss(attn.float(), gaw(device)))
         loss_avg_t2m += l1 + bd + att
-        lin_pred = syn.ssrn_apply(mel).float()
+        lin_pred = syn.ssrn_apply(mel.to(device)).float()
         lin_gt = torch.from_numpy(batch["lin"]).to(device)
         l1s = float(l1_loss(lin_gt, lin_pred))
         bds = float(binary_divergence(lin_gt, lin_pred))
@@ -213,6 +288,8 @@ def run_synthesize(args, cfg: Config, spec_dir: Optional[str], device) -> str:
                           analysis_power=cfg.norm.analysis_power)
             mcd_vals.append(v)
             print(f"syn set mcd: {v:.3f} dB")
+        if not primary:
+            continue
         audio = audio.cpu().numpy()
         for k in range(audio.shape[0]):
             dsp_host.write_wav(os.path.join(sample_dir, f"S{k + 1}_B{i + 1}.wav"),
@@ -254,8 +331,7 @@ def main(argv=None, device=None):
     ps.add_argument("--device_data", choices=["auto", "on", "off"], default="auto",
                     help="keep the bucket-padded training set on the device and gather "
                          "batches there (auto: on for a CUDA device)")
-    ps.add_argument("--mesh", type=str, default=None, metavar="N|all",
-                    help="data-parallel over N devices: one device only yet")
+    add_mesh_args(ps)
     ps.add_argument("--metrics_every", type=int, default=1,
                     help="read back and log train metrics every N iterations")
     args = ps.parse_args(argv)
@@ -269,9 +345,12 @@ def main(argv=None, device=None):
     if args.save_spectrogram:
         spec_dir = os.path.join(cfg.src_root_dir, "spec")
         os.makedirs(spec_dir, exist_ok=True)
-    if args.step in TRAIN_STEPS:
-        return run_training(args, cfg, spec_dir, device)
-    return run_synthesize(args, cfg, spec_dir, device)
+    with data_parallel(args, cfg, device, "spoofsv_torch.cli.main", argv) as mesh:
+        if mesh is not None:
+            device = mesh.device
+        if args.step in TRAIN_STEPS:
+            return run_training(args, cfg, spec_dir, device, mesh)
+        return run_synthesize(args, cfg, spec_dir, device, mesh)
 
 
 if __name__ == "__main__":

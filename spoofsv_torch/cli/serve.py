@@ -3,8 +3,9 @@
 Port of :mod:`spoofsv_tpu.cli.serve`: serves trained checkpoints
 (``config.json`` ``INFERENCE_TEXT2MEL_MODEL`` / ``INFERENCE_SSRN_MODEL``,
 reference ``.tar.pth``) behind an HTTP endpoint with micro-batching on one
-card (:mod:`spoofsv_torch.serve`). Data-parallel serving (``--mesh``) is not
-ported yet.
+card (:mod:`spoofsv_torch.serve`), or data-parallel over the ``--mesh``
+ranks: rank 0 serves HTTP and batches, the other ranks follow its calls
+(:func:`spoofsv_torch.serve.serve_follower`).
 """
 
 from __future__ import annotations
@@ -49,25 +50,40 @@ def main(argv=None, device=None) -> None:
     ps.add_argument("--request_timeout", type=float, default=600.0,
                     help="per-request wait (s); timed-out requests are skipped by the "
                          "batcher if still queued")
+    from spoofsv_torch.cli.main import add_mesh_args
+
+    add_mesh_args(ps, "data-parallel serving")
     args = ps.parse_args(argv)
 
-    import torch
-
     from spoofsv_torch import resolve_device
-    from spoofsv_torch.cli.main import apply_runtime_knobs, build_models, inference_dtype
+    from spoofsv_torch.cli.main import (apply_runtime_knobs, build_models, data_parallel,
+                                        inference_dtype)
     from spoofsv_torch.config import load_config
     from spoofsv_torch.infer.synthesize import Synthesizer
-    from spoofsv_torch.serve import BatchingSynthesizer, SpeakerTable, make_http_server
+    from spoofsv_torch.serve import serve_follower
     from spoofsv_torch.weights import load_generator_params
 
     dev = resolve_device(device)
     cfg = load_config(args.configuration)
     apply_runtime_knobs(cfg, infer=True)
-    melsyn, ssrn, _, _ = build_models(cfg, "conditional", dtype=inference_dtype(cfg, dev),
-                                      device=dev)
-    load_generator_params(cfg.inference_text2mel_model, melsyn)
-    load_generator_params(cfg.inference_ssrn_model, ssrn)
-    syn = Synthesizer(cfg, melsyn, ssrn)
+    with data_parallel(args, cfg, dev, "spoofsv_torch.cli.serve", argv) as mesh:
+        dev = dev if mesh is None else mesh.device
+        melsyn, ssrn, _, _ = build_models(cfg, "conditional", dtype=inference_dtype(cfg, dev),
+                                          device=dev)
+        load_generator_params(cfg.inference_text2mel_model, melsyn)
+        load_generator_params(cfg.inference_ssrn_model, ssrn)
+        syn = Synthesizer(cfg, melsyn, ssrn, mesh=mesh)
+        if mesh is not None and mesh.rank > 0:
+            print(f"[serve] rank {mesh.rank}: ran {serve_follower(cfg, syn)} calls", flush=True)
+            return
+        _serve(args, cfg, syn, dev)
+
+
+def _serve(args, cfg, syn, dev) -> None:
+    """Rank 0 (or the only process): warm up, then serve HTTP until interrupted."""
+    import torch
+
+    from spoofsv_torch.serve import BatchingSynthesizer, SpeakerTable, make_http_server
 
     batcher = BatchingSynthesizer(
         cfg, syn, max_batch=args.max_batch, batch_wait_ms=args.batch_wait_ms,
@@ -78,25 +94,27 @@ def main(argv=None, device=None) -> None:
         frames_per_char=args.frames_per_char,
         max_queue=args.max_queue, speculative=args.speculative,
         attn_trim=args.attn_trim)
-    if not args.no_warmup:
-        print(f"[serve] warming the batch ladder {batcher._ladder()} x frames buckets "
-              f"{batcher.frames_buckets} ...", flush=True)
-        batcher.warmup()
-    speakers = SpeakerTable(cfg.spk_emb_dir)
-    httpd = make_http_server(batcher, speakers, host=args.host, port=args.port,
-                             request_timeout=args.request_timeout)
-    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"[serve] listening on http://{args.host}:{httpd.server_address[1]} "
-          f"(max_batch={args.max_batch}, wait={args.batch_wait_ms}ms, device={dev} {where})",
-          flush=True)
     try:
-        httpd.serve_forever()
-    except KeyboardInterrupt:
-        pass
+        if not args.no_warmup:
+            print(f"[serve] warming the batch ladder {batcher._ladder()} x frames buckets "
+                  f"{batcher.frames_buckets} ...", flush=True)
+            batcher.warmup()
+        speakers = SpeakerTable(cfg.spk_emb_dir)
+        httpd = make_http_server(batcher, speakers, host=args.host, port=args.port,
+                                 request_timeout=args.request_timeout)
+        where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+        ranks = "" if syn.mesh is None else f", {syn.mesh.size} ranks"
+        print(f"[serve] listening on http://{args.host}:{httpd.server_address[1]} "
+              f"(max_batch={args.max_batch}, wait={args.batch_wait_ms}ms, device={dev} "
+              f"{where}{ranks})", flush=True)
+        try:
+            httpd.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            httpd.shutdown()
     finally:
-        httpd.shutdown()
         batcher.close()
-
 
 if __name__ == "__main__":
     main()

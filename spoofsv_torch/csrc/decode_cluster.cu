@@ -47,7 +47,9 @@
 // - The weight stream runs ahead: a producer warp (one lane) feeds a ring of
 //   mbarrier stages (16 KB each, 8 where shared memory allows) with 1-D
 //   cp.async.bulk copies of whole 32-deep k rows, taking each stage back
-//   when every consumer warp has arrived on its "empty" barrier. It never
+//   when every consumer warp has arrived on its "empty" barrier (each warp
+//   fences its plain reads of the stage against the copy's async proxy
+//   first). It never
 //   waits on activations, so the next layers' weights arrive while this
 //   layer's LayerNorm exchange runs, and it wraps from frame t's tail to
 //   frame t+1's first layer.
@@ -257,6 +259,11 @@ __device__ __forceinline__ void csync() {
 }
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// orders this thread's plain (generic-proxy) shared-memory accesses before
+// later async-proxy ones, such as the next cp.async.bulk into the same stage
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 __device__ __forceinline__ uint32_t remote(uint32_t local, int rank) {
   uint32_t r;
@@ -671,6 +678,10 @@ __global__ void __launch_bounds__(BLOCK, 1) decode_cluster_kernel(Args<E> a) {
           }
         }
       }
+      // the next copy into the stage is an async-proxy write: each lane
+      // fences its plain reads of the stage before the warp releases it
+      // (csrc/gl_tc.cu, without this fence, read stages being overwritten)
+      fence_proxy_async();
       __syncwarp();
       if (lane == 0) mbar_arrive(empties + 8 * st);  // this warp is done with the stage
     }

@@ -33,7 +33,9 @@
 //    in bf16) are packed by the host in mma.sync fragment order, one 16 KB
 //    stage after another, and streamed from L2 by one producer thread with
 //    cp.async.bulk into an mbarrier ring; the stream runs ahead across the
-//    synthesis, the analysis and their elementwise phases. A operands are
+//    synthesis, the analysis and their elementwise phases. A consumer warp
+//    releases a stage after a proxy fence: its reads are generic, the next
+//    copy into the stage is not. A operands are
 //    built in shared memory in fragment order by the consumer warps: from
 //    qm·ang (synthesis) and from the windowed signal, scaled by each row's
 //    max and rounded (analysis).
@@ -122,6 +124,11 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_
                "[%0], [%1], %2, [%3];\n" ::"r"(dst),
                "l"(src), "r"(bytes), "r"(bar)
                : "memory");
+}
+// orders this thread's plain (generic-proxy) shared-memory accesses before
+// later async-proxy ones, such as the next cp.async.bulk into the same stage
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 // the consumer warps' barrier (the producer warp does not take part)
 __device__ __forceinline__ void csync() {
@@ -212,6 +219,11 @@ __device__ __forceinline__ void product_chunk(Acc (&acc)[2][8][4], const unsigne
           mma(acc[mt][2 * np + 1], af[mt], bf[np].z, bf[np].w);
         }
     }
+    // the producer's next copy into this stage is an async-proxy write: each
+    // lane fences its plain reads of the stage before the warp releases it.
+    // Without the fence the copy could land on a stage still being read, and
+    // two calls on the same input parted by whole tiles.
+    fence_proxy_async();
     __syncwarp();
     if (lane == 0) mbar_arrive(empty0 + 8 * s);
   }

@@ -419,6 +419,9 @@ hconv_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ C
       for (int q = 0; q < STAGES - 2 && q < chunks; ++q) issue(q);
     auto conv_chunk = [&](int q, uint32_t (&ah)[2][4], uint32_t (&al)[2][4]) {
       wgmma_wait<1>();
+      // f32 reads chunk q − 2's operand rows with plain loads; the copy that
+      // refills their stage is an async-proxy write
+      if constexpr (SPLIT) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       __syncthreads();  // every warpgroup is done with chunk q − 2
       if (threadIdx.x == 0 && q + STAGES - 2 < chunks) issue(q + STAGES - 2);
       if (!active) return;

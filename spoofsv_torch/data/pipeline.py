@@ -31,6 +31,7 @@ from spoofsv_torch.config import Config
 from spoofsv_torch.data.text import build_char2idx, text2id
 from spoofsv_torch.data.vctk import speaker_id_from_path, utterance_id_from_path
 from spoofsv_torch.dsp import host as dsp_host
+from spoofsv_torch.parallel.mesh import LocalRows, Mesh, active, batch_sharding
 
 
 def _atomic_save(path: str, arr: np.ndarray) -> None:
@@ -207,17 +208,24 @@ class DeviceReplayLoader:
     order of the batches) comes from ``np.random.default_rng(seed)`` as in
     the JAX loader, so for a seed both yield the same batches; it advances
     on every ``__iter__``, so build the loader once and reuse it.
-    :attr:`nbytes` is the resident size. ``mesh`` (data-parallel placement)
-    is not taken yet (ROADMAP A.9).
+    :attr:`nbytes` is the resident size.
+
+    ``mesh``: a :class:`~spoofsv_torch.parallel.mesh.Mesh` for data-parallel
+    training; every rank builds the loader alike. The bucket groups are
+    replicated on every rank's device (``mesh.device``), every rank draws
+    the same epoch order from the same seed, each chunk is trimmed to a
+    multiple of the rank count (a chunk of fewer rows is skipped), and each
+    rank gathers its rows of it: the batches are
+    :class:`~spoofsv_torch.parallel.mesh.LocalRows`.
     """
 
     def __init__(self, source: TTSDataSource, batch_size: int, with_lin: bool = False,
                  shuffle: bool = True, seed: int = 0, drop_last: bool = False, mesh=None,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError("DeviceReplayLoader over a mesh waits for the port's "
-                                      "data-parallel layer (ROADMAP A.9)")
-        self.device = resolve_device(device)
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a spoofsv_torch.parallel.mesh.Mesh, got {mesh!r}")
+        self.device = resolve_device(device if mesh is None else mesh.device)
+        self.mesh = active(mesh)
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
@@ -246,9 +254,16 @@ class DeviceReplayLoader:
                 chunk = perm[s: s + self.batch_size]
                 if len(chunk) < self.batch_size and self.drop_last:
                     continue
+                if self.mesh is not None:
+                    chunk = chunk[: len(chunk) // self.mesh.size * self.mesh.size]
+                    if not len(chunk):
+                        continue
                 descs.append((gi, chunk))
         if self.shuffle and len(descs) > 1:
             descs = [descs[int(i)] for i in self._rng.permutation(len(descs))]
         for gi, chunk in descs:
+            if self.mesh is not None:
+                chunk = chunk[batch_sharding(self.mesh, len(chunk))]
             idx = torch.from_numpy(np.asarray(chunk, np.int64)).to(self.device)
-            yield {k: v.index_select(0, idx) for k, v in self._groups[gi].items()}
+            rows = {k: v.index_select(0, idx) for k, v in self._groups[gi].items()}
+            yield rows if self.mesh is None else LocalRows(rows)

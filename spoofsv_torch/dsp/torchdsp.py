@@ -57,6 +57,13 @@ def stft_ri(y: torch.Tensor, n_fft: int, hop_length: int,
     return spec.real, spec.imag
 
 
+def stft(y: torch.Tensor, n_fft: int, hop_length: int, win_length: Optional[int] = None,
+         center: bool = True) -> torch.Tensor:
+    """Complex STFT of ``(..., L)`` → ``(..., T, 1+n_fft//2)`` (time-major)."""
+    re, im = stft_ri(y, n_fft, hop_length, win_length, center)
+    return torch.complex(re, im)
+
+
 def overlap_add(frames: torch.Tensor, hop_length: int) -> torch.Tensor:
     """OLA of ``(..., T, n_fft)`` → ``(..., n_fft + hop·(T−1))`` (hop | n_fft)."""
     *lead, T, n_fft = frames.shape
@@ -81,6 +88,22 @@ def istft_ri(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop_length: int,
     if center:
         y = y[..., n_fft // 2: y.shape[-1] - n_fft // 2]
     return y
+
+
+def istft(spec: torch.Tensor, n_fft: int, hop_length: int, win_length: Optional[int] = None,
+          center: bool = True) -> torch.Tensor:
+    """Inverse STFT of complex ``(..., T, 1+n_fft//2)`` → ``(..., hop·(T−1))``."""
+    return istft_ri(spec.real, spec.imag, n_fft, hop_length, win_length, center)
+
+
+def preemphasis(x: torch.Tensor, coeff: float = 0.97) -> torch.Tensor:
+    """``y[0] = x[0]``, ``y[n] = x[n] − c·x[n−1]`` (``data/dataset.py:96``), batched."""
+    return x - coeff * F.pad(x[..., :-1], (1, 0))
+
+
+def mel_project(lin_mag: torch.Tensor, fb: torch.Tensor) -> torch.Tensor:
+    """``(..., T, F)`` magnitudes through a mel filterbank ``(M, F)`` → ``(..., T, M)``."""
+    return torch.einsum("...tf,mf->...tm", lin_mag, fb.to(lin_mag.dtype))
 
 
 def gl_advance_angles(t_frames: int, freq_bins: int, n_fft: int, hop_length: int,

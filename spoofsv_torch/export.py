@@ -125,6 +125,16 @@ def export_ssrn(params) -> Dict[str, np.ndarray]:
     return sd
 
 
+def export_lndense(params) -> Dict[str, np.ndarray]:
+    """``LNDense`` parameter tree → ``dense.*`` and ``ln.*`` state_dict arrays."""
+    p = _params(params)
+    sd: Dict[str, np.ndarray] = {}
+    _undense(sd, p["dense"], "dense")
+    if "ln" in p:
+        _unln(sd, p["ln"], "ln")
+    return sd
+
+
 def export_critic(params) -> Dict[str, np.ndarray]:
     """Critic1D parameter tree → reference ``melDisc``/``linDisc`` state_dict arrays."""
     p = _params(params)

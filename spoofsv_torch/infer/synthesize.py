@@ -6,8 +6,9 @@ the hand-written kernels (decode K1, GL init K2, Griffin-Lim K3); tensors on
 the CPU go through their plain PyTorch versions. The routes follow the
 configuration as the JAX package's do (:func:`gl_route`,
 :func:`decode_route`); a value the port does not take raises
-``ValueError``. Data-parallel synthesis over several devices is not part of
-this module.
+``ValueError``. With a :class:`~spoofsv_torch.parallel.mesh.Mesh` of
+several ranks, :class:`Synthesizer` splits the batch by rows over the ranks
+and all-gathers the outputs, as the JAX package's ``shard_map`` path does.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from spoofsv_torch.models.text2mel import MelSyn
 from spoofsv_torch.infer.decode import make_decoder
 from spoofsv_torch.ops.decode_kernel import make_fused_decoder
 from spoofsv_torch.ops.gl_kernel import griffin_lim_fused, griffin_lim_tc, init_angles_plain
+from spoofsv_torch.parallel.mesh import active, batch_sharding, replicate_tree
 
 GL_IMPLS = ("auto", "pallas", "xla")
 GL_PRECISIONS = ("default", "highest")
@@ -144,13 +146,25 @@ class Synthesizer:
     ``cfg.tpu.highway_infer_impl`` ("xla" by default). The decoder follows
     ``cfg.tpu.decode_impl`` (:func:`decode_route`), the vocoder the
     Griffin-Lim fields (:func:`gl_route`).
+
+    ``mesh``: a :class:`~spoofsv_torch.parallel.mesh.Mesh` for data-parallel
+    synthesis. Every rank calls with the same global batch; the modules are
+    broadcast from rank 0 here; each rank runs its rows (:meth:`call_local`)
+    and the outputs are all-gathered, so every rank returns the global
+    result. A batch that does not divide the data axis is padded up to its
+    multiple with copies of its last row, cut off again after the gather. The "random" init's seeds are
+    drawn for the global batch (on rank 0, when the caller passes none) and
+    sliced, so sharded audio is single-device audio row by row.
     """
 
     def __init__(self, cfg: Config, melsyn: MelSyn, ssrn: SSRN,
-                 n_frames: Optional[int] = None, gl_iters: Optional[int] = None):
+                 n_frames: Optional[int] = None, gl_iters: Optional[int] = None, mesh=None):
         self.cfg = cfg
         self.melsyn = melsyn.eval()
         self.ssrn = ssrn.eval()
+        self.mesh = active(mesh)
+        if self.mesh is not None:
+            replicate_tree([self.melsyn, self.ssrn], self.mesh)
         self.n_frames = n_frames or cfg.max_frame_num
         self.device = next(melsyn.parameters()).device
         self.decode_route = decode_route(cfg)
@@ -164,12 +178,54 @@ class Synthesizer:
         return self.ssrn(mel.to(next(self.ssrn.parameters()).dtype))
 
     @torch.no_grad()
-    def __call__(self, text_ids, spk_emb, seeds: Optional[torch.Tensor] = None
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Returns (audio (B, L) f32, coarse mel (B, T, 80), attention (B, N, T))."""
+    def call_local(self, text_ids, spk_emb, seeds: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The pipeline on this process's device alone, on the rows given."""
         text_ids = torch.as_tensor(text_ids).to(self.device)
         spk_emb = torch.as_tensor(spk_emb, dtype=torch.float32).to(self.device)
         mel, attn, _ = self.decode(text_ids, spk_emb)
         audio = self.vocode(self.ssrn_apply(mel),
                             None if seeds is None else seeds.to(self.device))
         return audio, mel, attn
+
+    def _global_seeds(self, batch: int, seeds: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """The "random" init's seeds for the global batch, rank 0's on every rank."""
+        if seeds is None and self.cfg.tpu.griffin_lim_init == "random":
+            seeds = self.mesh.broadcast_(gl_seeds(batch))
+        return seeds
+
+    def _sharded(self, fn, batch: int, seeds, *rows):
+        """``fn`` on this rank's rows of the global batch (padded to the data
+        axis's multiple), its outputs gathered and cut back to ``batch`` rows."""
+        padded = -(-batch // self.mesh.size) * self.mesh.size
+        seeds = self._global_seeds(batch, seeds)
+
+        def mine(x) -> torch.Tensor:
+            x = torch.as_tensor(x)
+            if padded > batch:
+                x = torch.cat([x, x[-1:].expand(padded - batch, *x.shape[1:])])
+            return x[batch_sharding(self.mesh, padded)]
+
+        out = fn(*(mine(r) for r in rows), None if seeds is None else mine(seeds))
+        gather = lambda o: self.mesh.all_gather(o)[:batch]   # noqa: E731
+        return tuple(gather(o) for o in out) if isinstance(out, tuple) else gather(out)
+
+    @torch.no_grad()
+    def mel_to_audio(self, mel: torch.Tensor, seeds: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+        """SSRN and the vocoder on a coarse mel (B, T, 80) → audio (B, L)."""
+        def run(m, s):
+            return self.vocode(self.ssrn_apply(m.to(self.device)),
+                               None if s is None else s.to(self.device))
+
+        if self.mesh is None:
+            return run(torch.as_tensor(mel), seeds)
+        return self._sharded(run, mel.shape[0], seeds, mel)
+
+    @torch.no_grad()
+    def __call__(self, text_ids, spk_emb, seeds: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Returns (audio (B, L) f32, coarse mel (B, T, 80), attention (B, N, T))."""
+        if self.mesh is None:
+            return self.call_local(text_ids, spk_emb, seeds)
+        return self._sharded(self.call_local, len(text_ids), seeds, text_ids, spk_emb)

@@ -101,6 +101,22 @@ class Conv1x1(nn.Module):
         return F.linear(x, self.weight[..., 0], self.bias)
 
 
+class LNDense(nn.Module):
+    """A dense layer (a ``Conv1d(k=1)``, :class:`Conv1x1`) followed by
+    :class:`LayerNorm`: the reference's ``conv(k=1) → LayerNorm`` idiom
+    (``models/TTSModel.py:115-118``), the JAX package's ``LNDense``; its
+    parameters are ``dense.{weight,bias}`` and ``ln.{weight,bias}``."""
+
+    def __init__(self, in_dim: int, features: int, use_ln: bool = True):
+        super().__init__()
+        self.dense = Conv1x1(in_dim, features)
+        self.ln = LayerNorm(features) if use_ln else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.dense(x)
+        return self.ln(x) if self.ln is not None else x
+
+
 class HighwayConv(nn.Module):
     """Gated ("highway") 1-D convolution.
 

@@ -1,4 +1,4 @@
-"""Time K1 in f32 and K2 through their public wrappers, for an A/B of two trees on one GPU.
+"""Time K1, K2 and K3 through their public wrappers, for an A/B of two trees on one GPU.
 
     python3 -m spoofsv_torch.ops.kernel_ab --tag NAME [--reps 3]
 
@@ -7,12 +7,20 @@ CUDA events (after a warm-up call), it prints:
 
 - K1 f32 (``decode_kernel.decode_fused``; the text encoder and speaker
   projections done once) at B=64, N=100, T=325 (the main path's shape) and
-  at B=16, N=186, T=325 (the Trainer's validation shape);
+  at B=16, N=186, T=325 (the Trainer's validation shape), and K1 bf16 at
+  the main path's shape;
 - K2 (``gl_kernel.gl_init_angles``) at B=64, T=1300 on the magnitudes of
   harmonic test signals, in each init mode ("spsi", the main path's, then
   "advance" and "random", which only write), beside two references for the
   card's write rate: ``fill_`` of two planes of the same size and a
-  ``copy_`` of the magnitudes.
+  ``copy_`` of the magnitudes;
+- K3 (``gl_kernel.griffin_lim_tc``, 12 iterations from the SPSI angles)
+  with int8 and with bf16 operands on the same magnitudes.
+
+Each kernel's output is also checked run to run: ``--repeat`` calls on the
+same inputs (after the timed ones) and whether all are bit-equal to the
+first, with the largest difference (a kernel is a pure function of its
+inputs; a race inside a launch shows here).
 
 It uses only calls that earlier trees have too, so it can be copied into
 another checkout's ``spoofsv_torch/ops/`` and run there: two trees compared
@@ -24,6 +32,7 @@ the check.
 from __future__ import annotations
 
 import argparse
+import copy
 import subprocess
 
 import numpy as np
@@ -57,6 +66,18 @@ def _ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _repeat(fn, n: int) -> str:
+    """Whether ``n`` calls of ``fn`` (its first output) are bit-equal to the first call."""
+    first = fn()
+    first = first[0] if isinstance(first, tuple) else first
+    worst = 0.0
+    for _ in range(n - 1):
+        out = fn()
+        out = out[0] if isinstance(out, tuple) else out
+        worst = max(worst, float((out.float() - first.float()).abs().max()))
+    return f"{n} calls bit-equal: {worst == 0.0} (max|d| {worst:.6g})"
+
+
 def _plan_and_stream(packed, B: int, C: int, F: int):
     """The f32 cluster plan and weight stream, or (None, None) in a tree whose
     f32 decode takes none."""
@@ -70,7 +91,8 @@ def _plan_and_stream(packed, B: int, C: int, F: int):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tag", default="tree", help="label of this checkout in the output")
-    ap.add_argument("--reps", type=int, default=3, help="K1 calls timed (K2: 20)")
+    ap.add_argument("--reps", type=int, default=3, help="K1 and K3 calls timed (K2: 20)")
+    ap.add_argument("--repeat", type=int, default=6, help="calls compared run to run")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab needs a CUDA device")
@@ -94,9 +116,23 @@ def main() -> None:
         plan, stream = _plan_and_stream(packed, B, C, F)
         ms = _ms(lambda: dk.decode_fused(packed, *ins, n_frames=T, freq_bins=F, plan=plan,
                                          stream=stream), args.reps)
+        same = _repeat(lambda: dk.decode_fused(packed, *ins, n_frames=T, freq_bins=F, plan=plan,
+                                               stream=stream), args.repeat)
         print(f"[{tag}] K1 f32 B={B} N={K.shape[1]} T={T}: {ms:.3f} ms (CUDA events, mean of "
-              f"{args.reps}); plan {plan} on [{smi}]", flush=True)
+              f"{args.reps}); plan {plan}; mel {same} on [{smi}]", flush=True)
         del K, V, ins, stream
+    mbf = copy.deepcopy(model).to(torch.bfloat16)
+    packed_bf = dk.pack_decode_weights(mbf)
+    spk = torch.from_numpy(rng.normal(size=(64, cfg.spk_emb_dim)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        K, V = mbf.encode_text(torch.from_numpy(shapes[64]).to(dev))
+        spk = spk.to(torch.bfloat16)
+        ins = (K, V, mbf.audio_encoder.fc1(spk), mbf.audio_encoder.fc2(spk))
+    call = lambda: dk.decode_fused(packed_bf, *ins, n_frames=T, freq_bins=F)  # noqa: E731
+    ms = _ms(call, args.reps)
+    print(f"[{tag}] K1 bf16 B=64 N={K.shape[1]} T={T}: {ms:.3f} ms (CUDA events, mean of "
+          f"{args.reps}); mel {_repeat(call, args.repeat)} on [{smi}]", flush=True)
+    del K, V, ins, mbf, packed_bf
 
     L = HOP * (1300 - 1)
     t = np.arange(L) / 22050.0
@@ -111,10 +147,19 @@ def main() -> None:
         ms = _ms(lambda: gl_kernel.gl_init_angles(mag, NFFT, HOP, mode, seeds), 20)
         print(f"[{tag}] K2 {mode} B=64 T=1300: {ms:.4f} ms (CUDA events, mean of 20) on [{smi}]",
               flush=True)
-    planes, copy = (torch.empty_like(mag), torch.empty_like(mag)), torch.empty_like(mag)
+    planes, dst = (torch.empty_like(mag), torch.empty_like(mag)), torch.empty_like(mag)
     ms = _ms(lambda: [p.fill_(1.0) for p in planes], 20)
     print(f"[{tag}] fill_ of two {mag.numel() * 4 / 1e6:.1f} MB planes: {ms:.4f} ms; ", end="")
-    print(f"copy_ of the magnitudes: {_ms(lambda: copy.copy_(mag), 20):.4f} ms", flush=True)
+    print(f"copy_ of the magnitudes: {_ms(lambda: dst.copy_(mag), 20):.4f} ms", flush=True)
+    del planes, dst
+    init = gl_kernel.gl_init_angles(mag, NFFT, HOP, "spsi")
+    for int8 in (True, False):
+        call = lambda: gl_kernel.griffin_lim_tc(mag, NFFT, HOP, n_iter=12,  # noqa: E731
+                                                init_angles=init, int8=int8)
+        ms = _ms(call, args.reps)
+        print(f"[{tag}] K3 {'int8' if int8 else 'bf16'} GL12 B=64 T=1300: {ms:.3f} ms (CUDA "
+              f"events, mean of {args.reps}); audio {_repeat(call, args.repeat)} on [{smi}]",
+              flush=True)
 
 
 if __name__ == "__main__":

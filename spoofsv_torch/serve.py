@@ -1,4 +1,4 @@
-"""Synthesis serving: a micro-batching TTS server on one CUDA device.
+"""Synthesis serving: a micro-batching TTS server on one CUDA device or over ranks.
 
 Port of :mod:`spoofsv_tpu.serve`: an HTTP front-end over a micro-batching
 scheduler that aggregates concurrent requests into batches for the
@@ -25,6 +25,13 @@ card, their plain versions for CPU models).
   on an H100 with random weights; bit-equal with cuDNN off), and the decode's
   attention can then take another path. On a card in bf16 a request's
   audio depends on the rung it runs at, not on its neighbours' content.
+* **Data-parallel serving**: with a synthesizer over a mesh of several
+  ranks, rank 0 runs the HTTP front end and the batcher; every batch it
+  runs is announced to the other ranks first (frames, padded rows, text,
+  speaker, seeds, one ``broadcast_object``), which run the same sharded
+  call in :func:`serve_follower` until rank 0's :meth:`BatchingSynthesizer.close`
+  tells them to stop. The ladder's base rung is the rank count and every
+  rung a multiple of it.
 * **No extra dependencies**: the HTTP layer is stdlib
   ``http.server.ThreadingHTTPServer``; audio is returned as RIFF/WAV bytes
   (16-bit PCM) or JSON float samples.
@@ -320,12 +327,12 @@ class BatchingSynthesizer:
         with the PCM epilogue: the kernels are built and loaded here, not in
         the worker, and each bucket's weights are packed before traffic."""
         for frames in self.frames_buckets:
-            syn = self._syn_for(frames)
             for b in buckets or self._ladder():
                 text = np.zeros((b, self.cfg.max_text_len), np.int32)
                 text[:, 0] = 1
                 spk = np.zeros((b, self.cfg.spk_emb_dim), np.float32)
-                audio, _, _ = syn(text, spk, gl_seeds(b, torch.Generator().manual_seed(0)))
+                audio, _, _ = self._call(frames, text, spk,
+                                         gl_seeds(b, torch.Generator().manual_seed(0)))
                 (pcm16(audio) if self.device_pcm else audio)[:1, :8].cpu()
 
     def close(self) -> None:
@@ -337,6 +344,8 @@ class BatchingSynthesizer:
         self._closed = True
         self._q.put(None)
         self._worker.join(timeout=30)
+        if self.syn.mesh is not None:
+            self.syn.mesh.broadcast_object(("stop",))   # end the followers' loops
         while True:
             try:
                 req = self._q.get_nowait()
@@ -368,18 +377,24 @@ class BatchingSynthesizer:
         return self.frames_buckets[-1]
 
     def _syn_for(self, frames: int) -> Synthesizer:
-        if frames not in self._syn_by_frames:
-            base = self.syn
-            self._syn_by_frames[frames] = Synthesizer(self.cfg, base.melsyn, base.ssrn,
-                                                      n_frames=frames)
-        return self._syn_by_frames[frames]
+        return _syn_for(self._syn_by_frames, self.cfg, self.syn, frames)
+
+    def _call(self, frames: int, text: np.ndarray, spk: np.ndarray, seeds: torch.Tensor):
+        """One synthesizer call; over a mesh, announced to the followers first."""
+        if self.syn.mesh is not None:
+            self.syn.mesh.broadcast_object(("call", frames, text, spk, seeds.numpy()))
+        return self._syn_for(frames)(text, spk, seeds)
 
     def _ladder(self) -> List[int]:
-        out, b = [], 1
-        while b < self.max_batch:
+        # over a mesh every batch must divide the rank count, so the base
+        # rung is the rank count and every rung a multiple of it
+        base = 1 if self.syn.mesh is None else self.syn.mesh.size
+        out, b = [], base
+        top = max(self.max_batch, base)
+        while b < top:
             out.append(b)
             b *= 2
-        return out + [self.max_batch]
+        return out + [-(-top // base) * base]
 
     def _bucket(self, n: int) -> int:
         for b in self._ladder():
@@ -457,7 +472,7 @@ class BatchingSynthesizer:
         text = np.stack([r.text_ids for r in batch] + [batch[0].text_ids] * (bsz - n))
         spk = np.stack([r.spk_emb for r in batch] + [batch[0].spk_emb] * (bsz - n))
         seeds = gl_seeds(bsz, torch.Generator().manual_seed(self._batch_counter))
-        audio, _, attn = self._syn_for(frames)(text, spk, seeds)
+        audio, _, attn = self._call(frames, text, spk, seeds)
         audio = pcm16(audio[:n]) if self.device_pcm else audio[:n]
         last = keep = None
         want_check = self.speculative and frames < self.frames_buckets[-1]
@@ -530,6 +545,29 @@ class BatchingSynthesizer:
             s.latencies_ms.extend((now - r.t_enq) * 1e3 for i, r in enumerate(batch)
                                   if i not in escalate)
             del s.latencies_ms[:-1000]   # bound the window
+
+
+def _syn_for(cache: Dict[int, Synthesizer], cfg: Config, base: Synthesizer,
+             frames: int) -> Synthesizer:
+    """The pipeline of ``base``'s models (and mesh) for a rollout of ``frames``."""
+    if frames not in cache:
+        cache[frames] = Synthesizer(cfg, base.melsyn, base.ssrn, n_frames=frames, mesh=base.mesh)
+    return cache[frames]
+
+
+def serve_follower(cfg: Config, synthesizer: Synthesizer) -> int:
+    """Rank r > 0 of data-parallel serving: run each call rank 0's batcher
+    announces, with ``synthesizer``'s models over its mesh, until rank 0
+    says stop; returns the number of calls run."""
+    cache = {synthesizer.n_frames: synthesizer}
+    calls = 0
+    while True:
+        msg = synthesizer.mesh.broadcast_object()
+        if msg[0] == "stop":
+            return calls
+        _, frames, text, spk, seeds = msg
+        _syn_for(cache, cfg, synthesizer, frames)(text, spk, torch.from_numpy(seeds))
+        calls += 1
 
 
 #: POST body admission cap: a /synthesize request is a short text plus at

@@ -51,7 +51,13 @@ def generate_spoof_set(cfg: Config, ctime: str, synthesizer: Synthesizer,
     ``speaker_batch`` speakers at a time make one batch of
     ``speaker_batch * eval_utt_num`` utterances, one synthesizer call. The
     Griffin-Lim seeds of each call (used by the "random" init only) are
-    drawn from a ``torch.Generator`` seeded with ``seed``."""
+    drawn from a ``torch.Generator`` seeded with ``seed``.
+
+    With a synthesizer over a mesh (every rank calls this function alike;
+    ``synthesizer`` may be any callable of the Synthesizer's signature, which
+    runs single-device), the Synthesizer splits each call over the ranks (a
+    call that does not divide the data axis is padded and cut back there),
+    and only rank 0 writes wavs."""
     save_dir = os.path.join(cfg.src_root_dir, "test", ctime, "spoof_data")
     sentences = load_harvard_sentences(cfg, eval_utt_num)
     text_ids = encode_texts(sentences, cfg.vocabulary)
@@ -59,6 +65,7 @@ def generate_spoof_set(cfg: Config, ctime: str, synthesizer: Synthesizer,
     if speakers is None:
         speakers = sorted(os.listdir(os.path.join(cfg.data_root_dir, "wav22")))
     gen = torch.Generator().manual_seed(seed)
+    mesh = getattr(synthesizer, "mesh", None)
 
     for s0 in range(0, len(speakers), speaker_batch):
         chunk = speakers[s0: s0 + speaker_batch]
@@ -67,6 +74,8 @@ def generate_spoof_set(cfg: Config, ctime: str, synthesizer: Synthesizer,
         text = np.tile(text_ids, (len(chunk), 1))
         spk = np.repeat(embs, eval_utt_num, axis=0)
         audio, _, _ = synthesizer(text, spk, gl_seeds(len(text), gen))
+        if mesh is not None and mesh.rank != 0:
+            continue
         audio = audio.cpu().numpy()
         for ci, spk_name in enumerate(chunk):
             out_dir = os.path.join(save_dir, "s" + spk_name[1:])

@@ -19,9 +19,12 @@ Port of :mod:`spoofsv_tpu.train.loop`:
     checkpoint adds ``disc_state_dict`` (the critic),
     ``disc_optimizer_state_dict`` (the critic's Adam) and ``loss_logs``;
   * JSONL metrics and, when matplotlib is importable, the attention and
-    loss-curve PNGs.
-
-Not ported here: data-parallel training over a mesh (ROADMAP A.9).
+    loss-curve PNGs;
+  * data-parallel training over a :class:`~spoofsv_torch.parallel.mesh.Mesh`
+    of ranks (``mesh=``): the state broadcast from rank 0 at ``init`` and
+    ``resume``, each rank stepping on its rows of every global batch, the
+    gradients all-reduced in the steps; only rank 0 writes metrics,
+    checkpoints and figures.
 """
 
 from __future__ import annotations
@@ -39,6 +42,8 @@ from torch import nn
 
 from spoofsv_torch.config import Config
 from spoofsv_torch.ops.decode_kernel import make_fused_decoder
+from spoofsv_torch.parallel.mesh import LocalRows, active, batch_sharding, replicate_tree
+from spoofsv_torch.parallel.multihost import global_batch_from_local
 from spoofsv_torch.train.losses import binary_divergence, guided_attention_loss, l1_loss
 from spoofsv_torch.train.state import AdvTrainState, TrainState
 from spoofsv_torch.train.steps import (autocast_to, eval_mode, guided_attention_table, is_g_step,
@@ -233,14 +238,26 @@ class Trainer:
     penalty's mixing draws come from a ``torch.Generator`` on that device,
     seeded by ``fit(rng_seed=...)``. ``compute_dtype`` is the steps' and the
     validation's autocast dtype (``train_compute_dtype``); the parameters
-    and optimizer state stay f32."""
+    and optimizer state stay f32.
+
+    ``mesh``: data-parallel training over its ranks, every rank running this
+    trainer on the same loader. A global batch is trimmed to a multiple of
+    the rank count (printed once) and each rank steps on its rows; a
+    :class:`~spoofsv_torch.parallel.mesh.LocalRows` batch (a mesh-aware
+    loader's) is this rank's rows already. Validation runs the whole
+    validation batches on every rank. With ``cfg.apply_dropout`` each rank
+    seeds PyTorch's generator with ``rng_seed + rank``."""
 
     def __init__(self, cfg: Config, gen_model: nn.Module, train_kind: str,
                  pattern: str = "conditional", adversarial: bool = False,
                  gan_type: str = "wgan-gp", disc_model: Optional[nn.Module] = None,
                  ctime: str = "dev", use_masks: bool = False, validate_with_decode: bool = True,
-                 metrics_every: int = 1, compute_dtype: torch.dtype = torch.float32):
+                 metrics_every: int = 1, compute_dtype: torch.dtype = torch.float32,
+                 mesh=None):
         self.cfg = cfg
+        self.mesh = active(mesh)
+        self.primary = self.mesh is None or self.mesh.rank == 0
+        self._warned_uneven = False
         self.gen_model = gen_model
         self.disc_model = disc_model
         self.train_kind = train_kind
@@ -249,17 +266,19 @@ class Trainer:
         self.device = next(gen_model.parameters()).device
         self.ckpt = CheckpointManager(cfg, pattern, adversarial, ctime, train_kind)
         self.fig_dir = os.path.join(self.ckpt.base, "fig")
-        self.metrics = MetricsLogger(os.path.join(self.ckpt.base, "metrics.jsonl"))
+        self.metrics = MetricsLogger(os.path.join(self.ckpt.base, "metrics.jsonl")
+                                     if self.primary else None)
         self.loss_val_log: List[float] = []
         self.loss_logs: Dict[str, list] = {"wd": [], "t_s": [], "t_s_o": [], "t_d": []}
         if adversarial:
             if disc_model is None:
                 raise ValueError("adversarial training needs a disc_model")
             self.init_fn, self.adv_step = make_fused_adversarial_step(
-                gen_model, disc_model, cfg, train_kind, gan_type, use_masks, compute_dtype)
+                gen_model, disc_model, cfg, train_kind, gan_type, use_masks, compute_dtype,
+                self.mesh)
         else:
             self.init_fn, self.step_fn = make_ordinary_step(gen_model, cfg, train_kind, use_masks,
-                                                            compute_dtype)
+                                                            compute_dtype, self.mesh)
         if train_kind == "train_text2mel" and validate_with_decode:
             self.validator = make_ar_validator(gen_model, cfg, compute_dtype)
         elif train_kind == "train_ssrn":
@@ -274,6 +293,8 @@ class Trainer:
     # -- lifecycle ----------------------------------------------------------
     def init(self) -> Union[TrainState, AdvTrainState]:
         self.state = self.init_fn()
+        if self.mesh is not None:
+            replicate_tree(self.state, self.mesh)
         return self.state
 
     def resume(self, path: str) -> None:
@@ -295,6 +316,8 @@ class Trainer:
         self.epoch = int(ckpt.get("epoch", 0))
         self.loss_val_log = [float(v) for v in ckpt.get("loss_val_log", [])]
         self.state.step = self.iteration
+        if self.mesh is not None:
+            replicate_tree(self.state, self.mesh)
 
     def close(self) -> None:
         self.metrics.close()
@@ -317,8 +340,28 @@ class Trainer:
             meta["loss_logs"] = self.loss_logs
         return meta
 
-    def _place_batch(self, batch) -> Batch:
+    def _place_whole(self, batch) -> Batch:
         return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
+
+    def _place_batch(self, batch) -> Optional[Batch]:
+        """A batch on this rank's device: the whole batch without a mesh;
+        over a mesh, this rank's rows of the global batch after trimming it
+        to a multiple of the rank count (None when fewer rows than ranks),
+        or a :class:`LocalRows` batch as it is."""
+        if self.mesh is None:
+            return self._place_whole(batch)
+        if isinstance(batch, LocalRows):
+            return global_batch_from_local(batch, self.mesh)
+        n = self.mesh.size
+        rows = next(iter(batch.values())).shape[0]
+        keep = rows // n * n
+        if keep == 0:
+            return None
+        if keep != rows and not self._warned_uneven:
+            print(f"[mesh] trimming uneven batch {rows} -> {keep} ({n} data shards)")
+            self._warned_uneven = True
+        sl = batch_sharding(self.mesh, keep)
+        return {k: torch.as_tensor(v)[sl].to(self.device) for k, v in batch.items()}
 
     # -- one iteration ------------------------------------------------------
     def train_iteration(self, batch: Batch) -> Dict[str, float]:
@@ -355,9 +398,11 @@ class Trainer:
         loss_val = float(np.mean(losses)) if losses else float("nan")
         self.loss_val_log.append(loss_val)
         meta = self._host_meta()
-        if losses and self.loss_val_log.index(min(self.loss_val_log)) == len(self.loss_val_log) - 1:
-            self.ckpt.save(self.state, meta, best=True)
-        self.ckpt.save(self.state, meta)
+        if self.primary:
+            if losses and (self.loss_val_log.index(min(self.loss_val_log))
+                           == len(self.loss_val_log) - 1):
+                self.ckpt.save(self.state, meta, best=True)
+            self.ckpt.save(self.state, meta)
         return loss_val
 
     # -- full loop ----------------------------------------------------------
@@ -368,12 +413,16 @@ class Trainer:
         """``train_loader_factory()`` → the batches of one epoch (numpy or
         torch). ``plot``: the loss-curve PNGs after each validation."""
         self.mix_generator = torch.Generator(device=self.device).manual_seed(rng_seed)
+        if self.mesh is not None and self.cfg.apply_dropout:
+            torch.manual_seed(rng_seed + self.mesh.rank)   # each rank its own dropout masks
         max_epochs = max_epochs or self.cfg.max_epochs
         last_batch = None
         window_t0 = time.perf_counter()
         while self.epoch < max_epochs:
             for batch in train_loader_factory():
                 batch = self._place_batch(batch)
+                if batch is None:   # fewer rows than ranks
+                    continue
                 if self.state is None:
                     self.init()
                     window_t0 = time.perf_counter()
@@ -389,9 +438,9 @@ class Trainer:
                 if (self.validator is not None and val_loader_factory is not None
                         and self.iteration > 0
                         and self.iteration % self.cfg.val_every_iter == 0):
-                    vb = (self._place_batch(b) for b in val_loader_factory())
+                    vb = (self._place_whole(b) for b in val_loader_factory())
                     lv = self.maybe_validate_and_checkpoint(vb, last_batch)
-                    if lv is not None and plot:
+                    if lv is not None and plot and self.primary:
                         self._flush_loss_logs()
                         plot_losses(self.loss_logs, self.iteration, self.fig_dir)
                     window_t0 = time.perf_counter()

@@ -17,6 +17,18 @@ the forwards and losses run under ``torch.autocast`` over the f32
 parameters and Adam state (the JAX package's models built with
 ``dtype=bfloat16``); the backwards run outside it.
 
+Data parallelism (``mesh``, a :class:`spoofsv_torch.parallel.mesh.Mesh`
+with a process group): each rank steps on its rows of the global batch, with the
+same parameters. The losses are the global batch's (masked means over the
+ranks' counts, :mod:`spoofsv_torch.train.losses`; the G step's adaptive
+coefficient from the global reconstruction and critic losses; the penalty's
+mixing draws made for the global batch from a generator every rank seeds
+alike, then sliced); the gradients are all-reduced (mean, in buckets) after
+the backward and before the optimizer, so Adam, and the weight clip, run
+alike on every rank; the returned metrics are the global batch's. Explicit
+all-reduces, not ``DistributedDataParallel``: the penalty takes a double
+backward, which DDP does not support.
+
 Batches are dicts of time-major tensors on the model's device:
 ``mel`` (B, T, 80), ``lin`` (B, 4T, 513), ``text`` (B, N) int, ``spk``
 (B, 200), and optional masks ``mel_mask`` (B, T), ``lin_mask``,
@@ -32,6 +44,7 @@ import torch
 from torch import nn
 
 from spoofsv_torch.config import Config
+from spoofsv_torch.parallel.mesh import active, all_reduce_grads, batch_sharding
 from spoofsv_torch.train.losses import guided_attention_matrix, ssrn_losses, text2mel_losses
 from spoofsv_torch.train.state import AdvTrainState, TrainState
 
@@ -79,16 +92,25 @@ def _gen_forward(model: nn.Module, batch: Batch, train_kind: str
 
 def _recon_losses(batch: Batch, y: torch.Tensor, a: Optional[torch.Tensor],
                   gaw: Callable[[torch.device], torch.Tensor], train_kind: str,
-                  use_masks: bool):
+                  use_masks: bool, mesh=None):
     y = y.float()
     if train_kind == "train_text2mel":
         l1, bd, att = text2mel_losses(
             batch["mel"], y, a.float(), gaw(a.device),
             mel_mask=batch.get("mel_mask") if use_masks else None,
-            att_mask=batch.get("att_mask") if use_masks else None)
+            att_mask=batch.get("att_mask") if use_masks else None, mesh=mesh)
         return l1 + bd + att, {"l1": l1, "bd": bd, "att": att}
-    l1, bd = ssrn_losses(batch["lin"], y, batch.get("lin_mask") if use_masks else None)
+    l1, bd = ssrn_losses(batch["lin"], y, batch.get("lin_mask") if use_masks else None, mesh)
     return l1 + bd, {"l1": l1, "bd": bd}
+
+
+def _global(metrics: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+    """Detached metrics, as the ranks' means over a mesh (one all-reduce)."""
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    if mesh is None:
+        return metrics
+    flat = mesh.mean(torch.stack([v.float() for v in metrics.values()]))
+    return dict(zip(metrics, flat.unbind(0)))
 
 
 def guided_attention_table(cfg: Config) -> Callable[[torch.device], torch.Tensor]:
@@ -117,7 +139,8 @@ def eval_mode(model: nn.Module) -> Iterator[nn.Module]:
 
 
 def make_ordinary_step(model: nn.Module, cfg: Config, train_kind: str,
-                       use_masks: bool = False, compute_dtype: torch.dtype = torch.float32):
+                       use_masks: bool = False, compute_dtype: torch.dtype = torch.float32,
+                       mesh=None):
     """Returns ``(init_fn, step_fn)``: ``init_fn()`` → a :class:`TrainState`
     with a fresh Adam over ``model``'s parameters; ``step_fn(state, batch)``
     → ``(state, metrics)``, updating the model and optimizer in place, the
@@ -127,6 +150,7 @@ def make_ordinary_step(model: nn.Module, cfg: Config, train_kind: str,
         raise ValueError(f"train_kind must be one of {TRAIN_KINDS}, got {train_kind!r}")
     gaw = guided_attention_table(cfg)
     has_dropout = cfg.apply_dropout
+    mesh = active(mesh)
 
     def init_fn() -> TrainState:
         return TrainState(step=0, model=model, optimizer=make_optimizer(cfg, model.parameters()))
@@ -135,12 +159,14 @@ def make_ordinary_step(model: nn.Module, cfg: Config, train_kind: str,
         model.train(has_dropout)
         with autocast_to(_device(model), compute_dtype):
             y, a = _gen_forward(model, batch, train_kind)
-            loss, parts = _recon_losses(batch, y, a, gaw, train_kind, use_masks)
+            loss, parts = _recon_losses(batch, y, a, gaw, train_kind, use_masks, mesh)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if mesh is not None:
+            all_reduce_grads(model.parameters(), mesh)
         state.optimizer.step()
         state.step += 1
-        return state, {**{k: v.detach() for k, v in parts.items()}, "loss": loss.detach()}
+        return state, _global({**parts, "loss": loss}, mesh)
 
     return init_fn, step_fn
 
@@ -188,7 +214,7 @@ def clip_weights(module: nn.Module) -> None:
 
 def make_adversarial_steps(gen: nn.Module, disc: nn.Module, cfg: Config, train_kind: str,
                            gan_type: str = "wgan-gp", use_masks: bool = False,
-                           compute_dtype: torch.dtype = torch.float32):
+                           compute_dtype: torch.dtype = torch.float32, mesh=None):
     """Returns ``(init_fn, g_step, d_step)``; ``gan_type`` is ``"wgan-gp"``
     (the reference's default trainer), ``"wgan"`` (weight clip) or
     ``"vanilla"`` (log loss on the time frames 1:9 of the mel, 1:33 of the
@@ -207,7 +233,8 @@ def make_adversarial_steps(gen: nn.Module, disc: nn.Module, cfg: Config, train_k
     Both return ``(state, metrics)`` and update the modules and optimizers in
     place. The critic is called as the JAX steps call it, deterministic. The
     forwards, the penalty's inner gradient and the losses run under
-    :func:`autocast_to` ``compute_dtype``.
+    :func:`autocast_to` ``compute_dtype``. ``mesh``: data parallelism over
+    its ranks (the module docstring).
     """
     if train_kind not in TRAIN_KINDS:
         raise ValueError(f"train_kind must be one of {TRAIN_KINDS}, got {train_kind!r}")
@@ -217,6 +244,7 @@ def make_adversarial_steps(gen: nn.Module, disc: nn.Module, cfg: Config, train_k
     has_dropout = cfg.apply_dropout
     n_slice = 8 if train_kind == "train_text2mel" else 32   # adversarial.py:298-300,329
     real_key = "mel" if train_kind == "train_text2mel" else "lin"
+    mesh = active(mesh)
 
     def disc_in(x: torch.Tensor) -> torch.Tensor:
         return x[:, 1: 1 + n_slice, :] if gan_type == "vanilla" else x
@@ -229,25 +257,28 @@ def make_adversarial_steps(gen: nn.Module, disc: nn.Module, cfg: Config, train_k
         gen.train(has_dropout)
         with autocast_to(_device(gen), compute_dtype):
             y, a = _gen_forward(gen, batch, train_kind)
-            recon, parts = _recon_losses(batch, y, a, gaw, train_kind, use_masks)
+            recon, parts = _recon_losses(batch, y, a, gaw, train_kind, use_masks, mesh)
             d_out = disc(disc_in(y.float())).float()
             if gan_type == "vanilla":
                 loss_disc = torch.mean(-torch.log(d_out + 1e-8))    # adversarial.py:307
-                denom = loss_disc                                    # no abs (adversarial.py:310)
             else:
                 loss_disc = torch.mean(-d_out)                       # …wasserstein_gp.py:288
-                denom = loss_disc.abs()                              # …wasserstein_gp.py:290
-            coeff = (recon / (denom + 1e-12)).detach()
+            # the coefficient from the global batch's losses
+            r, ld = (recon.detach(), loss_disc.detach()) if mesh is None else \
+                mesh.mean(torch.stack([recon.detach(), loss_disc.detach()])).unbind(0)
+            denom = ld if gan_type == "vanilla" else ld.abs()    # no abs (adversarial.py:310)
+            coeff = r / (denom + 1e-12)                              # …wasserstein_gp.py:290
             loss = recon + coeff * loss_disc
         params = [p for p in gen.parameters() if p.requires_grad]
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         for p, g in zip(params, grads):
             p.grad = g
+        if mesh is not None:
+            all_reduce_grads(params, mesh)
         state.gen_optimizer.step()
         state.gen_optimizer.zero_grad(set_to_none=True)
         state.step += 1
-        return state, {**{k: v.detach() for k, v in parts.items()},
-                       "loss_disc": loss_disc.detach(), "loss": loss.detach()}
+        return state, _global({**parts, "loss_disc": loss_disc, "loss": loss}, mesh)
 
     def d_step(state: AdvTrainState, batch: Batch, generator: Optional[torch.Generator] = None
                ) -> Tuple[AdvTrainState, Dict[str, torch.Tensor]]:
@@ -269,7 +300,10 @@ def make_adversarial_steps(gen: nn.Module, disc: nn.Module, cfg: Config, train_k
                 loss = torch.mean(critic(fake) - critic(real))       # …wasserstein_gp.py:314
                 metrics["wd"] = -loss.detach()
                 if gan_type == "wgan-gp":
-                    c = draw_mixing(real.shape[0], generator, real.device)  # …gp.py:300-301
+                    b = real.shape[0] * (1 if mesh is None else mesh.size)
+                    c = draw_mixing(b, generator, real.device)       # …gp.py:300-301
+                    if mesh is not None:                              # the global batch's draw
+                        c = c[batch_sharding(mesh, b)]
                     x_mid = (c * real + (1.0 - c) * fake).requires_grad_(True)
                     grad_x, = torch.autograd.grad(critic(x_mid).sum(), x_mid, create_graph=True)
                     norms = torch.sqrt((grad_x.float() ** 2).sum(dim=(1, 2)) + 1e-12)
@@ -278,26 +312,28 @@ def make_adversarial_steps(gen: nn.Module, disc: nn.Module, cfg: Config, train_k
                     loss = loss + gp
         state.disc_optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if mesh is not None:
+            all_reduce_grads(disc.parameters(), mesh)
         state.disc_optimizer.step()
         state.disc_optimizer.zero_grad(set_to_none=True)
         if gan_type == "wgan":
             clip_weights(disc)
         state.step += 1
-        return state, {**metrics, "loss_d": loss.detach()}
+        return state, _global({**metrics, "loss_d": loss}, mesh)
 
     return init_fn, g_step, d_step
 
 
 def make_fused_adversarial_step(gen: nn.Module, disc: nn.Module, cfg: Config, train_kind: str,
                                 gan_type: str = "wgan-gp", use_masks: bool = False,
-                                compute_dtype: torch.dtype = torch.float32):
+                                compute_dtype: torch.dtype = torch.float32, mesh=None):
     """Returns ``(init_fn, step)``: ``step(state, batch, generator=None)``
     takes the G step when :func:`is_g_step` of ``state.step`` and the D step
     otherwise, a choice made on the host, and returns every key of
     :data:`FUSED_METRICS` (0 where the branch has none). It is the step
     :class:`spoofsv_torch.train.loop.Trainer` takes."""
     init_fn, g_step, d_step = make_adversarial_steps(gen, disc, cfg, train_kind, gan_type,
-                                                     use_masks, compute_dtype)
+                                                     use_masks, compute_dtype, mesh)
 
     def step(state: AdvTrainState, batch: Batch, generator: Optional[torch.Generator] = None):
         if is_g_step(state.step, cfg.ratio):

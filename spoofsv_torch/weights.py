@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from spoofsv_torch.export import (export_critic, export_drs, export_ge2e_embedder,
-                                  export_melsyn, export_ssrn)
+                                  export_lndense, export_melsyn, export_ssrn)
 
 StateLike = Mapping[str, Union[np.ndarray, torch.Tensor]]
 
@@ -51,6 +51,11 @@ def load_ssrn_from_jax(module: nn.Module, params) -> nn.Module:
 def load_critic_from_jax(module: nn.Module, params) -> nn.Module:
     """flax ``Critic1D`` params → the port's :class:`Critic1D` (``MelDisc``/``LinDisc``)."""
     return load_state(module, export_critic(params))
+
+
+def load_lndense_from_jax(module: nn.Module, params) -> nn.Module:
+    """flax ``LNDense`` params → the port's :class:`~spoofsv_torch.models.layers.LNDense`."""
+    return load_state(module, export_lndense(params))
 
 
 def load_drs_from_jax(module: nn.Module, variables) -> nn.Module:

@@ -1,8 +1,8 @@
 """``python -m spoofsv_torch.cli.main`` on the CPU, on a 2-speaker toy corpus.
 
 Training (``train_text2mel --adversarial``, ``train_ssrn`` with the batches
-on the device, ``-R latest``), the mesh refusal (``--mesh 2``) beside the
-runs it does not refuse (``--mesh all`` and ``MULTI_GPU`` on one device,
+on the device, ``-R latest``), the mesh refusal (more ranks than cores)
+beside the runs it does not refuse (``--mesh all`` and ``MULTI_GPU`` on one device,
 bf16 training, a FLAC corpus), and ``synthesize`` from reference ``.tar.pth``
 checkpoints written from JAX parameters, against the JAX CLI's own
 ``synthesize`` on the same checkpoints: the same wav files, samples within
@@ -111,15 +111,17 @@ def test_train_ssrn_with_device_data_and_cache(toy_root):
 
 
 def test_refusals(toy_root, tmp_path):
-    """``--mesh 2`` on one device is refused (ROADMAP A.9). What this test
-    refused before now runs: ``--mesh all`` and ``MULTI_GPU`` on the one
-    visible (CPU) device train single-device, as the JAX ``resolve_mesh``
-    runs them; ``train_compute_dtype="bfloat16"`` trains under autocast; a
-    corpus of FLAC files is read, to the JAX reader's samples."""
+    """A mesh of more ranks than the host has cores is refused (``--mesh N``
+    runs N ranks since the mesh layer was ported;
+    ``tests/test_torch_port_mesh.py`` runs them). ``--mesh all`` and
+    ``MULTI_GPU`` on the one visible (CPU) device train single-device, as
+    the JAX ``resolve_mesh`` runs them; ``train_compute_dtype="bfloat16"``
+    trains under autocast; a corpus of FLAC files is read, to the JAX
+    reader's samples."""
     conf = _config(toy_root, "refuse")
     base = ["train_text2mel", "-C", conf, "-T", "r", "--max_iterations", "1"]
-    with pytest.raises(NotImplementedError, match="A.9"):
-        cli.main(base + ["--mesh", "2"], device="cpu")
+    with pytest.raises(ValueError, match="cores"):
+        cli.main(base + ["--mesh", str(os.cpu_count() + 1)], device="cpu")
     bf16 = _config(toy_root, "bf16")
     d = json.loads(open(bf16).read())
     d["TPU"] = {"train_compute_dtype": "bfloat16"}

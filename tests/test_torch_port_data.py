@@ -236,8 +236,10 @@ def test_device_replay_loader_matches_jax(corpus, with_lin, drop_last):
 
 
 def test_device_replay_loader_refuses_a_mesh(corpus):
+    """A mesh that is not the port's ``Mesh`` is refused (the loader over a
+    real mesh: ``tests/test_torch_port_mesh.py``)."""
     _, _, cfg = corpus
-    with pytest.raises(NotImplementedError, match="A.9"):
+    with pytest.raises(TypeError, match="Mesh"):
         pipeline.DeviceReplayLoader(pipeline.TTSDataSource(cfg, "train"), 2, mesh=object(),
                                     device="cpu")
 

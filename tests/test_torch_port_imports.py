@@ -34,7 +34,8 @@ def test_port_imports_no_jax():
               "spoofkit.vad", "spoofkit.ge2e_harness", "spoofkit.dvector", "models.ge2e",
               "cli.ge2e", "cli.metagen", "spoofkit.ivector", "spoofkit.ivector_torch",
               "spoofkit.antispoof", "spoofkit.curve", "cli.ivector", "cli.antispoof",
-              "cli.curve"):
+              "cli.curve", "parallel", "parallel.mesh", "parallel.multihost",
+              "parallel.dryrun", "parallel.ranks", "utils.profiling"):
         assert f"spoofsv_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -52,6 +53,20 @@ def test_port_imports_no_jax():
                          env=env, cwd=str(REPO), timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.startswith("ok")
+
+
+def test_spawned_ranks_import_no_jax(tmp_path):
+    """A rank that ``multihost.spawn`` starts from this process (which has
+    jax and spoofsv_tpu loaded) is a fresh interpreter that loads neither."""
+    import jax  # noqa: F401  (loaded in the spawning process on purpose)
+
+    from spoofsv_torch.parallel import multihost, ranks
+
+    _, follower = multihost.spawn(2, ranks.modules_rank, devices=("cpu",), run_dir=str(tmp_path),
+                                  timeout_s=120)
+    assert "spoofsv_torch.parallel.ranks" in follower
+    bad = [m for m in follower if m.split(".")[0] in ("jax", "flax", "optax", "spoofsv_tpu")]
+    assert not bad, bad
 
 
 def test_chip_smoke_imports_nothing_of_the_jax_package():
@@ -86,6 +101,15 @@ def test_cuda_request_without_card_raises():
 
     with pytest.raises(RuntimeError):
         antispoof.main(["train", "-C", "no-such-config.json", "-T", "t"])
+    # so do the mesh's entry points: the dryrun and a group of ranks
+    from spoofsv_torch.parallel import dryrun, multihost, ranks
+
+    with pytest.raises(RuntimeError):
+        dryrun.main(["2"])
+    with pytest.raises(RuntimeError):
+        dryrun.dryrun_multichip(2)
+    with pytest.raises(RuntimeError):
+        multihost.spawn(2, ranks.modules_rank)
 
 
 def test_wrappers_take_the_kernel_path_for_non_cpu_tensors():

@@ -8,8 +8,8 @@ agree to rel-L2 ≤ 1e-3 and atol 2e-3 (the whole-slice gates of
 ``test_torch_port_synth.py``), escalations and attention cuts must be the
 same, ``wav_bytes`` the same bytes, and the HTTP status codes the same.
 The behaviour classes of ``tests/test_serve.py`` are mirrored against the
-port; its ``TestMeshServing`` waits for data-parallel synthesis in the port
-(ROADMAP A.9).
+port; its ``TestMeshServing`` has its counterpart over two ranks in
+``tests/test_torch_port_mesh.py``.
 """
 
 import contextlib

@@ -5,7 +5,8 @@
 (the tiny configuration of ``test_torch_port_serve.py``, JAX parameters
 carried into the port) writes the same file tree as the JAX one, with
 samples within 2e-3 (spsi init). The port's ``generate_test_utterances``
-CLI writes the same set with ``--skip_staging`` and refuses a mesh;
+CLI writes the same set with ``--skip_staging`` and refuses a mesh of more
+ranks than the host's cores;
 ``load_generator_params`` round-trips the port's ``CheckpointManager``
 checkpoints and refuses any other path.
 """
@@ -169,7 +170,8 @@ def test_cli_writes_the_set_and_refuses_staging(layout, tmp_path):
     checkpoints, writes the same set as generate_spoof_set from the same
     models. It once refused to stage; staging is ported now
     (``tests/test_torch_port_staging.py`` runs it), so what is refused is a
-    mesh of more than one device, before any work; the staging flags are
+    mesh of more ranks than the host has cores, before any work (a mesh of
+    two: ``tests/test_torch_port_mesh.py``); the staging flags are
     taken, and --skip_synthesis with --skip_staging does nothing, as in the
     JAX CLI."""
     s = layout
@@ -185,8 +187,8 @@ def test_cli_writes_the_set_and_refuses_staging(layout, tmp_path):
     cfg_path = tmp_path / "config.json"
     cfg_path.write_text(json.dumps(cfg.to_reference_dict()))
     argv = ["-C", str(cfg_path), "-T", "c1", "--eval_utt_num", "4", "--speaker_batch", "3"]
-    with pytest.raises(NotImplementedError, match="A.9"):
-        cli_gen.main(argv + ["--mesh", "2"], device="cpu")
+    with pytest.raises(ValueError, match="cores"):
+        cli_gen.main(argv + ["--mesh", str(os.cpu_count() + 1)], device="cpu")
     cli_gen.main(argv + ["--skip_staging", "--skip_synthesis", "--train_spk_num", "5"],
                  device="cpu")
     assert not (tmp_path / "cli").exists()
