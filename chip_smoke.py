@@ -120,6 +120,22 @@ Phases (any failure raises and exits non-zero):
      ``--mesh 2 --mesh_share`` (wavs and a burst of 8 replies against
      single-rank synthesis of the same rows); the NCCL path at world size 1.
      Each rank reports its launches; they are summed under the path "mesh".
+ 14. the paper's whole experiment from one entry point:
+     ``python -m spoofsv_torch.cli.campaign``'s ``main`` at full width and
+     reduced depth (10 speakers x 10 utterances, 4 evaluation sentences,
+     200 Text2Mel and SSRN steps, 100 adversarial, 40 GE2E epochs, 200 CM
+     steps; the cuts in ``CAMPAIGN_DEPTH``), every stage on the card, the
+     split variant ``--split_suffix _s7`` and a resumed call that runs
+     nothing; each stage's launches held to ``CAMPAIGN_KERNELS`` (K4-K6
+     never); the results (every marker and report key, EERs and spoof rates
+     in [0, 1], the spoof-wav count, the curves' points); K1 f32 and bf16,
+     K2 and K3 held against their plain versions on the trained weights,
+     the first frame where the bf16 attention argmax parts; the f32
+     ``csrc/gl.cu`` (the corpus's GL64 copy-synthesis, its first caller)
+     against plain f32 GL from the same init (relative L2 1e-3), timed
+     against its bound; and ``python -m spoofsv_torch.cli.train_toy_e2e 2500`` in
+     a process of its own beside the campaign (the loss at most 0.75 of its
+     start, forward fraction >= 0.95).
 Prints a kernels JSON line (each kernel's time, plain time, launches on
 the main path, launches on each path, and bound), the card line, then the
 ``{"ok": true, ...}`` line last.
@@ -128,6 +144,7 @@ the main path, launches on each path, and bound), the card line, then the
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import shutil
@@ -1449,6 +1466,51 @@ def hold_synthesis(syn_calls, gl_calls, dev, spectral_err, what: str) -> None:
              (what, "K2/K3 vs plain", mag.shape, cos_dphi, sc_k, sc_p))
 
 
+class SynthesisRecorder:
+    """Records, while installed, the inputs of the f32 K1 decodes that the
+    training validations run (``loop.make_fused_decoder``; each record also
+    holds ``val_tag()``'s fields), of each ``Synthesizer`` call and of its
+    tensor-core vocoder; ``make_fused`` is the unrecorded decoder."""
+
+    def __init__(self, val_tag=dict):
+        from spoofsv_torch.infer import synthesize as syn_mod
+        from spoofsv_torch.train import loop
+
+        self.loop, self.syn_mod, self.val_tag = loop, syn_mod, val_tag
+        self.val_calls, self.syn_calls, self.gl_calls = [], [], []
+        self.make_fused = loop.make_fused_decoder
+        self.syn_call, self.gl_tc = syn_mod.Synthesizer.__call__, syn_mod.griffin_lim_tc
+
+    def install(self) -> None:
+        rec = self
+
+        def recorded_decoder(model, n_frames, *a, **kw):
+            decode = rec.make_fused(model, n_frames, *a, **kw)
+
+            def run(text_ids, spk_emb, *x):
+                rec.val_calls.append(dict(rec.val_tag(), model=model, T=n_frames,
+                                          text=text_ids, spk=spk_emb))
+                return decode(text_ids, spk_emb, *x)
+            return run
+
+        def recorded_call(self, text_ids, spk_emb, seeds=None):
+            rec.syn_calls.append((self, text_ids, spk_emb))
+            return rec.syn_call(self, text_ids, spk_emb, seeds)
+
+        def recorded_gl(spec, *a, **kw):
+            rec.gl_calls.append((spec, kw["int8"]))
+            return rec.gl_tc(spec, *a, **kw)
+
+        self.loop.make_fused_decoder = recorded_decoder
+        self.syn_mod.Synthesizer.__call__ = recorded_call
+        self.syn_mod.griffin_lim_tc = recorded_gl
+
+    def restore(self) -> None:
+        self.loop.make_fused_decoder = self.make_fused
+        self.syn_mod.Synthesizer.__call__ = self.syn_call
+        self.syn_mod.griffin_lim_tc = self.gl_tc
+
+
 def train_cli_phase(cfg, dev, counters: dict, cluster, smi: str, onsets, before_onset,
                     spectral_err, n_speakers: int = 4, utts_per_spk: int = 24,
                     min_chars: int = 110, max_chars: int = 160) -> dict:
@@ -1494,12 +1556,11 @@ def train_cli_phase(cfg, dev, counters: dict, cluster, smi: str, onsets, before_
     from spoofsv_torch.data.pipeline import DeviceReplayLoader, TTSDataSource, _bucket_for
     from spoofsv_torch.data.toy import generate_toy_corpus
     from spoofsv_torch.data.vctk import prepare_vctk
-    from spoofsv_torch.infer import synthesize as syn_mod
     from spoofsv_torch.infer.decode import make_decoder
     from spoofsv_torch.models import LinDisc, MelDisc
     from spoofsv_torch.models.layers import GATE_IMPLS, gate_impl
     from spoofsv_torch.ops import decode_kernel
-    from spoofsv_torch.train import Trainer, loop, steps
+    from spoofsv_torch.train import Trainer, steps
     from spoofsv_torch.weights import load_state
 
     highway = ("highway_gate", "highway_conv", "highway_conv_pair")
@@ -1565,32 +1626,13 @@ def train_cli_phase(cfg, dev, counters: dict, cluster, smi: str, onsets, before_
 
     # the inputs of the validator's decodes (with the steps taken before
     # them), of each Synthesizer call and of its tensor-core vocoder
-    val_calls, syn_calls, gl_calls = [], [], []
-    make_fused = loop.make_fused_decoder
-    syn_call, gl_tc = syn_mod.Synthesizer.__call__, syn_mod.griffin_lim_tc
-
-    def recorded_decoder(model, n_frames, *a, **kw):
-        decode = make_fused(model, n_frames, *a, **kw)
-
-        def run(text_ids, spk_emb, *x):
-            val_calls.append(dict(steps=len(seen), model=model, T=n_frames, text=text_ids,
-                                  spk=spk_emb))
-            return decode(text_ids, spk_emb, *x)
-        return run
-
-    def recorded_call(self, text_ids, spk_emb, seeds=None):
-        syn_calls.append((self, text_ids, spk_emb))
-        return syn_call(self, text_ids, spk_emb, seeds)
-
-    def recorded_gl(spec, *a, **kw):
-        gl_calls.append((spec, kw["int8"]))
-        return gl_tc(spec, *a, **kw)
+    rec = SynthesisRecorder(lambda: dict(steps=len(seen)))
+    val_calls, syn_calls, gl_calls, make_fused = (rec.val_calls, rec.syn_calls, rec.gl_calls,
+                                                  rec.make_fused)
 
     out = {}
     steps.make_adversarial_steps = recorded_steps
-    loop.make_fused_decoder = recorded_decoder
-    syn_mod.Synthesizer.__call__ = recorded_call
-    syn_mod.griffin_lim_tc = recorded_gl
+    rec.install()
     try:
         with tempfile.TemporaryDirectory() as root:
             t0 = time.perf_counter()
@@ -1633,8 +1675,8 @@ def train_cli_phase(cfg, dev, counters: dict, cluster, smi: str, onsets, before_
             def cli_run(argv):
                 """``main(argv)`` on the card, launches counted from 0."""
                 reset()
-                for rec in (seen, val_calls, syn_calls, gl_calls):
-                    rec.clear()
+                for log_list in (seen, val_calls, syn_calls, gl_calls):
+                    log_list.clear()
                 torch.cuda.synchronize()
                 t = time.perf_counter()
                 with gate_impl("xla"):   # main sets the process-wide impl; restore it after
@@ -2021,9 +2063,7 @@ def train_cli_phase(cfg, dev, counters: dict, cluster, smi: str, onsets, before_
                    "train_cli_bf16": bf16_cli}
     finally:
         steps.make_adversarial_steps = make_steps
-        loop.make_fused_decoder = make_fused
-        syn_mod.Synthesizer.__call__ = syn_call
-        syn_mod.griffin_lim_tc = gl_tc
+        rec.restore()
     return out
 
 
@@ -2106,25 +2146,16 @@ def ge2e_attack_phase(cfg, dev, state_dicts, counters: dict, cluster, smi: str, 
     from spoofsv_torch.config import GE2EConfig
     from spoofsv_torch.data.toy import generate_toy_corpus
     from spoofsv_torch.dsp import host as dsp_host
-    from spoofsv_torch.infer import synthesize as syn_mod
     from spoofsv_torch.spoofkit import flacio, ge2e_harness, spoofgen
 
     def reset() -> None:
         for c in [*counters.values(), cluster]:
             c.launches = 0
 
-    syn_calls, gl_calls, stage_s = [], [], {}
-    syn_call, gl_tc = syn_mod.Synthesizer.__call__, syn_mod.griffin_lim_tc
+    rec, stage_s = SynthesisRecorder(), {}
+    syn_calls, gl_calls = rec.syn_calls, rec.gl_calls
     stagers = {k: getattr(spoofgen, k) for k in ("generate_spoof_set", "stage_ivector_data",
                                                  "stage_ge2e_data", "stage_antispoof_data")}
-
-    def recorded_call(self, text_ids, spk_emb, seeds=None):
-        syn_calls.append((self, text_ids, spk_emb))
-        return syn_call(self, text_ids, spk_emb, seeds)
-
-    def recorded_gl(spec, *a, **kw):
-        gl_calls.append((spec, kw["int8"]))
-        return gl_tc(spec, *a, **kw)
 
     def timed(name, fn):
         def run(*a, **kw):
@@ -2136,8 +2167,7 @@ def ge2e_attack_phase(cfg, dev, state_dicts, counters: dict, cluster, smi: str, 
             return out
         return run
 
-    syn_mod.Synthesizer.__call__ = recorded_call
-    syn_mod.griffin_lim_tc = recorded_gl
+    rec.install()
     for k, fn in stagers.items():
         setattr(spoofgen, k, timed(k, fn))
     try:
@@ -2335,8 +2365,7 @@ def ge2e_attack_phase(cfg, dev, state_dicts, counters: dict, cluster, smi: str, 
         log(f"[attack] staging {staging:.3f} s, preprocessing {prep_s:.3f} s on [{smi}]")
         del emb, loss_mod, e2, l2, bank, x, e
     finally:
-        syn_mod.Synthesizer.__call__ = syn_call
-        syn_mod.griffin_lim_tc = gl_tc
+        rec.restore()
         for k, fn in stagers.items():
             setattr(spoofgen, k, fn)
     return launches, conf
@@ -3137,6 +3166,350 @@ def mesh_phase(cfg, dev, state_dicts, counters: dict, cluster, smi: str, spectra
     return total
 
 
+# the campaign at reduced depth and full width (phase 14): Config()'s widths
+# (hidden 256), GE2E 3x768 -> 256 at N=6 x M=50, the i-vectors at 256 / 100
+# and the reference's 1024 / 400, the CM at its defaults; cut (the JAX
+# script's defaults in brackets): 10 speakers x 10 utterances (60 x 110),
+# 6 train speakers (40), 4 evaluation sentences (20), Text2Mel and SSRN 200
+# steps (40000 / 30000), adversarial 100 (20000), validation every 100
+# (2000), GE2E 40 epochs (600), the CM 200 steps (4000) on the first 30 of
+# the TTS train list (3500; the rest, 10, are its dev set's bona fide). The
+# i-vector stages at 256 Gaussians train and
+# score on one host core (the native backend below 512, as in the JAX
+# package): their time grows with the utterances, which is what the depth
+# is cut for.
+CAMPAIGN_DEPTH = ["--speakers", "10", "--utts", "10", "--train_spk", "6", "--enroll", "3",
+                  "--eval_num", "4", "--t2m_steps", "200", "--ssrn_steps", "200",
+                  "--adv_steps", "100", "--val_every_iter", "100", "--ge2e_epochs", "40",
+                  "--cm_steps", "200", "--cm_cap", "30"]
+CAMPAIGN_SPLIT = ["--split_suffix", "_s7", "--train_spk", "7"]
+# the toy learning run in a process of its own beside the campaign (both
+# hold the host far more than the card): its summary and its launches
+TOY_RUN = r"""
+import json, sys
+from spoofsv_torch.cli import train_toy_e2e
+from spoofsv_torch.ops import decode_kernel, gate_kernel, gl_kernel, hconv_kernel
+summary = train_toy_e2e.main([sys.argv[1]], device=sys.argv[2])
+launches = {"gl_init": gl_kernel.init_kernel, "griffin_lim": gl_kernel.gl_tc_kernel,
+            "griffin_lim_f32": gl_kernel.gl_kernel, "highway_gate": gate_kernel.gate_kernel,
+            "highway_conv": hconv_kernel.hconv_kernel,
+            "highway_conv_pair": hconv_kernel.hconv_pair_kernel,
+            "decode_f32": decode_kernel.f32_kernel, "decode_bf16": decode_kernel.cluster_kernel}
+print("TOY " + json.dumps({"summary": summary,
+                           "launches": {k: c.launches for k, c in launches.items()}}))
+"""
+# the kernels each stage launches (every other count must be 0), by counter
+SYNTH_KERNELS = {"decode_bf16", "gl_init", "griffin_lim"}
+CAMPAIGN_KERNELS = {"corpus": {"gl_init", "griffin_lim_f32"}, "train_t2m": {"decode_f32"},
+                    "train_adv": {"decode_f32"}, "synthesize": SYNTH_KERNELS,
+                    "spoofgen": SYNTH_KERNELS, "spoofgen_adv": SYNTH_KERNELS}
+
+
+def campaign_phase(dev, counters: dict, cluster, smi: str, onsets, before_onset, spectral_err,
+                   cuda_ms, root: str, depth=CAMPAIGN_DEPTH, toy_steps: int = 2500) -> dict:
+    """Phase 14: the campaign (:func:`campaign_runs`) with the toy learning
+    run, ``python -m spoofsv_torch.cli.train_toy_e2e <toy_steps>`` on the
+    card, in a process of its own beside it (both hold the host far more
+    than the card), its launches counted there from 0: ``loss_last <= 0.75
+    loss_first``, ``forward_frac >= 0.95``, the f32 K1 launched and nothing
+    else. The process is stopped if the phase fails. Returns the campaign's
+    launches, the toy run's and the corpus GL's readings."""
+    toy_path = os.path.join(root, "toy_e2e.log")
+    toy_log = open(toy_path, "w")
+    toy_t0 = time.perf_counter()
+    toy_proc = subprocess.Popen([sys.executable, "-c", TOY_RUN, str(toy_steps), str(dev)],
+                                stdout=toy_log, stderr=subprocess.STDOUT,
+                                cwd=str(Path(__file__).resolve().parent),
+                                env={**os.environ, "TMPDIR": root})
+    try:
+        out = campaign_runs(dev, counters, cluster, smi, onsets, before_onset, spectral_err,
+                            cuda_ms, root, depth)
+        toy_wait = time.perf_counter()
+        rc = toy_proc.wait(timeout=900)
+    finally:
+        if toy_proc.poll() is None:
+            toy_proc.kill()
+            toy_proc.wait()
+        toy_log.close()
+    toy_s, waited = time.perf_counter() - toy_t0, time.perf_counter() - toy_wait
+    with open(toy_path) as f:
+        lines = f.read().splitlines()
+    for ln in lines:
+        if ln.startswith("[toy-e2e] iter"):
+            log(ln)
+    found = [json.loads(ln[4:]) for ln in lines if ln.startswith("TOY ")]
+    gate(rc == 0 and len(found) == 1, ("the toy run failed", rc, lines[-20:]))
+    summary, toy = found[0]["summary"], found[0]["launches"]
+    log(f"[toy] train_toy_e2e {toy_steps} steps (hidden 64, 4 speakers x 40, f32, its own "
+        f"process beside the campaign): {json.dumps(summary)}; {toy_s:.1f} s, {waited:.1f} s "
+        f"of it after the campaign; launches {toy} on [{smi}]")
+    gate(summary["loss_last"] <= 0.75 * summary["loss_first"]
+         and summary["forward_frac"] >= 0.95, ("the toy run did not learn", summary))
+    gate(toy["decode_f32"] > 0 and all(v == 0 for k, v in toy.items() if k != "decode_f32"),
+         ("toy launches", toy))
+    return {**out, "toy": toy}
+
+
+def campaign_runs(dev, counters: dict, cluster, smi: str, onsets, before_onset, spectral_err,
+                  cuda_ms, root: str, depth=CAMPAIGN_DEPTH) -> dict:
+    """Phase 14's campaign: the paper's whole experiment from one entry point,
+    ``spoofsv_torch.cli.campaign.main(argv)``, at reduced depth and full
+    width (``CAMPAIGN_DEPTH``), every stage on the card: the corpus and its
+    fake LA sides (the copy-synthesis through K2's random mode and the f32
+    ``csrc/gl.cu``), the feature cache, Text2Mel, SSRN and WGAN-GP training
+    (validations through the f32 K1), ``synthesize`` and the two spoof sets
+    (K1 bf16, K2 SPSI, K3 int8), GE2E, the i-vectors (and the 1024 / 400
+    reference run), the CM, the curves (their points files), the report;
+    then the split variant ``CAMPAIGN_SPLIT`` and a resumed call that runs
+    nothing. Each stage's launches are counted from 0 just before it and
+    read just after, and held to ``CAMPAIGN_KERNELS``. On the trained
+    weights, outside the counted runs: the f32 K1 on the last validation's
+    own batches against ``decode_plain`` (1e-3 before each row's first
+    attention argmax flip, onsets >= 32), the bf16 K1 on the first
+    ``synthesize`` batch against ``decode_plain`` over frames 0-1 (mel 0.05,
+    attention 0.02) and the first frame where the argmax parts over the
+    whole rollout, K2 and K3 on that batch and on the first spoof-set call
+    (``hold_synthesis``), ``gl.cu`` against ``torchdsp.griffin_lim`` from
+    the same init on the corpus batch (relative L2 1e-3), timed at that
+    shape against its bound. Returns the launches summed over the
+    campaign's stages and the corpus GL's readings."""
+    import torch
+
+    from spoofsv_torch.cli import campaign
+    from spoofsv_torch.dsp import torchdsp
+    from spoofsv_torch.ops import decode_kernel, gl_kernel
+
+    def snap() -> dict:
+        n = {k: c.launches for k, c in counters.items() if k != "decode"}
+        n["decode_bf16"] = cluster.launches
+        return n
+
+    def reset() -> None:
+        for c in [*counters.values(), cluster]:
+            c.launches = 0
+
+    runs, corpus_gl = [], []
+    current = {"stage": None}
+    rec = SynthesisRecorder(lambda: dict(stage=current["stage"]))
+    run_stage, gl_fused = campaign.Campaign.run_stage, gl_kernel.griffin_lim_fused
+
+    def counted_stage(self, name, fn):
+        """A stage's launches, seconds and recorded synthesis calls, counted
+        from 0 around it."""
+        mname = os.path.basename(self.marker(name))[:-5]
+        current["stage"] = mname
+        calls = (len(rec.syn_calls), len(rec.gl_calls))
+        reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = run_stage(self, name, fn)
+        torch.cuda.synchronize()
+        runs[-1][mname] = row = dict(s=time.perf_counter() - t, launches=snap(),
+                                     syn=rec.syn_calls[calls[0]:], gl=rec.gl_calls[calls[1]:])
+        print(f"[phase 14] stage {mname}: {row['s']:.2f} s, launches {row['launches']}",
+              flush=True)
+        return out
+
+    def recorded_fused(mag, *a, **kw):
+        corpus_gl.append((mag, kw["init_angles"], kw["n_iter"]))
+        return gl_fused(mag, *a, **kw)
+
+    stdout = open(os.path.join(root, "campaign.log"), "w")
+
+    def drive(argv) -> tuple:
+        """``campaign.main(argv)`` on the card; its stdout, its results, its
+        seconds (each stage's seconds and launches go to ``runs``)."""
+        runs.append({})
+        tee = campaign._Tee(stdout)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            results = campaign.main(argv, device=dev)
+        torch.cuda.synchronize()
+        return tee.buf.getvalue(), results, time.perf_counter() - t
+
+    base = [*depth, "--root", os.path.join(root, "campaign")]
+    campaign.Campaign.run_stage = counted_stage
+    gl_kernel.griffin_lim_fused = recorded_fused
+    rec.install()
+    try:
+        log_base, results, wall_base = drive(base)
+        log_split, split, wall_split = drive([*base, *CAMPAIGN_SPLIT])
+        log_again, again, wall_again = drive(base)
+    except BaseException:
+        stdout.flush()
+        with open(stdout.name) as f:
+            log("[campaign] the run failed; its output's last lines:\n"
+                + "".join(f.readlines()[-40:]))
+        raise
+    finally:
+        campaign.Campaign.run_stage = run_stage
+        gl_kernel.griffin_lim_fused = gl_fused
+        rec.restore()
+        stdout.close()
+
+    # -- the runs: every stage, its launches, its results ------------------
+    args = campaign.build_parser().parse_args(base)
+    split_args = campaign.build_parser().parse_args([*base, *CAMPAIGN_SPLIT])
+    croot = args.root
+    log(f"[campaign] depth {' '.join(depth)}: base run {wall_base:.1f} s, split "
+        f"{' '.join(CAMPAIGN_SPLIT)} {wall_split:.1f} s, resumed call {wall_again:.1f} s on "
+        f"[{smi}]")
+    # the base run's stages, then the split's (ivector_ref, not split, is the base's)
+    counted = {**runs[0], **{m: r for m, r in runs[1].items() if m not in runs[0]}}
+    for mname, row in counted.items():
+        log(f"[campaign] stage {mname}: {row['s']:.2f} s, launches {row['launches']}")
+    names = [*campaign.REPORT_STAGES, "report"]
+    attack = [*campaign.ATTACK_STAGES, "report"]
+    sfx = split_args.split_suffix
+    split_names = [s + sfx if s in campaign.SPLIT_STAGES else s for s in attack]
+    gate(list(runs[0]) == names and list(runs[1]) == split_names,
+         ("stages", list(runs[0]), list(runs[1])))
+    gate(runs[1]["ivector_ref"]["s"] < 1.0, ("the split run re-ran ivector_ref", runs[1]))
+    for mname in names + split_names:
+        gate(os.path.exists(os.path.join(croot, "state", f"{mname}.json")), ("marker", mname))
+    gate(all(results[n] for n in names) and all(split[n] for n in attack),
+         ("an empty stage result", results, split))
+    for name, want in (("RESULTS.json", names[:-1]), (f"RESULTS{sfx}.json", names[:-1])):
+        with open(os.path.join(croot, name)) as f:
+            got = list(json.load(f))
+        gate(got == want, (name, got))
+    for res, tag, a in ((results, "", args), (split, sfx, split_args)):
+        for chain in ("", "_adv"):
+            g, iv, cm = (res[s + chain] for s in ("ge2e", "ivector", "cm"))
+            vals = {"ge2e EER": g["EER"], "ge2e spoof rate": g["spoof_rate"],
+                    "ge2e spoof rate at EER": g["spoof_rate_at_eer"], "ge2e gt FRR": g["gt_FRR"],
+                    "ivector mixed EER": iv["mixed_eer"], "ivector clean EER": iv["clean_eer"],
+                    "ivector spoof rate": iv["spoof_rate"], "CM EER": cm["cm_eer"]}
+            if not chain:
+                r = res["ivector_ref"]
+                vals.update({"ivector_ref mixed EER": r["mixed_eer"],
+                             "ivector_ref spoof rate": r["spoof_rate"]})
+            with open(res["curve" + chain]["points"]) as f:
+                points = json.load(f)
+            lens = {k: (len(v["spoof_rate"]), len(v["frr"])) for k, v in points.items()}
+            rates = [x for v in points.values() for x in (*v["spoof_rate"], *v["frr"])]
+            log(f"[campaign] results{tag}{chain}: "
+                f"{ {k: round(float(v), 4) for k, v in vals.items()} }; CM bona fide "
+                f"{cm['n_bonafide']}, spoof {cm['n_spoof']}; spoof wavs "
+                f"{res['spoofgen' + chain]['spoof_wavs']}; curve points {lens}")
+            gate(all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in vals.values()),
+                 ("EER / spoof rate", tag, chain, vals))
+            gate(cm["n_bonafide"] > 0 and cm["n_spoof"] > 0, ("CM trials", cm))
+            gate(res["spoofgen" + chain]["spoof_wavs"] == a.speakers * a.eval_num,
+                 ("spoof wavs (every speaker x eval_num)", res["spoofgen" + chain]))
+            gate(lens == {"ge2e": (5000, 5000), "ivector": (8000, 8000)}
+                 and all(np.isfinite(x) and 0.0 <= x <= 1.0 for x in rates),
+                 ("curve points", tag, chain, lens))
+    syn = results["synthesize"]
+    log(f"[campaign] synthesize: {syn}; training {[results[s] for s in names[2:5]]}")
+    gate(syn["n_batches"] > 0 and all(np.isfinite(syn[k]) for k in ("text2mel_loss",
+                                                                     "ssrn_loss", "mcd_db")),
+         ("synthesize", syn))
+    for mname, row in counted.items():
+        want = CAMPAIGN_KERNELS.get(mname[:-len(sfx)] if mname.endswith(sfx) else mname, set())
+        n = row["launches"]
+        gate(all(n[k] > 0 for k in want) and all(v == 0 for k, v in n.items() if k not in want),
+             ("stage launches", mname, n, sorted(want)))
+    lines = [ln for ln in log_again.splitlines() if ln.startswith("[campaign] ")]
+    gate(len(lines) == len(names) and all(ln.endswith(": already done") for ln in lines)
+         and again == json.loads(json.dumps(results, default=float))
+         and all(sum(r["launches"].values()) == 0 for r in runs[2].values()),
+         ("the resumed call ran a stage", lines, runs[2]))
+    log(f"[campaign] resumed call: {len(lines)} stages already done, no launch, results equal")
+
+    # -- the kernels on the trained weights --------------------------------
+    # the f32 K1 on the last validation's own batches (every validation
+    # decodes the same batches; the model holds train_t2m's final weights)
+    val = [c for c in rec.val_calls if c["stage"] == "train_t2m"]
+    rounds = args.t2m_steps // args.val_every_iter
+    gate(len(val) > 0 and len(val) % rounds == 0, ("train_t2m validation decodes", len(val)))
+    calls = val[-(len(val) // rounds):]
+    m32 = calls[0]["model"].eval()
+    F = m32.freq_bins
+    packed32 = decode_kernel.pack_decode_weights(m32)
+    for c in calls:
+        text, spk = c["text"], c["spk"]
+        with torch.no_grad():
+            kv = (*m32.encode_text(text), m32.audio_encoder.fc1(spk), m32.audio_encoder.fc2(spk))
+        yk, ak, _ = rec.make_fused(m32, c["T"])(text, spk)
+        yp, ap, _ = decode_kernel.decode_plain(packed32, *kv, n_frames=c["T"], freq_bins=F)
+        ons = onsets(ak, ap)
+        mel, att = before_onset(yk, ak, yp, ap, ons)
+        log(f"[campaign K1 f32] trained Text2Mel ({args.t2m_steps} steps), last validation "
+            f"batch B={text.shape[0]} N={text.shape[1]} T={c['T']} vs decode_plain: onsets "
+            f"{ons}; before onset mel max|d| {mel:.3g}, attention {att:.3g} (gates 1e-3, "
+            f"onset >= 32)")
+        gate(min(ons) >= min(32, c["T"]) and mel <= 1e-3 and att <= 1e-3,
+             ("trained K1 f32", text.shape, c["T"], ons, mel, att))
+    del m32, packed32, kv, yk, ak, yp, ap, calls, val
+    rec.val_calls.clear()
+
+    # the bf16 K1 on the first synthesize batch: frames 0-1 (hold_synthesis
+    # also holds K2 and K3 there), then where the attention argmax parts
+    def first(stage):
+        s, g = counted[stage]["syn"], counted[stage]["gl"]
+        gate(len(s) > 0 and len(s) == len(g), ("recorded calls", stage, len(s), len(g)))
+        return s[:1], g[:1]
+
+    s1, g1 = first("synthesize")
+    hold_synthesis(s1, g1, dev, spectral_err, "campaign synthesize, trained")
+    synth, text_ids, spk_emb = s1[0]
+    mbf = synth.melsyn
+    with torch.no_grad():
+        K, V = mbf.encode_text(torch.as_tensor(text_ids).to(dev))
+        sb = torch.as_tensor(spk_emb, dtype=torch.float32).to(dev, K.dtype)
+        s_1, s_2 = mbf.audio_encoder.fc1(sb), mbf.audio_encoder.fc2(sb)
+    packed = decode_kernel.pack_decode_weights(mbf)
+    T = synth.n_frames
+    y, a, _ = decode_kernel.decode_fused(packed, K, V, s_1, s_2, n_frames=T, freq_bins=F)
+    yq, aq, _ = decode_kernel.decode_plain(packed, K, V, s_1, s_2, n_frames=T, freq_bins=F)
+    ons = onsets(a, aq)
+    part = min(ons)
+    log(f"[campaign K1 bf16] trained weights, first synthesize batch B={K.shape[0]} "
+        f"N={K.shape[1]} T={T}: first frame where the attention argmax parts from "
+        f"decode_plain: {part if part < T else 'none'} (per row {ons}); mel max|d| over all "
+        f"frames {float((y.float() - yq.float()).abs().max()):.3g} (context)")
+    del y, a, yq, aq, K, V, s_1, s_2, packed, mbf, synth
+    s1, g1 = first("spoofgen")
+    hold_synthesis(s1, g1, dev, spectral_err, "campaign spoofgen, trained")
+    for row in counted.values():
+        del row["syn"], row["gl"]
+    del s1, g1
+    rec.syn_calls.clear()
+    rec.gl_calls.clear()
+
+    # gl.cu on the corpus batch against plain f32 GL from the same init
+    gate(len(corpus_gl) == 1, ("corpus GL calls", len(corpus_gl)))
+    mag, init, n_iter = corpus_gl.pop()
+    got = gl_fused(mag, NFFT, HOP, n_iter=n_iter, init_angles=init)
+    ref = torchdsp.griffin_lim(mag, NFFT, HOP, n_iter=n_iter, init_angles=init)
+    sc_k, sc_p = spectral_err(got, mag), spectral_err(ref, mag)
+    rel = float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref))
+    Bm, Tm, Fm = mag.shape
+    ms = cuda_ms(lambda: gl_fused(mag, NFFT, HOP, n_iter=n_iter, init_angles=init), reps=2)
+    plain = cuda_ms(lambda: torchdsp.griffin_lim(mag, NFFT, HOP, n_iter=n_iter,
+                                                 init_angles=init), reps=1)
+    gl_flop = n_iter * Bm * Tm * (2 * 2.5 * NFFT * np.log2(NFFT) + 10 * Fm)
+    gl_bytes = 4.0 * (3 * mag.numel() + Bm * HOP * (Tm - 1))
+    b_ms, b_by = bound_ms(gl_flop, gl_bytes, 67e12)
+    log(f"[campaign gl.cu] corpus copy-synthesis B={Bm} T={Tm} GL{n_iter} from K2's random "
+        f"init: rel-L2 kernel vs plain {rel:.3g} (gate 1e-3, tests/test_torch_port_gl.py's "
+        f"bound); spectral conv kernel {sc_k:.5f}, plain f32 GL {sc_p:.5f} (context); kernel "
+        f"{ms:.3f} ms, plain {plain:.3f} ms, bound {b_ms:.4f} ms ({b_by}: "
+        f"{gl_flop / 1e9:.1f} GFLOP, {gl_bytes / 1e9:.3f} GB) on [{smi}]")
+    gate(rel <= 1e-3, ("corpus gl.cu vs plain GL from the same init", rel, sc_k, sc_p))
+    gate(ms >= b_ms, ("corpus gl.cu under its bound", ms, b_ms))
+    del mag, init, got, ref
+    corpus = dict(shape=[Bm, Tm, Fm], n_iter=n_iter, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                  bound_by=b_by, spectral_conv=sc_k, plain_spectral_conv=sc_p, rel_l2=rel)
+
+    total = {k: sum(row["launches"][k] for row in counted.values()) for k in snap()}
+    log(f"[campaign] phase 14 stage seconds "
+        f"{ {m: round(r['s'], 2) for m, r in counted.items()} }")
+    return {"campaign": total, "corpus_gl": corpus}
+
+
 def main() -> None:
     import torch
 
@@ -3467,10 +3840,20 @@ def main() -> None:
     mesh_launches = mesh_phase(cfg, dev, state_dicts, counters, cluster, smi, spectral_err,
                                texts, spk)
     log(f"[time] phase 13 {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 14: the campaign at reduced depth, then the toy learning run ---
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        camp = campaign_phase(dev, counters, cluster, smi, onsets, before_onset, spectral_err,
+                              cuda_ms, root)
+        log(f"[time] phase 14 {time.perf_counter() - t0:.1f} s")
+    kernels["griffin_lim_f32"]["campaign_corpus"] = camp["corpus_gl"]
     training_bf16 = {"decode": bf16_launches.pop("decode_bf16"), **bf16_launches}
     paths = {"synthesis": launches, "training": train_launches, "serving": serve_launches,
              "spoofgen": gen_launches, **cli_launches, "training_bf16": training_bf16,
-             "ge2e_attack": attack_launches, "scoring": scoring_launches, "mesh": mesh_launches}
+             "ge2e_attack": attack_launches, "scoring": scoring_launches, "mesh": mesh_launches,
+             **{p: {("decode" if k == "decode_bf16" else k): n for k, n in camp[p].items()}
+                for p in ("campaign", "toy")}}
     for k, entry in kernels.items():
         entry["launches_by_path"] = {p: n[k] for p, n in paths.items() if k in n}
 

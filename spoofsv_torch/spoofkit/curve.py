@@ -3,11 +3,14 @@
 Port of :mod:`spoofsv_tpu.spoofkit.curve`: thresholds swept over (a) the
 GE2E similarity matrices that ``spoofkit/ge2e_harness.py`` saves
 (``simmat_e*_b*.npy``) and (b) the i-vector PLDA score files, then both
-systems' SR-vs-FRR drawn on one figure (matplotlib, imported when drawing).
+systems' SR-vs-FRR drawn on one figure (matplotlib, imported when drawing,
+where it is installed) and written as points beside it (JSON, always).
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -61,14 +64,33 @@ def ivector_curve(score_path: str, enroll_plus_eval: int = 23,
     return srs, frrs
 
 
+def points_path(png_path: str) -> str:
+    """Where the points of the curves drawn at ``png_path`` go: its ``.json`` twin."""
+    return os.path.splitext(png_path)[0] + ".json"
+
+
+def save_points(ge2e: Optional[Tuple[List[float], List[float]]] = None,
+                ivector: Optional[Tuple[List[float], List[float]]] = None,
+                path: str = "curve.json") -> str:
+    """Write the curves given as ``{"ge2e"|"ivector": {"spoof_rate": [...],
+    "frr": [...]}}`` to ``path`` and return it."""
+    out = {name: {"spoof_rate": list(c[0]), "frr": list(c[1])}
+           for name, c in (("ge2e", ge2e), ("ivector", ivector)) if c is not None}
+    with open(path, "w") as f:
+        json.dump(out, f)
+    return path
+
+
 def plot_curves(ge2e: Optional[Tuple[List[float], List[float]]] = None,
                 ivector: Optional[Tuple[List[float], List[float]]] = None,
-                out_path: str = "curve.png") -> str:
-    """Draw the curves given into a PNG at ``out_path`` and return it."""
-    import matplotlib
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+                out_path: str = "curve.png") -> Optional[str]:
+    """Draw the curves given into a PNG at ``out_path`` and return it (None
+    where matplotlib is not installed)."""
+    from spoofsv_torch.utils.plot import pyplot
 
+    plt = pyplot()
+    if plt is None:
+        return None
     fig, ax = plt.subplots(1, 1)
     legend = []
     if ge2e is not None:

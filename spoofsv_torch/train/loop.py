@@ -48,6 +48,7 @@ from spoofsv_torch.train.losses import binary_divergence, guided_attention_loss,
 from spoofsv_torch.train.state import AdvTrainState, TrainState
 from spoofsv_torch.train.steps import (autocast_to, eval_mode, guided_attention_table, is_g_step,
                                        make_fused_adversarial_step, make_ordinary_step)
+from spoofsv_torch.utils.plot import pyplot
 from spoofsv_torch.weights import load_state
 
 Batch = Dict[str, torch.Tensor]
@@ -75,23 +76,9 @@ class MetricsLogger:
             self._f = None
 
 
-def _pyplot():
-    """matplotlib's pyplot on the Agg backend, or None (printing that the PNG
-    is skipped) where matplotlib is not installed."""
-    try:
-        import matplotlib
-    except ImportError:
-        print("[plot] matplotlib is not installed: PNG skipped")
-        return None
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
-    return plt
-
-
 def plot_attention(att: np.ndarray, iters: int, fig_dir: str) -> None:
     """Attention heatmap PNG (``train/ordinary.py:30-44``)."""
-    plt = _pyplot()
+    plt = pyplot()
     if plt is None:
         return
     os.makedirs(fig_dir, exist_ok=True)
@@ -105,7 +92,7 @@ def plot_attention(att: np.ndarray, iters: int, fig_dir: str) -> None:
 
 def plot_losses(losses: Dict[str, List[float]], iters: int, fig_dir: str) -> None:
     """GAN loss curves (``train/adversarial_wasserstein_gp.py:45-63``)."""
-    plt = _pyplot()
+    plt = pyplot()
     if plt is None:
         return
     os.makedirs(fig_dir, exist_ok=True)
@@ -129,6 +116,14 @@ def plot_losses(losses: Dict[str, List[float]], iters: int, fig_dir: str) -> Non
 
 def _state_dict(module: nn.Module) -> Dict[str, torch.Tensor]:
     return {k: v.detach().cpu() for k, v in module.state_dict().items()}
+
+
+def latest_checkpoint(base: str, prefix: str) -> Optional[str]:
+    """The highest ``{prefix}_iteration_N.tar.pth`` in the run directory
+    ``base`` (absolute), or None."""
+    pat = re.compile(rf"{re.escape(prefix)}_iteration_(\d+)\.tar\.pth$")
+    found = [(int(m.group(1)), e) for e in os.listdir(base) if (m := pat.match(e))]
+    return os.path.join(os.path.abspath(base), max(found)[1]) if found else None
 
 
 class CheckpointManager:
@@ -169,9 +164,7 @@ class CheckpointManager:
 
     def latest(self) -> Optional[str]:
         """The highest ``*_iteration_N`` checkpoint of this run directory."""
-        pat = re.compile(rf"{re.escape(self.prefix)}_iteration_(\d+)\.tar\.pth$")
-        found = [(int(m.group(1)), e) for e in os.listdir(self.base) if (m := pat.match(e))]
-        return os.path.join(os.path.abspath(self.base), max(found)[1]) if found else None
+        return latest_checkpoint(self.base, self.prefix)
 
     @staticmethod
     def restore(path: str) -> Dict[str, Any]:

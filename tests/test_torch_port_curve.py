@@ -1,7 +1,9 @@
 """The port's SR-vs-FRR curves against the JAX package's, on the CPU: both
 curves equal on the same files (the same numpy arithmetic), the i-vector
-curve's parsing on a hand-written score file, and the CLI writes a PNG."""
+curve's parsing on a hand-written score file, and the CLI writes a PNG (or,
+without matplotlib, skips it) and always the curves' points."""
 
+import json
 import os
 
 import numpy as np
@@ -60,3 +62,41 @@ def test_cli_writes_png(files, capsys):
     with open(out, "rb") as f:
         assert f.read(8) == b"\x89PNG\r\n\x1a\n"
     assert "wrote" in capsys.readouterr().out
+
+
+def test_cli_without_matplotlib_skips_the_png(files, capsys, monkeypatch):
+    """Where matplotlib is not installed (the card's machine) the curves are
+    computed and the PNG is skipped, as the training plots skip theirs."""
+    import sys
+
+    root, simmat, scores = files
+    monkeypatch.setitem(sys.modules, "matplotlib", None)   # import raises ImportError
+    out = str(root / "none.png")
+    assert cli.main(["--simmat", simmat, "--ivector_score", scores, "--n_speakers", "3",
+                     "--eval_num", "5", "--out", out]) is None
+    assert not os.path.exists(out)
+    assert "PNG skipped" in capsys.readouterr().out
+    assert os.path.getsize(root / "none.json") > 0
+
+
+@pytest.mark.parametrize("which", ["both", "ge2e", "ivector"])
+def test_cli_writes_the_points_of_the_jax_curves(files, which):
+    """The points file beside the PNG holds the JAX package's curves on the
+    same files, and only the curves asked for."""
+    root, simmat, scores = files
+    out = str(root / f"points_{which}.png")
+    argv = ["--n_speakers", "3", "--eval_num", "5", "--out", out]
+    if which != "ivector":
+        argv += ["--simmat", simmat]
+    if which != "ge2e":
+        argv += ["--ivector_score", scores]
+    cli.main(argv)
+    assert curve.points_path(out) == str(root / f"points_{which}.json")
+    with open(curve.points_path(out)) as f:
+        got = json.load(f)
+    want = {}
+    if which != "ivector":
+        want["ge2e"] = jcurve.ge2e_curve(simmat, 3, 5)
+    if which != "ge2e":
+        want["ivector"] = jcurve.ivector_curve(scores)
+    assert got == {k: {"spoof_rate": v[0], "frr": v[1]} for k, v in want.items()}

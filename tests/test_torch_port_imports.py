@@ -35,7 +35,8 @@ def test_port_imports_no_jax():
               "cli.ge2e", "cli.metagen", "spoofkit.ivector", "spoofkit.ivector_torch",
               "spoofkit.antispoof", "spoofkit.curve", "cli.ivector", "cli.antispoof",
               "cli.curve", "parallel", "parallel.mesh", "parallel.multihost",
-              "parallel.dryrun", "parallel.ranks", "utils.profiling"):
+              "parallel.dryrun", "parallel.ranks", "utils.profiling", "cli.campaign",
+              "cli.train_toy_e2e"):
         assert f"spoofsv_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
