@@ -135,7 +135,26 @@ Phases (any failure raises and exits non-zero):
      against plain f32 GL from the same init (relative L2 1e-3), timed
      against its bound; and ``python -m spoofsv_torch.cli.train_toy_e2e 2500`` in
      a process of its own beside the campaign (the loss at most 0.75 of its
-     start, forward fraction >= 0.95).
+     start, forward fraction >= 0.95);
+ 15. the post-campaign checks on phase 14's tree, each through its port in
+     ``spoofsv_torch/cli/`` (``main(argv, device)``), its launches counted
+     from 0 around it (the path "checks"): ``gl_init_check`` at B=16
+     (spectral convergence of eight init/iteration combos through K2 and
+     ``gl.cu``, and of GL12/GL16 through K2 and K3 int8 and bf16, on the
+     trained TTS's magnitudes), ``gl_mcd_ab`` (the MCD of five GL
+     candidates, copy-synthesis and TTS, over the synthesize split;
+     copy-synthesis spsi@12 at most 0.5 dB above random@64),
+     ``exp_gl_init`` (B=6, T=400: K2 at lock 1, 0 and -1, ``gl.cu`` from 0
+     to 64 iterations), ``spec_rate_diag`` (every text x speaker pair at 160
+     frames), ``gl24_check`` and ``gl_spsi_check``'s spsi@16 (spoof sets
+     regenerated and re-scored by the trained GE2E, i-vector and CM),
+     ``ivector_delta_rescore`` (1024 / 400, cached and trained afresh) and
+     ``vad_ab`` (20 utterances, the campaign's GE2E); K1 bf16 against
+     ``decode_plain`` over frames 0-1 on each check's own inputs, K2 in
+     every mode (lock 0 and -1 included) and K3 int8 and bf16 against their
+     plain versions, ``gl.cu`` at 0, 1 and 64 iterations against plain f32 GL
+     (GL64 also against float64 GL, its bound from plain f32 GL's distance),
+     K2 at lock -1 and ``gl.cu`` at 0 iterations timed against their bounds.
 Prints a kernels JSON line (each kernel's time, plain time, launches on
 the main path, launches on each path, and bound), the card line, then the
 ``{"ok": true, ...}`` line last.
@@ -544,6 +563,9 @@ def cluster_phase(dev, cuda_ms, mbf, packed, kv, cfg, T: int, smi: str) -> dict:
             f"{float(dy[keep].max()):.3g}, attention {float(da[keep].max()):.3g} -> "
             f"{'pass' if ok else 'FAIL'}")
         ok768.append(ok)
+        # the same rows through hold_k1: each row held through its flip frame
+        # (seed 5's row 696 flips its frame-0 argmax, ROADMAP C)
+        hold_k1(mbf, texts, spk, 2, dev, f"K1 cluster B=768 speakers seed {spk_seed}")
         del y, a, p, yq, aq, ae, a32
     times768 = cluster_sizes(768, kv768, plan768)
     gate(all(ok768), ("B=768", ok768))
@@ -1423,32 +1445,67 @@ def spoofgen_phase(cfg, dev, state_dicts, counters: dict, cluster, smi: str) -> 
     return launches
 
 
+def hold_k1(m, text_ids, spk_emb, n_frames: int, dev, what: str) -> None:
+    """K1 (``m``'s dtype) on these inputs and weights under its plan against
+    ``decode_plain`` over frames 0-1 at mel max|d| 0.05 and attention 0.02,
+    each row through its first attention argmax flip there: frame t reads the
+    window that frame t-1's argmax chose, so a flip parts the rollouts from
+    the next frame on. A flip is allowed where ``decode_plain``'s top-2
+    attention values at that frame lie within the attention gate of each
+    other (an ulp flips a near-tie, ROADMAP C, "B=768, seed 5"), on at most
+    ``max(2, B // 50)`` rows; each flipped row's frame, top-2 gaps and
+    differences at that frame are logged."""
+    import torch
+
+    from spoofsv_torch.ops import decode_kernel
+
+    F = m.freq_bins
+    with torch.no_grad():
+        K, V = m.encode_text(torch.as_tensor(text_ids).to(dev))
+        sb = torch.as_tensor(spk_emb, dtype=torch.float32).to(dev, K.dtype)
+        s1, s2 = m.audio_encoder.fc1(sb), m.audio_encoder.fc2(sb)
+    packed = decode_kernel.pack_decode_weights(m)
+    plan = decode_kernel.decode_cluster_plan(K.shape[0], K.shape[2], F, elem=K.element_size())
+    y, a, _ = decode_kernel.decode_fused(packed, K, V, s1, s2, n_frames=n_frames, freq_bins=F,
+                                         plan=plan)
+    yq, aq, _ = decode_kernel.decode_plain(packed, K, V, s1, s2, n_frames=2, freq_bins=F)
+    yk, ak, yq, aq = y[:, :2].float(), a[:, :, :2].float(), yq.float(), aq.float()
+    flip = ak.argmax(1) != aq.argmax(1)                                    # (B, 2)
+    first = torch.where(flip.any(1), flip.float().argmax(1), 2)            # 2: no flip
+    held = torch.arange(2, device=flip.device)[None, :] <= first[:, None]  # through the flip
+    dmel, datt = (yk - yq).abs().amax(2), (ak - aq).abs().amax(1)          # (B, 2) each
+    mel2, att2 = float(dmel[held].max()), float(datt[held].max())
+
+    def gap(att):   # (N,) -> its top-2 gap
+        top = att.topk(2).values
+        return round(float(top[0] - top[1]), 6)
+
+    flipped = {i: dict(frame=o, gap_plain=gap(aq[i, :, o]), gap_kernel=gap(ak[i, :, o]),
+                       mel=round(float(dmel[i, o]), 6), att=round(float(datt[i, o]), 6))
+               for i in flip.any(1).nonzero().flatten().tolist() for o in [int(first[i])]}
+    cap = max(2, K.shape[0] // 50)
+    log(f"[{what}] K1 B={K.shape[0]} N={K.shape[1]} T={n_frames} {K.dtype} plan "
+        f"{plan.cluster}x{plan.rows} vs decode_plain frames 0-1, each row through its first "
+        f"argmax flip: mel max|d| {mel2:.3g} (gate 0.05), attention {att2:.3g} (gate 0.02); rows "
+        f"flipped {json.dumps(flipped)} (gates: at most {cap} rows, plain top-2 gap <= 0.02)")
+    gate(mel2 <= 0.05 and att2 <= 0.02 and len(flipped) <= cap
+         and all(f["gap_plain"] <= 0.02 for f in flipped.values()),
+         (what, "K1 vs decode_plain", K.shape, mel2, att2, flipped))
+
+
 def hold_synthesis(syn_calls, gl_calls, dev, spectral_err, what: str) -> None:
-    """K1 bf16 on each recorded ``Synthesizer`` call's own inputs and weights,
-    under its plan, against ``decode_plain`` over frames 0-1 (mel 0.05,
-    attention 0.02); K2 against ``init_angles_plain`` (min cos Δφ >= 0.99995)
+    """K1 bf16 on each recorded ``Synthesizer`` call's own inputs and weights
+    (:func:`hold_k1`); K2 against ``init_angles_plain`` (min cos Δφ >= 0.99995)
     and K3 GL12 against ``griffin_lim_tc_plain`` (Δ spectral convergence
     <= 0.02) on each call's vocoder input. Outside any counted run."""
     import torch
 
-    from spoofsv_torch.ops import decode_kernel, gl_kernel
+    from spoofsv_torch.ops import gl_kernel
 
     gate(len(syn_calls) == len(gl_calls) > 0, (what, "calls recorded", len(syn_calls),
                                                len(gl_calls)))
     for (syn, text_ids, spk_emb), (mag, int8) in zip(syn_calls, gl_calls):
-        m = syn.melsyn
-        F = m.freq_bins
-        with torch.no_grad():
-            K, V = m.encode_text(torch.as_tensor(text_ids).to(dev))
-            sb = torch.as_tensor(spk_emb, dtype=torch.float32).to(dev, K.dtype)
-            s1, s2 = m.audio_encoder.fc1(sb), m.audio_encoder.fc2(sb)
-        packed = decode_kernel.pack_decode_weights(m)
-        plan = decode_kernel.decode_cluster_plan(K.shape[0], K.shape[2], F, elem=K.element_size())
-        y, a, _ = decode_kernel.decode_fused(packed, K, V, s1, s2, n_frames=syn.n_frames,
-                                             freq_bins=F, plan=plan)
-        yq, aq, _ = decode_kernel.decode_plain(packed, K, V, s1, s2, n_frames=2, freq_bins=F)
-        mel2 = float((y[:, :2].float() - yq.float()).abs().max())
-        att2 = float((a[:, :, :2].float() - aq.float()).abs().max())
+        hold_k1(syn.melsyn, text_ids, spk_emb, syn.n_frames, dev, what)
         init = gl_kernel.init_angles_plain(mag, NFFT, HOP, "spsi")
         k_re, k_im = gl_kernel.gl_init_angles(mag, NFFT, HOP, "spsi")
         cos_dphi = float(((k_re * init[0] + k_im * init[1])
@@ -1456,12 +1513,9 @@ def hold_synthesis(syn_calls, gl_calls, dev, spectral_err, what: str) -> None:
         g12 = gl_kernel.griffin_lim_tc(mag, NFFT, HOP, n_iter=12, init_angles=init, int8=int8)
         p12 = gl_kernel.griffin_lim_tc_plain(mag, *init, NFFT, HOP, 12, 0.99, int8)
         sc_k, sc_p = spectral_err(g12, mag), spectral_err(p12, mag)
-        log(f"[{what}] batch B={K.shape[0]} N={K.shape[1]} T={syn.n_frames} {K.dtype}: K1 plan "
-            f"{plan.cluster}x{plan.rows} vs decode_plain frames 0-1 mel max|d| {mel2:.3g} (gate "
-            f"0.05), attention {att2:.3g} (gate 0.02); lin frames {mag.shape[1]}: K2 spsi vs "
-            f"plain min cos dphi {cos_dphi:.7f} (gate >= 0.99995); K3 GL12 int8={int8} "
-            f"spectral conv {sc_k:.5f}, its plain version {sc_p:.5f} (gate delta <= 0.02)")
-        gate(mel2 <= 0.05 and att2 <= 0.02, (what, "K1 vs decode_plain", K.shape, mel2, att2))
+        log(f"[{what}] lin frames {mag.shape[1]}: K2 spsi vs plain min cos dphi "
+            f"{cos_dphi:.7f} (gate >= 0.99995); K3 GL12 int8={int8} spectral conv {sc_k:.5f}, "
+            f"its plain version {sc_p:.5f} (gate delta <= 0.02)")
         gate(cos_dphi >= 0.99995 and abs(sc_k - sc_p) <= 0.02,
              (what, "K2/K3 vs plain", mag.shape, cos_dphi, sc_k, sc_p))
 
@@ -3510,6 +3564,360 @@ def campaign_runs(dev, counters: dict, cluster, smi: str, onsets, before_onset, 
     return {"campaign": total, "corpus_gl": corpus}
 
 
+def griffin_lim_f64(mag, init, n_iter: int, momentum: float = 0.99):
+    """``torchdsp.griffin_lim`` in float64 (window, FFTs, overlap-add and its
+    normalisation): the witness of exact arithmetic that ``gl.cu`` and plain
+    f32 GL are both held against where momentum grows their rounding."""
+    import torch
+    import torch.nn.functional as F
+
+    from spoofsv_torch.dsp import torchdsp
+    from spoofsv_torch.dsp.primitives import hann_window, pad_center, window_sumsquare
+
+    f64 = dict(device=mag.device, dtype=torch.float64)
+    win = torch.as_tensor(pad_center(hann_window(NFFT), NFFT), **f64)
+    wss = torch.as_tensor(window_sumsquare(hann_window(NFFT), mag.shape[-2], HOP, NFFT), **f64)
+    real_bins = torch.ones(mag.shape[-1], **f64)
+    real_bins[[0, -1]] = 0.0
+
+    def istft(spec):
+        frames = torch.fft.irfft(torch.complex(spec.real, spec.imag * real_bins), n=NFFT, dim=-1)
+        y = torchdsp.overlap_add(frames * win, HOP)
+        y = torch.where(wss > torchdsp.WSS_FLOOR, y / wss.clamp_min(torchdsp.WSS_FLOOR), y)
+        return y[..., NFFT // 2: y.shape[-1] - NFFT // 2]
+
+    def stft(y):
+        lead = y.shape[:-1]
+        y = F.pad(y.reshape(-1, 1, y.shape[-1]), (NFFT // 2, NFFT // 2),
+                  mode="reflect").reshape(*lead, -1)
+        return torch.fft.rfft(torchdsp.frame_signal(y, NFFT, HOP) * win, dim=-1)
+
+    mag = mag.to(torch.float64)
+    ang = torch.complex(init[0].to(torch.float64), init[1].to(torch.float64)).expand(mag.shape)
+    reb = torch.zeros_like(ang)
+    alpha = momentum / (1.0 + momentum)
+    for _ in range(n_iter):
+        r = stft(istft(mag * ang))
+        acc = r - alpha * reb
+        ang, reb = acc / (acc.abs() + 1e-16), r
+    return istft(mag * ang)
+
+
+# phase 15: the post-campaign checks on phase 14's tree, each counted from 0
+GL_KERNELS = {"decode_bf16", "gl_init", "griffin_lim", "griffin_lim_f32"}
+CHECK_KERNELS = {"gl_init_check": GL_KERNELS, "gl_mcd_ab": GL_KERNELS,
+                 "exp_gl_init": {"gl_init", "griffin_lim_f32"}, "spec_rate_diag": SYNTH_KERNELS,
+                 "gl24_check": SYNTH_KERNELS, "gl_spsi_check spsi@16": SYNTH_KERNELS,
+                 "ivector_delta_rescore": set(), "vad_ab": set()}
+# the keys of the JAX scripts' outputs (scripts/spec_rate_diag.py:120-141, vad_ab.py:114-125)
+SPEC_DETAIL = ["n_pairs", "n_never_completed_at_160", "fpc_p10", "fpc_p50", "fpc_p90", "fpc_max",
+               "implied_escalation_rate_armC", "never_completed_rate_by_margin",
+               "per_speaker_mean_fpc_min", "per_speaker_mean_fpc_max", "spec_margin", "n_frames",
+               "backend"]
+# gl.cu's GL64 on TTS magnitudes against plain f32 GL and float64 GL, in units
+# of plain f32 GL's own distance from float64 GL (checks_phase)
+GL64_SPREAD = 3.0
+VAD_KEYS = ["n_utts", "corpus", "clean", "noisy_5db_snr", "gapped_quiet_floor",
+            "gapped_loud_floor", "scope_note", "embedding_leg"]
+
+
+def checks_phase(dev, counters: dict, cluster, smi: str, spectral_err, cuda_ms, root: str,
+                 depth=CAMPAIGN_DEPTH, batch: int = 16) -> dict:
+    """Phase 15: the post-campaign checks (``spoofsv_torch/cli/``'s ports of
+    ``scripts/``) on phase 14's tree ``<root>/campaign``, each through its
+    ``main(argv, device)`` (``gl_spsi_check`` through ``score_candidate`` for
+    spsi@16: spsi@12 is the base campaign's own configuration), its launches
+    counted from 0 just before it and read just after and held to
+    ``CHECK_KERNELS``. Outside the counted runs, on each check's own inputs:
+    K1 bf16 against ``decode_plain`` over frames 0-1 (gl_init_check's three
+    sentence sets, the first ``Synthesizer`` call of gl_mcd_ab,
+    spec_rate_diag and each spoof set), K2 (SPSI, advance, the hash init) and
+    K3 int8 and bf16 (one iteration at momentum 0) against their plain
+    versions on the trained magnitudes, ``gl.cu`` from the random init
+    against plain f32 GL from the same angles (one iteration within 1e-5
+    relative L2; GL64 within ``GL64_SPREAD`` times plain f32 GL's distance
+    from float64 GL, 1e-3 at least, of both, and its spectral convergence
+    within 1e-4), K2 at lock
+    0 and −1 and ``gl.cu`` at 0 iterations on exp_gl_init's inputs; from the
+    results: the tensor-core GL12/GL16 within 0.02 of the f32 combo's
+    spectral convergence, copy-synthesis spsi@12 at most 0.5 dB above
+    random@64, EERs and spoof rates in [0, 1], spoof sets as large as the
+    base's, the JAX scripts' keys. ``batch``: gl_init_check's B. Returns the
+    launches summed over the checks, each check's seconds and the lock /
+    n_iter 0 readings."""
+    import tempfile as tmp_mod
+
+    import torch
+
+    from spoofsv_torch.cli import (checklib, exp_gl_init, gl24_check, gl_init_check, gl_mcd_ab,
+                                   gl_spsi_check, ivector_delta_rescore, spec_rate_diag, vad_ab)
+    from spoofsv_torch.dsp import torchdsp
+    from spoofsv_torch.ops import decode_kernel, gl_kernel
+
+    croot = os.path.join(root, "campaign")
+    flags = [*depth, "--root", croot]
+
+    def snap() -> dict:
+        n = {k: c.launches for k, c in counters.items() if k != "decode"}
+        n["decode_bf16"] = cluster.launches
+        return n
+
+    runs = {}
+    rec = SynthesisRecorder()
+    decodes, gl64 = [], []
+    make_fused, gl_fused = decode_kernel.make_fused_decoder, gl_kernel.griffin_lim_fused
+
+    def recorded_decoder(model, n_frames, *a, **kw):
+        decode = make_fused(model, n_frames, *a, **kw)
+
+        def run(text_ids, spk_emb, *x):
+            decodes.append((model, n_frames, text_ids, spk_emb))
+            return decode(text_ids, spk_emb, *x)
+        return run
+
+    def recorded_fused(mag, *a, **kw):
+        if kw.get("n_iter") == 64 and not gl64:
+            gl64.append((mag, kw["init_angles"]))
+        return gl_fused(mag, *a, **kw)
+
+    def counted(name: str, fn):
+        """``fn()`` with the launches counted from 0 around it (its output
+        kept back, shown on failure); its result, and the Synthesizer calls
+        and vocoder inputs it recorded."""
+        calls = (len(rec.syn_calls), len(rec.gl_calls))
+        for c in [*counters.values(), cluster]:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                out = fn()
+        except BaseException:
+            log(f"[phase 15] {name} failed; its output's last lines:\n"
+                + "\n".join(buf.getvalue().splitlines()[-40:]))
+            raise
+        torch.cuda.synchronize()
+        runs[name] = dict(s=time.perf_counter() - t, launches=snap())
+        log(f"[phase 15] {name}: {runs[name]['s']:.2f} s, launches {runs[name]['launches']}")
+        return out, rec.syn_calls[calls[0]:], rec.gl_calls[calls[1]:]
+
+    def in01(vals: dict, what: str) -> None:
+        gate(all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in vals.values()), (what, vals))
+
+    decode_kernel.make_fused_decoder = recorded_decoder
+    gl_kernel.griffin_lim_fused = recorded_fused
+    rec.install()
+    try:
+        # -- gl_init_check at B=16 on the trained magnitudes -----------------
+        art, _, _ = counted("gl_init_check",
+                            lambda: gl_init_check.main([str(batch), "--root", croot], device=dev))
+        decode_kernel.make_fused_decoder = make_fused
+        gl_kernel.griffin_lim_fused = gl_fused
+        dists = list(art["combos"]["spsi@12"])
+        log(f"[gl_init_check] B={batch} spectral convergence by combo {json.dumps(art['combos'])}; "
+            f"tensor-core candidates {json.dumps(art['fused_candidate'])} on [{smi}]")
+        gate(len(decodes) == 3 and len(dists) == 3, ("gl_init_check decodes", len(decodes), dists))
+        for (m, T, text, spk), d in zip(decodes, dists):
+            hold_k1(m, text, spk, T, dev, f"gl_init_check {d}")
+        for iters in (12, 16):
+            for tag in ("int8", "bf16"):
+                for d in dists:
+                    sc_k = art["fused_candidate"][f"spsi{iters}_{tag}"][d]
+                    sc_f = art["combos"][f"spsi@{iters}"][d]
+                    gate(abs(sc_k - sc_f) <= 0.02, ("K3 vs gl.cu, same init and iterations",
+                                                    iters, tag, d, sc_k, sc_f))
+        gate(len(gl64) == 1, ("gl_init_check random@64 calls", len(gl64)))
+        mag, init = gl64.pop()
+        seeds = (torch.arange(mag.shape[0], dtype=torch.int32, device=dev) * 7919 + 11)
+        errs = {}
+        for mode in ("spsi", "advance", "random"):
+            k = gl_kernel.gl_init_angles(mag, NFFT, HOP, mode, seeds if mode == "random" else None)
+            p = gl_kernel.init_angles_plain(mag, NFFT, HOP, mode, seeds)
+            errs[mode] = (float(((k[0] * p[0] + k[1] * p[1]) / torch.sqrt(k[0] ** 2 + k[1] ** 2))
+                                .min()), float(torch.maximum((k[0] - p[0]).abs(),
+                                                             (k[1] - p[1]).abs()).max()))
+        p_init = gl_kernel.init_angles_plain(mag, NFFT, HOP, "spsi")
+        rel1 = {}
+        for int8 in (True, False):
+            g1 = gl_kernel.griffin_lim_tc(mag, NFFT, HOP, n_iter=1, momentum=0.0,
+                                          init_angles=p_init, int8=int8)
+            q1 = gl_kernel.griffin_lim_tc_plain(mag, *p_init, NFFT, HOP, 1, 0.0, int8)
+            rel1["int8" if int8 else "bf16"] = float(torch.linalg.norm(g1 - q1)
+                                                     / torch.linalg.norm(q1))
+        # gl.cu against plain f32 GL from the same angles after 1 and 64
+        # iterations (the random init's imaginary DC and Nyquist bins dropped
+        # by both, ROADMAP C.5), and both against GL in float64: where momentum
+        # 0.99 grows f32 rounding on these magnitudes, GL64 from the kernel lies
+        # no farther from plain f32 GL, nor from float64 GL, than GL64_SPREAD
+        # times plain f32 GL's own distance from float64 GL (1e-3 at least)
+        def rel_l2(x, ref):
+            return float(torch.linalg.norm(x.double() - ref.double())
+                         / torch.linalg.norm(ref.double()))
+
+        rel = {}
+        for n in (1, 64):
+            got = gl_fused(mag, NFFT, HOP, n_iter=n, init_angles=init)
+            ref = torchdsp.griffin_lim(mag, NFFT, HOP, n_iter=n, init_angles=init)
+            exact = griffin_lim_f64(mag, init, n)
+            rel[n] = dict(kernel_plain=rel_l2(got, ref), kernel_f64=rel_l2(got, exact),
+                          plain_f64=rel_l2(ref, exact))
+        bound64 = max(1e-3, GL64_SPREAD * rel[64]["plain_f64"])
+        sc64 = tuple(checklib.spectral_convergence(y, mag, NFFT, HOP, True) for y in (got, ref))
+        log(f"[gl_init_check K2/K3] trained magnitudes {tuple(mag.shape)}: K2 vs plain (min cos "
+            f"dphi, max|d|) {errs} (gates spsi cos >= 0.99995, advance and hash max|d| < 1e-5); "
+            f"K3 1 iter mom 0 vs its plain version rel-L2 {rel1} (gate < 0.03); gl.cu from the "
+            f"random init, rel-L2 to plain f32 GL and of both to float64 GL: GL1 {rel[1]} (gate "
+            f"kernel_plain 1e-5), GL64 {rel[64]} (gate kernel_plain and kernel_f64 <= "
+            f"{bound64:.3g}); GL64 spectral convergence (kernel, plain) {sc64} (gate |delta| <= "
+            f"1e-4) on [{smi}]")
+        gate(errs["spsi"][0] >= 0.99995 and errs["advance"][1] < 1e-5 and errs["random"][1] < 1e-5,
+             ("gl_init_check K2", errs))
+        gate(max(rel1.values()) < 0.03, ("gl_init_check K3 1 iteration", rel1))
+        gate(rel[1]["kernel_plain"] <= 1e-5 and rel[64]["kernel_plain"] <= bound64
+             and rel[64]["kernel_f64"] <= bound64 and abs(sc64[0] - sc64[1]) <= 1e-4,
+             ("gl_init_check gl.cu GL1 / GL64", rel, bound64, sc64))
+        gl64_rel = rel
+        del mag, init, got, ref, exact, p_init, decodes[:]
+
+        # -- gl_mcd_ab: the MCD table ----------------------------------------
+        mcd, syn, glc = counted("gl_mcd_ab", lambda: gl_mcd_ab.main(
+            ["--root", croot, "--batches", "3", "--batch_size", "16"], device=dev))
+        res = mcd["results_db"]
+        log(f"[gl_mcd_ab] {len(syn)} batch(es) of the synthesize split (B={len(syn[0][1])} "
+            f"first), MCD dB {json.dumps(res)} on [{smi}]")
+        gate(len(syn) >= 1 and all(np.isfinite(v) and v > 0 for legs in res.values()
+                                   for v in legs.values()), ("gl_mcd_ab", len(syn), res))
+        gate(res["spsi@12"]["copy_synthesis"] <= res["random@64"]["copy_synthesis"] + 0.5,
+             ("copy-synthesis spsi@12 (K3 int8) more than 0.5 dB above random@64 (gl.cu)", res))
+        hold_synthesis(syn[:1], glc[:1], dev, spectral_err, "gl_mcd_ab, trained")
+
+        # -- exp_gl_init at B=6, T=400 ----------------------------------------
+        tmp_keep = tmp_mod.tempdir
+        tmp_mod.tempdir = root
+        try:
+            exp, _, _ = counted("exp_gl_init", lambda: exp_gl_init.main([], device=dev))
+        finally:
+            tmp_mod.tempdir = tmp_keep
+        log(f"[exp_gl_init] B=6 T=400 spectral convergence {json.dumps(exp)} on [{smi}]")
+        gate(list(exp) == ["speech_like", "white", "harmonic", "real_audio"]
+             and all(len(v) == 1 + len(exp_gl_init.INITS) * len(exp_gl_init.ITERS)
+                     and all(np.isfinite(x) for x in v.values())
+                     for v in exp.values()), ("exp_gl_init", exp))
+        mags = checklib.mag_distributions(6, 400, 513, np.random.default_rng(0))
+        mags["real_audio"] = exp_gl_init.real_audio_mags(6, 400, np.random.default_rng(1))
+        locks, n0 = {}, {}
+        for d, m_np in mags.items():
+            m = torch.from_numpy(np.ascontiguousarray(m_np, np.float32)).to(dev)
+            for lock in (0.0, -1.0):
+                k = gl_kernel.gl_init_angles(m, NFFT, HOP, "spsi", lock=lock)
+                p = gl_kernel.init_angles_plain(m, NFFT, HOP, "spsi", lock=lock)
+                locks[(d, lock)] = float(((k[0] * p[0] + k[1] * p[1])
+                                          / torch.sqrt(k[0] ** 2 + k[1] ** 2)).min())
+            a = gl_kernel.init_angles_plain(m, NFFT, HOP, "advance")
+            y0 = gl_fused(m, NFFT, HOP, n_iter=0, init_angles=a)
+            r0 = torchdsp.griffin_lim(m, NFFT, HOP, n_iter=0, init_angles=a)
+            n0[d] = float(torch.linalg.norm(y0 - r0) / torch.linalg.norm(r0))
+        log(f"[exp_gl_init K2] lock 0 / -1 vs init_angles_plain, min cos dphi "
+            f"{ {f'{d} {lk:g}': round(v, 7) for (d, lk), v in locks.items()} } (gate >= 0.99995); "
+            f"gl.cu n_iter 0 (init + synthesis) vs plain rel-L2 {n0} (gate 1e-4)")
+        gate(min(locks.values()) >= 0.99995, ("K2 lock 0 / -1", locks))
+        gate(max(n0.values()) <= 1e-4, ("gl.cu n_iter 0", n0))
+        m = torch.from_numpy(np.ascontiguousarray(mags["speech_like"], np.float32)).to(dev)
+        k2_ms = cuda_ms(lambda: gl_kernel.gl_init_angles(m, NFFT, HOP, "spsi", lock=-1.0), reps=10)
+        k2_plain = cuda_ms(lambda: gl_kernel.init_angles_plain(m, NFFT, HOP, "spsi", lock=-1.0))
+        k2_b, k2_by = bound_ms(30.0 * m.numel(), 3 * 4.0 * m.numel(), 67e12)
+        a = gl_kernel.init_angles_plain(m, NFFT, HOP, "advance")
+        n0_ms = cuda_ms(lambda: gl_fused(m, NFFT, HOP, n_iter=0, init_angles=a), reps=10)
+        n0_plain = cuda_ms(lambda: torchdsp.griffin_lim(m, NFFT, HOP, n_iter=0, init_angles=a))
+        Bm, Tm, Fm = m.shape
+        n0_b, n0_by = bound_ms(Bm * Tm * (2.5 * NFFT * np.log2(NFFT) + 4 * Fm),
+                               4.0 * (3 * m.numel() + Bm * HOP * (Tm - 1)), 67e12)
+        log(f"[exp_gl_init] B=6 T=400: K2 spsi lock -1 {k2_ms:.4f} ms (plain {k2_plain:.3f}, "
+            f"bound {k2_b:.4f}, {k2_by}); gl.cu n_iter 0 {n0_ms:.4f} ms (plain {n0_plain:.3f}, "
+            f"bound {n0_b:.4f}, {n0_by}) on [{smi}]")
+        gate(k2_ms >= k2_b and n0_ms >= n0_b, ("under the bound", k2_ms, k2_b, n0_ms, n0_b))
+        del m, a, mags
+
+        # -- spec_rate_diag on the campaign's config ----------------------------
+        spec, syn, glc = counted("spec_rate_diag", lambda: spec_rate_diag.main(
+            ["--config", os.path.join(croot, "config.json"),
+             "--out", os.path.join(root, "spec_rate_diag.json")], device=dev))
+        with open(os.path.join(croot, "texts.txt")) as f:
+            n_texts = sum(1 for ln in f if ln.strip())
+        n_spk = len(os.listdir(os.path.join(croot, "spk_emb")))
+        log(f"[spec_rate_diag] {json.dumps(spec)}")
+        gate(sorted(spec) == ["detail", "metric", "unit", "value"]
+             and list(spec["detail"]) == SPEC_DETAIL
+             and spec["detail"]["n_pairs"] == n_texts * n_spk and np.isfinite(spec["value"]),
+             ("spec_rate_diag", spec, n_texts, n_spk))
+        hold_synthesis(syn[:1], glc[:1], dev, spectral_err, "spec_rate_diag, first batch")
+
+        # -- gl24_check and gl_spsi_check's spsi@16 ------------------------------
+        with open(os.path.join(croot, "state", "spoofgen.json")) as f:
+            base_wavs = json.load(f)["spoof_wavs"]
+        rescored = {}
+        gl24, syn, glc = counted("gl24_check", lambda: gl24_check.main(flags, device=dev))
+        rescored["gl24_check"] = gl24
+        hold_synthesis(syn[:1], glc[:1], dev, spectral_err, "gl24_check spoof set")
+        c = checklib.campaign_check(flags, dev)
+        s16, syn, glc = counted("gl_spsi_check spsi@16",
+                                lambda: gl_spsi_check.score_candidate(c, 16, "spsi"))
+        rescored["gl_spsi_check spsi@16"] = s16
+        hold_synthesis(syn[:1], glc[:1], dev, spectral_err, "gl_spsi_check spsi@16 spoof set")
+        base = checklib.base_summary(c)
+        for name, r in rescored.items():
+            g, iv, cm = r["ge2e"], r["ivector"], r["cm"]
+            vals = {"ge2e EER": g["EER"], "ge2e spoof rate": g["spoof_rate"],
+                    "ge2e spoof rate at EER": g["spoof_rate_at_eer"], "ge2e gt FRR": g["gt_FRR"],
+                    "ivector mixed EER": iv["mixed_eer"], "ivector clean EER": iv["clean_eer"],
+                    "ivector spoof rate": iv["spoof_rate"], "CM EER": cm["cm_eer"]}
+            log(f"[{name}] {json.dumps({k: round(float(v), 4) for k, v in vals.items()})}; spoof "
+                f"wavs {r['spoofgen']['spoof_wavs']} (base {base_wavs}); base {json.dumps(base)}")
+            in01(vals, name)
+            gate(r["spoofgen"]["spoof_wavs"] == base_wavs, (name, "spoof wavs", r["spoofgen"]))
+        gate(sorted(gl24) == ["base_gl32", "cm", "ge2e", "ivector", "spoofgen"]
+             and gl24["base_gl32"] == base, ("gl24_check keys", sorted(gl24)))
+
+        # -- ivector_delta_rescore at 1024 / 400 ---------------------------------
+        deltas, _, _ = counted("ivector_delta_rescore", lambda: ivector_delta_rescore.main(
+            ["--root", croot, "--enroll", "3", "--eval_num", "4"], device=dev))
+        legs = deltas["results"]
+        for leg in ("no_deltas_cached_r3", "deltas_fresh"):
+            in01({k: legs[leg][k] for k in ("mixed_eer", "clean_eer", "spoof_rate")},
+                 f"ivector_delta_rescore {leg}")
+        log(f"[ivector_delta_rescore] 1024 / 400: cached {legs['no_deltas_cached_r3']['_wall_s']}"
+            f" s, fresh {legs['deltas_fresh']['_wall_s']} s; shift {legs.get('shift')}")
+
+        # -- vad_ab with the campaign's GE2E checkpoint ---------------------------
+        with open(os.path.join(croot, "state", "ge2e.json")) as f:
+            ck = json.load(f)["checkpoint"]
+        vad, _, _ = counted("vad_ab", lambda: vad_ab.main(
+            ["--root", croot, "--utts", "20", "--ge2e_ck", ck], device=dev))
+        emb = vad["embedding_leg"]
+        log(f"[vad_ab] {vad['n_utts']} utterances: clean {json.dumps(vad['clean'])}; gapped loud "
+            f"{json.dumps(vad['gapped_loud_floor'])}; embedding leg {json.dumps(emb)}")
+        gate(list(vad) == VAD_KEYS and emb["n_compared"] >= 1
+             and np.isfinite(emb["mean_dvector_cos_mean"]), ("vad_ab", list(vad), emb))
+    finally:
+        decode_kernel.make_fused_decoder = make_fused
+        gl_kernel.griffin_lim_fused = gl_fused
+        rec.restore()
+
+    for name, row in runs.items():
+        want, n = CHECK_KERNELS[name], row["launches"]
+        gate(all(n[k] > 0 for k in want) and all(v == 0 for k, v in n.items() if k not in want),
+             ("check launches", name, n, sorted(want)))
+    total = {k: sum(row["launches"][k] for row in runs.values()) for k in snap()}
+    gate(all(total[k] > 0 for k in GL_KERNELS), ("checks launches", total))
+    log(f"[phase 15] seconds by check {json.dumps({k: round(r['s'], 2) for k, r in runs.items()})}")
+    return {"checks": total, "seconds": {k: r["s"] for k, r in runs.items()},
+            "lock": {f"{d} {lk:g}": v for (d, lk), v in locks.items()}, "n_iter0": n0,
+            "gl64": gl64_rel,
+            "k2_lock_ms": dict(ms=k2_ms, plain_ms=k2_plain, bound_ms=k2_b, bound_by=k2_by),
+            "gl_n_iter0_ms": dict(ms=n0_ms, plain_ms=n0_plain, bound_ms=n0_b, bound_by=n0_by)}
+
+
 def main() -> None:
     import torch
 
@@ -3847,13 +4255,22 @@ def main() -> None:
         camp = campaign_phase(dev, counters, cluster, smi, onsets, before_onset, spectral_err,
                               cuda_ms, root)
         log(f"[time] phase 14 {time.perf_counter() - t0:.1f} s")
+
+        # ---- phase 15: the post-campaign checks on phase 14's tree ----------
+        t0 = time.perf_counter()
+        checks = checks_phase(dev, counters, cluster, smi, spectral_err, cuda_ms, root)
+        log(f"[time] phase 15 {time.perf_counter() - t0:.1f} s")
     kernels["griffin_lim_f32"]["campaign_corpus"] = camp["corpus_gl"]
+    kernels["gl_init"]["checks_lock"] = dict(min_cos_dphi=checks["lock"], **checks["k2_lock_ms"])
+    kernels["griffin_lim_f32"]["checks_n_iter0"] = dict(rel_l2=checks["n_iter0"],
+                                                        **checks["gl_n_iter0_ms"])
     training_bf16 = {"decode": bf16_launches.pop("decode_bf16"), **bf16_launches}
     paths = {"synthesis": launches, "training": train_launches, "serving": serve_launches,
              "spoofgen": gen_launches, **cli_launches, "training_bf16": training_bf16,
              "ge2e_attack": attack_launches, "scoring": scoring_launches, "mesh": mesh_launches,
-             **{p: {("decode" if k == "decode_bf16" else k): n for k, n in camp[p].items()}
-                for p in ("campaign", "toy")}}
+             **{p: {("decode" if k == "decode_bf16" else k): n for k, n in launches.items()}
+                for p, launches in (("campaign", camp["campaign"]), ("toy", camp["toy"]),
+                                    ("checks", checks["checks"]))}}
     for k, entry in kernels.items():
         entry["launches_by_path"] = {p: n[k] for p, n in paths.items() if k in n}
 

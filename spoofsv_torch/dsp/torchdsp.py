@@ -81,7 +81,15 @@ def istft_ri(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop_length: int,
     """Inverse STFT of (re, im) ``(..., T, 1+n_fft//2)`` → ``(..., hop·(T−1))``."""
     win_length = win_length or n_fft
     T = re.shape[-2]
-    frames = torch.fft.irfft(torch.complex(re.float(), im.float()), n=n_fft, dim=-1)
+    # a real signal's DC and Nyquist bins are real: numpy's and the JAX
+    # package's inverse drop their imaginary parts, and so does torch's on the
+    # CPU, but cuFFT's C2R does not at every size (a hash "random" init puts
+    # phases there), so they are dropped before the transform
+    real_bins = torch.ones(re.shape[-1], device=re.device)
+    real_bins[0] = 0.0
+    if n_fft % 2 == 0:
+        real_bins[-1] = 0.0
+    frames = torch.fft.irfft(torch.complex(re.float(), im.float() * real_bins), n=n_fft, dim=-1)
     y = overlap_add(frames * _window(win_length, n_fft, re), hop_length)
     wss = torch.from_numpy(wss_table(win_length, T, hop_length, n_fft)).to(y.device)
     y = torch.where(wss > WSS_FLOOR, y / wss.clamp_min(WSS_FLOOR), y)

@@ -134,6 +134,24 @@ def test_stft_istft_match_jaxdsp():
     np.testing.assert_allclose(y1.numpy(), y, atol=1e-5)
 
 
+def test_istft_takes_dc_and_nyquist_as_real():
+    """A spectrum with imaginary DC and Nyquist bins (a hash "random" init
+    puts phases there): the inverse drops those parts, as ``jaxdsp``'s FFT
+    and matmul inverses do (ROADMAP C.5: cuFFT's C2R did not at the GL
+    shape on the card; ``tests/test_torch_port_kernels.py`` holds it there)."""
+    rng = np.random.default_rng(6)
+    re, im = (rng.normal(size=(2, 40, NFFT // 2 + 1)).astype(np.float32) for _ in range(2))
+    got = torchdsp.istft_ri(torch.from_numpy(re), torch.from_numpy(im), NFFT, HOP).numpy()
+    im0 = im.copy()
+    im0[..., [0, -1]] = 0.0
+    real = torchdsp.istft_ri(torch.from_numpy(re), torch.from_numpy(im0), NFFT, HOP).numpy()
+    assert np.array_equal(got, real)
+    for use_matmul in (False, True):
+        ref = jaxdsp.istft_ri(jnp.asarray(re), jnp.asarray(im), NFFT, HOP, NFFT,
+                              use_matmul=use_matmul)
+        assert _rel_l2(got, ref) <= 1e-5, use_matmul
+
+
 @pytest.mark.parametrize("mode", ["spsi", "advance"])
 def test_griffin_lim12_matches_jaxdsp(mode):
     mag = _test_mag(2, 60, seed=4)
