@@ -5,8 +5,10 @@ the positional step and ``-P/--pattern``, ``-R/--resume`` (a path or
 ``latest``), ``-C/--configuration``, ``--adversarial``, ``--save_spectrogram``,
 ``-T/--current_time``, plus the JAX package's ``--stage``, ``--masked_loss``,
 ``--max_iterations``, ``--mcd``, ``--device_data``, ``--mesh`` and
-``--metrics_every``. The helpers (compute dtypes, the process-wide runtime
-knobs, ``build_models``) are here too.
+``--metrics_every``, and ``--trace_dir`` (a ``torch.profiler`` trace of the
+run with the program's spans, :mod:`spoofsv_torch.utils.profiling`). The
+helpers (compute dtypes, the process-wide runtime knobs, ``build_models``)
+are here too.
 
 Everything runs on the card unless :func:`main` is given ``device="cpu"``.
 Training keeps f32 parameters and Adam state; ``train_compute_dtype=
@@ -43,6 +45,7 @@ from spoofsv_torch import reference_precision, resolve_device
 from spoofsv_torch.config import Config, load_config
 from spoofsv_torch.models import SSRN, Critic1D, LinDisc, MelDisc, MelSyn
 from spoofsv_torch.models.layers import set_default_gate_impl
+from spoofsv_torch.utils import profiling
 
 TRAIN_STEPS = ("train_text2mel", "train_ssrn")
 
@@ -96,6 +99,12 @@ def add_mesh_args(ps: argparse.ArgumentParser, what: str = "data-parallel") -> N
     ps.add_argument("--mesh_share", action="store_true",
                     help="the --mesh ranks time-share the one device given, over gloo (a "
                          "check of the data-parallel path on one card, not a speed-up)")
+
+
+def add_trace_arg(ps: argparse.ArgumentParser) -> None:
+    ps.add_argument("--trace_dir", type=str, default=None, metavar="DIR",
+                    help="write a torch.profiler Chrome trace of the run, with the program's "
+                         "spoofsv.* spans, into DIR (a file per rank)")
 
 
 def resolve_mesh(args, cfg: Config, device) -> int:
@@ -334,6 +343,7 @@ def main(argv=None, device=None):
     add_mesh_args(ps)
     ps.add_argument("--metrics_every", type=int, default=1,
                     help="read back and log train metrics every N iterations")
+    add_trace_arg(ps)
     args = ps.parse_args(argv)
 
     device = resolve_device(device)
@@ -345,7 +355,8 @@ def main(argv=None, device=None):
     if args.save_spectrogram:
         spec_dir = os.path.join(cfg.src_root_dir, "spec")
         os.makedirs(spec_dir, exist_ok=True)
-    with data_parallel(args, cfg, device, "spoofsv_torch.cli.main", argv) as mesh:
+    with data_parallel(args, cfg, device, "spoofsv_torch.cli.main", argv) as mesh, \
+            profiling.trace(args.trace_dir):
         if mesh is not None:
             device = mesh.device
         if args.step in TRAIN_STEPS:

@@ -5,7 +5,9 @@ Port of :mod:`spoofsv_tpu.cli.serve`: serves trained checkpoints
 reference ``.tar.pth``) behind an HTTP endpoint with micro-batching on one
 card (:mod:`spoofsv_torch.serve`), or data-parallel over the ``--mesh``
 ranks: rank 0 serves HTTP and batches, the other ranks follow its calls
-(:func:`spoofsv_torch.serve.serve_follower`).
+(:func:`spoofsv_torch.serve.serve_follower`). ``--trace_dir DIR`` writes a
+``torch.profiler`` trace of the whole run (every thread's spans) when
+the server stops.
 """
 
 from __future__ import annotations
@@ -50,9 +52,10 @@ def main(argv=None, device=None) -> None:
     ps.add_argument("--request_timeout", type=float, default=600.0,
                     help="per-request wait (s); timed-out requests are skipped by the "
                          "batcher if still queued")
-    from spoofsv_torch.cli.main import add_mesh_args
+    from spoofsv_torch.cli.main import add_mesh_args, add_trace_arg
 
     add_mesh_args(ps, "data-parallel serving")
+    add_trace_arg(ps)
     args = ps.parse_args(argv)
 
     from spoofsv_torch import resolve_device
@@ -61,12 +64,14 @@ def main(argv=None, device=None) -> None:
     from spoofsv_torch.config import load_config
     from spoofsv_torch.infer.synthesize import Synthesizer
     from spoofsv_torch.serve import serve_follower
+    from spoofsv_torch.utils import profiling
     from spoofsv_torch.weights import load_generator_params
 
     dev = resolve_device(device)
     cfg = load_config(args.configuration)
     apply_runtime_knobs(cfg, infer=True)
-    with data_parallel(args, cfg, dev, "spoofsv_torch.cli.serve", argv) as mesh:
+    with data_parallel(args, cfg, dev, "spoofsv_torch.cli.serve", argv) as mesh, \
+            profiling.trace(args.trace_dir):
         dev = dev if mesh is None else mesh.device
         melsyn, ssrn, _, _ = build_models(cfg, "conditional", dtype=inference_dtype(cfg, dev),
                                           device=dev)

@@ -27,6 +27,7 @@ from spoofsv_torch.infer.decode import make_decoder
 from spoofsv_torch.ops.decode_kernel import make_fused_decoder
 from spoofsv_torch.ops.gl_kernel import griffin_lim_fused, griffin_lim_tc, init_angles_plain
 from spoofsv_torch.parallel.mesh import active, batch_sharding, replicate_tree
+from spoofsv_torch.utils.profiling import count, nbytes, span
 
 GL_IMPLS = ("auto", "pallas", "xla")
 GL_PRECISIONS = ("default", "highest")
@@ -94,27 +95,31 @@ def make_vocoder(cfg: Config, n_iter: Optional[int] = None):
 
     @torch.no_grad()
     def vocode(lin_pred: torch.Tensor, seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = lin_pred.float()
-        if cfg.norm.log_feature:
-            db = x * cfg.norm.max_db - cfg.norm.max_db + cfg.norm.ref_db
-            x = torch.pow(10.0, 0.05 * db)
-        else:
-            peak = x.amax(dim=(1, 2), keepdim=True)
-            x = x / peak.clamp_min(1e-8)
-        spec = torch.pow(x, power)
-        if init_mode == "random" and seeds is None:
-            seeds = gl_seeds(spec.shape[0])
-        route = gl_route(cfg, spec.device)
-        if route == "xla":
-            init = init_angles_plain(spec, n_fft, hop, init_mode, seeds)
-            audio = torchdsp.griffin_lim(spec, n_fft, hop, n_fft, n_iter, init_angles=init)
-        elif route == "f32":
-            audio = griffin_lim_fused(spec, n_fft, hop, n_fft, n_iter=n_iter,
-                                      init_mode=init_mode, seeds=seeds)
-        else:
-            audio = griffin_lim_tc(spec, n_fft, hop, n_fft, n_iter=n_iter, init_mode=init_mode,
-                                   seeds=seeds, int8=cfg.tpu.griffin_lim_int8)
-        return torchdsp.deemphasis(audio, coeff=cfg.preemph)
+        with span("vocode.prep"):
+            x = lin_pred.float()
+            if cfg.norm.log_feature:
+                db = x * cfg.norm.max_db - cfg.norm.max_db + cfg.norm.ref_db
+                x = torch.pow(10.0, 0.05 * db)
+            else:
+                peak = x.amax(dim=(1, 2), keepdim=True)
+                x = x / peak.clamp_min(1e-8)
+            spec = torch.pow(x, power)
+            if init_mode == "random" and seeds is None:
+                seeds = gl_seeds(spec.shape[0])
+        with span("vocode.gl"):
+            route = gl_route(cfg, spec.device)
+            if route == "xla":
+                init = init_angles_plain(spec, n_fft, hop, init_mode, seeds)
+                audio = torchdsp.griffin_lim(spec, n_fft, hop, n_fft, n_iter, init_angles=init)
+            elif route == "f32":
+                audio = griffin_lim_fused(spec, n_fft, hop, n_fft, n_iter=n_iter,
+                                          init_mode=init_mode, seeds=seeds)
+            else:
+                audio = griffin_lim_tc(spec, n_fft, hop, n_fft, n_iter=n_iter,
+                                       init_mode=init_mode, seeds=seeds,
+                                       int8=cfg.tpu.griffin_lim_int8)
+        with span("vocode.deemph"):
+            return torchdsp.deemphasis(audio, coeff=cfg.preemph)
 
     return vocode
 
@@ -133,6 +138,14 @@ def finalize_audio(audio: np.ndarray, cfg: Config, trim_db: Optional[float] = No
     if not cfg.norm.log_feature:
         y = y / np.max(y) * 0.75
     return y
+
+
+def to_host(*tensors: Optional[torch.Tensor]) -> tuple:
+    """The tensors as host numpy arrays (None stays None), copied in the
+    span ``synth.to_host`` with their bytes on the ``d2h_bytes`` counter."""
+    with span("synth.to_host"):
+        count("d2h_bytes", nbytes(*tensors))
+        return tuple(None if t is None else t.cpu().numpy() for t in tensors)
 
 
 class Synthesizer:
@@ -175,17 +188,26 @@ class Synthesizer:
 
     @torch.no_grad()
     def ssrn_apply(self, mel: torch.Tensor) -> torch.Tensor:
-        return self.ssrn(mel.to(next(self.ssrn.parameters()).dtype))
+        with span("ssrn"):
+            return self.ssrn(mel.to(next(self.ssrn.parameters()).dtype))
 
     @torch.no_grad()
     def call_local(self, text_ids, spk_emb, seeds: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """The pipeline on this process's device alone, on the rows given."""
-        text_ids = torch.as_tensor(text_ids).to(self.device)
-        spk_emb = torch.as_tensor(spk_emb, dtype=torch.float32).to(self.device)
+        with span("synth.call"):
+            return self._pipeline(text_ids, spk_emb, seeds)
+
+    def _pipeline(self, text_ids, spk_emb, seeds: Optional[torch.Tensor]):
+        with span("synth.inputs"):
+            text_ids = torch.as_tensor(text_ids)
+            spk_emb = torch.as_tensor(spk_emb, dtype=torch.float32)
+            count("h2d_bytes", nbytes(*(t for t in (text_ids, spk_emb, seeds)
+                                        if t is not None and t.device.type == "cpu")))
+            text_ids, spk_emb = text_ids.to(self.device), spk_emb.to(self.device)
+            seeds = None if seeds is None else seeds.to(self.device)
         mel, attn, _ = self.decode(text_ids, spk_emb)
-        audio = self.vocode(self.ssrn_apply(mel),
-                            None if seeds is None else seeds.to(self.device))
+        audio = self.vocode(self.ssrn_apply(mel), seeds)
         return audio, mel, attn
 
     def _global_seeds(self, batch: int, seeds: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -208,7 +230,8 @@ class Synthesizer:
 
         out = fn(*(mine(r) for r in rows), None if seeds is None else mine(seeds))
         gather = lambda o: self.mesh.all_gather(o)[:batch]   # noqa: E731
-        return tuple(gather(o) for o in out) if isinstance(out, tuple) else gather(out)
+        with span("synth.gather"):
+            return tuple(gather(o) for o in out) if isinstance(out, tuple) else gather(out)
 
     @torch.no_grad()
     def mel_to_audio(self, mel: torch.Tensor, seeds: Optional[torch.Tensor] = None
@@ -228,4 +251,5 @@ class Synthesizer:
         """Returns (audio (B, L) f32, coarse mel (B, T, 80), attention (B, N, T))."""
         if self.mesh is None:
             return self.call_local(text_ids, spk_emb, seeds)
-        return self._sharded(self.call_local, len(text_ids), seeds, text_ids, spk_emb)
+        with span("synth.call"):
+            return self._sharded(self._pipeline, len(text_ids), seeds, text_ids, spk_emb)

@@ -21,6 +21,8 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from spoofsv_torch.utils.profiling import count, span
+
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
@@ -117,6 +119,7 @@ def _start(name: str) -> Optional[Tuple[subprocess.Popen, Path, float]]:
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.Popen([nvcc(), *flags, "-o", str(tmp), str(src)],
                             stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    count("kernel_builds")
     return proc, tmp, time.perf_counter()
 
 
@@ -149,23 +152,25 @@ def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; returns the bound library."""
     if name in _LIBS:
         return _LIBS[name]
-    return _finish(name, _start(name))
+    with span("setup.kernels"):
+        return _finish(name, _start(name))
 
 
 def build_all() -> Dict[str, dict]:
     """Build every kernel library (not the development :data:`VARIANTS`),
     one ``nvcc`` per source started together, and load them; returns the
     build log."""
-    started = {name: _start(name) for name in SIGNATURES
-               if name not in _LIBS and name not in VARIANTS}
-    try:
-        for name, proc in started.items():
-            _finish(name, proc)
-    finally:   # a failed build leaves no compiler running
-        for s in started.values():
-            if s is not None and s[0].poll() is None:
-                s[0].kill()
-                s[0].wait()
+    with span("setup.kernels"):
+        started = {name: _start(name) for name in SIGNATURES
+                   if name not in _LIBS and name not in VARIANTS}
+        try:
+            for name, proc in started.items():
+                _finish(name, proc)
+        finally:   # a failed build leaves no compiler running
+            for s in started.values():
+                if s is not None and s[0].poll() is None:
+                    s[0].kill()
+                    s[0].wait()
     return dict(BUILD_LOG)
 
 

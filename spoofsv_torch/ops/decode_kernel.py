@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from spoofsv_torch.models.text2mel import ATT_MASK_VALUE, MelSyn
 from spoofsv_torch.ops import _build
 from spoofsv_torch.ops.hconv_kernel import tf32_split
+from spoofsv_torch.utils.profiling import count, span
 
 LN_EPS = 1e-5
 # decode-path highway layers, in execution order: enc.hci1 (d 1/3/9/27),
@@ -659,7 +660,9 @@ def cluster_launch_args(packed, K, V, s1, s2, n_frames, freq_bins, plan, stream)
 def make_fused_decoder(model: MelSyn, n_frames: int, monotonic: bool = True):
     """Same contract as :func:`spoofsv_torch.infer.decode.make_decoder`,
     backed by :func:`decode_fused`. Weights are packed on the first call, and
-    the kernel's weight stream once per cluster size and dtype."""
+    the kernel's weight stream once per cluster size and dtype. Its spans:
+    ``decode.pack``, ``decode.encode`` (the text encoder and the speaker
+    projections) and ``decode.rollout``."""
     packed: Dict[str, torch.Tensor] = {}
     streams: Dict[Tuple[int, torch.dtype, torch.device], torch.Tensor] = {}
 
@@ -669,24 +672,29 @@ def make_fused_decoder(model: MelSyn, n_frames: int, monotonic: bool = True):
         if text_mask is not None:
             raise ValueError("the fused decoder attends over the full text")
         if not packed:
-            packed.update(pack_decode_weights(model))
-        K, V = model.encode_text(text_ids)
-        s1 = s2 = None
-        if model.condition:
-            spk = spk_emb.to(K.dtype)
-            s1 = model.audio_encoder.fc1(spk)
-            s2 = model.audio_encoder.fc2(spk)
+            with span("decode.pack"):
+                packed.update(pack_decode_weights(model))
+        with span("decode.encode"):
+            K, V = model.encode_text(text_ids)
+            s1 = s2 = None
+            if model.condition:
+                spk = spk_emb.to(K.dtype)
+                s1 = model.audio_encoder.fc1(spk)
+                s2 = model.audio_encoder.fc2(spk)
         plan = stream = None
         if K.device.type == "cuda":
             plan = decode_cluster_plan(K.shape[0], K.shape[2], model.freq_bins,
                                        elem=K.element_size())
             key = (plan.cluster, K.dtype, K.device)
             if key not in streams:
-                streams[key] = pack_decode_stream(
-                    {k: packed[k].to(K.device) for k in MATRIX_NAMES}, plan)
+                with span("decode.pack"):
+                    streams[key] = pack_decode_stream(
+                        {k: packed[k].to(K.device) for k in MATRIX_NAMES}, plan)
+                count("decode_stream_packs")
             stream = streams[key]
-        return decode_fused(packed, K, V, s1, s2, n_frames=n_frames,
-                            freq_bins=model.freq_bins, condition=model.condition,
-                            monotonic=monotonic, plan=plan, stream=stream)
+        with span("decode.rollout"):
+            return decode_fused(packed, K, V, s1, s2, n_frames=n_frames,
+                                freq_bins=model.freq_bins, condition=model.condition,
+                                monotonic=monotonic, plan=plan, stream=stream)
 
     return decode

@@ -55,7 +55,8 @@ import torch
 from spoofsv_torch.config import Config
 from spoofsv_torch.data.text import encode_texts
 from spoofsv_torch.dsp import host as dsp_host
-from spoofsv_torch.infer.synthesize import Synthesizer, finalize_audio, gl_seeds
+from spoofsv_torch.infer.synthesize import Synthesizer, finalize_audio, gl_seeds, to_host
+from spoofsv_torch.utils.profiling import snapshot, span
 
 
 class BadRequest(ValueError):
@@ -140,7 +141,7 @@ class ServeStats:
     n_escalated: int = 0           # speculative rollout too short, retried
     max_batch_seen: int = 0
     audio_seconds: float = 0.0
-    device_seconds: float = 0.0    # wall time inside device calls
+    device_seconds: float = 0.0    # host seconds in the serve.device_call spans
     latencies_ms: List[float] = field(default_factory=list)  # bounded
 
     def as_dict(self) -> dict:
@@ -403,24 +404,26 @@ class BatchingSynthesizer:
         return self.max_batch
 
     def _collect(self) -> Optional[List[_Pending]]:
-        """Block for the first request, then aggregate for batch_wait_s."""
+        """Block for the first request, then aggregate for batch_wait_s (the
+        span ``serve.collect``)."""
         first = self._q.get()
         if first is None:
             return None
         batch = [first]
-        deadline = time.perf_counter() + self.batch_wait_s
-        while len(batch) < self.max_batch:
-            remaining = deadline - time.perf_counter()
-            if remaining <= 0:
-                break
-            try:
-                nxt = self._q.get(timeout=remaining)
-            except queue.Empty:
-                break
-            if nxt is None:
-                self._q.put(None)   # re-post the shutdown sentinel
-                break
-            batch.append(nxt)
+        with span("serve.collect"):
+            deadline = time.perf_counter() + self.batch_wait_s
+            while len(batch) < self.max_batch:
+                remaining = deadline - time.perf_counter()
+                if remaining <= 0:
+                    break
+                try:
+                    nxt = self._q.get(timeout=remaining)
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    self._q.put(None)   # re-post the shutdown sentinel
+                    break
+                batch.append(nxt)
         return batch
 
     def _run(self) -> None:
@@ -467,7 +470,7 @@ class BatchingSynthesizer:
     def _device_call(self, batch: List[_Pending], frames: int, bsz: int):
         """Run the padded batch; returns host arrays (audio, completed at the
         last frame or None, kept frames or None). The completion checks run
-        on the device; each result comes back in one ``.cpu()``."""
+        on the device; the results come back in one ``synth.to_host``."""
         n = len(batch)
         text = np.stack([r.text_ids for r in batch] + [batch[0].text_ids] * (bsz - n))
         spk = np.stack([r.spk_emb for r in batch] + [batch[0].spk_emb] * (bsz - n))
@@ -483,27 +486,27 @@ class BatchingSynthesizer:
                                    device=attn.device)
             done = attn[:n].argmax(dim=1) >= targets[:, None]
             if want_check:
-                last = done[:, -1].cpu().numpy()
+                last = done[:, -1]
             if self.attn_trim is not None:
                 first = done.to(torch.int32).argmax(dim=1) + 1 + self.attn_trim
-                keep = first.masked_fill(~done.any(dim=1), done.shape[1]).cpu().numpy()
-        return audio.cpu().numpy(), last, keep
+                keep = first.masked_fill(~done.any(dim=1), done.shape[1])
+        return to_host(audio, last, keep)
 
     def _process(self, batch: List[_Pending], frames: int) -> None:
         n = len(batch)
         bsz = self._bucket(n)
         self._batch_counter += 1
-        t0 = time.perf_counter()
+        bid = self._batch_counter
         try:
-            audio, last, keep = self._device_call(batch, frames, bsz)
+            with span("serve.device_call", batch=bid, rows=n, rung=bsz) as call:
+                audio, last, keep = self._device_call(batch, frames, bsz)
         except Exception as e:  # noqa: BLE001 - forwarded to each request
+            with self._stats_lock:
+                self.stats.n_errors += n
             for r in batch:
                 r.error = e
                 r.done.set()
-            with self._stats_lock:
-                self.stats.n_errors += n
             return
-        dt = time.perf_counter() - t0
         # not at the text's end by the last frame: this rollout cut the
         # decode off, so retry one bucket up
         escalate = set() if last is None else {i for i in range(n) if not last[i]}
@@ -515,24 +518,24 @@ class BatchingSynthesizer:
             with self._stats_lock:
                 self.stats.n_escalated += len(escalate)
         now = time.perf_counter()
-        for i, r in enumerate(batch):
-            if i in escalate:
-                continue
-            try:
-                raw = audio[i]
-                if keep is not None:
-                    # cut at the completion frame (+pad) before the host trim
-                    raw = raw[: int(keep[i]) * (raw.shape[-1] // frames)]
-                if self.device_pcm:
-                    raw = raw.astype(np.float32) / 32767.0
-                y = finalize_audio(raw, self.cfg, trim_db=self.trim_db,
-                                   max_seconds=self.max_seconds)
-                if not np.all(np.isfinite(y)):
-                    raise ValueError("synthesis produced non-finite audio")
-                r.audio = y
-            except Exception as e:  # noqa: BLE001 - forwarded to the request
-                r.error = e
-            r.done.set()
+        with span("serve.finalize", batch=bid):
+            for i, r in enumerate(batch):
+                if i in escalate:
+                    continue
+                try:
+                    raw = audio[i]
+                    if keep is not None:
+                        # cut at the completion frame (+pad) before the host trim
+                        raw = raw[: int(keep[i]) * (raw.shape[-1] // frames)]
+                    if self.device_pcm:
+                        raw = raw.astype(np.float32) / 32767.0
+                    y = finalize_audio(raw, self.cfg, trim_db=self.trim_db,
+                                       max_seconds=self.max_seconds)
+                    if not np.all(np.isfinite(y)):
+                        raise ValueError("synthesis produced non-finite audio")
+                    r.audio = y
+                except Exception as e:  # noqa: BLE001 - forwarded to the request
+                    r.error = e
         with self._stats_lock:
             s = self.stats
             # escalated requests are counted when their retry completes
@@ -541,10 +544,14 @@ class BatchingSynthesizer:
             s.max_batch_seen = max(s.max_batch_seen, n)
             s.audio_seconds += sum(len(r.audio) for r in batch
                                    if r.audio is not None) / self.cfg.sampling_rate
-            s.device_seconds += dt
+            s.device_seconds += call.seconds
             s.latencies_ms.extend((now - r.t_enq) * 1e3 for i, r in enumerate(batch)
                                   if i not in escalate)
             del s.latencies_ms[:-1000]   # bound the window
+        # released after the stats count them: a caller's reply is in /healthz
+        for i, r in enumerate(batch):
+            if i not in escalate:
+                r.done.set()
 
 
 def _syn_for(cache: Dict[int, Synthesizer], cfg: Config, base: Synthesizer,
@@ -593,7 +600,12 @@ def make_http_server(batcher: BatchingSynthesizer, speakers: SpeakerTable,
       (requests that expire while queued return 504 without device time).
       Returns ``audio/wav`` bytes, or ``{"sr": ..., "samples": [...]}``.
     * ``GET /speakers``: available speaker names.
-    * ``GET /healthz``: liveness and serving stats.
+    * ``GET /healthz``: liveness, serving stats and the program's spans and
+      counters (:func:`spoofsv_torch.utils.profiling.snapshot`).
+
+    A request's spans: ``serve.parse``, ``serve.wait`` (blocked in
+    :meth:`BatchingSynthesizer.synthesize`), ``serve.encode`` (WAV or JSON)
+    and ``serve.send``.
     """
     cfg = batcher.cfg
 
@@ -601,19 +613,23 @@ def make_http_server(batcher: BatchingSynthesizer, speakers: SpeakerTable,
         def log_message(self, *a):   # quiet access log
             pass
 
-        def _json(self, code: int, obj: dict, headers: Optional[dict] = None) -> None:
-            body = json.dumps(obj).encode()
+        def _send(self, code: int, kind: str, body: bytes,
+                  headers: Optional[dict] = None) -> None:
             self.send_response(code)
-            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Type", kind)
             self.send_header("Content-Length", str(len(body)))
             for k, v in (headers or {}).items():
                 self.send_header(k, v)
             self.end_headers()
             self.wfile.write(body)
 
+        def _json(self, code: int, obj: dict, headers: Optional[dict] = None) -> None:
+            self._send(code, "application/json", json.dumps(obj).encode(), headers)
+
         def do_GET(self):
             if self.path == "/healthz":
-                self._json(200, {"status": "ok", "stats": batcher.stats_dict()})
+                self._json(200, {"status": "ok", "stats": batcher.stats_dict(),
+                                 "trace": snapshot()})
             elif self.path == "/speakers":
                 self._json(200, {"speakers": speakers.names()})
             else:
@@ -644,19 +660,22 @@ def make_http_server(batcher: BatchingSynthesizer, speakers: SpeakerTable,
                                           f"{MAX_BODY_BYTES} B limit"})
                 return
             try:
-                req = json.loads(self.rfile.read(length) or b"{}")
-                text = req["text"]
-                if "spk_emb" in req:
-                    spk = np.asarray(req["spk_emb"], np.float32)
-                else:
-                    spk = speakers(req["speaker"])
-                deadline_s = float(req["deadline_ms"]) / 1e3 if "deadline_ms" in req else None
+                with span("serve.parse"):
+                    req = json.loads(self.rfile.read(length) or b"{}")
+                    text = req["text"]
+                    if "spk_emb" in req:
+                        spk = np.asarray(req["spk_emb"], np.float32)
+                    else:
+                        spk = speakers(req["speaker"])
+                    deadline_s = (float(req["deadline_ms"]) / 1e3 if "deadline_ms" in req
+                                  else None)
             except Exception as e:  # noqa: BLE001 - malformed request body
                 self._json(400, {"error": f"bad request: {e}"})
                 return
             try:
-                audio = batcher.synthesize(text, spk, timeout=request_timeout,
-                                           deadline_s=deadline_s)
+                with span("serve.wait"):
+                    audio = batcher.synthesize(text, spk, timeout=request_timeout,
+                                               deadline_s=deadline_s)
             except BadRequest as e:
                 self._json(400, {"error": str(e)})
                 return
@@ -670,15 +689,14 @@ def make_http_server(batcher: BatchingSynthesizer, speakers: SpeakerTable,
             except Exception as e:  # noqa: BLE001 - report, don't crash
                 self._json(500, {"error": str(e)})
                 return
-            if req.get("format", "wav") == "json":
-                self._json(200, {"sr": cfg.sampling_rate,
-                                 "samples": np.asarray(audio, np.float64).round(6).tolist()})
-            else:
-                body = wav_bytes(audio, cfg.sampling_rate)
-                self.send_response(200)
-                self.send_header("Content-Type", "audio/wav")
-                self.send_header("Content-Length", str(len(body)))
-                self.end_headers()
-                self.wfile.write(body)
+            with span("serve.encode"):
+                if req.get("format", "wav") == "json":
+                    kind = "application/json"
+                    body = json.dumps({"sr": cfg.sampling_rate, "samples": np.asarray(
+                        audio, np.float64).round(6).tolist()}).encode()
+                else:
+                    kind, body = "audio/wav", wav_bytes(audio, cfg.sampling_rate)
+            with span("serve.send"):
+                self._send(200, kind, body)
 
     return _Server((host, port), Handler)

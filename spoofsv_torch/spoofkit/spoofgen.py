@@ -28,7 +28,8 @@ import torch
 from spoofsv_torch.config import Config
 from spoofsv_torch.data.text import encode_texts
 from spoofsv_torch.dsp import host as dsp_host
-from spoofsv_torch.infer.synthesize import Synthesizer, finalize_audio, gl_seeds
+from spoofsv_torch.infer.synthesize import Synthesizer, finalize_audio, gl_seeds, to_host
+from spoofsv_torch.utils.profiling import span
 
 
 def load_harvard_sentences(cfg: Config, n: int) -> List[str]:
@@ -76,17 +77,19 @@ def generate_spoof_set(cfg: Config, ctime: str, synthesizer: Synthesizer,
         audio, _, _ = synthesizer(text, spk, gl_seeds(len(text), gen))
         if mesh is not None and mesh.rank != 0:
             continue
-        audio = audio.cpu().numpy()
-        for ci, spk_name in enumerate(chunk):
-            out_dir = os.path.join(save_dir, "s" + spk_name[1:])
-            os.makedirs(out_dir, exist_ok=True)
-            for k in range(eval_utt_num):
-                wav = finalize_audio(audio[ci * eval_utt_num + k], cfg, trim_db=30.0,
-                                     max_seconds=9.0)
-                dsp_host.write_wav(os.path.join(out_dir, f"s{spk_name[1:]}_{str(k + 1).zfill(3)}.wav"),
-                                   wav, cfg.sampling_rate)
-            if verbose:
-                print("Generated utterances of speaker", spk_name)
+        audio, = to_host(audio)
+        with span("spoofset.finalize"):
+            wavs = [finalize_audio(a, cfg, trim_db=30.0, max_seconds=9.0) for a in audio]
+        with span("spoofset.write"):
+            for ci, spk_name in enumerate(chunk):
+                out_dir = os.path.join(save_dir, "s" + spk_name[1:])
+                os.makedirs(out_dir, exist_ok=True)
+                for k in range(eval_utt_num):
+                    dsp_host.write_wav(
+                        os.path.join(out_dir, f"s{spk_name[1:]}_{str(k + 1).zfill(3)}.wav"),
+                        wavs[ci * eval_utt_num + k], cfg.sampling_rate)
+                if verbose:
+                    print("Generated utterances of speaker", spk_name)
     return save_dir
 
 

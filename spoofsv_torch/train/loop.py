@@ -49,6 +49,7 @@ from spoofsv_torch.train.state import AdvTrainState, TrainState
 from spoofsv_torch.train.steps import (autocast_to, eval_mode, guided_attention_table, is_g_step,
                                        make_fused_adversarial_step, make_ordinary_step)
 from spoofsv_torch.utils.plot import pyplot
+from spoofsv_torch.utils.profiling import span
 from spoofsv_torch.weights import load_state
 
 Batch = Dict[str, torch.Tensor]
@@ -358,21 +359,24 @@ class Trainer:
 
     # -- one iteration ------------------------------------------------------
     def train_iteration(self, batch: Batch) -> Dict[str, float]:
-        """One optimizer step. Metrics are read back (a device sync) every
+        """One optimizer step (the span ``train.step``). Metrics are read back
+        (a device sync, the span ``train.metrics_sync``) every
         ``metrics_every`` iterations and returned; ``{}`` otherwise. The loss
         logs keep the device values of the other iterations."""
-        if not self.adversarial:
-            self.state, m = self.step_fn(self.state, batch)
-        else:
-            g = is_g_step(self.state.step, self.cfg.ratio)   # the branch the step takes
-            self.state, m = self.adv_step(self.state, batch, self.mix_generator)
-            for name, key in ((("t_s", "loss"), ("t_s_o", "loss_disc")) if g
-                              else (("t_d", "loss_d"), ("wd", "wd"))):
-                self.loss_logs[name].append(m[key])
+        with span("train.step"):
+            if not self.adversarial:
+                self.state, m = self.step_fn(self.state, batch)
+            else:
+                g = is_g_step(self.state.step, self.cfg.ratio)   # the branch the step takes
+                self.state, m = self.adv_step(self.state, batch, self.mix_generator)
+                for name, key in ((("t_s", "loss"), ("t_s_o", "loss_disc")) if g
+                                  else (("t_d", "loss_d"), ("wd", "wd"))):
+                    self.loss_logs[name].append(m[key])
         self.iteration += 1
         if self.iteration % self.metrics_every:
             return {}
-        return {k: float(v) for k, v in m.items()}
+        with span("train.metrics_sync"):
+            return {k: float(v) for k, v in m.items()}
 
     # -- validation + checkpoint cadence ------------------------------------
     def maybe_validate_and_checkpoint(self, val_batches: Iterable[Batch],
@@ -413,7 +417,8 @@ class Trainer:
         window_t0 = time.perf_counter()
         while self.epoch < max_epochs:
             for batch in train_loader_factory():
-                batch = self._place_batch(batch)
+                with span("train.place"):
+                    batch = self._place_batch(batch)
                 if batch is None:   # fewer rows than ranks
                     continue
                 if self.state is None:

@@ -47,6 +47,7 @@ from spoofsv_torch.config import Config
 from spoofsv_torch.parallel.mesh import active, all_reduce_grads, batch_sharding
 from spoofsv_torch.train.losses import guided_attention_matrix, ssrn_losses, text2mel_losses
 from spoofsv_torch.train.state import AdvTrainState, TrainState
+from spoofsv_torch.utils.profiling import span
 
 Batch = Dict[str, torch.Tensor]
 TRAIN_KINDS = ("train_text2mel", "train_ssrn")
@@ -157,14 +158,16 @@ def make_ordinary_step(model: nn.Module, cfg: Config, train_kind: str,
 
     def step_fn(state: TrainState, batch: Batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         model.train(has_dropout)
-        with autocast_to(_device(model), compute_dtype):
+        with span("train.forward"), autocast_to(_device(model), compute_dtype):
             y, a = _gen_forward(model, batch, train_kind)
             loss, parts = _recon_losses(batch, y, a, gaw, train_kind, use_masks, mesh)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if mesh is not None:
-            all_reduce_grads(model.parameters(), mesh)
-        state.optimizer.step()
+        with span("train.backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            if mesh is not None:
+                all_reduce_grads(model.parameters(), mesh)
+        with span("train.optimizer"):
+            state.optimizer.step()
         state.step += 1
         return state, _global({**parts, "loss": loss}, mesh)
 
@@ -255,7 +258,7 @@ def make_adversarial_steps(gen: nn.Module, disc: nn.Module, cfg: Config, train_k
 
     def g_step(state: AdvTrainState, batch: Batch) -> Tuple[AdvTrainState, Dict[str, torch.Tensor]]:
         gen.train(has_dropout)
-        with autocast_to(_device(gen), compute_dtype):
+        with span("train.forward"), autocast_to(_device(gen), compute_dtype):
             y, a = _gen_forward(gen, batch, train_kind)
             recon, parts = _recon_losses(batch, y, a, gaw, train_kind, use_masks, mesh)
             d_out = disc(disc_in(y.float())).float()
@@ -269,55 +272,62 @@ def make_adversarial_steps(gen: nn.Module, disc: nn.Module, cfg: Config, train_k
             denom = ld if gan_type == "vanilla" else ld.abs()    # no abs (adversarial.py:310)
             coeff = r / (denom + 1e-12)                              # …wasserstein_gp.py:290
             loss = recon + coeff * loss_disc
-        params = [p for p in gen.parameters() if p.requires_grad]
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        for p, g in zip(params, grads):
-            p.grad = g
-        if mesh is not None:
-            all_reduce_grads(params, mesh)
-        state.gen_optimizer.step()
-        state.gen_optimizer.zero_grad(set_to_none=True)
+        with span("train.backward"):
+            params = [p for p in gen.parameters() if p.requires_grad]
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            for p, g in zip(params, grads):
+                p.grad = g
+            if mesh is not None:
+                all_reduce_grads(params, mesh)
+        with span("train.optimizer"):
+            state.gen_optimizer.step()
+            state.gen_optimizer.zero_grad(set_to_none=True)
         state.step += 1
         return state, _global({**parts, "loss_disc": loss_disc, "loss": loss}, mesh)
 
     def d_step(state: AdvTrainState, batch: Batch, generator: Optional[torch.Generator] = None
                ) -> Tuple[AdvTrainState, Dict[str, torch.Tensor]]:
         gen.train(has_dropout)
-        with torch.no_grad(), autocast_to(_device(gen), compute_dtype):
-            y, _ = _gen_forward(gen, batch, train_kind)
-        real, fake = batch[real_key].float(), y.float()
         metrics: Dict[str, torch.Tensor] = {}
 
         def critic(x: torch.Tensor) -> torch.Tensor:
             return disc(x).float()
 
-        with autocast_to(real.device, compute_dtype):
-            if gan_type == "vanilla":
-                d_real, d_fake = critic(disc_in(real)), critic(disc_in(fake))
-                loss = torch.mean(-torch.log(d_real + 1e-8) - torch.log(1.0 - d_fake + 1e-8))
-                metrics["wd"] = torch.zeros((), device=loss.device)
-            else:
-                loss = torch.mean(critic(fake) - critic(real))       # …wasserstein_gp.py:314
-                metrics["wd"] = -loss.detach()
-                if gan_type == "wgan-gp":
-                    b = real.shape[0] * (1 if mesh is None else mesh.size)
-                    c = draw_mixing(b, generator, real.device)       # …gp.py:300-301
-                    if mesh is not None:                              # the global batch's draw
-                        c = c[batch_sharding(mesh, b)]
-                    x_mid = (c * real + (1.0 - c) * fake).requires_grad_(True)
-                    grad_x, = torch.autograd.grad(critic(x_mid).sum(), x_mid, create_graph=True)
-                    norms = torch.sqrt((grad_x.float() ** 2).sum(dim=(1, 2)) + 1e-12)
-                    gp = torch.mean(cfg.gp_lambda * (norms - 1.0) ** 2)   # …gp.py:306
-                    metrics["gp"] = gp.detach()
-                    loss = loss + gp
-        state.disc_optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if mesh is not None:
-            all_reduce_grads(disc.parameters(), mesh)
-        state.disc_optimizer.step()
-        state.disc_optimizer.zero_grad(set_to_none=True)
-        if gan_type == "wgan":
-            clip_weights(disc)
+        with span("train.forward"):
+            with torch.no_grad(), autocast_to(_device(gen), compute_dtype):
+                y, _ = _gen_forward(gen, batch, train_kind)
+            real, fake = batch[real_key].float(), y.float()
+            with autocast_to(real.device, compute_dtype):
+                if gan_type == "vanilla":
+                    d_real, d_fake = critic(disc_in(real)), critic(disc_in(fake))
+                    loss = torch.mean(-torch.log(d_real + 1e-8)
+                                      - torch.log(1.0 - d_fake + 1e-8))
+                    metrics["wd"] = torch.zeros((), device=loss.device)
+                else:
+                    loss = torch.mean(critic(fake) - critic(real))   # …wasserstein_gp.py:314
+                    metrics["wd"] = -loss.detach()
+                    if gan_type == "wgan-gp":
+                        b = real.shape[0] * (1 if mesh is None else mesh.size)
+                        c = draw_mixing(b, generator, real.device)   # …gp.py:300-301
+                        if mesh is not None:                          # the global batch's draw
+                            c = c[batch_sharding(mesh, b)]
+                        x_mid = (c * real + (1.0 - c) * fake).requires_grad_(True)
+                        grad_x, = torch.autograd.grad(critic(x_mid).sum(), x_mid,
+                                                      create_graph=True)
+                        norms = torch.sqrt((grad_x.float() ** 2).sum(dim=(1, 2)) + 1e-12)
+                        gp = torch.mean(cfg.gp_lambda * (norms - 1.0) ** 2)   # …gp.py:306
+                        metrics["gp"] = gp.detach()
+                        loss = loss + gp
+        with span("train.backward"):
+            state.disc_optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            if mesh is not None:
+                all_reduce_grads(disc.parameters(), mesh)
+        with span("train.optimizer"):
+            state.disc_optimizer.step()
+            state.disc_optimizer.zero_grad(set_to_none=True)
+            if gan_type == "wgan":
+                clip_weights(disc)
         state.step += 1
         return state, _global({**metrics, "loss_d": loss}, mesh)
 

@@ -188,15 +188,19 @@ def _jax_checkpoints(toy_root, tmp_path):
 def test_synthesize_matches_the_jax_cli(toy_root, tmp_path, restore_jax_cache_dir):
     """Reference checkpoints of JAX-initialised parameters, synthesized by both
     CLIs (f32 on the CPU, GL12): the same ``S{k}_B{i}.wav`` names, lengths
-    and samples within 2e-3. The phase init is "advance": the mel and lin
-    agree to ~1e-5 (the losses to 7 digits), but SPSI's peak picking is a
-    discrete choice that such differences flip on near-tied bins, which moved
-    3 of these 6 utterances by up to 3.7e-3 before the peak normalisation.
+    and samples within 2e-3, the port's run under ``--trace_dir`` (a Chrome
+    trace holding its ``spoofsv.synth.call`` spans). The phase init is
+    "advance": the mel and lin agree to ~1e-5 (the losses to 7 digits), but
+    SPSI's peak picking is a discrete choice that such differences flip on
+    near-tied bins, which moved 3 of these 6 utterances by up to 3.7e-3
+    before the peak normalisation.
     The default SPSI init is held end to end on equal inputs by
     :func:`test_spsi_vocoder_on_the_jax_cli_lin`."""
     jcfg, t2m, ss = _jax_checkpoints(toy_root, tmp_path)
     out = {}
-    for side, run in (("jax", jcli.main), ("port", lambda a: cli.main(a, device="cpu"))):
+    trace_dir = tmp_path / "trace"
+    port = lambda a: cli.main(a + ["--trace_dir", str(trace_dir)], device="cpu")  # noqa: E731
+    for side, run in (("jax", jcli.main), ("port", port)):
         conf = _config(toy_root, f"syn_{side}", inference_text2mel_model=t2m,
                        inference_ssrn_model=ss,
                        tpu=dataclasses.replace(jcfg.tpu, griffin_lim_init="advance"))
@@ -211,6 +215,8 @@ def test_synthesize_matches_the_jax_cli(toy_root, tmp_path, restore_jax_cache_di
         assert sr == jsr and len(y) == len(jy) > 0, name
         np.testing.assert_allclose(y / 32767.0, jy / 32767.0, atol=2e-3, err_msg=name)
     assert (toy_root / "syn_port" / "samples" / "s" / "fig" / "att_iteration_1.png").exists()
+    trace, = trace_dir.glob("*.json")
+    assert '"spoofsv.synth.call"' in trace.read_text()
 
 
 def test_spsi_vocoder_on_the_jax_cli_lin(toy_root, tmp_path, restore_jax_cache_dir,

@@ -3,8 +3,8 @@
 ``LNDense`` against flax's (through the bridge), ``Synthesizer.mel_to_audio``
 against JAX's, ``torchdsp``'s complex ``stft``/``istft``, ``preemphasis`` and
 ``mel_project`` against ``jaxdsp``'s, and the profiling hooks (``trace``,
-``StepTimer``). f32 on both sides: rtol 1e-5 for one layer and the DSP
-(a few hundred terms a sum), the synthesis gates of
+``span``, ``count``, ``snapshot``). f32 on both sides: rtol 1e-5 for one
+layer and the DSP (a few hundred terms a sum), the synthesis gates of
 ``test_torch_port_synth.py`` for audio (rel-L2 ≤ 1e-3).
 """
 
@@ -29,7 +29,7 @@ from spoofsv_torch.dsp import torchdsp
 from spoofsv_torch.infer.synthesize import Synthesizer
 from spoofsv_torch.models import SSRN, MelSyn
 from spoofsv_torch.models.layers import LNDense
-from spoofsv_torch.utils.profiling import StepTimer, trace
+from spoofsv_torch.utils.profiling import count, reset, snapshot, span, trace
 from spoofsv_torch.weights import load_lndense_from_jax, load_melsyn_from_jax, load_ssrn_from_jax
 
 
@@ -109,20 +109,25 @@ def test_preemphasis_and_mel_project_match_jaxdsp():
 
 def test_trace_and_step_timer(tmp_path):
     """``trace`` writes one trace file for its block (nothing for a falsy
-    directory); ``StepTimer`` keeps its first ``skip_first`` steps out of
-    the EMA."""
+    directory), with the program's spans in it; ``span`` and ``count`` add
+    to the table ``snapshot`` reads and ``reset`` clears."""
     with trace(None) as prof:
         assert prof is None
+    reset()
     with trace(str(tmp_path / "t")) as prof:
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    assert any("mm" in e.key for e in prof.key_averages())
-    assert len(os.listdir(tmp_path / "t")) == 1
-    timer = StepTimer(alpha=0.5, skip_first=1)
-    for _ in range(3):
-        with timer:
+        with span("leftovers.mm", rows=64) as s:
+            torch.ones(64, 64) @ torch.ones(64, 64)
+        with span("leftovers.mm"):
             pass
-    assert timer.ema is not None and timer.last is not None and timer._count == 3
-    first = StepTimer(skip_first=2)
-    with first:
-        pass
-    assert first.ema is None and first.last is not None
+    assert any("mm" in e.key for e in prof.key_averages())
+    assert any(e.key == "spoofsv.leftovers.mm" for e in prof.key_averages())
+    assert len(os.listdir(tmp_path / "t")) == 1
+    count("leftovers.n")
+    count("leftovers.n", 4)
+    snap = snapshot()
+    row = snap["spans"]["leftovers.mm"]
+    assert row["count"] == 2 and row["args"] == {"rows": 64}
+    assert 0 < s.seconds <= row["max_s"] <= row["total_s"]
+    assert snap["counters"] == {"leftovers.n": 5}
+    reset()
+    assert snapshot() == {"spans": {}, "counters": {}}
