@@ -98,7 +98,7 @@ def main(argv=None, device=None) -> dict:
         if t not in syns:
             syns[t] = Synthesizer(cfg, melsyn, ssrn, n_frames=t)
         B = batch["text"].shape[0]
-        _, mel_pred, _ = syns[t](batch["text"], batch["spk"], gl_seeds(B, gen))
+        _, mel_pred, _ = syns[t].device_call(batch["text"], batch["spk"], gl_seeds(B, gen))
         lin_pred = syns[t].ssrn_apply(mel_pred)
         mel_gt = np.asarray(batch["mel"])
         lin_gt = torch.from_numpy(np.asarray(batch["lin"])).to(device)

@@ -77,7 +77,8 @@ def main(argv=None, device=None) -> dict:
         pad = args.batch - len(ti)
         tb = np.concatenate([ids[ti], ids[ti[:1]].repeat(pad, 0)])
         sb = np.concatenate([embs[si], embs[si[:1]].repeat(pad, 0)])
-        _, _, attn = syn(tb, sb, gl_seeds(args.batch, torch.Generator().manual_seed(lo)))
+        seeds = gl_seeds(args.batch, torch.Generator().manual_seed(lo))
+        _, _, attn = syn.device_call(tb, sb, seeds)   # the attention alone
         # attn: (B, N_text, F); furthest attended position per frame
         pos = attn.argmax(dim=1).cpu().numpy()[:len(ti)]
         all_pos.append(pos)

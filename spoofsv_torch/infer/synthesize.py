@@ -9,6 +9,8 @@ configuration as the JAX package's do (:func:`gl_route`,
 ``ValueError``. With a :class:`~spoofsv_torch.parallel.mesh.Mesh` of
 several ranks, :class:`Synthesizer` splits the batch by rows over the ranks
 and all-gathers the outputs, as the JAX package's ``shard_map`` path does.
+A call brings its audio to the host through page-locked memory
+(:func:`host_audio`); :meth:`Synthesizer.device_call` leaves it on the device.
 """
 
 from __future__ import annotations
@@ -148,11 +150,45 @@ def to_host(*tensors: Optional[torch.Tensor]) -> tuple:
         return tuple(None if t is None else t.cpu().numpy() for t in tensors)
 
 
+def _pinned_allocs() -> int:
+    """Blocks the caching host allocator has pinned in this process so far."""
+    return int(torch.cuda.host_memory_stats()["num_host_alloc"])
+
+
+def host_audio(audio: torch.Tensor) -> torch.Tensor:
+    """``audio`` on the host, in the span ``synth.to_host``.
+
+    A device tensor is copied into a block of page-locked memory from torch's
+    caching host allocator, on the current stream, and the host waits on that
+    copy alone; its bytes go on ``d2h_bytes``, and ``d2h_pinned_allocs``
+    counts the copies for which the allocator pinned a new block instead of
+    reusing a free one. The block is the caller's: the allocator hands it out
+    again only after the last reference to the result is gone, so a result
+    held across later calls is never overwritten. A host tensor is returned
+    as it is."""
+    with span("synth.to_host"):
+        if audio.device.type == "cpu":
+            return audio
+        count("d2h_bytes", nbytes(audio))
+        allocs = _pinned_allocs()
+        host = torch.empty(audio.shape, dtype=audio.dtype, pin_memory=True)
+        count("d2h_pinned_allocs", _pinned_allocs() - allocs)
+        host.copy_(audio, non_blocking=True)
+        copied = torch.cuda.Event()
+        copied.record(torch.cuda.current_stream(audio.device))
+        copied.synchronize()
+        return host
+
+
 class Synthesizer:
     """End-to-end batched TTS: (text_ids, spk_emb) → waveforms.
 
     The models' parameters fix the device and compute dtype; inputs are moved
-    there. Stages are exposed separately (:attr:`decode`, :meth:`ssrn_apply`,
+    there. A call returns its audio on the host, copied through page-locked
+    memory at the call's end (:func:`host_audio`), and the mel and attention
+    on the device; :meth:`device_call`, for callers that use the audio on the
+    device (serving's PCM16 epilogue) or not at all, returns all three on the
+    device. Stages are exposed separately (:attr:`decode`, :meth:`ssrn_apply`,
     :attr:`vocode`) so callers can time them. The text encoder and SSRN run
     the process-wide highway implementation, which
     ``spoofsv_torch.cli.main.apply_runtime_knobs(cfg, infer=True)`` sets from
@@ -163,10 +199,11 @@ class Synthesizer:
     ``mesh``: a :class:`~spoofsv_torch.parallel.mesh.Mesh` for data-parallel
     synthesis. Every rank calls with the same global batch; the modules are
     broadcast from rank 0 here; each rank runs its rows (:meth:`call_local`)
-    and the outputs are all-gathered, so every rank returns the global
-    result. A batch that does not divide the data axis is padded up to its
-    multiple with copies of its last row, cut off again after the gather. The "random" init's seeds are
-    drawn for the global batch (on rank 0, when the caller passes none) and
+    and the outputs are all-gathered on the device, so every rank returns the
+    global result (a call delivers the gathered audio to the host). A batch
+    that does not divide the data axis is padded up to its multiple with
+    copies of its last row, cut off again after the gather. The "random"
+    init's seeds are drawn for the global batch (on rank 0, when the caller passes none) and
     sliced, so sharded audio is single-device audio row by row.
     """
 
@@ -245,11 +282,24 @@ class Synthesizer:
             return run(torch.as_tensor(mel), seeds)
         return self._sharded(run, mel.shape[0], seeds, mel)
 
+    def _device_outputs(self, text_ids, spk_emb, seeds: Optional[torch.Tensor]):
+        if self.mesh is None:
+            return self._pipeline(text_ids, spk_emb, seeds)
+        return self._sharded(self._pipeline, len(text_ids), seeds, text_ids, spk_emb)
+
+    @torch.no_grad()
+    def device_call(self, text_ids, spk_emb, seeds: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(audio (B, L) f32, coarse mel (B, T, 80), attention (B, N, T)), all
+        on the device."""
+        with span("synth.call"):
+            return self._device_outputs(text_ids, spk_emb, seeds)
+
     @torch.no_grad()
     def __call__(self, text_ids, spk_emb, seeds: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Returns (audio (B, L) f32, coarse mel (B, T, 80), attention (B, N, T))."""
-        if self.mesh is None:
-            return self.call_local(text_ids, spk_emb, seeds)
+        """Returns (audio (B, L) f32 on the host, through pinned memory; coarse
+        mel (B, T, 80) and attention (B, N, T) on the device)."""
         with span("synth.call"):
-            return self._sharded(self._pipeline, len(text_ids), seeds, text_ids, spk_emb)
+            audio, mel, attn = self._device_outputs(text_ids, spk_emb, seeds)
+            return host_audio(audio), mel, attn

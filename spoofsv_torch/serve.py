@@ -377,8 +377,11 @@ class BatchingSynthesizer:
                 return b
         return self.frames_buckets[-1]
 
-    def _syn_for(self, frames: int) -> Synthesizer:
-        return _syn_for(self._syn_by_frames, self.cfg, self.syn, frames)
+    def _syn_for(self, frames: int):
+        """The device call (:meth:`Synthesizer.device_call`) of the pipeline
+        for a rollout of ``frames``: the audio stays on the device for the
+        PCM16 epilogue."""
+        return _syn_for(self._syn_by_frames, self.cfg, self.syn, frames).device_call
 
     def _call(self, frames: int, text: np.ndarray, spk: np.ndarray, seeds: torch.Tensor):
         """One synthesizer call; over a mesh, announced to the followers first."""
@@ -573,7 +576,7 @@ def serve_follower(cfg: Config, synthesizer: Synthesizer) -> int:
         if msg[0] == "stop":
             return calls
         _, frames, text, spk, seeds = msg
-        _syn_for(cache, cfg, synthesizer, frames)(text, spk, torch.from_numpy(seeds))
+        _syn_for(cache, cfg, synthesizer, frames).device_call(text, spk, torch.from_numpy(seeds))
         calls += 1
 
 

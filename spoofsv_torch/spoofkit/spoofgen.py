@@ -28,7 +28,7 @@ import torch
 from spoofsv_torch.config import Config
 from spoofsv_torch.data.text import encode_texts
 from spoofsv_torch.dsp import host as dsp_host
-from spoofsv_torch.infer.synthesize import Synthesizer, finalize_audio, gl_seeds, to_host
+from spoofsv_torch.infer.synthesize import Synthesizer, finalize_audio, gl_seeds
 from spoofsv_torch.utils.profiling import span
 
 
@@ -77,7 +77,7 @@ def generate_spoof_set(cfg: Config, ctime: str, synthesizer: Synthesizer,
         audio, _, _ = synthesizer(text, spk, gl_seeds(len(text), gen))
         if mesh is not None and mesh.rank != 0:
             continue
-        audio, = to_host(audio)
+        audio = audio.cpu().numpy()   # a Synthesizer's audio is on the host already
         with span("spoofset.finalize"):
             wavs = [finalize_audio(a, cfg, trim_db=30.0, max_seconds=9.0) for a in audio]
         with span("spoofset.write"):

@@ -18,6 +18,7 @@ counter and what reads it.
 from __future__ import annotations
 
 import contextlib
+import json
 import threading
 import time
 from typing import Dict, Iterator, Optional
@@ -104,16 +105,21 @@ def trace(log_dir: Optional[str]) -> Iterator[Optional[torch.profiler.profile]]:
     """Capture a ``torch.profiler`` trace of the enclosed block (host, every
     thread's spans and operations, and the card when CUDA is available) into
     ``log_dir`` as a Chrome/TensorBoard trace file; yields the profiler
-    (``key_averages()`` reads it after the block). No-op, yielding None,
-    when ``log_dir`` is falsy."""
+    (``key_averages()`` reads it after the block). The trace's top-level
+    ``"spoofsv.counters"`` holds what the block added to each counter. No-op,
+    yielding None, when ``log_dir`` is falsy."""
     if not log_dir:
         yield None
         return
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
+    before = snapshot()["counters"]
     with torch.profiler.profile(
             activities=activities,
             experimental_config=torch._C._profiler._ExperimentalConfig(profile_all_threads=True),
             on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir)) as prof:
         yield prof
+        added = {k: n - before.get(k, 0) for k, n in snapshot()["counters"].items()
+                 if n != before.get(k, 0)}
+        prof.add_metadata_json(PREFIX + "counters", json.dumps(added))

@@ -324,6 +324,8 @@ def test_spec_rate_diag_matches_the_jax_script(tree, jax_scripts, monkeypatch, t
             def __call__(self, text, spk, key):
                 seen[side].append((np.asarray(text).copy(), np.asarray(spk).copy()))
                 return None, None, wrap(scripted_attention(text, spk, self.n_frames))
+
+            device_call = __call__   # the port's sweep reads the attention on the device
         return FakeSynthesizer
 
     monkeypatch.setattr(jsynthesize, "Synthesizer", fake("jax", jnp.asarray))

@@ -20,8 +20,10 @@ from spoofsv_tpu.infer.synthesize import finalize_audio as j_finalize_audio
 from spoofsv_tpu.models import SSRN as JSSRN
 from spoofsv_tpu.models import MelSyn as JMelSyn
 from spoofsv_tpu.train.steps import shift_right
-from spoofsv_torch.infer.synthesize import Synthesizer, finalize_audio, make_vocoder
+from spoofsv_torch.infer.synthesize import (Synthesizer, finalize_audio, host_audio,
+                                            make_vocoder)
 from spoofsv_torch.models import SSRN, MelSyn
+from spoofsv_torch.utils import profiling
 from spoofsv_torch.weights import load_melsyn_from_jax, load_ssrn_from_jax
 
 
@@ -80,3 +82,31 @@ def test_random_init_is_seeded(tiny_cfg):
     assert torch.equal(y1, y2)
     assert float((y1 - y3).abs().max()) > 0
     assert bool(torch.isfinite(y1).all())
+
+
+@pytest.mark.parametrize("init", ["spsi", "random"])
+def test_call_returns_the_device_calls_audio_on_the_host(tiny_cfg, init):
+    """``__call__`` = ``device_call`` with the audio delivered to the host:
+    the same f32 audio bit for bit, the mel and attention on the synthesizer's
+    device, and the same seeds give the same rows."""
+    cfg = _cfg(tiny_cfg, init, iters=2)
+    _, (tm, ts), text, spk = _models(cfg)
+    syn = Synthesizer(cfg, tm, ts, n_frames=6)
+    seeds = torch.tensor([11, 12], dtype=torch.int32)
+    a_dev, m_dev, at_dev = syn.device_call(text, spk, seeds)
+    audio, mel, attn = syn(text, spk, seeds)
+    assert audio.device.type == "cpu" and audio.dtype == torch.float32
+    assert mel.device == attn.device == a_dev.device == syn.device
+    assert torch.equal(audio, a_dev) and torch.equal(mel, m_dev) and torch.equal(attn, at_dev)
+
+
+def test_host_audio_returns_a_host_tensor_itself():
+    """A tensor already on the host is returned as it is: no copy, no bytes on
+    ``d2h_bytes``, no pinned block; the span is still opened."""
+    audio = torch.randn(3, 512)
+    profiling.reset()
+    out = host_audio(audio)
+    assert out is audio
+    snap = profiling.snapshot()
+    assert snap["spans"]["synth.to_host"]["count"] == 1
+    assert "d2h_bytes" not in snap["counters"] and "d2h_pinned_allocs" not in snap["counters"]

@@ -30,7 +30,7 @@ from spoofsv_torch.utils import profiling
 TINY = dict(hidden_dim=16, text_emb_dim=8, ssrn_dim=16, spk_emb_dim=10, max_text_len=16,
             max_frame_num=8)
 SYNTH_SPANS = ("synth.inputs", "decode.encode", "decode.rollout", "ssrn", "vocode.prep",
-               "vocode.gl", "vocode.deemph")
+               "vocode.gl", "vocode.deemph", "synth.to_host")
 
 
 @pytest.fixture(scope="module")
@@ -80,6 +80,74 @@ def test_synthesizer_call_nests_its_stage_spans_in_order(tiny, tmp_path):
     assert snap["counters"]["h2d_bytes"] == text.nbytes + spk.nbytes + seeds.numel() * 4
     assert "decode.pack" not in snap["spans"]
     assert all(snap["spans"][n]["count"] == 1 for n in ("synth.call",) + SYNTH_SPANS)
+    assert "d2h_bytes" not in snap["counters"]   # CPU audio is on the host already
+
+
+def test_device_call_ends_at_the_vocoder(tiny, tmp_path):
+    """``device_call`` runs the same spans but the delivery, and returns the
+    audio ``__call__`` returns."""
+    cfg, melsyn, ssrn = tiny
+    syn = Synthesizer(cfg, melsyn, ssrn, n_frames=cfg.max_frame_num, gl_iters=3)
+    rng = np.random.default_rng(1)
+    text = rng.integers(1, cfg.vocab_len - 1, (2, cfg.max_text_len)).astype(np.int32)
+    spk = rng.normal(size=(2, cfg.spk_emb_dim)).astype(np.float32)
+    seeds = torch.arange(2, dtype=torch.int32)
+    host, _, _ = syn(text, spk, seeds)
+    profiling.reset()
+    with profiling.trace(str(tmp_path)):
+        audio, _, _ = syn.device_call(text, spk, seeds)
+    assert torch.equal(audio, host)
+    assert _inside(_spans(tmp_path), "synth.call") == list(SYNTH_SPANS[:-1])
+    assert "synth.to_host" not in profiling.snapshot()["spans"]
+
+
+def test_batcher_calls_device_call_and_quantizes_on_the_device(tiny):
+    """The batcher (its warm-up and its batches) runs ``device_call``, never
+    ``__call__``: the audio stays on the device for the PCM16 epilogue, and a
+    batch's one copy to the host is of 2-byte samples."""
+    cfg, melsyn, ssrn = tiny
+    ran = []
+
+    class Recording(Synthesizer):
+        def device_call(self, *args, **kw):
+            ran.append("device_call")
+            return super().device_call(*args, **kw)
+
+        def __call__(self, *args, **kw):
+            ran.append("__call__")
+            return super().__call__(*args, **kw)
+
+    syn = Recording(cfg, melsyn, ssrn, n_frames=cfg.max_frame_num, gl_iters=3)
+    batcher = tserve.BatchingSynthesizer(cfg, syn, max_batch=2, batch_wait_ms=1.0,
+                                         trim_db=None)
+    assert batcher.device_pcm
+    try:
+        batcher.warmup()
+        assert ran == ["device_call", "device_call"]   # rungs 1 and 2
+        profiling.reset()
+        batcher.synthesize("a short one", np.full(cfg.spk_emb_dim, 0.1, np.float32),
+                           timeout=60)
+    finally:
+        batcher.close()
+    assert ran == ["device_call"] * 3
+    snap = profiling.snapshot()
+    samples = cfg.stft.hop_length * (4 * cfg.max_frame_num - 1)
+    assert snap["counters"]["d2h_bytes"] == 2 * samples
+    assert snap["spans"]["synth.to_host"]["count"] == 1
+    assert "d2h_pinned_allocs" not in snap["counters"]
+
+
+def test_trace_file_holds_the_counters_its_block_added(tiny, tmp_path):
+    """``trace()`` writes what its block added to each counter into the
+    Chrome trace's ``"spoofsv.counters"``; counts from before it are left out."""
+    profiling.reset()
+    profiling.count("h2d_bytes", 5)
+    with profiling.trace(str(tmp_path)):
+        profiling.count("h2d_bytes", 7)
+        profiling.count("d2h_bytes", 3)
+    path, = glob.glob(os.path.join(str(tmp_path), "*.json"))
+    with open(path) as f:
+        assert json.load(f)[profiling.PREFIX + "counters"] == {"h2d_bytes": 7, "d2h_bytes": 3}
 
 
 def test_served_request_spans_share_one_batch_id(tiny, tmp_path):
