@@ -154,7 +154,15 @@ Phases (any failure raises and exits non-zero):
      every mode (lock 0 and -1 included) and K3 int8 and bf16 against their
      plain versions, ``gl.cu`` at 0, 1 and 64 iterations against plain f32 GL
      (GL64 also against float64 GL, its bound from plain f32 GL's distance),
-     K2 at lock -1 and ``gl.cu`` at 0 iterations timed against their bounds.
+     K2 at lock -1 and ``gl.cu`` at 0 iterations timed against their bounds;
+ 16. multi-speaker Tacotron 2 (``Tacotron2Synthesizer``, published widths,
+     bf16) on the spoof-set call, B=160, N=49, 1000 steps: launches reset
+     just before (each step kernel 1000 times, no graph capture, K2 and K3
+     once); the captured rollout bit-equal to its steps run eagerly; the
+     whole rollout against ``rollout_plain``'s steps resumed every 25 steps
+     from its kept state (the Tacotron 2 cell's limits); ``t2_att_step_kernel``
+     and ``t2_dec_step_kernel`` against their plain versions on that call's
+     states at steps 0, 500 and 975, each timed against its bound.
 Prints a kernels JSON line (each kernel's time, plain time, launches on
 the main path, launches on each path, and bound), the card line, then the
 ``{"ok": true, ...}`` line last.
@@ -1523,8 +1531,9 @@ def hold_synthesis(syn_calls, gl_calls, dev, spectral_err, what: str) -> None:
 class SynthesisRecorder:
     """Records, while installed, the inputs of the f32 K1 decodes that the
     training validations run (``loop.make_fused_decoder``; each record also
-    holds ``val_tag()``'s fields), of each ``Synthesizer`` call and of its
-    tensor-core vocoder; ``make_fused`` is the unrecorded decoder."""
+    holds ``val_tag()``'s fields), of each ``Synthesizer`` call (``__call__``
+    or ``device_call``) and of its tensor-core vocoder; ``make_fused`` is the
+    unrecorded decoder."""
 
     def __init__(self, val_tag=dict):
         from spoofsv_torch.infer import synthesize as syn_mod
@@ -1534,6 +1543,7 @@ class SynthesisRecorder:
         self.val_calls, self.syn_calls, self.gl_calls = [], [], []
         self.make_fused = loop.make_fused_decoder
         self.syn_call, self.gl_tc = syn_mod.Synthesizer.__call__, syn_mod.griffin_lim_tc
+        self.syn_device_call = syn_mod.Synthesizer.device_call
 
     def install(self) -> None:
         rec = self
@@ -1551,17 +1561,23 @@ class SynthesisRecorder:
             rec.syn_calls.append((self, text_ids, spk_emb))
             return rec.syn_call(self, text_ids, spk_emb, seeds)
 
+        def recorded_device_call(self, text_ids, spk_emb, seeds=None):
+            rec.syn_calls.append((self, text_ids, spk_emb))
+            return rec.syn_device_call(self, text_ids, spk_emb, seeds)
+
         def recorded_gl(spec, *a, **kw):
             rec.gl_calls.append((spec, kw["int8"]))
             return rec.gl_tc(spec, *a, **kw)
 
         self.loop.make_fused_decoder = recorded_decoder
         self.syn_mod.Synthesizer.__call__ = recorded_call
+        self.syn_mod.Synthesizer.device_call = recorded_device_call
         self.syn_mod.griffin_lim_tc = recorded_gl
 
     def restore(self) -> None:
         self.loop.make_fused_decoder = self.make_fused
         self.syn_mod.Synthesizer.__call__ = self.syn_call
+        self.syn_mod.Synthesizer.device_call = self.syn_device_call
         self.syn_mod.griffin_lim_tc = self.gl_tc
 
 
@@ -3918,6 +3934,241 @@ def checks_phase(dev, counters: dict, cluster, smi: str, spectral_err, cuda_ms, 
             "gl_n_iter0_ms": dict(ms=n0_ms, plain_ms=n0_plain, bound_ms=n0_b, bound_by=n0_by)}
 
 
+# phase 16: multi-speaker Tacotron 2. The rollout's gates are the Tacotron 2
+# cell's limits (PERF.md section 2: sound runs read at most 0.0164 / 0.00179 /
+# 0.0113 against float32, the fp8 control at least 0.399 / 0.169 / 0.254);
+# here the plain steps read the same bf16 operand rows as the kernels
+T2_GATES = {"mel": 0.075, "att": 0.015, "gate": 0.05}
+H100 = {"bf16": 989e12, "f32": 67e12, "bytes_per_s": 3.35e12}   # the bounds' rates (section 6)
+
+
+def t2_restore(t2_kernel, w, s, state: dict, mel_prev, t: int) -> None:
+    """The decoder's state kept before step ``t`` (one entry of the
+    rollout's ``states``) into the buffers ``s``: the operand rows, c, w, Σw,
+    and the prenet's output for step ``t`` from the frame emitted before it
+    (``mel_prev``; the go frame's prenet is 0), its masks hashed as the
+    kernel hashes them."""
+    import torch
+
+    A, D, P, M = w.A, w.D, w.P, w.M
+    for k in ("c_att", "c_dec", "w", "cum"):
+        getattr(s, k).copy_(state[k])
+    s.d_buf[:, :A] = state["h_att"]
+    s.d_buf[:, A:A + D] = state["h_dec"]
+    s.d_buf[:, A + D:] = state["ctx"]
+    s.a_buf[:, P:P + M] = state["ctx"]
+    s.a_buf[:, P + M:] = state["h_att"]
+    y = mel_prev.float() if t else torch.zeros_like(mel_prev, dtype=torch.float32)
+    for layer, wl in enumerate((w.w_pre1, w.w_pre2)):
+        y = torch.relu(y @ wl.float().t()) * t2_kernel.prenet_mask_plain(
+            s.seeds, t, layer, wl.shape[0], w.drop)
+    s.a_buf[:, :P] = y.to(s.a_buf.dtype)
+
+
+def tacotron2_phase(dev, cuda_ms, counters: dict, kernels: dict, smi: str) -> dict:
+    """Phase 16: multi-speaker Tacotron 2 (``Tacotron2Synthesizer``) at the
+    published widths in bf16, on the spoof-set call: 8 speakers x the 20
+    Harvard sentences (B=160, N=49), the full 1000-step rollout, GL12 from
+    SPSI on int8 K2/K3. The path's own call with every launch count reset
+    just before (1000 launches of each step kernel, one graph replay, no
+    capture; K2 and K3 once, K1 never). Then on that call's inputs: the
+    captured rollout bit-equal to the same steps run eagerly (states
+    included); the whole rollout against ``rollout_plain``'s steps
+    (``att_step_plain``, ``dec_step_plain`` over the same bf16 operand rows),
+    each segment of 25 steps resumed from the rollout's kept state, within
+    ``T2_GATES``, its mel gap no wider in the last hundred steps than
+    allowed in the first; each step kernel against its plain version on the
+    same card inputs at steps 0, 500 and 975 (float32 outputs within 1e-4,
+    bf16 rows within two units in the last place, the prenet's dropped units
+    exactly), each timed (CUDA events, a launch) against its bound. Returns
+    the path's launches."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from portbench.work import tacotron2 as t2work
+    from spoofsv_torch.config import Tacotron2Config
+    from spoofsv_torch.data.text import t2_encode_texts
+    from spoofsv_torch.infer.synthesize import Tacotron2Synthesizer
+    from spoofsv_torch.models.tacotron2 import build_tacotron2
+    from spoofsv_torch.ops import t2_kernel
+    from spoofsv_torch.utils import profiling
+
+    cfg = Tacotron2Config(weights_seed=3)
+    syn = Tacotron2Synthesizer(cfg, build_tacotron2(cfg, dev, torch.bfloat16),
+                               gl_iters=cfg.tpu.griffin_lim_iters)
+    T = syn.n_frames
+    texts = np.tile(t2_encode_texts(SENTENCES), (8, 1))
+    rng = np.random.default_rng(16)
+    spk = rng.standard_normal((8, cfg.speaker_embedding_dim))
+    spk = np.repeat(spk / np.linalg.norm(spk, axis=1, keepdims=True), 20, 0).astype(np.float32)
+    seeds = rng.integers(-2 ** 31, 2 ** 31 - 1, 160)
+    seeds[:3] = [0, -1, 2 ** 31 - 1]
+    B, N = texts.shape
+    gate((B, N, T) == (160, 49, 1000), ("the spoof-set call's shape", B, N, T))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    syn(texts, spk, seeds)       # the (B, N) graph's capture
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    steps = {k: t2_kernel.LAUNCHES[k] for k in ("t2_att_step", "t2_dec_step")}
+    for c in [*counters.values(), *steps.values()]:
+        c.launches = 0
+    before = profiling.snapshot()["counters"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    audio, mel, attn = syn(texts, spk, seeds)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    after = profiling.snapshot()["counters"]
+    launches = {**{k: c.launches for k, c in counters.items()},
+                **{k: c.launches for k, c in steps.items()}}
+    grew = {k: after.get(k, 0) - before.get(k, 0) for k in ("t2_rollout_steps",
+                                                            "t2_graph_captures")}
+    log(f"[t2] B={B} N={N} T={T}: launches {launches}, counters {grew}; audio "
+        f"{tuple(audio.shape)}; call {call_s:.3f} s (the first, with the capture, "
+        f"{first_s:.3f} s) = {B * audio.shape[1] / 22050 / call_s:.1f} audio s per wall s "
+        f"on [{smi}]")
+    gate(launches["t2_att_step"] == T and launches["t2_dec_step"] == T,
+         ("a step kernel's launches on the Tacotron 2 path", launches))
+    gate(launches["gl_init"] == 1 and launches["griffin_lim"] == 1
+         and all(n == 0 for k, n in launches.items()
+                 if k not in ("gl_init", "griffin_lim", *steps)),
+         ("the Tacotron 2 path's other launches", launches))
+    gate(grew == {"t2_rollout_steps": T, "t2_graph_captures": 0}, ("t2 counters", grew))
+    gate(tuple(audio.shape) == (B, HOP * (T - 1)) and tuple(mel.shape) == (B, T, 80)
+         and tuple(attn.shape) == (B, N, T), (audio.shape, mel.shape, attn.shape))
+    gate(bool(torch.isfinite(audio).all()) and float(audio.abs().max()) > 1e-4,
+         "Tacotron 2 audio is not finite or is silent")
+    del audio, mel, attn
+
+    # the rollout on that call's inputs: graph, eager kernel steps, plain steps
+    w = syn.rollout.weights
+    text_d = torch.from_numpy(texts).to(dev)
+    lengths = torch.from_numpy((texts != 0).sum(1))
+    seeds_d = torch.from_numpy(seeds).to(dev, torch.int32)
+    memory, pm = syn.encode(text_d, lengths, torch.from_numpy(spk).to(dev))
+    mel_g, gate_g, att_g, states = syn.rollout(memory, pm, lengths, seeds_d)
+    states = {k: v.clone() for k, v in states.items()}
+    roll_ms = cuda_ms(lambda: syn.rollout(memory, pm, lengths, seeds_d), reps=3)
+
+    def buffers():
+        s = t2_kernel.Buffers(w, B, N, T, torch.bfloat16, dev)
+        s.memory.copy_(memory)
+        s.pm.copy_(pm.transpose(1, 2))
+        s.lengths.copy_(lengths)
+        s.seeds.copy_(seeds_d)
+        return s
+
+    eager = buffers()
+    with torch.no_grad():
+        t2_kernel.run_steps(w, eager, plain=False)
+    gate(all(torch.equal(a, b) for a, b in zip((mel_g, gate_g, att_g),
+                                               (eager.mel, eager.gate, eager.att)))
+         and all(torch.equal(states[k], eager.ckpt[k]) for k in t2_kernel.STATE),
+         "the captured rollout is not the eager rollout")
+    del eager
+    plain = buffers()
+    starts = [int(x) for x in states["step"]] + [T]
+    with torch.no_grad():
+        for i, (a, b) in enumerate(zip(starts[:-1], starts[1:])):
+            t2_restore(t2_kernel, w, plain, {k: states[k][i] for k in t2_kernel.STATE},
+                       mel_g[:, a - 1], a)
+            for t in range(a, b):
+                t2_kernel.att_step_plain(plain.a_buf.float() @ w.w_att.float().t(), w, plain, t)
+                t2_kernel.dec_step_plain(plain.d_buf.float() @ w.w_dec.float().t(), w, plain, t)
+    d_mel = (plain.mel - mel_g).abs().amax(dim=(0, 2))
+    gaps = {"mel": float(d_mel.max()), "att": float((plain.att - att_g).abs().max()),
+            "gate": float((plain.gate - gate_g).abs().max())}
+    first100, last100 = float(d_mel[:100].max()), float(d_mel[-100:].max())
+    log(f"[t2] the rollout against rollout_plain's steps, resumed every "
+        f"{t2_kernel.CHECKPOINT_EVERY} steps from its state: max|d| mel {gaps['mel']:.3g}, "
+        f"attention {gaps['att']:.3g}, gate {gaps['gate']:.3g} (gates {T2_GATES}); mel "
+        f"first 100 steps {first100:.3g}, last 100 {last100:.3g}")
+    gate(all(gaps[k] <= T2_GATES[k] for k in T2_GATES), ("t2 rollout vs plain", gaps))
+    gate(last100 <= T2_GATES["mel"] and first100 <= T2_GATES["mel"], (first100, last100))
+    del plain
+
+    def close_bf16(a, b) -> float:
+        """max |a - b| in units of two bf16 ulps of the larger (≤ 1 passes)."""
+        a, b = a.float(), b.float()
+        return float(((a - b).abs() / (2.0 ** -6 * torch.maximum(a.abs(), b.abs()) + 1e-6)).max())
+
+    hp = dataclasses.asdict(cfg)
+    errs = {"t2_att_step": 0.0, "t2_dec_step": 0.0}
+    times = {}
+    for t in (0, 500, 975):
+        i = t // t2_kernel.CHECKPOINT_EVERY
+        s1 = buffers()
+        t2_restore(t2_kernel, w, s1, {k: states[k][i] for k in t2_kernel.STATE},
+                   mel_g[:, t - 1], t)
+        s2 = copy.deepcopy(s1)
+        g = torch.mm(s1.a_buf, w.w_att.t(), out_dtype=torch.float32)
+        t2_kernel.att_step_kernel(g, w, s1, t)
+        t2_kernel.att_step_plain(g, w, s2, t)
+        torch.cuda.synchronize()
+        f32 = max(float(((getattr(s1, k) - getattr(s2, k)).abs()
+                         / (1e-4 * getattr(s2, k).abs() + 1e-5)).max())
+                  for k in ("c_att", "w", "cum", "att"))
+        ulps = max(close_bf16(s1.a_buf, s2.a_buf), close_bf16(s1.d_buf, s2.d_buf))
+        errs["t2_att_step"] = max(errs["t2_att_step"], float((s1.att - s2.att).abs().max()))
+        log(f"[t2 att_step] step {t}: f32 outputs {f32:.3g} of their tolerance (1e-4 rel + "
+            f"1e-5), bf16 rows {ulps:.3g} of two ulps")
+        gate(f32 <= 1.0 and ulps <= 1.0, ("t2_att_step_kernel vs att_step_plain", t, f32, ulps))
+        s3, s4 = s1, copy.deepcopy(s1)   # the decoder cell after this step's attention
+        g = torch.mm(s3.d_buf, w.w_dec.t(), out_dtype=torch.float32)
+        t2_kernel.dec_step_kernel(g, w, s3, t)
+        t2_kernel.dec_step_plain(g, w, s4, t)
+        torch.cuda.synchronize()
+        f32 = max(float(((getattr(s3, k) - getattr(s4, k)).abs()
+                         / (1e-4 * getattr(s4, k).abs() + 1e-4)).max())
+                  for k in ("c_dec", "mel", "gate"))
+        ulps = max(close_bf16(s3.a_buf, s4.a_buf), close_bf16(s3.d_buf, s4.d_buf))
+        masks = torch.equal(s3.a_buf[:, :w.P] == 0, s4.a_buf[:, :w.P] == 0)
+        dropped = float((s4.a_buf[:, :w.P] == 0).float().mean())
+        errs["t2_dec_step"] = max(errs["t2_dec_step"], float((s3.mel - s4.mel).abs().max()))
+        log(f"[t2 dec_step] step {t}: f32 outputs {f32:.3g} of their tolerance (1e-4 rel + "
+            f"1e-4), bf16 rows {ulps:.3g} of two ulps, the prenet's zeros equal: {masks} "
+            f"({100 * dropped:.1f} % of units zero)")
+        gate(f32 <= 1.0 and ulps <= 1.0 and masks,
+             ("t2_dec_step_kernel vs dec_step_plain", t, f32, ulps, masks))
+        if t == 500:
+            g_att = torch.mm(s1.a_buf, w.w_att.t(), out_dtype=torch.float32)
+            times = {
+                "t2_att_step": (cuda_ms(lambda: t2_kernel.att_step_kernel(g_att, w, s1, t),
+                                        reps=200),
+                                cuda_ms(lambda: t2_kernel.att_step_plain(g_att, w, s2, t))),
+                "t2_dec_step": (cuda_ms(lambda: t2_kernel.dec_step_kernel(g, w, s3, t),
+                                        reps=200),
+                                cuda_ms(lambda: t2_kernel.dec_step_plain(g, w, s4, t)))}
+        del s1, s2, s3, s4
+
+    work = {"t2_att_step": t2work.att_step_kernel(hp, B, N, 1),
+            "t2_dec_step": t2work.dec_step_kernel(hp, B, 1)}
+    for k, (ms, plain_ms) in times.items():
+        c = work[k]
+        t_ops = c["bf16"] / H100["bf16"] + c["f32"] / H100["f32"]
+        t_bytes = c["bytes"] / H100["bytes_per_s"]
+        b_ms = 1e3 * max(t_ops, t_bytes)
+        by = "operations" if t_ops >= t_bytes else "bytes"
+        log(f"[{k}] B={B} N={N} a launch: kernel {ms:.4f} ms (CUDA events, mean of 200), plain "
+            f"{plain_ms:.3f} ms; bound {b_ms:.4f} ms ({by}: products at bf16, the rest at f32), "
+            f"{100 * b_ms / ms:.1f} % of it, on [{smi}]")
+        kernels[k] = dict(
+            name=k, route="cuda", source="spoofsv_torch/csrc/t2_rollout.cu", replaces=None,
+            max_abs_err=errs[k], ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+            library_ms=None, launches=launches[k])
+    r_ops, r_bytes = t2work.rollout(hp, B, N, T, 2)
+    r_ms = 1e3 * max(r_ops / H100["bf16"], r_bytes / H100["bytes_per_s"])
+    log(f"[t2] the rollout's graph (1000 steps, 4,000 kernels): {roll_ms:.3f} ms (CUDA events, "
+        f"mean of 3), bound {r_ms:.3f} ms (operations at bf16), {100 * r_ms / roll_ms:.1f} %")
+    del syn, memory, pm, mel_g, gate_g, att_g, states
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -4260,6 +4511,11 @@ def main() -> None:
         t0 = time.perf_counter()
         checks = checks_phase(dev, counters, cluster, smi, spectral_err, cuda_ms, root)
         log(f"[time] phase 15 {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 16: multi-speaker Tacotron 2, the spoof-set call ---------------
+    t0 = time.perf_counter()
+    t2_launches = tacotron2_phase(dev, cuda_ms, counters, kernels, smi)
+    log(f"[time] phase 16 {time.perf_counter() - t0:.1f} s")
     kernels["griffin_lim_f32"]["campaign_corpus"] = camp["corpus_gl"]
     kernels["gl_init"]["checks_lock"] = dict(min_cos_dphi=checks["lock"], **checks["k2_lock_ms"])
     kernels["griffin_lim_f32"]["checks_n_iter0"] = dict(rel_l2=checks["n_iter0"],
@@ -4270,7 +4526,8 @@ def main() -> None:
              "ge2e_attack": attack_launches, "scoring": scoring_launches, "mesh": mesh_launches,
              **{p: {("decode" if k == "decode_bf16" else k): n for k, n in launches.items()}
                 for p, launches in (("campaign", camp["campaign"]), ("toy", camp["toy"]),
-                                    ("checks", checks["checks"]))}}
+                                    ("checks", checks["checks"]))},
+             "tacotron2": t2_launches}
     for k, entry in kernels.items():
         entry["launches_by_path"] = {p: n[k] for p, n in paths.items() if k in n}
 

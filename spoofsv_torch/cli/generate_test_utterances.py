@@ -6,7 +6,8 @@ Port of :mod:`spoofsv_tpu.cli.generate_test_utterances` with the same flags
 ``--skip_synthesis``, ``--skip_staging``, ``--mesh``): the spoof set's
 synthesis (data-parallel over the ``--mesh`` ranks, each call padded to the
 rank multiple, :func:`spoofsv_torch.cli.main.data_parallel`), then, on rank
-0, the i-vector, GE2E and anti-spoofing layouts.
+0, the i-vector, GE2E and anti-spoofing layouts. A Tacotron 2 configuration
+synthesizes through ``Tacotron2Synthesizer``.
 """
 
 from __future__ import annotations
@@ -31,14 +32,15 @@ def main(argv=None, device=None) -> None:
     add_mesh_args(ps, "data-parallel spoof-set synthesis")
     args = ps.parse_args(argv)
 
-    from spoofsv_torch.config import load_config
+    from spoofsv_torch.config import Tacotron2Config, load_config
     from spoofsv_torch.spoofkit import spoofgen
 
     cfg = load_config(args.configuration)
     primary = True
     if not args.skip_synthesis:
         from spoofsv_torch import resolve_device
-        from spoofsv_torch.cli.main import (apply_runtime_knobs, build_models, data_parallel,
+        from spoofsv_torch.cli.main import (apply_runtime_knobs, build_models,
+                                            build_tacotron2_synthesizer, data_parallel,
                                             inference_dtype)
         from spoofsv_torch.infer.synthesize import Synthesizer
         from spoofsv_torch.weights import load_generator_params
@@ -49,11 +51,14 @@ def main(argv=None, device=None) -> None:
                            argv) as mesh:
             dev = dev if mesh is None else mesh.device
             primary = mesh is None or mesh.rank == 0
-            melsyn, ssrn, _, _ = build_models(cfg, "conditional",
-                                              dtype=inference_dtype(cfg, dev), device=dev)
-            load_generator_params(cfg.inference_text2mel_model, melsyn)
-            load_generator_params(cfg.inference_ssrn_model, ssrn)
-            syn = Synthesizer(cfg, melsyn, ssrn, n_frames=cfg.max_frame_num, mesh=mesh)
+            if isinstance(cfg, Tacotron2Config):
+                syn = build_tacotron2_synthesizer(cfg, dev, mesh)
+            else:
+                melsyn, ssrn, _, _ = build_models(cfg, "conditional",
+                                                  dtype=inference_dtype(cfg, dev), device=dev)
+                load_generator_params(cfg.inference_text2mel_model, melsyn)
+                load_generator_params(cfg.inference_ssrn_model, ssrn)
+                syn = Synthesizer(cfg, melsyn, ssrn, n_frames=cfg.max_frame_num, mesh=mesh)
             spoofgen.generate_spoof_set(cfg, args.current_time, syn,
                                         eval_utt_num=args.eval_utt_num,
                                         speaker_batch=args.speaker_batch, verbose=primary)

@@ -11,6 +11,8 @@ helpers (compute dtypes, the process-wide runtime knobs, ``build_models``)
 are here too.
 
 Everything runs on the card unless :func:`main` is given ``device="cpu"``.
+Given a Tacotron 2 configuration (``config.Tacotron2Config``), ``synthesize``
+runs :func:`run_synthesize_tacotron2`; training it is not ported.
 Training keeps f32 parameters and Adam state; ``train_compute_dtype=
 "bfloat16"`` computes the steps under ``torch.autocast`` to bf16, as the JAX
 package builds its models with ``dtype=bfloat16`` over f32 parameters (the
@@ -42,7 +44,7 @@ import numpy as np
 import torch
 
 from spoofsv_torch import reference_precision, resolve_device
-from spoofsv_torch.config import Config, load_config
+from spoofsv_torch.config import Config, Tacotron2Config, load_config
 from spoofsv_torch.models import SSRN, Critic1D, LinDisc, MelDisc, MelSyn
 from spoofsv_torch.models.layers import set_default_gate_impl
 from spoofsv_torch.utils import profiling
@@ -90,6 +92,22 @@ def build_models(cfg: Config, pattern: str = "conditional", dtype: Optional[torc
     mel_disc = MelDisc(cfg.disc_dim, freq_bins=cfg.mel.freq_bins)
     lin_disc = LinDisc(cfg.disc_dim, lin_bins=cfg.lin_bins)
     return tuple(m.to(device, dtype) for m in (melsyn, ssrn, mel_disc, lin_disc))
+
+
+def build_tacotron2_synthesizer(cfg: Tacotron2Config, device, mesh=None,
+                                n_frames: Optional[int] = None):
+    """A :class:`~spoofsv_torch.infer.synthesize.Tacotron2Synthesizer` of the
+    configuration's model in the inference dtype on ``device`` (the weights of
+    ``cfg.checkpoint``, or seeded random ones from ``cfg.weights_seed``)."""
+    from spoofsv_torch.infer.synthesize import Tacotron2Synthesizer
+    from spoofsv_torch.models.tacotron2 import build_tacotron2
+
+    device = resolve_device(device)
+    if not cfg.checkpoint:
+        print(f"[tacotron2] no checkpoint: seeded random weights (weights_seed "
+              f"{cfg.weights_seed})")
+    model = build_tacotron2(cfg, device, inference_dtype(cfg, device))
+    return Tacotron2Synthesizer(cfg, model, n_frames=n_frames, mesh=mesh)
 
 
 def add_mesh_args(ps: argparse.ArgumentParser, what: str = "data-parallel") -> None:
@@ -312,6 +330,47 @@ def run_synthesize(args, cfg: Config, spec_dir: Optional[str], device, mesh=None
     return sample_dir
 
 
+def run_synthesize_tacotron2(args, cfg: Tacotron2Config, device, mesh=None) -> str:
+    """Synthesize every line of ``cfg.tts_texts`` with Tacotron 2, row i in the
+    voice of the i-th d-vector of ``cfg.spk_emb_dir`` (its ``*.npy``, sorted,
+    in turn), in calls of 8 rows: ``S{k}_B{i}.wav`` under
+    ``<src_root>/samples/<ctime>/``, each row cut at its stop frame, and each
+    call's first attention plot. Over ``mesh``'s ranks only rank 0 writes.
+    Returns the sample directory."""
+    from spoofsv_torch.data.text import t2_encode_texts
+    from spoofsv_torch.dsp import host as dsp_host
+    from spoofsv_torch.infer.synthesize import finalize_audio, gl_seeds
+    from spoofsv_torch.spoofkit.spoofgen import load_harvard_sentences
+    from spoofsv_torch.train.loop import plot_attention
+
+    syn = build_tacotron2_synthesizer(cfg, device, mesh)
+    sentences = load_harvard_sentences(cfg, None)
+    names = sorted(f for f in os.listdir(cfg.spk_emb_dir) if f.endswith(".npy"))
+    if not names:
+        raise ValueError(f"no speaker embeddings (*.npy) in {cfg.spk_emb_dir!r}")
+    embs = np.stack([np.load(os.path.join(cfg.spk_emb_dir, n)).astype(np.float32)
+                     for n in names])
+    primary = mesh is None or mesh.rank == 0
+    sample_dir = os.path.join(cfg.src_root_dir, "samples", args.current_time)
+    os.makedirs(sample_dir, exist_ok=True)
+    seeds = torch.Generator().manual_seed(0)   # the prenet's masks (and a "random" GL init)
+    for i, s0 in enumerate(range(0, len(sentences), 8)):
+        chunk = sentences[s0: s0 + 8]
+        spk = embs[[(s0 + k) % len(names) for k in range(len(chunk))]]
+        audio, _, attn = syn(t2_encode_texts(chunk), spk, gl_seeds(len(chunk), seeds))
+        if not primary:
+            continue
+        stops = syn.stop_frames().numpy()
+        audio = audio.numpy()
+        for k in range(len(chunk)):
+            y = audio[k, : cfg.hop_length * int(stops[k])]
+            dsp_host.write_wav(os.path.join(sample_dir, f"S{k + 1}_B{i + 1}.wav"),
+                               finalize_audio(y, cfg), cfg.sampling_rate)
+        plot_attention(attn[0].float().cpu().numpy(), i + 1, os.path.join(sample_dir, "fig"))
+        print(f"batch {i + 1}: wrote {len(chunk)} wavs to {sample_dir}")
+    return sample_dir
+
+
 def main(argv=None, device=None):
     """Parse ``argv`` and run the step on ``device`` (the card unless
     ``device="cpu"``). Returns the training step's ``Trainer`` or the
@@ -359,6 +418,11 @@ def main(argv=None, device=None):
             profiling.trace(args.trace_dir):
         if mesh is not None:
             device = mesh.device
+        if isinstance(cfg, Tacotron2Config):
+            if args.step in TRAIN_STEPS:
+                raise NotImplementedError("the port synthesizes with Tacotron 2; its training "
+                                          "is not ported")
+            return run_synthesize_tacotron2(args, cfg, device, mesh)
         if args.step in TRAIN_STEPS:
             return run_training(args, cfg, spec_dir, device, mesh)
         return run_synthesize(args, cfg, spec_dir, device, mesh)

@@ -4,7 +4,9 @@ The port's own copy of the JAX package's configuration dataclasses, with the
 same fields, defaults and JSON handling: the reference's flat ``config.json``
 schema (``config.json:1-54``) read into one frozen, typed object, plus the
 ``"TPU"`` extension section (``TPUConfig``), whose knobs pick the kernels
-and dtypes. The GE2E configs are not here yet.
+and dtypes; the GE2E configuration; and the port's own
+``Tacotron2Config`` (NVIDIA ``hparams.py`` keys), which ``load_config``
+picks for such a file.
 """
 
 from __future__ import annotations
@@ -245,11 +247,129 @@ class Config:
         return dataclasses.replace(self, **kw)
 
 
-def load_config(path: str, **overrides: Any) -> Config:
-    """Load a reference-schema ``config.json`` file (main.py:19-20)."""
+@dataclasses.dataclass(frozen=True)
+class Tacotron2Config:
+    """Multi-speaker Tacotron 2: the keys of NVIDIA/tacotron2's ``hparams.py``
+    that synthesis reads (their published values as defaults), the SV2TTS
+    d-vector width (``speaker_embedding_dim``), the spoof set's paths in
+    SpoofSV's names, the weights (``checkpoint``: a state dict in NVIDIA's
+    schema; without one, seeded random weights from ``weights_seed``) and the
+    ``"TPU"`` section. ``hparams.py``'s other keys (training, data loading,
+    the training-only dropouts) are read and kept in ``training``."""
+
+    # audio (hparams.py "Audio Parameters")
+    sampling_rate: int = 22050
+    filter_length: int = 1024
+    hop_length: int = 256
+    n_mel_channels: int = 80
+    mel_fmin: float = 0.0
+    mel_fmax: float = 8000.0
+    # model
+    n_symbols: int = 148
+    symbols_embedding_dim: int = 512
+    encoder_kernel_size: int = 5
+    encoder_n_convolutions: int = 3
+    encoder_embedding_dim: int = 512
+    n_frames_per_step: int = 1
+    decoder_rnn_dim: int = 1024
+    prenet_dim: int = 256
+    max_decoder_steps: int = 1000
+    gate_threshold: float = 0.5
+    attention_rnn_dim: int = 1024
+    attention_dim: int = 128
+    attention_location_n_filters: int = 32
+    attention_location_kernel_size: int = 31
+    postnet_embedding_dim: int = 512
+    postnet_kernel_size: int = 5
+    postnet_n_convolutions: int = 5
+    # SV2TTS and the port
+    speaker_embedding_dim: int = 256
+    checkpoint: str = ""
+    weights_seed: int = 0
+    src_root_dir: str = "./"
+    data_root_dir: str = ""
+    spk_emb_dir: str = ""
+    antispoof_dir: str = ""
+    tts_texts: str = "./havard.txt"
+    multi_gpu: bool = False
+    training: Tuple[Tuple[str, Any], ...] = ()
+    tpu: TPUConfig = dataclasses.field(default_factory=TPUConfig)
+
+    # hparams.py's keys that synthesis does not read: read, kept, not used here
+    TRAINING_KEYS = ("epochs", "iters_per_checkpoint", "seed", "dynamic_loss_scaling",
+                     "fp16_run", "distributed_run", "dist_backend", "dist_url", "cudnn_enabled",
+                     "cudnn_benchmark", "ignore_layers", "load_mel_from_disk", "training_files",
+                     "validation_files", "use_saved_learning_rate", "learning_rate",
+                     "weight_decay", "grad_clip_thresh", "batch_size", "mask_padding",
+                     "max_wav_value", "p_attention_dropout", "p_decoder_dropout")
+    # hparams.py's keys with the one value the port implements
+    FIXED = {"text_cleaners": ["english_cleaners"], "n_frames_per_step": 1}
+
+    @classmethod
+    def from_hparams(cls, d: Mapping[str, Any], **overrides: Any) -> "Tacotron2Config":
+        """Build from a dict of ``hparams.py`` keys plus the port's; an unknown
+        key, or a value the port does not implement (a cleaner other than
+        ``english_cleaners``, several frames a step, a window other than the
+        FFT's), raises ``ValueError``."""
+        fields = {f.name for f in dataclasses.fields(cls)} - {"training", "tpu"}
+        known = fields | set(cls.TRAINING_KEYS) | {"TPU", "text_cleaners", "win_length"}
+        unknown = set(d) - known
+        if unknown:
+            raise ValueError(f"unknown Tacotron 2 configuration keys: {sorted(unknown)}")
+        fixed = dict(cls.FIXED, win_length=d.get("filter_length", cls.filter_length))
+        for key, value in fixed.items():
+            if d.get(key, value) != value:
+                raise ValueError(f"the port's Tacotron 2 takes {key}={value!r}, got {d[key]!r}")
+        kw = {k: v for k, v in d.items() if k in fields}
+        kw["training"] = tuple((k, tuple(d[k]) if isinstance(d[k], list) else d[k])
+                               for k in cls.TRAINING_KEYS if k in d)
+        kw["tpu"] = TPUConfig(**{k: (tuple(v) if isinstance(v, list) else v)
+                                 for k, v in d.get("TPU", {}).items()})
+        cfg = cls(**kw)
+        return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+    # the names the shared synthesis, spoof-set and CLI code reads
+    @property
+    def stft(self) -> STFTConfig:
+        return STFTConfig(fft_length=self.filter_length, hop_length=self.hop_length)
+
+    @property
+    def norm(self) -> NormConfig:
+        """Linear magnitudes at power 1, audio peak-scaled by ``finalize_audio``."""
+        return NormConfig(analysis_power=1.0, reconstruction_power=1.0, log_feature=False)
+
+    @property
+    def max_frame_num(self) -> int:
+        return self.max_decoder_steps
+
+    @property
+    def spk_emb_dim(self) -> int:
+        return self.speaker_embedding_dim
+
+    @property
+    def memory_dim(self) -> int:
+        """The attention's memory: encoder outputs and the d-vector."""
+        return self.encoder_embedding_dim + self.speaker_embedding_dim
+
+    def replace(self, **kw: Any) -> "Tacotron2Config":
+        return dataclasses.replace(self, **kw)
+
+
+def config_from_dict(d: Mapping[str, Any], **overrides: Any):
+    """The configuration of a JSON document: a Tacotron 2 one for a document
+    of ``hparams.py`` keys (it has ``attention_location_n_filters``), else the
+    SpoofSV DCTTS ``Config``."""
+    if "attention_location_n_filters" in d:
+        return Tacotron2Config.from_hparams(d, **overrides)
+    return Config.from_reference_dict(d, **overrides)
+
+
+def load_config(path: str, **overrides: Any):
+    """Load a configuration file: the reference-schema ``config.json``
+    (main.py:19-20), or a Tacotron 2 one (:func:`config_from_dict`)."""
     with open(path, "r") as f:
         d = json.load(f)
-    return Config.from_reference_dict(d, **overrides)
+    return config_from_dict(d, **overrides)
 
 
 # ----------------------------------------------------------------------
@@ -476,4 +596,5 @@ def parse_reference_yaml(text: str) -> List[Dict[str, Any]]:
 
 __all__ = ["AdamConfig", "Config", "GE2EConfig", "GE2EDataConfig", "GE2EModelConfig",
            "GE2ETestConfig", "GE2ETrainConfig", "MelConfig", "NormConfig", "STFTConfig",
-           "TPUConfig", "load_config", "parse_reference_yaml"]
+           "TPUConfig", "Tacotron2Config", "config_from_dict", "load_config",
+           "parse_reference_yaml"]

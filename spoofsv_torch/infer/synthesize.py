@@ -11,6 +11,12 @@ several ranks, :class:`Synthesizer` splits the batch by rows over the ranks
 and all-gathers the outputs, as the JAX package's ``shard_map`` path does.
 A call brings its audio to the host through page-locked memory
 (:func:`host_audio`); :meth:`Synthesizer.device_call` leaves it on the device.
+
+:class:`Tacotron2Synthesizer` runs the multi-speaker Tacotron 2
+(:mod:`spoofsv_torch.models.tacotron2`) through the same call: encoder,
+the decoder's rollout (:class:`spoofsv_torch.ops.t2_kernel.Rollout`),
+postnet, and the same vocoder fed from the mel (``make_vocoder(...,
+source="mel")``).
 """
 
 from __future__ import annotations
@@ -20,14 +26,16 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from spoofsv_torch.config import Config
+from spoofsv_torch.config import Config, Tacotron2Config
 from spoofsv_torch.dsp import host as dsp_host
+from spoofsv_torch.dsp.primitives import mel_filterbank
 from spoofsv_torch.dsp import torchdsp
 from spoofsv_torch.models.ssrn import SSRN
 from spoofsv_torch.models.text2mel import MelSyn
 from spoofsv_torch.infer.decode import make_decoder
 from spoofsv_torch.ops.decode_kernel import make_fused_decoder
 from spoofsv_torch.ops.gl_kernel import griffin_lim_fused, griffin_lim_tc, init_angles_plain
+from spoofsv_torch.ops.t2_kernel import Rollout
 from spoofsv_torch.parallel.mesh import active, batch_sharding, replicate_tree
 from spoofsv_torch.utils.profiling import count, nbytes, span
 
@@ -81,31 +89,58 @@ def gl_seeds(batch: int, generator: Optional[torch.Generator] = None) -> torch.T
                          dtype=torch.int32)
 
 
-def make_vocoder(cfg: Config, n_iter: Optional[int] = None):
-    """``vocode(lin_mag (B, T, F), seeds=None) -> audio (B, hop·(T−1))``.
+def mel_pseudo_inverse(cfg: Tacotron2Config) -> torch.Tensor:
+    """(n_mel, 1 + n_fft/2) float32: the pseudo-inverse (transposed) of the
+    Slaney mel basis that NVIDIA's ``TacotronSTFT`` projects with
+    (``mel_fmin``..``mel_fmax``), computed in float64."""
+    basis = mel_filterbank(cfg.sampling_rate, cfg.filter_length, cfg.n_mel_channels,
+                           cfg.mel_fmin, cfg.mel_fmax).astype(np.float64)
+    return torch.from_numpy(np.linalg.pinv(basis).T.astype(np.float32))
 
-    Per-utterance peak renorm (non-log mode), power ``(·)^(1.3/0.6)``,
-    Griffin-Lim from ``cfg.tpu.griffin_lim_init`` (random hash init uses
-    ``seeds``, (B,) int) on the route :func:`gl_route` picks for the
-    tensor's device, and de-emphasis.
+
+def mel_to_linear(mel: torch.Tensor, inverse: torch.Tensor) -> torch.Tensor:
+    """A natural-log mel (B, T, n_mel) → linear magnitude (B, T, F): exp,
+    the mel basis's pseudo-inverse, clamped at 0 (power 1), in float32."""
+    return torch.clamp(torch.exp(mel.float()) @ inverse, min=0.0)
+
+
+def make_vocoder(cfg, n_iter: Optional[int] = None, source: str = "linear"):
+    """``vocode(x, seeds=None) -> audio (B, hop·(T−1))``.
+
+    ``source="linear"`` (DCTTS): ``x`` the linear magnitude (B, T, F),
+    per-utterance peak renorm (non-log mode), power ``(·)^(1.3/0.6)``,
+    Griffin-Lim, de-emphasis. ``source="mel"`` (Tacotron 2): ``x`` the
+    natural-log mel (B, T, n_mel), :func:`mel_to_linear` (power 1), Griffin-Lim,
+    no de-emphasis. Griffin-Lim runs from ``cfg.tpu.griffin_lim_init``
+    (random hash init uses ``seeds``, (B,) int) on the route
+    :func:`gl_route` picks for the tensor's device.
     """
+    if source not in ("linear", "mel"):
+        raise ValueError(f"make_vocoder: unknown source {source!r}")
     n_iter = n_iter or cfg.tpu.griffin_lim_iters
     n_fft, hop = cfg.stft.fft_length, cfg.stft.hop_length
     power = cfg.norm.reconstruction_power / cfg.norm.analysis_power
     init_mode = cfg.tpu.griffin_lim_init
     gl_route(cfg, "cpu")   # unknown values raise here, not at the first call
+    inverse = {"cpu": mel_pseudo_inverse(cfg)} if source == "mel" else None
 
     @torch.no_grad()
     def vocode(lin_pred: torch.Tensor, seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         with span("vocode.prep"):
-            x = lin_pred.float()
-            if cfg.norm.log_feature:
-                db = x * cfg.norm.max_db - cfg.norm.max_db + cfg.norm.ref_db
-                x = torch.pow(10.0, 0.05 * db)
+            if source == "mel":
+                key = str(lin_pred.device)
+                if key not in inverse:
+                    inverse[key] = inverse["cpu"].to(lin_pred.device)
+                spec = mel_to_linear(lin_pred, inverse[key])
             else:
-                peak = x.amax(dim=(1, 2), keepdim=True)
-                x = x / peak.clamp_min(1e-8)
-            spec = torch.pow(x, power)
+                x = lin_pred.float()
+                if cfg.norm.log_feature:
+                    db = x * cfg.norm.max_db - cfg.norm.max_db + cfg.norm.ref_db
+                    x = torch.pow(10.0, 0.05 * db)
+                else:
+                    peak = x.amax(dim=(1, 2), keepdim=True)
+                    x = x / peak.clamp_min(1e-8)
+                spec = torch.pow(x, power)
             if init_mode == "random" and seeds is None:
                 seeds = gl_seeds(spec.shape[0])
         with span("vocode.gl"):
@@ -120,6 +155,8 @@ def make_vocoder(cfg: Config, n_iter: Optional[int] = None):
                 audio = griffin_lim_tc(spec, n_fft, hop, n_fft, n_iter=n_iter,
                                        init_mode=init_mode, seeds=seeds,
                                        int8=cfg.tpu.griffin_lim_int8)
+        if source == "mel":
+            return audio
         with span("vocode.deemph"):
             return torchdsp.deemphasis(audio, coeff=cfg.preemph)
 
@@ -303,3 +340,81 @@ class Synthesizer:
         with span("synth.call"):
             audio, mel, attn = self._device_outputs(text_ids, spk_emb, seeds)
             return host_audio(audio), mel, attn
+
+
+class Tacotron2Synthesizer(Synthesizer):
+    """End-to-end batched multi-speaker Tacotron 2: (text ids, d-vectors,
+    seeds) → waveforms, through :class:`Synthesizer`'s call (its input
+    handling, mesh split and :func:`host_audio`).
+
+    ``text_ids`` (B, N) are NVIDIA symbol ids (``data.text.t2_encode_texts``),
+    zero-padded on the right; ``spk_emb`` (B, S) the speakers' d-vectors.
+    ``seeds`` (B,) int drive the prenet's inference dropout (and a "random"
+    Griffin-Lim init): the same seeds give the same call. Without seeds a
+    call draws them.
+
+    Stages, instance attributes so that callers can time them:
+    :meth:`encode` (span ``t2.encode``: memory and processed memory),
+    :attr:`rollout` (span ``t2.rollout``: the decoder over ``n_frames``
+    steps, every step run, its gate recorded not obeyed, its state kept every
+    25 steps; counters ``t2_rollout_steps``, ``t2_graph_captures``),
+    :meth:`postnet_apply` (span ``t2.postnet``), :attr:`vocode` (the mel through its basis's
+    pseudo-inverse, span ``vocode.prep``, then the configured Griffin-Lim).
+    A call returns (audio, postnet mel (B, T, n_mel) f32, attention (B, N,
+    T) f32) and keeps the gate logits (B, T) as :attr:`gate`;
+    :meth:`stop_frames` reads each row's length from them.
+    """
+
+    def __init__(self, cfg: Tacotron2Config, model, n_frames: Optional[int] = None,
+                 gl_iters: Optional[int] = None, mesh=None):
+        self.cfg = cfg
+        self.model = model.eval()
+        self.mesh = active(mesh)
+        if self.mesh is not None:
+            replicate_tree([self.model], self.mesh)
+        self.n_frames = n_frames or cfg.max_decoder_steps
+        self.device = next(model.parameters()).device
+        self.rollout = Rollout(self.model, self.n_frames)
+        self.vocode = make_vocoder(cfg, gl_iters, source="mel")
+        self.gate: Optional[torch.Tensor] = None
+
+    @torch.no_grad()
+    def encode(self, text_ids: torch.Tensor, lengths: torch.Tensor, spk_emb: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        with span("t2.encode"):
+            return self.model.encode(text_ids, lengths, spk_emb)
+
+    @torch.no_grad()
+    def postnet_apply(self, mel: torch.Tensor) -> torch.Tensor:
+        with span("t2.postnet"):
+            return self.model.postnet_apply(mel)
+
+    def _global_seeds(self, batch: int, seeds: Optional[torch.Tensor]) -> torch.Tensor:
+        return self.mesh.broadcast_(gl_seeds(batch)) if seeds is None else seeds
+
+    def _pipeline(self, text_ids, spk_emb, seeds: Optional[torch.Tensor]):
+        with span("synth.inputs"):
+            text_ids = torch.as_tensor(text_ids).long()
+            spk_emb = torch.as_tensor(spk_emb, dtype=torch.float32)
+            seeds = gl_seeds(len(text_ids)) if seeds is None else torch.as_tensor(seeds)
+            lengths = (text_ids != 0).sum(1).cpu()
+            count("h2d_bytes", nbytes(*(t for t in (text_ids, spk_emb, seeds)
+                                        if t.device.type == "cpu")))
+            text_ids, spk_emb = text_ids.to(self.device), spk_emb.to(self.device)
+            seeds = seeds.to(self.device, torch.int32)
+        memory, pm = self.encode(text_ids, lengths, spk_emb)
+        with span("t2.rollout"):
+            mel, gate, attn, _ = self.rollout(memory, pm, lengths, seeds)
+        mel = self.postnet_apply(mel)
+        return self.vocode(mel, seeds), mel, attn, gate
+
+    def _device_outputs(self, text_ids, spk_emb, seeds: Optional[torch.Tensor]):
+        audio, mel, attn, self.gate = super()._device_outputs(text_ids, spk_emb, seeds)
+        return audio, mel, attn
+
+    def stop_frames(self) -> torch.Tensor:
+        """Each row of the last call's length in frames, on the host: up to and
+        with the first step whose gate probability passes ``gate_threshold``
+        (every step where none does)."""
+        fired = (torch.sigmoid(self.gate.float()) > self.cfg.gate_threshold).cpu()
+        return torch.where(fired.any(1), fired.float().argmax(1), fired.shape[1] - 1) + 1

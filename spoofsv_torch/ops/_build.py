@@ -69,6 +69,17 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         "spoofsv_hconv_smem": (_I, [_I, _I]),
         "spoofsv_hconv_pair_error_string": (ctypes.c_char_p, [_I]),
     },
+    "t2_rollout": {
+        "spoofsv_t2_att_step": (_I, [_P] * 15 + [_I] * 11 + [_P]),
+        "spoofsv_t2_dec_step": (_I, [_P] * 12 + [_I] * 9 + [_F, _P]),
+        "spoofsv_t2_rollout_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "t2_rollout_probe": {
+        "spoofsv_t2_att_step": (_I, [_P] * 15 + [_I] * 11 + [_P]),
+        "spoofsv_t2_dec_step": (_I, [_P] * 12 + [_I] * 9 + [_F, _P]),
+        "spoofsv_t2_probe_read": (_I, [_P]),
+        "spoofsv_t2_rollout_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 
 # builds of a source with extra flags, for development tools only
@@ -76,6 +87,7 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
 VARIANTS: Dict[str, Tuple[str, List[str]]] = {
     "decode_cluster_probe": ("decode_cluster", ["-DSPOOFSV_K1_PROBE"]),
     "gl_tc_probe": ("gl_tc", ["-DSPOOFSV_GLTC_PROBE"]),
+    "t2_rollout_probe": ("t2_rollout", ["-DSPOOFSV_T2_PROBE"]),
 }
 
 # the kernels' storage-type argument

@@ -25,15 +25,15 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from spoofsv_torch.config import Config
-from spoofsv_torch.data.text import encode_texts
+from spoofsv_torch.config import Config, Tacotron2Config
+from spoofsv_torch.data.text import encode_texts, t2_encode_texts
 from spoofsv_torch.dsp import host as dsp_host
 from spoofsv_torch.infer.synthesize import Synthesizer, finalize_audio, gl_seeds
 from spoofsv_torch.utils.profiling import span
 
 
-def load_harvard_sentences(cfg: Config, n: int) -> List[str]:
-    """The first ``n`` non-empty lines of ``cfg.tts_texts``, stripped."""
+def load_harvard_sentences(cfg: Config, n: Optional[int]) -> List[str]:
+    """The first ``n`` (None: all) non-empty lines of ``cfg.tts_texts``, stripped."""
     with open(cfg.tts_texts) as f:
         sentences = [l.strip() for l in f if l.strip()]
     return sentences[:n]
@@ -51,8 +51,10 @@ def generate_spoof_set(cfg: Config, ctime: str, synthesizer: Synthesizer,
 
     ``speaker_batch`` speakers at a time make one batch of
     ``speaker_batch * eval_utt_num`` utterances, one synthesizer call. The
-    Griffin-Lim seeds of each call (used by the "random" init only) are
-    drawn from a ``torch.Generator`` seeded with ``seed``.
+    Griffin-Lim seeds of each call (used by the "random" init only; with a
+    Tacotron 2 synthesizer, also the prenet's masks) are drawn from a
+    ``torch.Generator`` seeded with ``seed``. A synthesizer with
+    ``stop_frames`` (Tacotron 2) has each row cut at its stop frame first.
 
     With a synthesizer over a mesh (every rank calls this function alike;
     ``synthesizer`` may be any callable of the Synthesizer's signature, which
@@ -61,7 +63,10 @@ def generate_spoof_set(cfg: Config, ctime: str, synthesizer: Synthesizer,
     and only rank 0 writes wavs."""
     save_dir = os.path.join(cfg.src_root_dir, "test", ctime, "spoof_data")
     sentences = load_harvard_sentences(cfg, eval_utt_num)
-    text_ids = encode_texts(sentences, cfg.vocabulary)
+    if isinstance(cfg, Tacotron2Config):
+        text_ids = t2_encode_texts(sentences)
+    else:
+        text_ids = encode_texts(sentences, cfg.vocabulary)
 
     if speakers is None:
         speakers = sorted(os.listdir(os.path.join(cfg.data_root_dir, "wav22")))
@@ -78,6 +83,9 @@ def generate_spoof_set(cfg: Config, ctime: str, synthesizer: Synthesizer,
         if mesh is not None and mesh.rank != 0:
             continue
         audio = audio.cpu().numpy()   # a Synthesizer's audio is on the host already
+        if hasattr(synthesizer, "stop_frames"):   # Tacotron 2: each row up to its stop
+            hop = cfg.stft.hop_length
+            audio = [a[: hop * int(n)] for a, n in zip(audio, synthesizer.stop_frames())]
         with span("spoofset.finalize"):
             wavs = [finalize_audio(a, cfg, trim_db=30.0, max_seconds=9.0) for a in audio]
         with span("spoofset.write"):

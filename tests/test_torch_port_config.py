@@ -82,3 +82,29 @@ def test_export_ssrn_equals_jax():
     ref = jexport.export_ssrn(params)
     _assert_same_state(export.export_ssrn(params), ref)
     _assert_same_state(export.export_ssrn(jax.tree.map(np.asarray, dict(params))), ref)
+
+
+def test_tacotron2_config_reads_the_benchmark_file(tmp_path):
+    """``load_config`` reads a configuration of NVIDIA ``hparams.py`` keys (the
+    benchmark's Tacotron 2 file) as a ``Tacotron2Config``: the published
+    values, the d-vector width, the ``"TPU"`` section; the training keys kept
+    aside; an unknown key refused."""
+    from pathlib import Path
+
+    doc = json.loads((Path(__file__).resolve().parent.parent / "portbench" / "configs"
+                      / "tacotron2-sv2tts.json").read_text())["config"]
+    path = tmp_path / "t2.json"
+    path.write_text(json.dumps(doc))
+    cfg = config.load_config(str(path))
+    assert isinstance(cfg, config.Tacotron2Config)
+    assert cfg == config.Tacotron2Config.from_hparams(doc)
+    published = config.Tacotron2Config()
+    for f in dataclasses.fields(published):
+        if f.name not in ("training", "tpu"):
+            assert getattr(cfg, f.name) == getattr(published, f.name), f.name
+    assert (cfg.memory_dim, cfg.max_frame_num, cfg.stft.fft_length) == (768, 1000, 1024)
+    assert cfg.tpu.griffin_lim_iters == 12 and cfg.tpu.griffin_lim_int8
+    assert dict(cfg.training)["learning_rate"] == 1e-3
+    assert isinstance(config.load_config(str(path), weights_seed=3), config.Tacotron2Config)
+    with pytest.raises(ValueError, match="unknown"):
+        config.config_from_dict({**doc, "HIDDEN_DIM": 256})

@@ -38,7 +38,7 @@ def test_port_imports_no_jax():
               "parallel.dryrun", "parallel.ranks", "utils.profiling", "cli.campaign",
               "cli.train_toy_e2e", "cli.checklib", "cli.gl_init_check", "cli.gl_mcd_ab",
               "cli.exp_gl_init", "cli.spec_rate_diag", "cli.gl_spsi_check", "cli.gl24_check",
-              "cli.ivector_delta_rescore", "cli.vad_ab"):
+              "cli.ivector_delta_rescore", "cli.vad_ab", "models.tacotron2", "ops.t2_kernel"):
         assert f"spoofsv_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
