@@ -51,6 +51,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         "spoofsv_gl_run": (_I, [_P] * 10 + [_I] * 6 + [_F, _P]),
         "spoofsv_gl_error_string": (ctypes.c_char_p, [_I]),
     },
+    "gl_probe": {
+        "spoofsv_gl_init_launch": (_I, [_I] + [_P] * 6 + [_I] * 5 + [_F] * 5 + [_P]),
+        "spoofsv_gl_run": (_I, [_P] * 10 + [_I] * 6 + [_F, _P]),
+        "spoofsv_gl_probe_read": (_I, [_P]),
+        "spoofsv_gl_error_string": (ctypes.c_char_p, [_I]),
+    },
     "gl_tc": {
         "spoofsv_gl_tc_run": (_I, [_I] + [_P] * 16 + [_I] * 4 + [_F, _P]),
         "spoofsv_gl_tc_error_string": (ctypes.c_char_p, [_I]),
@@ -86,6 +92,7 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
 # (build_all skips them): name -> (source, flags)
 VARIANTS: Dict[str, Tuple[str, List[str]]] = {
     "decode_cluster_probe": ("decode_cluster", ["-DSPOOFSV_K1_PROBE"]),
+    "gl_probe": ("gl", ["-DSPOOFSV_GL_PROBE"]),
     "gl_tc_probe": ("gl_tc", ["-DSPOOFSV_GLTC_PROBE"]),
     "t2_rollout_probe": ("t2_rollout", ["-DSPOOFSV_T2_PROBE"]),
 }

@@ -14,9 +14,11 @@ second pass (:func:`spsi_segments_emulate`). K3 (replaces
   hoisted out of the loop, bf16 angles and f32 rebuilt spectra; one fused
   launch an iteration and one for the final synthesis. Its plain version is
   :func:`griffin_lim_tc_plain`.
-* :func:`griffin_lim_fused` (``csrc/gl.cu::spoofsv_gl_run``): f32 radix-2
-  FFTs, the "highest" precision route; its plain version is
-  :func:`spoofsv_torch.dsp.torchdsp.griffin_lim`.
+* :func:`griffin_lim_fused` (``csrc/gl.cu::spoofsv_gl_run``): f32 real
+  FFTs as half-size complex ones in registers, several frames a block
+  (:func:`gl_plan`), the "highest" precision route; its plain version is
+  :func:`spoofsv_torch.dsp.torchdsp.griffin_lim`, and :func:`gl_f32_emulate`
+  follows the kernels' plan step by step.
 
 CPU tensors take the plain versions; CUDA tensors launch the kernels or
 raise.
@@ -33,6 +35,7 @@ import torch
 
 from spoofsv_torch.dsp import torchdsp
 from spoofsv_torch.ops import _build
+from spoofsv_torch.utils.profiling import count
 
 INIT_MODES = {"random": 0, "advance": 1, "spsi": 2}
 
@@ -88,6 +91,41 @@ def init_angles_plain(mag: torch.Tensor, n_fft: int, hop: int, mode: str,
         a_re, a_im = torchdsp.gl_advance_angles(T, F, n_fft, hop, mag.device)
         return a_re.expand(B, T, F).contiguous(), a_im.expand(B, T, F).contiguous()
     return torchdsp.gl_spsi_angles(mag, n_fft, hop, lock)
+
+
+def gl_reference(mag: torch.Tensor, init_angles: Tuple[torch.Tensor, torch.Tensor], n_fft: int,
+                 hop: int, win_length: int, n_iter: int, momentum: float = 0.99) -> torch.Tensor:
+    """librosa's ``griffinlim`` (centre and reflect padding, momentum, the
+    imaginary parts of bins 0 and n/2 dropped) with ``torch.fft`` and an
+    ``index_add_`` overlap-add: any hop, in ``mag``'s dtype and on its device.
+    The witness that the f32 K3 and its emulation are held against (float64
+    where momentum grows f32 rounding)."""
+    B, T, F = mag.shape
+    dt, dev = mag.dtype, mag.device
+    w = torch.from_numpy(torchdsp.fft_window(win_length, n_fft)).to(dev, dt)
+    wss = torch.from_numpy(torchdsp.wss_table(win_length, T, hop, n_fft)).to(dev, dt)
+    idx = (hop * torch.arange(T, device=dev)[:, None]
+           + torch.arange(n_fft, device=dev)[None, :]).reshape(-1)
+    L = hop * (T - 1)
+    real_bins = torch.arange(F, device=dev) % (F - 1) != 0
+
+    def istft(spec):
+        fr = torch.fft.irfft(torch.complex(spec.real, spec.imag * real_bins), n=n_fft) * w
+        y = torch.zeros(B, n_fft + L, device=dev, dtype=dt).index_add_(1, idx, fr.reshape(B, -1))
+        y = torch.where(wss > torchdsp.WSS_FLOOR, y / wss.clamp_min(torchdsp.WSS_FLOOR), y)
+        return y[:, n_fft // 2: n_fft // 2 + L]
+
+    def stft(y):
+        yp = torch.nn.functional.pad(y[:, None], (n_fft // 2, n_fft // 2), mode="reflect")[:, 0]
+        return torch.fft.rfft(yp[:, idx].reshape(B, T, n_fft) * w)
+
+    ang = torch.complex(init_angles[0].to(dt), init_angles[1].to(dt)).expand(mag.shape)
+    reb, alpha = torch.zeros_like(ang), momentum / (1.0 + momentum)
+    for _ in range(n_iter):
+        r = stft(istft(mag * ang))
+        acc = r - alpha * reb
+        ang, reb = acc / (acc.abs() + 1e-16), r
+    return istft(mag * ang)
 
 
 INIT_SEGMENTS = 32   # K2: segments of ⌈T/32⌉ frames an utterance is cut into, a block each
@@ -185,6 +223,210 @@ def _constants(n_fft: int, win_length: int, T: int, hop: int, device: torch.devi
             torch.from_numpy(torchdsp.wss_table(win_length, T, hop, n_fft)).to(device))
 
 
+GL_WARPS = 8            # csrc/gl.cu: warps a K3 f32 block
+SMEM_LIMIT = 232448     # shared memory a block may ask for
+
+
+def gl_plan(n_fft: int, hop: int) -> dict:
+    """The f32 K3's plan at ``n_fft`` and ``hop`` (``csrc/gl.cu::GlPlan`` and
+    ``gl_run``): the frame's n-point real transform as an ``N2 = n/2`` point
+    complex one, ``E`` values a lane, ``P`` lanes (``G = 32/P`` frames) a
+    warp, ``radices`` (16s, then one smaller pass), ``frames_max`` frames a
+    synthesis run, ``frames`` an analysis run (fewer where hop leaves the
+    run's synthesis frames and signal no room in shared memory), ``plane``
+    floats a staged plane, and each kernel's shared memory in bytes."""
+    N2 = n_fft // 2
+    log2n = N2.bit_length()
+    E = 32 if N2 >= 1024 else (N2 if N2 < 16 else 16)
+    P = N2 // E
+    G = 32 // P
+    A = (log2n - 1) // 4
+    rem = N2 >> (4 * A)
+    plane = (GL_WARPS * G * (N2 + 1) + 6) & ~3
+
+    def smem(analysis: bool, frames: int) -> int:
+        if not analysis:
+            return 4 * (2 * N2 + 3 * plane)
+        raw = (n_fft * (frames + 2 * ((n_fft - 1) // hop)) + 6) & ~3   # the run's synthesis frames
+        sig = (hop * (frames - 1) + n_fft + 2 + 6) & ~3     # with window_sumsquare's shift
+        return 4 * (2 * N2 + 2 * plane + max(raw, 2 * plane) + sig)
+
+    frames = GL_WARPS * G
+    while frames > 1 and smem(True, frames) > SMEM_LIMIT:
+        frames -= 1
+    return {"N2": N2, "E": E, "P": P, "G": G, "radices": [16] * A + ([rem] if rem > 1 else []),
+            "frames_max": GL_WARPS * G, "frames": frames, "plane": plane,
+            "smem_synth": smem(False, 0), "smem_analysis": smem(True, frames)}
+
+
+def _swz(i: np.ndarray) -> np.ndarray:
+    """``csrc/gl.cu::swz``: where element i of a group's exchange arrays lives."""
+    return i ^ ((i >> 4) & 31)
+
+
+def _w16(q: int, inverse: bool) -> complex:
+    """exp(∓2πiq/16); in complex64 the kernel's f32 literals."""
+    return complex(np.cos(2 * np.pi * q / 16), (1 if inverse else -1) * np.sin(2 * np.pi * q / 16))
+
+
+def _dft_dif(v: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """``dft_reg``: an R-point DFT of the last axis by radix-2 decimation in
+    frequency, the result in bit-reversed order."""
+    R = v.shape[-1]
+    h = R // 2
+    while h >= 1:
+        lo = [i for i in range(R) if not i & h]
+        hi = [i + h for i in lo]
+        w = torch.tensor([_w16((i & (h - 1)) * (8 // h), inverse) for i in lo], dtype=v.dtype)
+        a, b = v[..., lo], v[..., hi]
+        v = v.clone()
+        v[..., lo], v[..., hi] = a + b, (a - b) * w
+        h //= 2
+    return v
+
+
+def _brev(r: int, bits: int) -> int:
+    return int(format(r, f"0{bits}b")[::-1], 2) if bits else 0
+
+
+def _tw_n(tab: torch.Tensor, e: np.ndarray) -> torch.Tensor:
+    """W_n^e from the table of W_n^k, k < N2 (``tw_n``)."""
+    N2 = tab.shape[0]
+    w = tab[torch.from_numpy(e & (N2 - 1))]
+    return torch.where(torch.from_numpy((e & N2) != 0), -w, w)
+
+
+def stockham_emulate(z: torch.Tensor, plan: dict, tab: torch.Tensor,
+                     inverse: bool = False) -> torch.Tensor:
+    """``fft_pass``: the N2-point complex transform of the last axis (complex
+    ``z``, unnormalised; ``inverse`` takes the + sign) by the kernel's lanes,
+    butterflies, twiddles and swizzled exchange arrays, pass by pass.
+    ``tab``: W_n^k, k < N2, complex of ``z``'s precision."""
+    N2, E, P = plan["N2"], plan["E"], plan["P"]
+    tab = tab.conj() if inverse else tab
+    g = np.arange(P)[:, None, None]
+    buf, ns = z, 1
+    for p, R in enumerate(plan["radices"]):
+        b = np.arange(E // R)[None, :, None]
+        r = np.arange(R)[None, None, :]
+        j = g + P * b
+        src = j + r * (N2 // R)                       # (P, E/R, R): the slot's element
+        regs = buf[..., torch.from_numpy(_swz(src) if p else src)]
+        if ns > 1:
+            regs = regs * _tw_n(tab, r * (j % ns) * (2 * N2 // (ns * R)))
+        regs = _dft_dif(regs, inverse)
+        dst = (j // ns) * ns * R + j % ns + r * ns    # output element r of each butterfly
+        vals = regs[..., [_brev(q, R.bit_length() - 1) for q in range(R)]]
+        last = p == len(plan["radices"]) - 1
+        flat = (dst if last else _swz(dst)).reshape(-1)
+        assert np.array_equal(np.sort(flat), np.arange(N2)), "a pass's stores are not a permutation"
+        out = torch.empty_like(buf)
+        out[..., torch.from_numpy(flat)] = vals.reshape(*vals.shape[:-3], -1)
+        buf, ns = out, ns * R
+    return buf
+
+
+def rfft_emulate(x: torch.Tensor, plan: dict, tab: torch.Tensor) -> torch.Tensor:
+    """The analysis transform: real frames (..., n) → (..., n/2 + 1) complex,
+    z[m] = x[2m] + i·x[2m+1] through :func:`stockham_emulate`, then the
+    split X[k] = E + W_n^k·O, X[N2−k] = conj(E − W_n^k·O) as the kernel
+    computes it."""
+    N2 = plan["N2"]
+    Z = stockham_emulate(torch.complex(x[..., 0::2], x[..., 1::2]), plan, tab)
+    k = torch.arange(N2 // 2 + 1)
+    zk, zc = Z[..., k], Z[..., (N2 - k) % N2]
+    e = torch.complex(0.5 * (zk.real + zc.real), 0.5 * (zk.imag - zc.imag))
+    o = torch.complex(0.5 * (zk.imag + zc.imag), -0.5 * (zk.real - zc.real)) * tab[k]
+    X = torch.empty(*x.shape[:-1], N2 + 1, dtype=Z.dtype)
+    X[..., N2 - k] = (e - o).conj()
+    X[..., k] = e + o
+    return X
+
+
+def irfft_emulate(X: torch.Tensor, plan: dict, tab: torch.Tensor) -> torch.Tensor:
+    """The synthesis transform: (..., n/2 + 1) complex → real (..., n) without
+    the 1/n, the imaginary parts of bins 0 and n/2 dropped; the merge
+    Z[k] = (X[k] + conj X[N2−k]) + i·conj(W_n^k)·(X[k] − conj X[N2−k]), then
+    :func:`stockham_emulate` inverse."""
+    N2 = plan["N2"]
+    X = X.clone()
+    X[..., 0] = X[..., 0].real
+    X[..., N2] = X[..., N2].real
+    k = torch.arange(N2)
+    a, bc = X[..., k], X[..., N2 - k].conj()
+    Z = (a + bc) + 1j * (tab.conj() * (a - bc))
+    z = stockham_emulate(Z, plan, tab, inverse=True)
+    return torch.stack([z.real, z.imag], -1).reshape(*z.shape[:-1], 2 * N2)
+
+
+def gl_f32_emulate(mag: torch.Tensor, ang_re: torch.Tensor, ang_im: torch.Tensor, n_fft: int,
+                   hop: int, win_length: Optional[int] = None, n_iter: int = 12,
+                   momentum: float = 0.99, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``csrc/gl.cu``'s f32 K3 step by step in plain torch (CPU): its
+    launches; synthesis through :func:`irfft_emulate`; analysis by runs of
+    ``gl_plan(...)["frames"]`` frames, each with its stretch [u0, u1) of the
+    ISTFT signal built as the kernel stages it, from the run's synthesis
+    frames t0 − H .. t0 + nf − 1 + H, H = (n − 1) // hop, but for the two end
+    samples (every sample a frame reads, reflected ends included, must lie in
+    the stretch, and every inner sample's frames among those staged), then
+    :func:`rfft_emulate`, momentum and normalisation; the overlap-add
+    epilogue. ``dtype`` float64 checks the plan's algebra alone."""
+    win_length = win_length or n_fft
+    B, T, F = mag.shape
+    N, N2, plan = n_fft, n_fft // 2, gl_plan(n_fft, hop)
+    cdt = torch.complex128 if dtype == torch.float64 else torch.complex64
+    m = np.arange(N2)
+    tab = torch.from_numpy(np.exp(-2j * np.pi * m / N)).to(cdt)   # in f32: the kernel's table
+    window = torch.from_numpy(torchdsp.fft_window(win_length, N)).to(dtype)
+    wss = torch.from_numpy(torchdsp.wss_table(win_length, T, hop, N)).to(dtype)
+    mag, a_re, a_im = (x.to(dtype) for x in (mag, ang_re, ang_im))
+    reb = torch.zeros(B, T, F, dtype=cdt)
+    alpha = momentum / (1.0 + momentum)
+    L = hop * (T - 1)
+
+    def ola(fsyn: torch.Tensor, u: np.ndarray, staged=None) -> torch.Tensor:   # ola_sample at each u
+        acc = torch.zeros(B, len(u), dtype=dtype)
+        t_hi = np.minimum(u // hop, T - 1)
+        lo = u - N + 1
+        t_lo = np.where(lo <= 0, 0, (lo + hop - 1) // hop)
+        if staged is not None:   # (samples read from the staged frames, their first and last)
+            inner, tA, tB = staged
+            assert t_lo[inner].min() >= tA and t_hi[inner].max() <= tB, "a sample needs an unstaged frame"
+        for c in range(int((t_hi - t_lo).max()) + 1):
+            tp = t_lo + c
+            ok = tp <= t_hi
+            tpc = np.where(ok, tp, 0)
+            v = fsyn[:, torch.from_numpy(tpc), torch.from_numpy(np.where(ok, u - hop * tpc, 0))]
+            acc = acc + torch.where(torch.from_numpy(ok), v, torch.zeros((), dtype=dtype))
+        w = wss[torch.from_numpy(u)]
+        return torch.where(w > torchdsp.WSS_FLOOR, acc / w, acc)
+
+    def synthesis(a_re, a_im):
+        x = irfft_emulate(mag * torch.complex(a_re, a_im), plan, tab)
+        return (x * np.float32(1.0 / N)).to(dtype) * window
+
+    for _ in range(n_iter):
+        fsyn = synthesis(a_re, a_im)
+        a_re, a_im = a_re.clone(), a_im.clone()
+        for t0 in range(0, T, plan["frames"]):
+            nf = min(plan["frames"], T - t0)
+            u0, u1 = max(0, hop * t0 - 1), min(N + L, hop * (t0 + nf - 1) + N + 1)
+            u = np.arange(u0, u1)
+            H = (N - 1) // hop    # the staged frames tA..tB; the two end samples from fsyn
+            inner = (u >= hop * t0) & (u < hop * (t0 + nf - 1) + N)
+            sig = ola(fsyn, u, (inner, max(0, t0 - H), min(T - 1, t0 + nf - 1 + H)))
+            t = np.arange(t0, t0 + nf)[:, None]
+            s = hop * t + np.arange(N)[None, :] - N2
+            v = np.where(s < 0, -s, np.where(s >= L, 2 * (L - 1) - s, s)) + N2 - u0
+            assert v.min() >= 0 and v.max() < u1 - u0, "a frame reads outside its run's signal"
+            X = rfft_emulate(sig[:, torch.from_numpy(v)] * window, plan, tab)
+            a = X - alpha * reb[:, t0:t0 + nf]
+            norm = torch.sqrt(a.real * a.real + a.imag * a.imag) + 1e-16
+            a_re[:, t0:t0 + nf], a_im[:, t0:t0 + nf] = a.real / norm, a.imag / norm
+            reb[:, t0:t0 + nf] = X
+    return ola(synthesis(a_re, a_im), np.arange(L) + N2)
+
+
 def _gl_cuda(mag, ang_re, ang_im, n_fft, hop, win_length, n_iter, momentum):
     B, T, F = mag.shape
     dev = _build.require_cuda(mag, ang_re, ang_im)
@@ -205,6 +447,7 @@ def _gl_cuda(mag, ang_re, ang_im, n_fft, hop, win_length, n_iter, momentum):
         ctypes.c_float(momentum / (1.0 + momentum)), _build.stream_ptr(dev))
     _build.check(lib, "gl", err, "griffin_lim kernels")
     gl_kernel.launches += 1
+    count("gl_f32_frames", B * T * (2 * n_iter + 1))
     return audio
 
 

@@ -32,14 +32,14 @@ def dev():
     return torch.device("cuda:0")
 
 
-def _test_mag(B: int, T: int, seed: int, dev) -> torch.Tensor:
+def _test_mag(B: int, T: int, seed: int, dev, n_fft: int = NFFT, hop: int = HOP) -> torch.Tensor:
     rng = np.random.default_rng(seed)
-    L = HOP * (T - 1)
+    L = hop * (T - 1)
     t = np.arange(L) / 22050.0
     sigs = [sum(np.sin(2 * np.pi * 110.0 * (1 + b) * k * t + rng.uniform(0, 6)) / k
                 for k in range(1, 6)) + 0.1 * rng.normal(size=L) for b in range(B)]
     re, im = torchdsp.stft_ri(torch.from_numpy(np.stack(sigs) * np.hanning(L)).float().to(dev),
-                              NFFT, HOP)
+                              n_fft, hop)
     return torch.sqrt(re * re + im * im)[:, :T].contiguous()
 
 
@@ -108,6 +108,46 @@ def test_plain_gl_takes_dc_and_nyquist_as_real_on_the_card(dev):
     got = gl_kernel.griffin_lim_fused(mag, NFFT, HOP, n_iter=64, init_angles=init)
     ref = torchdsp.griffin_lim(mag, NFFT, HOP, n_iter=64, init_angles=init)
     assert _rel_l2(got, ref) <= 1e-3
+
+
+# (n_fft, hop, T, win_length): each size's plan (radix split, frames a warp);
+# T at the reflect-padding minimum hop·(T−1) > n/2, T not a multiple of the
+# run (8 frames at n 1024 and 2048, 16 at 512, 256 at 16), hop n/8, and a
+# window shorter than n_fft
+GL_PLANS = [(16, 4, 300, 16), (16, 2, 9, 12), (512, 128, 37, 512), (512, 64, 9, 400),
+            (1024, 256, 4, 1024), (1024, 256, 19, 1024), (1024, 128, 27, 800),
+            (2048, 512, 11, 2048), (2048, 256, 6, 1600)]
+
+
+@pytest.mark.parametrize("n_fft,hop,T,win", GL_PLANS)
+def test_gl_kernel_plans_match_plain(dev, n_fft, hop, T, win):
+    """``gl.cu``'s f32 K3 at every plan against plain f32 GL
+    (``torchdsp.griffin_lim``, cuFFT) from the same hash phases: 0 and 1
+    iterations within 1e-4 relative L2 (f32 transforms on both sides); at 64,
+    where momentum grows f32 rounding, no farther from plain f32 GL nor from
+    float64 GL (``gl_kernel.gl_reference``) than 3x plain f32 GL's own
+    distance from float64 GL, 1e-3 at least (``chip_smoke.py``'s GL64 rule);
+    and ``gl_f32_frames`` counts
+    B·T·(2·n_iter + 1) frames a call."""
+    from spoofsv_torch.utils import profiling
+
+    B = 3
+    mag = _test_mag(B, T, 11, dev, n_fft, hop)
+    seeds = torch.tensor([5, 77, 9], dtype=torch.int32, device=dev)
+    init = gl_kernel.init_angles_plain(mag, n_fft, hop, "random", seeds)
+    for n_iter in (0, 1, 64):
+        before = profiling.snapshot()["counters"].get("gl_f32_frames", 0)
+        got = gl_kernel.griffin_lim_fused(mag, n_fft, hop, win, n_iter=n_iter, init_angles=init)
+        assert profiling.snapshot()["counters"]["gl_f32_frames"] - before == B * T * (2 * n_iter + 1)
+        ref = torchdsp.griffin_lim(mag, n_fft, hop, win, n_iter=n_iter, init_angles=init)
+        assert got.shape == ref.shape == (B, hop * (T - 1))
+        if n_iter < 64:
+            assert _rel_l2(got, ref) <= 1e-4, (n_iter, _rel_l2(got, ref))
+        else:
+            exact = gl_kernel.gl_reference(mag.double(), init, n_fft, hop, win, n_iter)
+            bound = max(1e-3, 3.0 * _rel_l2(ref.double(), exact))
+            rel = (_rel_l2(got, ref), _rel_l2(got.double(), exact), bound)
+            assert rel[0] <= bound and rel[1] <= bound, rel
 
 
 @pytest.mark.parametrize("int8", [True, False])
