@@ -3779,7 +3779,7 @@ def checks_phase(dev, counters: dict, cluster, smi: str, spectral_err, cuda_ms, 
             rel[n] = dict(kernel_plain=rel_l2(got, ref), kernel_f64=rel_l2(got, exact),
                           plain_f64=rel_l2(ref, exact))
         bound64 = max(1e-3, GL64_SPREAD * rel[64]["plain_f64"])
-        sc64 = tuple(checklib.spectral_convergence(y, mag, NFFT, HOP, True) for y in (got, ref))
+        sc64 = tuple(checklib.spectral_convergence(y, mag, NFFT, HOP) for y in (got, ref))
         log(f"[gl_init_check K2/K3] trained magnitudes {tuple(mag.shape)}: K2 vs plain (min cos "
             f"dphi, max|d|) {errs} (gates spsi cos >= 0.99995, advance and hash max|d| < 1e-5); "
             f"K3 1 iter mom 0 vs its plain version rel-L2 {rel1} (gate < 0.03); gl.cu from the "

@@ -13,11 +13,10 @@ resolve trained checkpoints with
 
 from __future__ import annotations
 
-import functools
 import glob
 import json
 import os
-from typing import Dict, Tuple
+from typing import Dict
 
 import numpy as np
 import torch
@@ -70,33 +69,15 @@ def mag_distributions(B: int, T: int, F: int, rng: np.random.Generator
     return {"speech_like": speech, "white": white, "harmonic": harm}
 
 
-@functools.lru_cache(maxsize=4)
-def _dft_mats(n_fft: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The real DFT as (cos, −sin) matrices (n_fft, 1 + n_fft/2), f32."""
-    n = np.arange(n_fft)[:, None]
-    k = np.arange(1 + n_fft // 2)[None, :]
-    ang = 2.0 * np.pi * n * k / n_fft
-    return (torch.from_numpy(np.cos(ang).astype(np.float32)).to(device),
-            torch.from_numpy((-np.sin(ang)).astype(np.float32)).to(device))
-
-
-def spectral_convergence(audio, mag, n_fft: int, hop: int, use_matmul: bool = False) -> float:
+def spectral_convergence(audio, mag, n_fft: int, hop: int) -> float:
     """Mean over the batch of ‖|STFT(audio)| − mag‖ / ‖mag‖ over the frames
-    both have. ``use_matmul``: the STFT's DFT as an f32 product with the
-    DFT matrices (``parity_tpu.py:88``), else an FFT (``exp_gl_init.py:73``)."""
+    both have, the STFT an FFT (``exp_gl_init.py:73``; ``parity_tpu.py:88``
+    computes the same as a DFT matmul, the TPU's route)."""
     from spoofsv_torch.dsp import torchdsp
 
     audio = torch.as_tensor(audio, dtype=torch.float32)
     mag = torch.as_tensor(mag, dtype=torch.float32).to(audio.device)
-    if use_matmul:
-        y = torch.nn.functional.pad(audio.reshape(-1, 1, audio.shape[-1]),
-                                    (n_fft // 2, n_fft // 2), mode="reflect")
-        y = y.reshape(*audio.shape[:-1], -1)
-        frames = torchdsp.frame_signal(y, n_fft, hop) * torchdsp._window(n_fft, n_fft, y)
-        cos, msin = _dft_mats(n_fft, audio.device)
-        re, im = frames @ cos, frames @ msin
-    else:
-        re, im = torchdsp.stft_ri(audio, n_fft, hop)
+    re, im = torchdsp.stft_ri(audio, n_fft, hop)
     s = torch.sqrt(re * re + im * im)
     m = mag[:, : s.shape[1], :]
     s = s[:, : m.shape[1], :]

@@ -114,7 +114,7 @@ def main(argv=None, device=None) -> dict:
             key = f"{init}@{iters}"
             t0 = time.perf_counter()
             y = combo_audio(mag, init, iters, n_fft, hop)
-            sc = checklib.spectral_convergence(y, mag, n_fft, hop, use_matmul=True)
+            sc = checklib.spectral_convergence(y, mag, n_fft, hop)
             art["combos"].setdefault(key, {})[dname] = round(sc, 5)
             print(f"[{dname}] {key}: sc={sc:.5f} ({time.perf_counter() - t0:.1f}s)", flush=True)
 
@@ -122,7 +122,7 @@ def main(argv=None, device=None) -> dict:
     for dname, mag in mags.items():
         for iters, tag in FUSED:
             y = fused_audio(mag, iters, tag, n_fft, hop)
-            sc = checklib.spectral_convergence(y, mag, n_fft, hop, use_matmul=True)
+            sc = checklib.spectral_convergence(y, mag, n_fft, hop)
             art["fused_candidate"].setdefault(f"spsi{iters}_{tag}", {})[dname] = round(sc, 5)
             print(f"[{dname}] fused spsi{iters} {tag}: sc={sc:.5f}", flush=True)
 

@@ -179,42 +179,40 @@ def finalize_audio(audio: np.ndarray, cfg: Config, trim_db: Optional[float] = No
     return y
 
 
-def to_host(*tensors: Optional[torch.Tensor]) -> tuple:
-    """The tensors as host numpy arrays (None stays None), copied in the
-    span ``synth.to_host`` with their bytes on the ``d2h_bytes`` counter."""
-    with span("synth.to_host"):
-        count("d2h_bytes", nbytes(*tensors))
-        return tuple(None if t is None else t.cpu().numpy() for t in tensors)
-
-
 def _pinned_allocs() -> int:
     """Blocks the caching host allocator has pinned in this process so far."""
     return int(torch.cuda.host_memory_stats()["num_host_alloc"])
 
 
-def host_audio(audio: torch.Tensor) -> torch.Tensor:
-    """``audio`` on the host, in the span ``synth.to_host``.
+def host_audio(*tensors: Optional[torch.Tensor], count_host: bool = False):
+    """``tensors`` on the host, in the span ``synth.to_host``: one tensor
+    gives one, several a tuple; None stays None.
 
-    A device tensor is copied into a block of page-locked memory from torch's
-    caching host allocator, on the current stream, and the host waits on that
-    copy alone; its bytes go on ``d2h_bytes``, and ``d2h_pinned_allocs``
-    counts the copies for which the allocator pinned a new block instead of
-    reusing a free one. The block is the caller's: the allocator hands it out
-    again only after the last reference to the result is gone, so a result
-    held across later calls is never overwritten. A host tensor is returned
-    as it is."""
+    Each device tensor is copied into a block of page-locked memory from
+    torch's caching host allocator, on the current stream, and the host waits
+    on those copies alone, with one event; their bytes go on ``d2h_bytes``,
+    and ``d2h_pinned_allocs`` counts the copies for which the allocator pinned
+    a new block instead of reusing a free one. A block is the caller's: the
+    allocator hands it out again only after the last reference to the result
+    is gone, so a result held across later calls is never overwritten. A host
+    tensor is returned as it is, its bytes counted only under ``count_host``
+    (serving counts a batch's results wherever they are)."""
     with span("synth.to_host"):
-        if audio.device.type == "cpu":
-            return audio
-        count("d2h_bytes", nbytes(audio))
-        allocs = _pinned_allocs()
-        host = torch.empty(audio.shape, dtype=audio.dtype, pin_memory=True)
-        count("d2h_pinned_allocs", _pinned_allocs() - allocs)
-        host.copy_(audio, non_blocking=True)
-        copied = torch.cuda.Event()
-        copied.record(torch.cuda.current_stream(audio.device))
-        copied.synchronize()
-        return host
+        out = list(tensors)
+        dev = [i for i, t in enumerate(tensors) if t is not None and t.device.type != "cpu"]
+        counted = [t for t in tensors if t is not None and (count_host or t.device.type != "cpu")]
+        if counted:
+            count("d2h_bytes", nbytes(*counted))
+        if dev:
+            allocs = _pinned_allocs()
+            for i in dev:
+                out[i] = torch.empty(tensors[i].shape, dtype=tensors[i].dtype,
+                                     pin_memory=True).copy_(tensors[i], non_blocking=True)
+            count("d2h_pinned_allocs", _pinned_allocs() - allocs)
+            copied = torch.cuda.Event()
+            copied.record(torch.cuda.current_stream(tensors[dev[0]].device))
+            copied.synchronize()
+        return out[0] if len(out) == 1 else tuple(out)
 
 
 class Synthesizer:

@@ -55,7 +55,7 @@ import torch
 from spoofsv_torch.config import Config
 from spoofsv_torch.data.text import encode_texts
 from spoofsv_torch.dsp import host as dsp_host
-from spoofsv_torch.infer.synthesize import Synthesizer, finalize_audio, gl_seeds, to_host
+from spoofsv_torch.infer.synthesize import Synthesizer, finalize_audio, gl_seeds, host_audio
 from spoofsv_torch.utils.profiling import snapshot, span
 
 
@@ -473,7 +473,8 @@ class BatchingSynthesizer:
     def _device_call(self, batch: List[_Pending], frames: int, bsz: int):
         """Run the padded batch; returns host arrays (audio, completed at the
         last frame or None, kept frames or None). The completion checks run
-        on the device; the results come back in one ``synth.to_host``."""
+        on the device; the results come back in one ``synth.to_host``
+        (:func:`~spoofsv_torch.infer.synthesize.host_audio`, pinned)."""
         n = len(batch)
         text = np.stack([r.text_ids for r in batch] + [batch[0].text_ids] * (bsz - n))
         spk = np.stack([r.spk_emb for r in batch] + [batch[0].spk_emb] * (bsz - n))
@@ -493,7 +494,8 @@ class BatchingSynthesizer:
             if self.attn_trim is not None:
                 first = done.to(torch.int32).argmax(dim=1) + 1 + self.attn_trim
                 keep = first.masked_fill(~done.any(dim=1), done.shape[1])
-        return to_host(audio, last, keep)
+        return tuple(None if t is None else t.numpy()
+                     for t in host_audio(audio, last, keep, count_host=True))
 
     def _process(self, batch: List[_Pending], frames: int) -> None:
         n = len(batch)

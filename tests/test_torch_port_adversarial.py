@@ -30,6 +30,8 @@ from spoofsv_torch.train import (AdvTrainState, Trainer, clip_weights, make_adve
                                  make_fused_adversarial_step, steps)
 from spoofsv_torch.weights import load_critic_from_jax, load_reference_checkpoint, load_state
 
+import port_threads  # noqa: F401 - this process's CPU threads (tests/port_threads.py)
+
 KINDS = ("train_text2mel", "train_ssrn")
 GAN_TYPES = ("wgan-gp", "wgan", "vanilla")
 GEN_EXPORT = {"train_text2mel": jexport.export_melsyn, "train_ssrn": jexport.export_ssrn}

@@ -44,6 +44,8 @@ from spoofsv_torch.spoofkit import antispoof as pas
 from spoofsv_torch.weights import (critic_flax_arrays, load_critic_params, load_drs_from_jax,
                                    load_state)
 
+import port_threads  # noqa: F401 - this process's CPU threads (tests/port_threads.py)
+
 DISC = 16
 
 

@@ -28,6 +28,8 @@ from spoofsv_tpu.train.steps import shift_right
 from spoofsv_torch.models import SSRN, MelSyn
 from spoofsv_torch.weights import load_melsyn_from_jax, load_ssrn_from_jax
 
+import port_threads  # noqa: F401 - this process's CPU threads (tests/port_threads.py)
+
 MEL_TOL, ATT_TOL = 0.05, 0.02
 
 

@@ -52,6 +52,8 @@ from spoofsv_torch.ops import hconv_kernel
 from spoofsv_torch.train import Trainer, loop, make_ordinary_step, steps
 from spoofsv_torch.weights import load_state
 
+import port_threads  # noqa: F401 - this process's CPU threads (tests/port_threads.py)
+
 KINDS = ("train_text2mel", "train_ssrn")
 EXPORT = {"train_text2mel": jexport.export_melsyn, "train_ssrn": jexport.export_ssrn}
 BF16 = torch.bfloat16
@@ -59,19 +61,6 @@ BF16 = torch.bfloat16
 
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread for the port's CPU steps: they are small, and one
-    thread keeps their time steady when other test processes share the
-    cores."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(before)
 
 
 def _batch(cfg, seed=0):

@@ -57,6 +57,8 @@ from spoofsv_torch.data.toy import random_sentence, synth_sentence
 from spoofsv_torch.dsp import host as dsp_host
 from spoofsv_torch.ops import gl_kernel
 
+import port_threads  # noqa: F401 - this process's CPU threads (tests/port_threads.py)
+
 REPO = Path(__file__).resolve().parent.parent
 JAX_CAMPAIGN = REPO / "scripts" / "campaign.py"
 

@@ -47,6 +47,8 @@ from spoofsv_torch.models import SSRN, MelSyn
 from spoofsv_torch.models.ge2e import SpeechEmbedder
 from spoofsv_torch.weights import save_ge2e_checkpoint
 
+import port_threads  # noqa: F401 - this process's CPU threads (tests/port_threads.py)
+
 REPO = Path(__file__).resolve().parent.parent
 SCRIPTS = REPO / "scripts"
 BASE = {"synthesize": {"n_batches": 1},

@@ -33,6 +33,8 @@ from spoofsv_torch.data.vctk import prepare_vctk
 from spoofsv_torch.dsp import host
 from spoofsv_torch.models import layers
 
+import port_threads  # noqa: F401 - this process's CPU threads (tests/port_threads.py)
+
 TINY = dict(hidden_dim=16, text_emb_dim=8, ssrn_dim=8, disc_dim=8, batch_size=4,
             val_every_iter=3, max_epochs=50)
 

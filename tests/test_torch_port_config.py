@@ -22,6 +22,8 @@ from spoofsv_tpu.train.steps import shift_right
 from spoofsv_tpu.utils import torch_export as jexport
 from spoofsv_torch import config, export
 
+import port_threads  # noqa: F401 - this process's CPU threads (tests/port_threads.py)
+
 
 def test_default_config_equals_jax():
     assert dataclasses.asdict(config.Config()) == dataclasses.asdict(jconfig.Config())

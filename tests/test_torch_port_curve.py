@@ -13,6 +13,8 @@ from spoofsv_tpu.spoofkit import curve as jcurve
 from spoofsv_torch.cli import curve as cli
 from spoofsv_torch.spoofkit import curve
 
+import port_threads  # noqa: F401 - this process's CPU threads (tests/port_threads.py)
+
 
 @pytest.fixture(scope="module")
 def files(tmp_path_factory):

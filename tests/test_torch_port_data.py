@@ -28,6 +28,8 @@ from spoofsv_torch.data import pipeline, toy, vctk
 from spoofsv_torch.dsp import host, primitives
 from spoofsv_torch.spoofkit import mcd
 
+import port_threads  # noqa: F401 - this process's CPU threads (tests/port_threads.py)
+
 
 @pytest.fixture(scope="module")
 def corpus(tmp_path_factory):

@@ -27,6 +27,8 @@ from spoofsv_torch.models import MelSyn
 from spoofsv_torch.ops import decode_kernel
 from spoofsv_torch.weights import load_melsyn_from_jax
 
+import port_threads  # noqa: F401 - this process's CPU threads (tests/port_threads.py)
+
 
 def _setup(B=4, N=12, hidden=32, freq=16, condition=True, seed=0):
     rng = np.random.default_rng(seed)

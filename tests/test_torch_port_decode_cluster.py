@@ -23,6 +23,8 @@ from spoofsv_torch.models import MelSyn
 from spoofsv_torch.ops import decode_kernel as dk
 from spoofsv_torch.weights import load_melsyn_from_jax
 
+import port_threads  # noqa: F401 - this process's CPU threads (tests/port_threads.py)
+
 
 @pytest.mark.parametrize("elem", [2, 4])
 @pytest.mark.parametrize("C", [32, 64, 256, 512])

@@ -30,6 +30,8 @@ from spoofsv_torch.models.ge2e import SpeechEmbedder
 from spoofsv_torch.spoofkit import dvector, vad
 from spoofsv_torch.weights import load_state
 
+import port_threads  # noqa: F401 - this process's CPU threads (tests/port_threads.py)
+
 
 def _utterance(sr, seed, seconds=2.0):
     """Voiced bursts between silences, with a little noise."""

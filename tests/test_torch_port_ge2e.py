@@ -40,6 +40,8 @@ from spoofsv_torch.spoofkit import ge2e_harness as h
 from spoofsv_torch.weights import (ge2e_flax_arrays, load_ge2e_params, load_state,
                                    save_ge2e_checkpoint)
 
+import port_threads  # noqa: F401 - this process's CPU threads (tests/port_threads.py)
+
 HID, LAYERS, PROJ, MELS, FRAMES = 32, 2, 16, 40, 24
 
 

@@ -21,6 +21,8 @@ from spoofsv_tpu.ops import pallas_gl
 from spoofsv_torch.dsp import torchdsp
 from spoofsv_torch.ops import gl_kernel
 
+import port_threads  # noqa: F401 - this process's CPU threads (tests/port_threads.py)
+
 NFFT, HOP = 1024, 256
 
 

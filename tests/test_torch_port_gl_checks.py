@@ -13,7 +13,8 @@ fused decode is the scan decoder (the port's CPU route is
 
 * ``checklib`` against ``parity_tpu.py`` / ``exp_gl_init.py``: the
   distributions bit-equal, the spectral convergence within 1e-5 on the same
-  audio (matmul and FFT STFTs), ``_campaign_setup``'s ids and embeddings equal;
+  audio (the port's FFT STFT against the scripts' matmul and FFT STFTs),
+  ``_campaign_setup``'s ids and embeddings equal;
 * ``gl_init_check``: the trained magnitudes within 1e-4 relative L2; every
   combo but random@64 within 1e-4 of the JAX script's spectral convergence
   from the same magnitudes (random@64's init is the documented difference:
@@ -47,6 +48,8 @@ from spoofsv_torch.config import Config
 from spoofsv_torch.data.toy import generate_toy_corpus
 from spoofsv_torch.data.vctk import prepare_vctk
 from spoofsv_torch.models import SSRN, MelSyn
+
+import port_threads  # noqa: F401 - this process's CPU threads (tests/port_threads.py)
 
 REPO = Path(__file__).resolve().parent.parent
 SCRIPTS = REPO / "scripts"
@@ -159,7 +162,7 @@ def test_distributions_and_spectral_convergence_match(jax_scripts, script):
     audio = rng.normal(size=(2, HOP * 19)).astype(np.float32)
     mag = np.abs(rng.normal(size=(2, 20, NFFT // 2 + 1))).astype(np.float32)
     if script == "parity_tpu":
-        port = checklib.spectral_convergence(audio, mag, NFFT, HOP, use_matmul=True)
+        port = checklib.spectral_convergence(audio, mag, NFFT, HOP)
         ref = mod.spectral_convergence(jnp.asarray(audio), jnp.asarray(mag), NFFT, HOP)
     else:
         port = checklib.spectral_convergence(audio, mag, NFFT, HOP)

@@ -19,6 +19,8 @@ import torch
 from spoofsv_torch.dsp import torchdsp
 from spoofsv_torch.ops import gl_kernel as gk
 
+import port_threads  # noqa: F401 - this process's CPU threads (tests/port_threads.py)
+
 
 def _tab(n: int, dtype=torch.complex128) -> torch.Tensor:
     return torch.from_numpy(np.exp(-2j * np.pi * np.arange(n // 2) / n)).to(dtype)

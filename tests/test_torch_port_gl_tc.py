@@ -30,6 +30,8 @@ from spoofsv_torch.dsp import torchdsp
 from spoofsv_torch.infer import synthesize as syn
 from spoofsv_torch.ops import gl_kernel
 
+import port_threads  # noqa: F401 - this process's CPU threads (tests/port_threads.py)
+
 NFFT, HOP = 1024, 256
 
 

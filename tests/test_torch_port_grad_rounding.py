@@ -24,26 +24,12 @@ fault of the kernels' backwards (which recompute the plain gradient, held
 equal to autograd's in ``tests/test_torch_port_highway.py``).
 """
 
-import pytest
-import torch
-
 from spoofsv_torch.train.grad_rounding import separate
 
-
-@pytest.fixture
-def one_thread():
-    """One intra-op thread: the result is the same at any thread count, and
-    one thread keeps the test's time steady when other test processes share
-    the cores."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(before)
+import port_threads  # noqa: F401 - this process's CPU threads (tests/port_threads.py)
 
 
-def test_l1_sign_and_relu_masks_amplify_rounding(one_thread):
+def test_l1_sign_and_relu_masks_amplify_rounding():
     r = separate(batch=16, text=60, frames=100, hidden=64)
     assert r["l1_signs_flipped"] >= 1
     assert r["out_noise_recon"] > 1e-3, r

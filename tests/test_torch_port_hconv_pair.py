@@ -26,6 +26,8 @@ from spoofsv_torch.ops.hconv_kernel import (PAIR_ROWS, highway_conv_plain, highw
                                             tf32_split)
 from spoofsv_tpu.ops import pallas_conv
 
+import port_threads  # noqa: F401 - this process's CPU threads (tests/port_threads.py)
+
 SMEM_PER_CTA = 232448   # H100: 227 KB of dynamic shared memory per block
 
 

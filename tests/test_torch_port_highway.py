@@ -27,6 +27,8 @@ from spoofsv_torch.models import SSRN, MelSyn, layers
 from spoofsv_torch.ops import gate_kernel, hconv_kernel
 from spoofsv_torch.weights import load_melsyn_from_jax, load_ssrn_from_jax
 
+import port_threads  # noqa: F401 - this process's CPU threads (tests/port_threads.py)
+
 ATOL = 3e-5
 GRAD_ATOL, GRAD_RTOL = 5e-4, 1e-4
 

@@ -17,6 +17,8 @@ import torch
 
 import spoofsv_torch
 
+import port_threads  # noqa: F401 - this process's CPU threads (tests/port_threads.py)
+
 REPO = Path(__file__).resolve().parent.parent
 
 

@@ -20,6 +20,8 @@ from spoofsv_torch.infer.decode import make_decoder
 from spoofsv_torch.models import MelSyn
 from spoofsv_torch.ops import _build, decode_kernel, gate_kernel, gl_kernel, hconv_kernel
 
+import port_threads  # noqa: F401 - this process's CPU threads (tests/port_threads.py)
+
 NFFT, HOP = 1024, 256
 pytestmark = pytest.mark.cuda
 

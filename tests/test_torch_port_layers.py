@@ -23,6 +23,8 @@ from spoofsv_torch.models.layers import HighwayConv, LayerNorm
 from spoofsv_torch.weights import (load_melsyn_from_jax, load_reference_checkpoint,
                                    load_ssrn_from_jax, load_state)
 
+import port_threads  # noqa: F401 - this process's CPU threads (tests/port_threads.py)
+
 ATOL = 1e-5
 
 

@@ -32,6 +32,8 @@ from spoofsv_torch.models.layers import LNDense
 from spoofsv_torch.utils.profiling import count, reset, snapshot, span, trace
 from spoofsv_torch.weights import load_lndense_from_jax, load_melsyn_from_jax, load_ssrn_from_jax
 
+import port_threads  # noqa: F401 - this process's CPU threads (tests/port_threads.py)
+
 
 @pytest.mark.parametrize("use_ln", [True, False])
 def test_lndense_matches_flax(use_ln):

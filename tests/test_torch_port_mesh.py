@@ -48,6 +48,8 @@ from spoofsv_torch.parallel import multihost, ranks
 from spoofsv_torch.train import TrainState
 from spoofsv_torch.train.loop import CheckpointManager
 
+import port_threads  # noqa: F401 - this process's CPU threads (tests/port_threads.py)
+
 NESTED = {"stft": config.STFTConfig, "mel": config.MelConfig, "norm": config.NormConfig,
           "adam": config.AdamConfig, "tpu": config.TPUConfig}
 

@@ -25,6 +25,8 @@ from spoofsv_torch import native
 from spoofsv_torch.dsp import host
 from spoofsv_torch.spoofkit import flacio, vad
 
+import port_threads  # noqa: F401 - this process's CPU threads (tests/port_threads.py)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_NATIVE = os.path.join(REPO, "spoofsv_tpu", "native")
 

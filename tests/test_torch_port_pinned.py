@@ -21,6 +21,8 @@ from spoofsv_torch.infer.synthesize import Synthesizer
 from spoofsv_torch.models import SSRN, MelSyn
 from spoofsv_torch.utils import profiling
 
+import port_threads  # noqa: F401 - this process's CPU threads (tests/port_threads.py)
+
 pytestmark = pytest.mark.cuda
 TINY = dict(hidden_dim=32, text_emb_dim=16, ssrn_dim=32, spk_emb_dim=10, max_text_len=16,
             max_frame_num=12)

@@ -41,6 +41,8 @@ from spoofsv_torch.infer.synthesize import Synthesizer, finalize_audio
 from spoofsv_torch.models import SSRN, MelSyn
 from spoofsv_torch.weights import load_melsyn_from_jax, load_ssrn_from_jax
 
+import port_threads  # noqa: F401 - this process's CPU threads (tests/port_threads.py)
+
 TINY = dict(hidden_dim=16, text_emb_dim=8, ssrn_dim=16, spk_emb_dim=10, max_text_len=16,
             max_frame_num=8)
 

@@ -40,6 +40,8 @@ from spoofsv_torch.train.loop import CheckpointManager
 from spoofsv_torch.train.state import TrainState
 from spoofsv_torch.weights import load_generator_params, load_melsyn_from_jax, load_ssrn_from_jax
 
+import port_threads  # noqa: F401 - this process's CPU threads (tests/port_threads.py)
+
 SENTENCES = [
     "The birch canoe slid on the smooth planks.",
     "Glue the sheet to the dark blue background.",

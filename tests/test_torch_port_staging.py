@@ -30,6 +30,8 @@ from spoofsv_torch.spoofkit import flacio, spoofgen
 from spoofsv_torch.train.loop import CheckpointManager
 from spoofsv_torch.train.state import TrainState
 
+import port_threads  # noqa: F401 - this process's CPU threads (tests/port_threads.py)
+
 SPEAKERS = ["p225", "p226", "p227", "p228"]
 SENTENCES = ["The birch canoe slid on the smooth planks.",
              "Glue the sheet to the dark blue background.",

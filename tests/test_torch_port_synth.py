@@ -26,6 +26,8 @@ from spoofsv_torch.models import SSRN, MelSyn
 from spoofsv_torch.utils import profiling
 from spoofsv_torch.weights import load_melsyn_from_jax, load_ssrn_from_jax
 
+import port_threads  # noqa: F401 - this process's CPU threads (tests/port_threads.py)
+
 
 def _cfg(tiny_cfg, init, iters=4):
     return tiny_cfg.replace(tpu=dataclasses.replace(

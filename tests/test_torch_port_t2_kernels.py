@@ -24,6 +24,8 @@ from spoofsv_torch.models.tacotron2 import build_tacotron2
 from spoofsv_torch.ops import t2_kernel
 from spoofsv_torch.ops.t2_kernel import Buffers, StepWeights
 
+import port_threads  # noqa: F401 - this process's CPU threads (tests/port_threads.py)
+
 pytestmark = pytest.mark.cuda
 
 

@@ -3,10 +3,10 @@
 ``plainref/tacotron2.py`` is the model's equations in float32 torch;
 ``spoofsv_torch`` runs it through ``Tacotron2Synthesizer`` (the encoder, the
 rollout's plain steps over its operand layout, the folded postnet, the mel's
-pseudo-inverse). Tiny widths and seeded random weights, one intra-op
-thread, no kernel build. Tolerances: the two compute the same float32
-arithmetic in another order (1e-5 on the encoder and the postnet, 1e-4 over
-a 110-step rollout, whose state carries the differences along).
+pseudo-inverse). Tiny widths and seeded random weights, no kernel build.
+Tolerances: the two compute the same float32 arithmetic in another order
+(1e-5 on the encoder and the postnet, 1e-4 over a 110-step rollout, whose
+state carries the differences along).
 """
 
 import dataclasses
@@ -23,20 +23,14 @@ from spoofsv_torch.infer.synthesize import (Tacotron2Synthesizer, mel_pseudo_inv
 from spoofsv_torch.models.tacotron2 import Tacotron2, build_tacotron2
 from spoofsv_torch.ops import t2_kernel
 
+import port_threads  # noqa: F401 - this process's CPU threads (tests/port_threads.py)
+
 TINY = dict(symbols_embedding_dim=16, encoder_embedding_dim=16, speaker_embedding_dim=8,
             n_mel_channels=8, attention_rnn_dim=32, decoder_rnn_dim=24, prenet_dim=16,
             attention_dim=8, attention_location_n_filters=4, attention_location_kernel_size=7,
             postnet_embedding_dim=16, weights_seed=3, max_decoder_steps=24)
 TEXTS = ["The birch canoe slid on the smooth planks.", "Rice is often served in round bowls.",
          "It's easy to tell."]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -27,6 +27,8 @@ from spoofsv_torch.models import SSRN, MelSyn
 from spoofsv_torch.train.loop import Trainer
 from spoofsv_torch.utils import profiling
 
+import port_threads  # noqa: F401 - this process's CPU threads (tests/port_threads.py)
+
 TINY = dict(hidden_dim=16, text_emb_dim=8, ssrn_dim=16, spk_emb_dim=10, max_text_len=16,
             max_frame_num=8)
 SYNTH_SPANS = ("synth.inputs", "decode.encode", "decode.rollout", "ssrn", "vocode.prep",

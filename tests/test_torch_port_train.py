@@ -24,6 +24,8 @@ from spoofsv_torch.models import layers
 from spoofsv_torch.train import Trainer, losses, make_eval_step, make_ordinary_step, shift_right
 from spoofsv_torch.weights import load_reference_checkpoint, load_state
 
+import port_threads  # noqa: F401 - this process's CPU threads (tests/port_threads.py)
+
 KINDS = ("train_text2mel", "train_ssrn")
 EXPORT = {"train_text2mel": export_melsyn, "train_ssrn": export_ssrn}
 
