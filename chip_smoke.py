@@ -3942,29 +3942,6 @@ T2_GATES = {"mel": 0.075, "att": 0.015, "gate": 0.05}
 H100 = {"bf16": 989e12, "f32": 67e12, "bytes_per_s": 3.35e12}   # the bounds' rates (section 6)
 
 
-def t2_restore(t2_kernel, w, s, state: dict, mel_prev, t: int) -> None:
-    """The decoder's state kept before step ``t`` (one entry of the
-    rollout's ``states``) into the buffers ``s``: the operand rows, c, w, Σw,
-    and the prenet's output for step ``t`` from the frame emitted before it
-    (``mel_prev``; the go frame's prenet is 0), its masks hashed as the
-    kernel hashes them."""
-    import torch
-
-    A, D, P, M = w.A, w.D, w.P, w.M
-    for k in ("c_att", "c_dec", "w", "cum"):
-        getattr(s, k).copy_(state[k])
-    s.d_buf[:, :A] = state["h_att"]
-    s.d_buf[:, A:A + D] = state["h_dec"]
-    s.d_buf[:, A + D:] = state["ctx"]
-    s.a_buf[:, P:P + M] = state["ctx"]
-    s.a_buf[:, P + M:] = state["h_att"]
-    y = mel_prev.float() if t else torch.zeros_like(mel_prev, dtype=torch.float32)
-    for layer, wl in enumerate((w.w_pre1, w.w_pre2)):
-        y = torch.relu(y @ wl.float().t()) * t2_kernel.prenet_mask_plain(
-            s.seeds, t, layer, wl.shape[0], w.drop)
-    s.a_buf[:, :P] = y.to(s.a_buf.dtype)
-
-
 def tacotron2_phase(dev, cuda_ms, counters: dict, kernels: dict, smi: str) -> dict:
     """Phase 16: multi-speaker Tacotron 2 (``Tacotron2Synthesizer``) at the
     published widths in bf16, on the spoof-set call: 8 speakers x the 20
@@ -4027,6 +4004,7 @@ def tacotron2_phase(dev, cuda_ms, counters: dict, kernels: dict, smi: str) -> di
                 **{k: c.launches for k, c in steps.items()}}
     grew = {k: after.get(k, 0) - before.get(k, 0) for k in ("t2_rollout_steps",
                                                             "t2_graph_captures")}
+    staged = after.get("t2_step_staged_bytes", 0) - before.get("t2_step_staged_bytes", 0)
     log(f"[t2] B={B} N={N} T={T}: launches {launches}, counters {grew}; audio "
         f"{tuple(audio.shape)}; call {call_s:.3f} s (the first, with the capture, "
         f"{first_s:.3f} s) = {B * audio.shape[1] / 22050 / call_s:.1f} audio s per wall s "
@@ -4038,6 +4016,9 @@ def tacotron2_phase(dev, cuda_ms, counters: dict, kernels: dict, smi: str) -> di
                  if k not in ("gl_init", "griffin_lim", *steps)),
          ("the Tacotron 2 path's other launches", launches))
     gate(grew == {"t2_rollout_steps": T, "t2_graph_captures": 0}, ("t2 counters", grew))
+    log(f"[t2] the step kernels' asynchronous copies brought in {staged / 1e9:.3f} GB over the "
+        f"call ({staged / T / 1e6:.3f} MB a step; counter t2_step_staged_bytes)")
+    gate(staged > 0, ("t2_step_staged_bytes: the staged route did not engage", staged))
     gate(tuple(audio.shape) == (B, HOP * (T - 1)) and tuple(mel.shape) == (B, T, 80)
          and tuple(attn.shape) == (B, N, T), (audio.shape, mel.shape, attn.shape))
     gate(bool(torch.isfinite(audio).all()) and float(audio.abs().max()) > 1e-4,
@@ -4074,8 +4055,8 @@ def tacotron2_phase(dev, cuda_ms, counters: dict, kernels: dict, smi: str) -> di
     starts = [int(x) for x in states["step"]] + [T]
     with torch.no_grad():
         for i, (a, b) in enumerate(zip(starts[:-1], starts[1:])):
-            t2_restore(t2_kernel, w, plain, {k: states[k][i] for k in t2_kernel.STATE},
-                       mel_g[:, a - 1], a)
+            t2_kernel.restore_state(w, plain, {k: states[k][i] for k in t2_kernel.STATE},
+                                    mel_g[:, a - 1], a)
             for t in range(a, b):
                 t2_kernel.att_step_plain(plain.a_buf.float() @ w.w_att.float().t(), w, plain, t)
                 t2_kernel.dec_step_plain(plain.d_buf.float() @ w.w_dec.float().t(), w, plain, t)
@@ -4102,8 +4083,8 @@ def tacotron2_phase(dev, cuda_ms, counters: dict, kernels: dict, smi: str) -> di
     for t in (0, 500, 975):
         i = t // t2_kernel.CHECKPOINT_EVERY
         s1 = buffers()
-        t2_restore(t2_kernel, w, s1, {k: states[k][i] for k in t2_kernel.STATE},
-                   mel_g[:, t - 1], t)
+        t2_kernel.restore_state(w, s1, {k: states[k][i] for k in t2_kernel.STATE},
+                                mel_g[:, t - 1], t)
         s2 = copy.deepcopy(s1)
         g = torch.mm(s1.a_buf, w.w_att.t(), out_dtype=torch.float32)
         t2_kernel.att_step_kernel(g, w, s1, t)

@@ -1,62 +1,182 @@
 // The Tacotron 2 decoder step between its two LSTM gate products, for sm_90a,
-// bf16 operands and f32 arithmetic. Replaces no TPU kernel (the JAX package
-// has no Tacotron 2); ops/t2_kernel.py launches both kernels, between two
-// cuBLAS products, four launches a step, and captures the 1000 steps of a
+// bf16 weights and memory, f32 arithmetic. Replaces no TPU kernel (the JAX
+// package has no Tacotron 2); ops/t2_kernel.py launches both kernels, between
+// two cuBLAS products, four launches a step, and captures the 1000 steps of a
 // call into one CUDA graph.
 //
-// t2_att_step_kernel, a block per ROWS_ATT batch rows:
-//   the attention LSTM cell's pointwise update (gates i, f, g, o; cell state
-//   f32) → h; query q = W_q h; location features: the K-tap convolution over
-//   [w, Σw] (zero padded) and its dense layer; energies
-//   e_n = v·tanh(q + dense(loc)_n + pm_n), −inf past the row's length; the
-//   softmax in f32; Σw += w; the context Σ_n w_n memory_n. h and the context
-//   go in bf16 into the next products' operand rows.
-// t2_dec_step_kernel, a block per ROWS_DEC rows:
-//   the decoder cell's pointwise update → h; [h, context] through the
-//   projection and the gate (one matrix of n_mel + 1 rows) → the frame and
-//   its stop logit; the next step's prenet (two layers, ReLU, dropout kept
-//   at inference with masks hashed from (step, unit, row seed, layer)) →
-//   the attention cell's next operand row.
+// t2_att_step_kernel: the attention LSTM cell's pointwise update (gates i, f,
+//   g, o; cell state f32) → h; the query q = W_q h; the location term: the
+//   K-tap convolution over [w, Σw] (zero padded) through its dense layer;
+//   energies e_n = v·tanh(q + location_n + pm_n), −inf past the row's length;
+//   the softmax in f32; Σw += w; the context Σ_n w_n memory_n. h and the
+//   context go in bf16 into the next products' operand rows.
+// t2_dec_step_kernel: the decoder cell's pointwise update → h; [h, context]
+//   through the projection and the gate (one matrix of n_mel + 1 rows) → the
+//   frame and its stop logit; the next step's prenet (two layers, ReLU,
+//   dropout kept at inference with masks hashed from (step, unit, row seed,
+//   layer)) → the attention cell's next operand row.
 //
-// What bounds it: latency. A step is two products of B × 4096 over
-// 2048 / 2816 inputs (6.6 GFLOP at B=160), then these kernels, each a few µs
-// of f32 work over weights read from L2 (W_q 256 KB, the projection 287 KB,
-// the prenet 172 KB) and the memory (B·N·768 bf16, 12 MB at B=160 N=49).
-// What this design does about it: one launch for everything between two
-// products, nothing staged through device memory but the operand rows;
-// 16-byte loads of bf16 weights, a warp's lanes along a weight row, several
-// rows' loads issued before any arithmetic (a first version that loaded as
-// it went waited on L2 latency: 118 and 98 µs a step), shuffled sums; the
-// small per-row state (h, query, [w, Σw], location features, energies) in
-// shared memory; the block's rows share each weight load; the host
-// launches nothing a step (a CUDA graph replays the call).
+// What bounds it: latency, then instruction issue. A step is two products of
+// B × 4096 over 2048 / 2816 inputs, then these kernels: a few µs of f32 work
+// over weights that the products' 40 MB a step push out of the L2 (W_q
+// 256 KB, the projection 287 KB, the prenet 172 KB) and the memory (B·N·768
+// bf16, 12 MB at B=160 N=49). A block that loads what a phase needs when the
+// phase starts waits on device memory phase after phase; with the bytes staged
+// ahead, each phase is bound by its instructions (f32 activations: the
+// products run on the CUDA cores).
+//
+// What this design does about it:
+// - A thread-block cluster of C CTAs serves R batch rows (ops/t2_kernel.py's
+//   step_plan chooses R, C and the memory's staging from B and N). Each CTA
+//   owns a slice of every matrix: of the cells' units (the pointwise update,
+//   and the k-slice of W_q and of the projection that those units feed), of
+//   the attention width (the location term, the energies, v), of the
+//   memory's columns (the context) and of the prenet's units. ops/t2_kernel.py
+//   lays the weights out slice by slice (StepWeights), so a CTA's slice of a
+//   matrix is one contiguous block.
+// - A CTA's bytes come by asynchronous copies into shared memory, each group
+//   completing on its own mbarrier, so a phase waits only on its operands:
+//   tensor-map copies (TMA) of its rows' gate sums and cell state (one box
+//   each), of its memory columns (one box a chunk) and of the decoder's
+//   context columns; 1-D bulk copies of the weight slices, the biases and the
+//   processed memory's rows; cp.async of [w, Σw] (rows of N floats are no
+//   whole 16 bytes). The copies are issued by threads of different warps,
+//   the gate sums first, the weights behind them; the processed memory and
+//   the memory follow once the gate sums and weights are in (all share the
+//   SM's path from memory, and the gate sums are wanted first). Where a row's
+//   memory does not fit whole it streams through two chunk buffers.
+// - The narrow results cross the cluster through distributed shared memory,
+//   completing on the receiver's mbarrier: by one bulk copy per destination
+//   CTA, each CTA's partial query (over its units) to the CTA owning those
+//   attention units, its partial energies (over its attention units) and its
+//   partial projection (over its inputs) to every CTA; by 16-byte st.async
+//   stores, its prenet units into every CTA's input row of the second layer.
+//   Every receiver sums the partials in rank order, so a launch is
+//   deterministic (the graph replays bit-equal to eager steps).
+// - The products run from shared memory: a group of lanes takes a tile of 8
+//   outputs × a few rows, its lanes split the inputs (16-byte weight loads
+//   down a column, rows padded to an odd multiple of 16 bytes: no bank
+//   conflicts), the tile's sums meet by halving exchanges of shuffles.
+// - The location convolution is folded into its dense layer on the host (U =
+//   dense · conv, in float64, stored f32), so a CTA computes its attention
+//   units' location term straight from [w, Σw], four positions a thread with
+//   the window held in registers, over the taps that reach the row's length.
+// - The softmax and the context are a warp's a row: no block barrier between.
 
+#include <cuda.h>   // CUtensorMap (its encoder, cuTensorMapEncodeTiled, looked up at run time)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #ifdef SPOOFSV_T2_PROBE
-// clock64 at each phase boundary of block 0 (thread 0), per kernel
-__device__ long long g_t2_probe[2][16];
+// per kernel: clock64 at each phase boundary of block 0 (thread 0), then the
+// global timer (ns) at the start and the end of each CTA of the first cluster
+__device__ long long g_t2_probe[2][48];
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
 #define T2_MARK(kernel, i) \
   if (blockIdx.x == 0 && threadIdx.x == 0) g_t2_probe[kernel][i] = clock64()
+#define T2_SPAN(kernel, end) \
+  if (blockIdx.x < 8 && threadIdx.x == 0) g_t2_probe[kernel][32 + 2 * blockIdx.x + end] = global_ns()
 #else
 #define T2_MARK(kernel, i)
+#define T2_SPAN(kernel, end)
 #endif
 
 namespace {
 
 constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
-constexpr int ROWS_ATT = 2;   // batch rows a block of t2_att_step_kernel
-constexpr int ROWS_DEC = 4;   // of t2_dec_step_kernel
-constexpr int NF = 32;        // location filters (the published 32, kept in registers)
-constexpr int M_MAX = 1024;   // the memory's width at most (the context's halves)
+constexpr int SMEM_MAX = 232448;   // bytes of shared memory a block may use (sm_90)
+constexpr int C_MAX = 8;           // CTAs a cluster at most (the loops over them unrolled)
 
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
+// ---------------------------------------------------------------------------
+// shared-memory layouts (mirrored by ops/t2_kernel.py's att_smem / dec_smem)
+// ---------------------------------------------------------------------------
+
+__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+__host__ __device__ inline int round8(int n) { return (n + 7) & ~7; }
+__host__ __device__ inline int take(int& off, int bytes) {   // 128-byte aligned parts
+  const int at = off;
+  off += (bytes + 127) & ~127;
+  return at;
+}
+// a row's [w | Σw] channels: positions −pad ... round4(N) + pad + 3, zero outside [0, N)
+__host__ __device__ inline int wc_width(int N, int K) { return round4(round4(N) + K - 1); }
+
+struct AttLayout {
+  int bars, g, bias, c, wq, u, v, wc, pm, qrecv, sq, esend, erecv, wts, len, ctx, mem, total;
+};
+
+// R rows a cluster of C CTAs, the memory in nbuf buffers of `chunk` positions
+__host__ __device__ inline AttLayout att_layout(int R, int C, int N, int chunk, int nbuf, int A,
+                                                int AT, int M, int K) {
+  const int Au = A / C, Aa = AT / C, Mc = M / C, N4 = round4(N);
+  AttLayout L;
+  int o = 0;
+  L.bars = take(o, 8 * 8);
+  L.g = take(o, 16 * R * Au);      // R × 4 gates × Au f32; h in place of gate i
+  L.bias = take(o, 16 * Au);
+  L.c = take(o, 4 * R * Au);
+  L.wq = take(o, 2 * Au * (AT + 8));   // W_q^T's rows of this CTA's units, padded
+  L.u = take(o, 8 * K * Aa);           // 2K taps × Aa, the folded location layer
+  L.v = take(o, 4 * Aa);
+  L.wc = take(o, 8 * R * wc_width(N, K));
+  L.pm = take(o, 2 * R * Aa * N);      // [r][a][n] bf16
+  L.qrecv = take(o, 4 * C * R * Aa);   // [source][r][a] (st.async from every CTA)
+  L.sq = take(o, 4 * R * Aa);          // the query, summed
+  L.esend = take(o, 4 * R * N4);
+  // [source][r][n]; in the gate sums' place where it fits (they are spent
+  // before any CTA sends its energies: it waits for this CTA's query first)
+  L.erecv = C * N4 <= 4 * Au ? L.g : take(o, 4 * C * R * N4);
+  L.wts = take(o, 4 * R * N4);
+  L.len = take(o, 4 * R);
+  L.ctx = take(o, 4 * R * Mc);
+  L.mem = take(o, 2 * nbuf * R * chunk * Mc);   // [buffer][r][n][column] bf16
+  L.total = o;
+  return L;
+}
+
+struct DecLayout {
+  int bars, g, bias, c, ctx, x, wp, bp, psend, precv, frame, w1, w2, ysend, x2, seed, total;
+};
+
+__host__ __device__ inline DecLayout dec_layout(int R, int C, int D, int M, int P, int NM) {
+  const int Du = D / C, Mc = M / C, Pu = P / C, OS = round8(NM + 1), KP = Du + Mc;
+  DecLayout L;
+  int o = 0;
+  L.bars = take(o, 8 * 8);
+  L.g = take(o, 16 * R * Du);
+  L.bias = take(o, 16 * Du);
+  L.c = take(o, 4 * R * Du);
+  L.ctx = take(o, 2 * R * Mc);
+  L.x = take(o, 4 * R * KP);            // [r][h units | context columns] f32
+  L.wp = take(o, 2 * KP * OS);          // the projection's rows of those inputs, transposed
+  L.bp = take(o, 4 * OS);
+  L.psend = take(o, 4 * R * OS);
+  L.precv = take(o, 4 * C * R * OS);    // [source][r][o]
+  L.frame = take(o, 4 * R * OS);
+  L.w1 = take(o, 2 * NM * (Pu + 8));    // the prenet's units of this CTA, transposed, padded
+  L.w2 = take(o, 2 * P * (Pu + 8));
+  L.ysend = take(o, 4 * R * Pu);
+  L.x2 = take(o, 4 * R * P);            // the first layer's units, every CTA's (st.async)
+  L.seed = take(o, 4 * R);
+  L.total = o;
+  return L;
+}
+
+// ---------------------------------------------------------------------------
+// arithmetic
+// ---------------------------------------------------------------------------
+
+// (by value: the caller's dereference is one 16-byte load)
+__device__ __forceinline__ void unpack8(const uint4 u, float (&f)[8]) {
   const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -107,429 +227,984 @@ __device__ __forceinline__ uint32_t mask_hash(uint32_t step, uint32_t unit, uint
   return h ^ (h >> 16);
 }
 
-// f32 global → shared, n floats (n and both pointers multiples of 4 / 16 bytes)
-__device__ __forceinline__ void copy_f32(float* dst, const float* __restrict__ src, int n) {
-#pragma unroll 4
-  for (int i = threadIdx.x * 4; i < n; i += THREADS * 4)
-    *reinterpret_cast<float4*>(dst + i) = *reinterpret_cast<const float4*>(src + i);
-}
-
-// An LSTM cell's pointwise update for the block's rows, four units a thread
-// (16-byte loads): gates g (B, 4H) f32 plus the summed bias; the cell state
-// c (B, H) f32 in place; h to shared memory (row r at sh + r·sh_stride) and,
-// in bf16, to out1[b·ld1 + j] and (where given) out2[b·ld2 + j]. H, ld1,
-// ld2 multiples of 4.
-template <int ROWS>
-__device__ void lstm_rows(const float* __restrict__ g, const float* __restrict__ bias,
-                          float* __restrict__ c, float* sh, int sh_stride, bf16* out1, int ld1,
-                          bf16* out2, int ld2, int r0, int B, int H) {
-  const int H4 = H / 4;
-#pragma unroll 2
-  for (int idx = threadIdx.x; idx < ROWS * H4; idx += THREADS) {
-    const int r = idx / H4, j = (idx - r * H4) * 4, b = r0 + r;
-    if (b >= B) continue;
-    const float* gr = g + (size_t)b * 4 * H;
-    float4 x[4], bb[4];
+// An LSTM unit's update, four units: gate sums x (i, f, g, o) plus bias bb;
+// the cell state c in place; h out.
+__device__ __forceinline__ void lstm4(const float4 (&x)[4], const float4 (&bb)[4], float (&cc)[4],
+                                      float (&h)[4]) {
+  const float gi[4] = {x[0].x + bb[0].x, x[0].y + bb[0].y, x[0].z + bb[0].z, x[0].w + bb[0].w};
+  const float gf[4] = {x[1].x + bb[1].x, x[1].y + bb[1].y, x[1].z + bb[1].z, x[1].w + bb[1].w};
+  const float gg[4] = {x[2].x + bb[2].x, x[2].y + bb[2].y, x[2].z + bb[2].z, x[2].w + bb[2].w};
+  const float go[4] = {x[3].x + bb[3].x, x[3].y + bb[3].y, x[3].z + bb[3].z, x[3].w + bb[3].w};
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      x[q] = *reinterpret_cast<const float4*>(gr + q * H + j);
-      bb[q] = *reinterpret_cast<const float4*>(bias + q * H + j);
-    }
-    const float4 cv = *reinterpret_cast<const float4*>(c + (size_t)b * H + j);
-    float cc[4] = {cv.x, cv.y, cv.z, cv.w}, h[4];
-    const float gi[4] = {x[0].x + bb[0].x, x[0].y + bb[0].y, x[0].z + bb[0].z, x[0].w + bb[0].w};
-    const float gf[4] = {x[1].x + bb[1].x, x[1].y + bb[1].y, x[1].z + bb[1].z, x[1].w + bb[1].w};
-    const float gg[4] = {x[2].x + bb[2].x, x[2].y + bb[2].y, x[2].z + bb[2].z, x[2].w + bb[2].w};
-    const float go[4] = {x[3].x + bb[3].x, x[3].y + bb[3].y, x[3].z + bb[3].z, x[3].w + bb[3].w};
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      cc[k] = sigmoid(gf[k]) * cc[k] + sigmoid(gi[k]) * tanhf(gg[k]);
-      h[k] = sigmoid(go[k]) * tanhf(cc[k]);
-    }
-    *reinterpret_cast<float4*>(c + (size_t)b * H + j) = make_float4(cc[0], cc[1], cc[2], cc[3]);
-    *reinterpret_cast<float4*>(sh + r * sh_stride + j) = make_float4(h[0], h[1], h[2], h[3]);
-    const uint2 hb = pack4(h[0], h[1], h[2], h[3]);
-    *reinterpret_cast<uint2*>(out1 + (size_t)b * ld1 + j) = hb;
-    if (out2 != nullptr) *reinterpret_cast<uint2*>(out2 + (size_t)b * ld2 + j) = hb;
+  for (int k = 0; k < 4; ++k) {
+    cc[k] = sigmoid(gf[k]) * cc[k] + sigmoid(gi[k]) * tanhf(gg[k]);
+    h[k] = sigmoid(go[k]) * tanhf(cc[k]);
   }
 }
 
-// y[r·y_stride + o] = W[o] · x[r·x_stride : +K] (+ bias[o]) for the block's
-// rows and o < n_out, W (n_out, K) bf16 row-major, x f32 in shared memory
-// (x_stride and K multiples of 8, K ≤ NCH·256). A warp takes OUTS outputs
-// at once, its lanes along the rows in 8-wide chunks: it issues every
-// weight load of those outputs first (NCH·OUTS 16-byte loads in flight a
-// lane: the step's weights come from device memory, the gate products
-// having passed 40 MB through the L2 since), then reads each chunk of x from
-// shared memory once for the OUTS outputs.
-template <int ROWS, int NCH, int OUTS>
-__device__ void matvec_rows(const bf16* __restrict__ W, int K, int n_out, const float* x,
-                            int x_stride, float* y, int y_stride,
-                            const float* __restrict__ bias) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int o0 = warp * OUTS; o0 < n_out; o0 += WARPS * OUTS) {
-    uint4 wv[NCH][OUTS];
+// Sums v[0..V) over the LPG lanes of a lane group by halving exchanges: after
+// it, v[i] of the group's lane l holds the sum of entry l·(V/LPG) + i.
+template <int V, int H, int S>
+__device__ __forceinline__ void halve(float (&v)[V], int lane) {
+  if constexpr (H >= 1) {
+    const bool up = (lane & H) != 0;
 #pragma unroll
-    for (int c = 0; c < NCH; ++c)
+    for (int i = 0; i < S; ++i) {
+      const float send = up ? v[i] : v[i + S];
+      const float keep = up ? v[i + S] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, H);
+    }
+    halve<V, H / 2, S / 2>(v, lane);
+  }
+}
+template <int V, int LPG>
+__device__ __forceinline__ void group_reduce(float (&v)[V], int lane) {
+  halve<V, LPG / 2, V / 2>(v, lane);
+}
+
+// Products from shared memory: for r < R and o < 8·NG, the sum over k < K of
+// W[k·ldw + o] · x[r·ldx + k] (W bf16, ldw·2 bytes an odd multiple of 16, so
+// 16-byte loads down a column of lanes meet no bank conflict; x f32). A group
+// of LPG lanes takes a tile of 8 outputs × RG rows, its lanes splitting k;
+// the tile's sums meet by halving exchanges, then each lane calls
+// out(r, o, sum) for its 8·RG/LPG of them (rows from R on skipped).
+template <int RG, int LPG, typename Out>
+__device__ __forceinline__ void mv_tiles(const bf16* W, int ldw, int K, int NG, const float* x,
+                                         int ldx, int R, Out out) {
+  constexpr int V = 8 * RG, GPW = 32 / LPG, SF = V / LPG;
+  static_assert(V >= LPG && 32 % LPG == 0, "a tile's sums cover its lanes");
+  const int lane = threadIdx.x & 31, gl = lane % LPG;
+  const int units = NG * ((R + RG - 1) / RG);
+  for (int base = (threadIdx.x >> 5) * GPW; base < units; base += WARPS * GPW) {
+    const int unit = base + lane / LPG;
+    const bool on = unit < units;
+    const int g = on ? unit % NG : 0, r0 = on ? (unit / NG) * RG : 0;
+    float v[V];
 #pragma unroll
-      for (int q = 0; q < OUTS; ++q) {
-        const int k0 = (c * 32 + lane) * 8;
-        wv[c][q] = o0 + q < n_out && k0 < K
-                       ? *reinterpret_cast<const uint4*>(W + (size_t)(o0 + q) * K + k0)
-                       : make_uint4(0u, 0u, 0u, 0u);
-      }
-    float acc[OUTS][ROWS] = {};
+    for (int i = 0; i < V; ++i) v[i] = 0.f;
+    if (on) {
+      // the tile's rows (past R: row R-1 again, its sums dropped below)
+      const float* xr[RG];
 #pragma unroll
-    for (int c = 0; c < NCH; ++c) {
-      const int k0 = (c * 32 + lane) * 8;
-      if (k0 >= K) continue;
-      float xv[ROWS][8];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const float4 x0 = *reinterpret_cast<const float4*>(x + r * x_stride + k0);
-        const float4 x1 = *reinterpret_cast<const float4*>(x + r * x_stride + k0 + 4);
-        xv[r][0] = x0.x, xv[r][1] = x0.y, xv[r][2] = x0.z, xv[r][3] = x0.w;
-        xv[r][4] = x1.x, xv[r][5] = x1.y, xv[r][6] = x1.z, xv[r][7] = x1.w;
-      }
-#pragma unroll
-      for (int q = 0; q < OUTS; ++q) {
+      for (int r = 0; r < RG; ++r) xr[r] = x + min(r0 + r, R - 1) * ldx;
+      const bf16* wg = W + 8 * g;
+      for (int k = gl; k < K; k += LPG) {
         float w8[8];
-        unpack8(wv[c][q], w8);
+        unpack8(*reinterpret_cast<const uint4*>(wg + (size_t)k * ldw), w8);
 #pragma unroll
-        for (int r = 0; r < ROWS; ++r)
+        for (int r = 0; r < RG; ++r) {
+          const float xv = xr[r][k];
 #pragma unroll
-          for (int k = 0; k < 8; ++k) acc[q][r] += w8[k] * xv[r][k];
+          for (int j = 0; j < 8; ++j) v[r * 8 + j] += w8[j] * xv;
+        }
       }
     }
+    group_reduce<V, LPG>(v, lane);
+    if (on) {
 #pragma unroll
-    for (int q = 0; q < OUTS; ++q)
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const float s = warp_sum(acc[q][r]);
-        if (lane == 0 && o0 + q < n_out)
-          y[r * y_stride + o0 + q] = s + (bias != nullptr ? bias[o0 + q] : 0.f);
+      for (int i = 0; i < SF; ++i) {
+        const int idx = gl * SF + i, r = r0 + idx / 8;
+        if (r < R) out(r, 8 * g + idx % 8, v[i]);
       }
+    }
   }
 }
 
-__host__ __device__ int round8(int n) { return (n + 7) & ~7; }
-__host__ __device__ int imax(int a, int b) { return a > b ? a : b; }
+// ---------------------------------------------------------------------------
+// barriers, bulk and tensor copies, the cluster
+// ---------------------------------------------------------------------------
 
-// shared memory of t2_att_step_kernel, in floats; the bf16 processed memory last
-size_t att_smem_floats(int N, int A, int AT, int K) {
-  return (size_t)ROWS_ATT * A + (size_t)ROWS_ATT * AT + round8(ROWS_ATT * 2 * (N + K - 1)) +
-         round8(ROWS_ATT * NF * N) + round8(ROWS_ATT * N) + (size_t)AT * NF +
-         round8(NF * 2 * K) + (size_t)AT +
-         imax(round8(4 * ROWS_ATT * N), round8(2 * ROWS_ATT * M_MAX)) +
-         (size_t)ROWS_ATT * N * AT / 2;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+// this phase's one arrival, expecting `bytes` of copies to complete on it
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// until the phase of `bar` with parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile("{\n.reg .pred p;\nWAIT:\n"
+               "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+               "@!p bra WAIT;\n}\n" ::"r"(bar),
+               "r"(parity)
+               : "memory");
+}
+// 1-D bulk copy global → this CTA's shared memory, completing `bytes` on `bar`
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src, uint32_t bytes,
+                                         uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+               "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(bytes), "r"(bar)
+               : "memory");
+}
+// 1-D bulk copy of this CTA's shared memory into a cluster CTA's (dst and bar
+// from mapa), completing on that CTA's barrier
+__device__ __forceinline__ void bulk_s2c(uint32_t dst, const void* src, uint32_t bytes,
+                                         uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes "
+               "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+               "r"(smem_addr(src)), "r"(bytes), "r"(bar)
+               : "memory");
+}
+// a box of a 2-D / 3-D tensor map (the map in kernel parameter space) at the
+// given coordinates (innermost first) into this CTA's shared memory, completing
+// the box's bytes on `bar`; past the tensor's edge the box holds zeros
+__device__ __forceinline__ void tma2d(void* dst, const CUtensorMap* map, int x, int y,
+                                      uint32_t bar) {
+  asm volatile("cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+               "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+               "l"(map), "r"(x), "r"(y), "r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(map) : "memory");
+}
+__device__ __forceinline__ void tma3d(void* dst, const CUtensorMap* map, int x, int y, int z,
+                                      uint32_t bar) {
+  asm volatile("cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+               "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+               "l"(map), "r"(x), "r"(y), "r"(z), "r"(bar)
+               : "memory");
+}
+// 4 bytes, or 4 zero bytes where !valid
+__device__ __forceinline__ void cp4z(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+// this thread's arrival on `bar` (made for THREADS of them) once its
+// cp.async copies so far have landed
+__device__ __forceinline__ void cp_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+// asynchronous 16- and 4-byte stores into a cluster CTA's shared memory (addr
+// and bar from mapa), completing their bytes on that CTA's barrier with
+// release semantics at cluster scope
+__device__ __forceinline__ void st_async_v4(uint32_t addr, float4 v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 "
+               "[%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(addr), "f"(v.x), "f"(v.y), "f"(v.z),
+               "f"(v.w), "r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void st_async_f32(uint32_t addr, float v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];\n" ::"r"(
+                   addr),
+               "f"(v), "r"(bar)
+               : "memory");
+}
+// mbar_wait, acquiring at cluster scope what other CTAs' copies and stores
+// into this CTA released
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  asm volatile("{\n.reg .pred p;\nWAIT:\n"
+               "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], %1;\n"
+               "@!p bra WAIT;\n}\n" ::"r"(bar),
+               "r"(parity)
+               : "memory");
+}
+// the block waits for what other CTAs sent it: one thread acquires it at
+// cluster scope, the block barrier orders every thread's reads after that
+__device__ __forceinline__ void block_wait_cluster(uint32_t bar, uint32_t parity) {
+  if (threadIdx.x == 0) mbar_wait_cluster(bar, parity);
+  __syncthreads();
 }
 
-size_t dec_smem_floats(int D, int M, int P, int NM) {
-  return (size_t)ROWS_DEC * (D + M) + (size_t)ROWS_DEC * round8(NM + 1) +
-         2 * (size_t)ROWS_DEC * P;
+__device__ __forceinline__ uint32_t remote(uint32_t local, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(local), "r"(rank));
+  return r;
+}
+// orders this thread's plain shared-memory accesses before later bulk copies
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// A split cluster barrier, every thread of the block at the same point: the
+// warp reconverges first (.aligned: the warp arrives as one). Relaxed: what
+// it orders is the barriers' initialisation (fenced by fence.mbarrier_init)
+// and copies whose completion the arriving thread has already observed on
+// its own barriers.
+__device__ __forceinline__ void cluster_arrive() {
+  __syncwarp();
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  __syncwarp();
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// a_buf row: [prenet (P) | context (M) | attention h (A)]; d_buf row:
-// [attention h (A) | decoder h (D) | context (M)]. wloc_t is the location
-// convolution as (2, K, NF), wdense_t the dense layer as (NF, AT), pm the
-// processed memory as (B, AT, N).
-__global__ void __launch_bounds__(THREADS)
-t2_att_step_kernel(const float* __restrict__ g, const float* __restrict__ bias,
-                   float* __restrict__ c, bf16* __restrict__ abuf, bf16* __restrict__ dbuf,
-                   const bf16* __restrict__ wq, const float* __restrict__ wloc_t,
-                   const float* __restrict__ wdense_t, const float* __restrict__ v,
-                   const bf16* __restrict__ pm, const bf16* __restrict__ mem,
-                   const int* __restrict__ lengths, float* __restrict__ w,
-                   float* __restrict__ cum, float* __restrict__ att_out, int B, int N, int T,
-                   int t, int A, int P, int M, int D, int AT, int K) {
-  constexpr int ROWS = ROWS_ATT;
-  extern __shared__ __align__(16) float smem[];
-  const int NP = N + K - 1, pad = (K - 1) / 2;
-  const int LA = P + M + A, LD = A + D + M;
-  float* sh = smem;                                // ROWS × A: attention h
-  float* sq = sh + ROWS * A;                       // ROWS × AT: query
-  float* swc = sq + ROWS * AT;                     // ROWS × 2 × NP: [w, Σw], zero padded
-  float* sloc = swc + round8(ROWS * 2 * NP);       // ROWS × NF × N: location features
-  float* se = sloc + round8(ROWS * NF * N);        // ROWS × N: energies, then weights
-  float* sdense = se + round8(ROWS * N);           // NF × AT: the dense layer, transposed
-  float* swloc = sdense + AT * NF;                 // 2 × K × NF: the location convolution
-  float* sv = swloc + round8(NF * 2 * K);          // AT: v
-  float* spart = sv + AT;   // 4 × ROWS × N: the energies' quarters; then 2 × ROWS × M
-  bf16* spm = reinterpret_cast<bf16*>(spart + imax(round8(4 * ROWS * N), round8(2 * ROWS * M)));
-  const int r0 = blockIdx.x * ROWS;
+// tid 0: the kernel's n barriers, barrier i made for counts[i] arrivals
+__device__ __forceinline__ void make_barriers(uint32_t bars, const int* counts, int n) {
+  for (int i = 0; i < n; ++i) mbar_init(bars + 8 * i, counts[i]);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// `src` (bytes) of this CTA into each cluster CTA's `dst` + this CTA's place,
+// completing on its `bar`: threads d < C send to CTA d, after every thread's
+// writes of `src` (the caller fenced them with fence_proxy_async)
+__device__ __forceinline__ void send_all(const void* src, const void* dst, uint32_t bytes,
+                                         uint32_t bar, int C) {
+  if ((int)threadIdx.x < C)
+    bulk_s2c(remote(smem_addr(dst), threadIdx.x), src, bytes, remote(bar, threadIdx.x));
+}
+
+// ---------------------------------------------------------------------------
+// t2_att_step_kernel
+// ---------------------------------------------------------------------------
+
+struct AttArgs {
+  CUtensorMap gmap;      // (B, 4, A) f32 the attention cell's gate products, boxes (R, 4, A/C)
+  CUtensorMap cmap;      // (B, A) f32 its cell state, boxes (R, A/C)
+  CUtensorMap mmap;      // (B, N, M) bf16 the memory, boxes (R, chunk, M/C)
+  const float* bias;     // (4A) its summed biases
+  float* c;              // (B, A) its cell state
+  bf16* abuf;            // (B, P + M + A) [prenet | context | attention h]
+  bf16* dbuf;            // (B, A + D + M) [attention h | decoder h | context]
+  const bf16* wq;        // (C, A/C, AT + 8) W_q^T by CTA, rows padded
+  const float* u;        // (C, 2K, AT/C) the folded location layer by CTA
+  const float* v;        // (AT)
+  const bf16* pm;        // (B, AT, N) the processed memory
+  const int* lengths;    // (B)
+  float* w;              // (B, N) the attention weights
+  float* cum;            // (B, N) their running sum
+  float* att_out;        // (B, N, T)
+  int B, N, T, t, A, P, M, D, AT, K, R, C, chunk;
+};
+
+// barriers of t2_att_step_kernel: [w, Σw] and the lengths take every
+// thread's cp.async arrival, the others one arrival expecting copied bytes
+enum { AB_WC, AB_IN, AB_W, AB_PM, AB_MEM0, AB_MEM1, AB_Q, AB_E, AB_N };
+
+__global__ void __launch_bounds__(THREADS, 1)
+t2_att_step_kernel(const __grid_constant__ AttArgs a) {
+  extern __shared__ __align__(128) char smem[];
+  const int C = a.C, R = a.R, N = a.N, K = a.K, AT = a.AT;
+  const int Au = a.A / C, Aa = AT / C, Mc = a.M / C, N4 = round4(N), WCW = wc_width(N, K);
+  const int nchunks = (N + a.chunk - 1) / a.chunk, nbuf = nchunks > 1 ? 2 : 1;
+  const AttLayout L = att_layout(R, C, N, a.chunk, nbuf, a.A, AT, a.M, K);
+  const int rank = blockIdx.x % C, r0 = (blockIdx.x / C) * R, nv = min(R, a.B - r0);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int LA = a.P + a.M + a.A, LD = a.A + a.D + a.M, pad = (K - 1) / 2;
+  float* sg = reinterpret_cast<float*>(smem + L.g);
+  const float* sbias = reinterpret_cast<const float*>(smem + L.bias);
+  const float* sc = reinterpret_cast<const float*>(smem + L.c);
+  const bf16* swq = reinterpret_cast<const bf16*>(smem + L.wq);
+  const float* su = reinterpret_cast<const float*>(smem + L.u);
+  const float* sv = reinterpret_cast<const float*>(smem + L.v);
+  float* swc = reinterpret_cast<float*>(smem + L.wc);
+  bf16* spm = reinterpret_cast<bf16*>(smem + L.pm);
+  const float* sqrecv = reinterpret_cast<const float*>(smem + L.qrecv);
+  float* sq = reinterpret_cast<float*>(smem + L.sq);
+  float* sesend = reinterpret_cast<float*>(smem + L.esend);
+  const float* serecv = reinterpret_cast<const float*>(smem + L.erecv);
+  float* swts = reinterpret_cast<float*>(smem + L.wts);
+  int* slen = reinterpret_cast<int*>(smem + L.len);
+  float* sctx = reinterpret_cast<float*>(smem + L.ctx);
+  bf16* smem_m = reinterpret_cast<bf16*>(smem + L.mem);
+  const uint32_t bars = smem_addr(smem + L.bars);
 
-  // everything this block reads from device memory, its loads issued together
   T2_MARK(0, 0);
-  lstm_rows<ROWS>(g, bias, c, sh, A, abuf + P + M, LA, dbuf, LD, r0, B, A);
-  copy_f32(sdense, wdense_t, AT * NF);
-  copy_f32(swloc, wloc_t, NF * 2 * K);
-  copy_f32(sv, v, AT);
-  const int nrows = min(ROWS, B - r0);
-#pragma unroll 4
-  for (int i = tid * 8; i < nrows * AT * N; i += THREADS * 8)
-    *reinterpret_cast<uint4*>(spm + i) =
-        *reinterpret_cast<const uint4*>(pm + (size_t)r0 * AT * N + i);
-  for (int i = tid; i < ROWS * 2 * NP; i += THREADS) {
-    const int r = i / (2 * NP), rem = i - r * 2 * NP, ch = rem / NP, n = rem - ch * NP - pad;
-    const int b = r0 + r;
-    float x = 0.f;
-    if (b < B && n >= 0 && n < N) x = (ch == 0 ? w : cum)[(size_t)b * N + n];
-    swc[i] = x;
+  T2_SPAN(0, 0);
+  // every byte this CTA reads from device memory, in flight at once, each
+  // group of copies issued by a thread of its own warp (which arrives on its
+  // barrier expecting the bytes): the gate sums, cell state and biases of its
+  // units; the weight slices; its memory columns; its attention units'
+  // processed memory; and by every thread [w, Σw] zero padded and the lengths
+  if (tid == 0) {
+    const int counts[AB_N] = {THREADS, 3, 1, 1, 1, 1, 1, 1};
+    make_barriers(bars, counts, AB_N);
+    mbar_expect_tx(bars + 8 * AB_Q, C * R * Aa * 4);
+    mbar_expect_tx(bars + 8 * AB_E, C * R * N4 * 4);
+  } else if (tid == 32) {
+    prefetch_map(&a.gmap);
+  } else if (tid == 64) {
+    prefetch_map(&a.cmap);
+  } else if (tid == 128) {
+    prefetch_map(&a.mmap);
   }
   __syncthreads();
+  cluster_arrive();   // this CTA's barriers are made (waited for before the first send)
   T2_MARK(0, 1);
-
-  matvec_rows<ROWS, 4, 4>(wq, A, AT, sh, A, sq, AT, nullptr);   // the query (A ≤ 1024)
-  T2_MARK(0, 2);
-  // the location convolution over [w, Σw]: a thread per (row, position, 8
-  // filters), the filters' taps read as broadcast 16-byte words
-  const int NF8 = NF / 8;
-  for (int i = tid; i < ROWS * N * NF8; i += THREADS) {
-    const int f0 = (i / (ROWS * N)) * 8, rn = i - (f0 / 8) * ROWS * N, r = rn / N, n = rn - r * N;
-    const float* x0 = swc + r * 2 * NP + n;
-    const float* x1 = x0 + NP;
-    float acc[8] = {};
-    for (int k = 0; k < K; ++k) {
-      const float a0 = x0[k], a1 = x1[k];
-      const float4 w0 = *reinterpret_cast<const float4*>(swloc + k * NF + f0);
-      const float4 w1 = *reinterpret_cast<const float4*>(swloc + k * NF + f0 + 4);
-      const float4 v0 = *reinterpret_cast<const float4*>(swloc + (K + k) * NF + f0);
-      const float4 v1 = *reinterpret_cast<const float4*>(swloc + (K + k) * NF + f0 + 4);
-      acc[0] += w0.x * a0 + v0.x * a1, acc[1] += w0.y * a0 + v0.y * a1;
-      acc[2] += w0.z * a0 + v0.z * a1, acc[3] += w0.w * a0 + v0.w * a1;
-      acc[4] += w1.x * a0 + v1.x * a1, acc[5] += w1.y * a0 + v1.y * a1;
-      acc[6] += w1.z * a0 + v1.z * a1, acc[7] += w1.w * a0 + v1.w * a1;
-    }
-#pragma unroll
-    for (int q = 0; q < 8; ++q) sloc[(r * NF + f0 + q) * N + n] = acc[q];
+  if (tid == 32) {   // the gate sums first, then the weights
+    mbar_expect_tx(bars + 8 * AB_IN, 16 * R * Au);
+    tma3d(sg, &a.gmap, rank * Au, 0, r0, bars + 8 * AB_IN);
+    mbar_expect_tx(bars + 8 * AB_W, 2 * Au * (AT + 8) + 8 * K * Aa + 4 * Aa);
+    bulk_g2s(smem + L.wq, a.wq + (size_t)rank * Au * (AT + 8), Au * (AT + 8) * 2, bars + 8 * AB_W);
+    bulk_g2s(smem + L.u, a.u + (size_t)rank * 2 * K * Aa, 8 * K * Aa, bars + 8 * AB_W);
+    bulk_g2s(smem + L.v, a.v + rank * Aa, 4 * Aa, bars + 8 * AB_W);
+  } else if (tid == 64) {
+    mbar_expect_tx(bars + 8 * AB_IN, 4 * R * Au);
+    tma2d(smem + L.c, &a.cmap, rank * Au, r0, bars + 8 * AB_IN);
+  } else if (tid == 96) {
+    mbar_expect_tx(bars + 8 * AB_IN, 16 * Au);
+    for (int q = 0; q < 4; ++q)
+      bulk_g2s(smem + L.bias + q * Au * 4, a.bias + q * a.A + rank * Au, Au * 4,
+               bars + 8 * AB_IN);
   }
-  __syncthreads();
+  for (int i = tid; i < R * Mc; i += THREADS) sctx[i] = 0.f;
+  for (int rc = warp; rc < 2 * R; rc += WARPS) {   // a warp a row's channel
+    const int r = rc >> 1;
+    const float* src = (rc & 1 ? a.cum : a.w) + (size_t)(r0 + min(r, nv - 1)) * N - pad;
+    for (int i = lane; i < WCW; i += 32) {
+      const bool valid = r < nv && i >= pad && i - pad < N;
+      cp4z(swc + rc * WCW + i, valid ? src + i : a.w, valid);
+    }
+  }
+  for (int r = tid; r < R; r += THREADS)
+    cp4z(slen + r, a.lengths + r0 + min(r, nv - 1), r < nv);
+  cp_arrive(bars + 8 * AB_WC);
+  T2_MARK(0, 2);
+
+  // the cell's update for this CTA's units; h in place of gate i (zero past B)
+  mbar_wait(bars + 8 * AB_IN, 0);
   T2_MARK(0, 3);
 
-  // the energies: a thread per (row, position) and quarter of the attention
-  // width (a warp's lanes on neighbouring positions, one quarter), the
-  // location features in registers, the dense layer's columns read as
-  // broadcast 16-byte words; the quarters' sums added after
   {
-    const int g = tid / (THREADS / 4), AQ = AT / 4;
-    for (int pidx = tid % (THREADS / 4); pidx < ROWS * N; pidx += THREADS / 4) {
-      const int r = pidx / N, n = pidx - r * N;
-      float lf[NF];
-#pragma unroll
-      for (int f = 0; f < NF; ++f) lf[f] = sloc[(r * NF + f) * N + n];
-      const bf16* pmr = spm + r * AT * N + n;
-      float s = 0.f;
-      for (int a = g * AQ; a < (g + 1) * AQ; a += 4) {
-        float pa[4] = {};
-#pragma unroll
-        for (int f = 0; f < NF; ++f) {
-          const float4 d = *reinterpret_cast<const float4*>(sdense + f * AT + a);
-          pa[0] += d.x * lf[f], pa[1] += d.y * lf[f], pa[2] += d.z * lf[f], pa[3] += d.w * lf[f];
-        }
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          s += sv[a + q] * tanhf(pa[q] + sq[r * AT + a + q] + __bfloat162float(pmr[(a + q) * N]));
+    const int A4 = Au / 4;
+    for (int i = tid; i < R * A4; i += THREADS) {
+      const int r = i / A4, j = (i - r * A4) * 4, b = r0 + r;
+      float* gr = sg + r * 4 * Au;
+      if (r >= nv) {
+        *reinterpret_cast<float4*>(gr + j) = make_float4(0.f, 0.f, 0.f, 0.f);
+        continue;
       }
-      spart[g * ROWS * N + pidx] = s;
+      float4 x[4], bb[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        x[q] = *reinterpret_cast<const float4*>(gr + q * Au + j);
+        bb[q] = *reinterpret_cast<const float4*>(sbias + q * Au + j);
+      }
+      const float4 cv = *reinterpret_cast<const float4*>(sc + r * Au + j);
+      float cc[4] = {cv.x, cv.y, cv.z, cv.w}, h[4];
+      lstm4(x, bb, cc, h);
+      *reinterpret_cast<float4*>(a.c + (size_t)b * a.A + rank * Au + j) =
+          make_float4(cc[0], cc[1], cc[2], cc[3]);
+      *reinterpret_cast<float4*>(gr + j) = make_float4(h[0], h[1], h[2], h[3]);
+      const uint2 hb = pack4(h[0], h[1], h[2], h[3]);
+      *reinterpret_cast<uint2*>(a.abuf + (size_t)b * LA + a.P + a.M + rank * Au + j) = hb;
+      *reinterpret_cast<uint2*>(a.dbuf + (size_t)b * LD + rank * Au + j) = hb;
     }
   }
   __syncthreads();
   T2_MARK(0, 4);
-  for (int pidx = tid; pidx < ROWS * N; pidx += THREADS) {
-    const int r = pidx / N, n = pidx - r * N, b = r0 + r;
-    se[pidx] = b < B && n < lengths[b]
-                   ? spart[pidx] + spart[ROWS * N + pidx] + spart[2 * ROWS * N + pidx] +
-                         spart[3 * ROWS * N + pidx]
-                   : -INFINITY;
-  }
-  __syncthreads();
 
-  // the softmax over the row's length: a warp a row
-  if (warp < ROWS) {
-    const int r = warp, b = r0 + r;
-    if (b < B) {
-      const int L = lengths[b];
-      float* er = se + r * N;
-      float m = -INFINITY;
-      for (int n = lane; n < L; n += 32) m = fmaxf(m, er[n]);
-      m = warp_max(m);
-      float sum = 0.f;
-      for (int n = lane; n < L; n += 32) {
-        const float e = expf(er[n] - m);
-        er[n] = e;
-        sum += e;
+  // the query's partial sums over this CTA's units, each to the CTA owning
+  // those attention units
+  mbar_wait(bars + 8 * AB_W, 0);
+  T2_MARK(0, 5);
+  // once the gate sums and weights are in, the rest streams in behind them
+  // (the copies share the SM's path from memory): the processed memory, the
+  // memory columns
+  if (tid == 128) {
+    mbar_expect_tx(bars + 8 * AB_PM, nv * Aa * N * 2);
+    for (int r = 0; r < nv; ++r)
+      bulk_g2s(spm + (size_t)r * Aa * N, a.pm + ((size_t)(r0 + r) * AT + rank * Aa) * N,
+               Aa * N * 2, bars + 8 * AB_PM);
+    for (int j = 0; j < nbuf; ++j) {
+      mbar_expect_tx(bars + 8 * (AB_MEM0 + j), R * a.chunk * Mc * 2);
+      tma3d(smem_m + (size_t)j * R * a.chunk * Mc, &a.mmap, rank * Mc, j * a.chunk, r0,
+            bars + 8 * (AB_MEM0 + j));
+    }
+  }
+  cluster_wait();   // every CTA's barriers are made
+  mv_tiles<4, 8>(swq, AT + 8, Au, AT / 8, sg, 4 * Au, R, [&](int r, int o, float s) {
+    const int d = o / Aa;
+    st_async_f32(remote(smem_addr(sqrecv + (rank * R + r) * Aa + o - d * Aa), d), s,
+                 remote(bars + 8 * AB_Q, d));
+  });
+  T2_MARK(0, 6);
+  T2_MARK(0, 7);
+
+  // the location term of this CTA's attention units over the rows' positions
+  // below their lengths: a thread per channel of [w, Σw], four positions and
+  // eight units (the window in registers); the channels' sums meet between
+  // neighbouring lanes, each lane takes two positions' energies, the a-groups
+  // meet across the lanes above
+  mbar_wait(bars + 8 * AB_WC, 0);
+  {
+    int groups = 0;   // the rows' groups of four positions below their lengths
+    for (int r = 0; r < nv; ++r) groups += (slen[r] + 3) / 4;
+    const int AG = Aa / 8, per = 2 * AG, items = groups * per;
+    for (int it0 = 0; it0 < items; it0 += THREADS) {
+      const int it = it0 + tid;
+      const bool on = it < items;
+      const int sub = it % per, ch = sub & 1, ag = sub >> 1;
+      int r = 0, gi = on ? it / per : 0;
+      while (r + 1 < nv && gi >= (slen[r] + 3) / 4) gi -= (slen[r++] + 3) / 4;
+      const int n0 = 4 * gi;
+      float acc[4][8];
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[p][j] = 0.f;
+      if (on) {
+        // the taps that reach the row's positions (past its length w and Σw
+        // are zero, as the masked softmax and the reset leave them)
+        const int k_lo = max(0, pad - n0 - 3), k_hi = min(K, pad + slen[r] - n0);
+        const float* xp = swc + (r * 2 + ch) * WCW + n0;
+        const float* up = su + ch * K * Aa + ag * 8;
+        float x0 = xp[k_lo], x1 = xp[k_lo + 1], x2 = xp[k_lo + 2];
+#pragma unroll 4
+        for (int k = k_lo; k < k_hi; ++k) {
+          const float x3 = xp[k + 3];
+          const float4 ua = *reinterpret_cast<const float4*>(up + k * Aa);
+          const float4 ub = *reinterpret_cast<const float4*>(up + k * Aa + 4);
+          const float u8[8] = {ua.x, ua.y, ua.z, ua.w, ub.x, ub.y, ub.z, ub.w};
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            acc[0][j] += u8[j] * x0;
+            acc[1][j] += u8[j] * x1;
+            acc[2][j] += u8[j] * x2;
+            acc[3][j] += u8[j] * x3;
+          }
+          x0 = x1, x1 = x2, x2 = x3;
+        }
       }
-      const float inv = 1.f / warp_sum(sum);
-      for (int n = lane; n < N; n += 32) {
-        const float wn = n < L ? er[n] * inv : 0.f;
-        er[n] = wn;
-        w[(size_t)b * N + n] = wn;
-        cum[(size_t)b * N + n] += wn;
-        att_out[((size_t)b * N + n) * T + t] = wn;
+      float lt[2][8];   // the location term of this lane's two positions
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float both = acc[p][j] + __shfl_xor_sync(0xffffffffu, acc[p][j], 1);
+          if (p / 2 == 0) {
+            if (ch == 0) lt[p % 2][j] = both;
+          } else if (ch == 1) {
+            lt[p % 2][j] = both;
+          }
+        }
+      if (it0 == 0) {   // the query: its partials summed in rank order, once
+        if (tid == 0) T2_MARK(0, 8);
+        block_wait_cluster(bars + 8 * AB_Q, 0);
+        for (int i = tid; i < R * Aa; i += THREADS) {
+          const int qr = i / Aa, qa = i - qr * Aa;
+          float q = 0.f;
+#pragma unroll
+          for (int s = 0; s < C_MAX; ++s)
+            if (s < C) q += sqrecv[(s * R + qr) * Aa + qa];
+          sq[i] = q;
+        }
+        mbar_wait(bars + 8 * AB_PM, 0);
+        __syncthreads();
+        if (tid == 0) T2_MARK(0, 9);
+      }
+      float e2[2] = {0.f, 0.f};
+      if (on) {
+        float q8[8];
+        {
+          const float4 qa = *reinterpret_cast<const float4*>(sq + r * Aa + ag * 8);
+          const float4 qb = *reinterpret_cast<const float4*>(sq + r * Aa + ag * 8 + 4);
+          q8[0] = qa.x, q8[1] = qa.y, q8[2] = qa.z, q8[3] = qa.w;
+          q8[4] = qb.x, q8[5] = qb.y, q8[6] = qb.z, q8[7] = qb.w;
+        }
+        const bf16* pmr = spm + ((size_t)r * Aa + ag * 8) * N;
+#pragma unroll
+        for (int pp = 0; pp < 2; ++pp) {
+          const int n = n0 + 2 * ch + pp;
+          if (n < N) {
+            float s = 0.f;
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              s += sv[ag * 8 + j] * tanhf(q8[j] + lt[pp][j] + __bfloat162float(pmr[j * N + n]));
+            e2[pp] = s;
+          }
+        }
+      }
+      for (int h = 2; h < per; h <<= 1)
+#pragma unroll
+        for (int pp = 0; pp < 2; ++pp) e2[pp] += __shfl_xor_sync(0xffffffffu, e2[pp], h);
+      if (on && ag == 0)
+#pragma unroll
+        for (int pp = 0; pp < 2; ++pp) {
+          const int n = n0 + 2 * ch + pp;
+          if (n < N) sesend[r * N4 + n] = e2[pp];
+        }
+    }
+  }
+  fence_proxy_async();
+  __syncthreads();
+  send_all(sesend, serecv + rank * R * N4, R * N4 * 4, bars + 8 * AB_E, C);
+  T2_MARK(0, 10);
+
+  // The softmax over the row's length, then the row's context over this CTA's
+  // memory columns, a warp a row in every CTA of the cluster (the CTA of rank
+  // r % C stores the row's weights): the context's lanes take 8 columns each
+  // and a share of the positions, chunk by chunk. A warp needs no other
+  // warp's results, so only a streamed memory's next chunk waits for the block.
+  block_wait_cluster(bars + 8 * AB_E, 0);
+  T2_MARK(0, 11);
+  cluster_arrive();   // every byte sent to this CTA has arrived
+  for (int r = warp; r < nv; r += WARPS) {
+    const int b = r0 + r, len = slen[r];
+    float* wr = swts + r * N4;
+    float m = -INFINITY;
+    for (int n = lane; n < len; n += 32) {
+      float e = 0.f;
+#pragma unroll
+      for (int s = 0; s < C_MAX; ++s)
+        if (s < C) e += serecv[(s * R + r) * N4 + n];
+      wr[n] = e;
+      m = fmaxf(m, e);
+    }
+    m = warp_max(m);
+    float sum = 0.f;
+    for (int n = lane; n < len; n += 32) {
+      const float e = expf(wr[n] - m);
+      wr[n] = e;
+      sum += e;
+    }
+    const float inv = 1.f / warp_sum(sum);
+    const bool store = r % C == rank;
+    for (int n = lane; n < N; n += 32) {
+      const float wn = n < len ? wr[n] * inv : 0.f;
+      wr[n] = wn;
+      if (store) {
+        a.w[(size_t)b * N + n] = wn;
+        a.cum[(size_t)b * N + n] = swc[(r * 2 + 1) * WCW + pad + n] + wn;
+        a.att_out[((size_t)b * N + n) * a.T + a.t] = wn;
       }
     }
   }
-  __syncthreads();
-  T2_MARK(0, 5);
-
-  // the context: a thread per 8 memory columns of a row and half of its
-  // positions, 8 positions' loads in flight; the halves added after
-  const int MV = M / 8;
-  float* sctx = spart;   // 2 × ROWS × M: the halves' sums (the energies' quarters are spent)
-  for (int i = tid; i < 2 * ROWS * MV; i += THREADS) {
-    const int half = i / (ROWS * MV), ri = i - half * ROWS * MV, r = ri / MV;
-    const int d0 = (ri - r * MV) * 8, b = r0 + r;
-    float acc[8] = {};
-    if (b < B) {
-      const int L = lengths[b], n_mid = (L + 1) / 2;
-      const int n_lo = half ? n_mid : 0, n_hi = half ? L : n_mid;
-      const bf16* mr = mem + (size_t)b * N * M + d0;
-      const float* wr = se + r * N;
-      for (int n0 = n_lo; n0 < n_hi; n0 += 8) {
-        uint4 mv[8];
+  __syncwarp();
+  T2_MARK(0, 12);
+  {
+    // lanes: S to a group of 8 columns (the largest power of two with CG·S ≤ 32)
+    const int CG = Mc / 8;
+    int S = 1;
+    while (CG * S * 2 <= 32) S *= 2;
+    const int s = lane % S, lanes = 32 / S;
+    for (int j = 0; j < nchunks; ++j) {
+      const int buf = j % nbuf, nlo = j * a.chunk;
+      mbar_wait(bars + 8 * (AB_MEM0 + buf), (j / nbuf) & 1);
+      if (j == 0) T2_MARK(0, 15);
+      for (int r = warp; r < nv; r += WARPS) {
+        const int cnt = min(max(slen[r] - nlo, 0), a.chunk);
+        const uint4* mr =
+            reinterpret_cast<const uint4*>(smem_m + (size_t)(buf * R + r) * a.chunk * Mc);
+        const float* wr = swts + r * N4 + nlo;
+        for (int cg0 = 0; cg0 < CG; cg0 += lanes) {
+          const int cg = cg0 + lane / S;
+          float acc[8] = {};
+          if (cg < CG)
+            for (int n = s; n < cnt; n += S) {
+              float m8[8];
+              unpack8(mr[n * CG + cg], m8);
+              const float wn = wr[n];
 #pragma unroll
-        for (int q = 0; q < 8; ++q)
-          mv[q] = n0 + q < n_hi ? *reinterpret_cast<const uint4*>(mr + (size_t)(n0 + q) * M)
-                                : make_uint4(0u, 0u, 0u, 0u);
+              for (int k = 0; k < 8; ++k) acc[k] += wn * m8[k];
+            }
+          for (int h = 1; h < S; h <<= 1)
 #pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          const float wn = n0 + q < n_hi ? wr[n0 + q] : 0.f;
-          float m8[8];
-          unpack8(mv[q], m8);
+            for (int k = 0; k < 8; ++k) acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], h);
+          if (cg < CG && s == 0)
 #pragma unroll
-          for (int k = 0; k < 8; ++k) acc[k] += wn * m8[k];
+            for (int k = 0; k < 8; ++k) sctx[r * Mc + cg * 8 + k] += acc[k];
+        }
+      }
+      if (j + nbuf < nchunks) {   // the buffer's next chunk, once every warp is done with it
+        fence_proxy_async();
+        __syncthreads();
+        if (tid == 128) {
+          mbar_expect_tx(bars + 8 * (AB_MEM0 + buf), R * a.chunk * Mc * 2);
+          tma3d(smem_m + (size_t)buf * R * a.chunk * Mc, &a.mmap, rank * Mc, (j + nbuf) * a.chunk,
+                r0, bars + 8 * (AB_MEM0 + buf));
         }
       }
     }
-    float* dst = sctx + (half * ROWS + r) * M + d0;
-    *reinterpret_cast<float4*>(dst) = make_float4(acc[0], acc[1], acc[2], acc[3]);
-    *reinterpret_cast<float4*>(dst + 4) = make_float4(acc[4], acc[5], acc[6], acc[7]);
-  }
-  __syncthreads();
-  for (int i = tid; i < ROWS * MV; i += THREADS) {
-    const int r = i / MV, d0 = (i - r * MV) * 8, b = r0 + r;
-    if (b >= B) continue;
-    float acc[8];
+    __syncwarp();
+    T2_MARK(0, 16);
+    for (int r = warp; r < nv; r += WARPS)
+      for (int cg = lane; cg < CG; cg += 32) {
+        float v8[8];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) acc[k] = sctx[r * M + d0 + k] + sctx[(ROWS + r) * M + d0 + k];
-    const uint4 o = pack8(acc);
-    *reinterpret_cast<uint4*>(abuf + (size_t)b * LA + P + d0) = o;
-    *reinterpret_cast<uint4*>(dbuf + (size_t)b * LD + A + D + d0) = o;
+        for (int k = 0; k < 8; ++k) v8[k] = sctx[r * Mc + cg * 8 + k];
+        const uint4 o = pack8(v8);
+        const size_t b = r0 + r;
+        *reinterpret_cast<uint4*>(a.abuf + b * LA + a.P + rank * Mc + cg * 8) = o;
+        *reinterpret_cast<uint4*>(a.dbuf + b * LD + a.A + a.D + rank * Mc + cg * 8) = o;
+      }
   }
-  T2_MARK(0, 6);
+  T2_MARK(0, 13);
+  cluster_wait();   // no CTA leaves while a copy from it may still be in flight
+  T2_MARK(0, 14);
+  T2_SPAN(0, 1);
 }
 
-__global__ void __launch_bounds__(THREADS)
-t2_dec_step_kernel(const float* __restrict__ g, const float* __restrict__ bias,
-                   float* __restrict__ c, bf16* __restrict__ dbuf, bf16* __restrict__ abuf,
-                   const bf16* __restrict__ wproj, const float* __restrict__ bproj,
-                   const bf16* __restrict__ w1, const bf16* __restrict__ w2,
-                   const int* __restrict__ seeds, float* __restrict__ mel,
-                   float* __restrict__ gate, int B, int T, int t, int A, int P, int M, int D,
-                   int NM, uint32_t thresh, float scale) {
-  constexpr int ROWS = ROWS_DEC;
-  extern __shared__ __align__(16) float smem[];
-  const int K = D + M, O = NM + 1, OS = round8(O);
-  const int LA = P + M + A, LD = A + D + M;
-  float* sx = smem;              // ROWS × K: [decoder h | context]
-  float* so = sx + ROWS * K;     // ROWS × OS: the frame and the stop logit
-  float* sy = so + ROWS * OS;    // ROWS × P: the prenet's first layer
-  float* sz = sy + ROWS * P;     // ROWS × P: its second
-  const int r0 = blockIdx.x * ROWS;
-  const int tid = threadIdx.x;
+// ---------------------------------------------------------------------------
+// t2_dec_step_kernel
+// ---------------------------------------------------------------------------
+
+struct DecArgs {
+  CUtensorMap gmap;      // (B, 4, D) f32 the decoder cell's gate products, boxes (R, 4, D/C)
+  CUtensorMap cmap;      // (B, D) f32 its cell state, boxes (R, D/C)
+  CUtensorMap xmap;      // (B, A + D + M) bf16 dbuf, boxes (R, M/C) of the context
+  const float* bias;     // (4D)
+  float* c;              // (B, D)
+  bf16* dbuf;            // (B, A + D + M)
+  bf16* abuf;            // (B, P + M + A)
+  const bf16* wp;        // (C, D/C + M/C, OS) the projection and gate, transposed, by CTA
+  const float* bp;       // (OS) their biases, zero padded
+  const bf16* w1;        // (C, NM, P/C + 8) the prenet's first layer, transposed, by CTA
+  const bf16* w2;        // (C, P, P/C + 8) its second
+  const int* seeds;      // (B)
+  float* mel;            // (B, T, NM)
+  float* gate;           // (B, T)
+  int B, T, t, A, P, M, D, NM, R, C;
+  uint32_t thresh;
+  float scale;
+};
+
+// barriers of t2_dec_step_kernel: the first takes tid 0's arrival expecting
+// copied bytes and every thread's cp.async arrival (the seeds), the others
+// one arrival expecting copied bytes
+enum { DB_IN, DB_W, DB_P, DB_Y, DB_N };
+
+__global__ void __launch_bounds__(THREADS, 1)
+t2_dec_step_kernel(const __grid_constant__ DecArgs a) {
+  extern __shared__ __align__(128) char smem[];
+  const int C = a.C, R = a.R, NM = a.NM;
+  const int Du = a.D / C, Mc = a.M / C, Pu = a.P / C, OS = round8(NM + 1), KP = Du + Mc;
+  const DecLayout L = dec_layout(R, C, a.D, a.M, a.P, NM);
+  const int rank = blockIdx.x % C, r0 = (blockIdx.x / C) * R, nv = min(R, a.B - r0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int LA = a.P + a.M + a.A, LD = a.A + a.D + a.M;
+  float* sg = reinterpret_cast<float*>(smem + L.g);
+  const float* sbias = reinterpret_cast<const float*>(smem + L.bias);
+  const float* sc = reinterpret_cast<const float*>(smem + L.c);
+  const bf16* sctx = reinterpret_cast<const bf16*>(smem + L.ctx);
+  float* sx = reinterpret_cast<float*>(smem + L.x);
+  const bf16* swp = reinterpret_cast<const bf16*>(smem + L.wp);
+  const float* sbp = reinterpret_cast<const float*>(smem + L.bp);
+  float* spsend = reinterpret_cast<float*>(smem + L.psend);
+  const float* sprecv = reinterpret_cast<const float*>(smem + L.precv);
+  float* sframe = reinterpret_cast<float*>(smem + L.frame);
+  const bf16* sw1 = reinterpret_cast<const bf16*>(smem + L.w1);
+  const bf16* sw2 = reinterpret_cast<const bf16*>(smem + L.w2);
+  float* sysend = reinterpret_cast<float*>(smem + L.ysend);
+  float* sx2 = reinterpret_cast<float*>(smem + L.x2);
+  int* sseed = reinterpret_cast<int*>(smem + L.seed);
+  const uint32_t bars = smem_addr(smem + L.bars);
 
   T2_MARK(1, 0);
-  lstm_rows<ROWS>(g, bias, c, sx, K, dbuf + A, LD, nullptr, 0, r0, B, D);
-  const int MV = M / 8;
-  for (int i = tid; i < ROWS * MV; i += THREADS) {
-    const int r = i / MV, d0 = (i - r * MV) * 8, b = r0 + r;
-    float x[8] = {};
-    if (b < B) unpack8(*reinterpret_cast<const uint4*>(dbuf + (size_t)b * LD + A + D + d0), x);
-    float* dst = sx + r * K + D + d0;
-    *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
-    *reinterpret_cast<float4*>(dst + 4) = make_float4(x[4], x[5], x[6], x[7]);
+  T2_SPAN(1, 0);
+  // every byte this CTA reads from device memory, in flight at once, each
+  // group of copies issued by a thread of its own warp (arriving on its
+  // barrier expecting the bytes): the rows' gate sums, cell state and context
+  // columns of its units, the biases; the weight slices; and by threads r < R
+  // the seeds
+  if (tid == 0) {
+    const int counts[DB_N] = {THREADS + 4, 1, 1, 1};
+    make_barriers(bars, counts, DB_N);
+    mbar_expect_tx(bars + 8 * DB_P, C * R * OS * 4);
+    mbar_expect_tx(bars + 8 * DB_Y, C * R * Pu * 4);
+  } else if (tid == 32) {
+    prefetch_map(&a.gmap);
+  } else if (tid == 64) {
+    prefetch_map(&a.cmap);
+  } else if (tid == 96) {
+    prefetch_map(&a.xmap);
   }
   __syncthreads();
+  cluster_arrive();   // this CTA's barriers are made (waited for before the first send)
   T2_MARK(1, 1);
-
-  matvec_rows<ROWS, 8, 2>(wproj, K, O, sx, K, so, OS, bproj);   // the projection and the gate
-  __syncthreads();
+  if (tid == 32) {   // the gate sums first, then the weights
+    mbar_expect_tx(bars + 8 * DB_IN, 16 * R * Du);
+    tma3d(sg, &a.gmap, rank * Du, 0, r0, bars + 8 * DB_IN);
+    mbar_expect_tx(bars + 8 * DB_W,
+                   2 * KP * OS + 4 * OS + 2 * NM * (Pu + 8) + 2 * a.P * (Pu + 8));
+    bulk_g2s(smem + L.wp, a.wp + (size_t)rank * KP * OS, KP * OS * 2, bars + 8 * DB_W);
+    bulk_g2s(smem + L.bp, a.bp, OS * 4, bars + 8 * DB_W);
+    bulk_g2s(smem + L.w1, a.w1 + (size_t)rank * NM * (Pu + 8), NM * (Pu + 8) * 2, bars + 8 * DB_W);
+    bulk_g2s(smem + L.w2, a.w2 + (size_t)rank * a.P * (Pu + 8), a.P * (Pu + 8) * 2,
+             bars + 8 * DB_W);
+  } else if (tid == 64) {
+    mbar_expect_tx(bars + 8 * DB_IN, 4 * R * Du);
+    tma2d(smem + L.c, &a.cmap, rank * Du, r0, bars + 8 * DB_IN);
+  } else if (tid == 96) {
+    mbar_expect_tx(bars + 8 * DB_IN, 2 * R * Mc);
+    tma2d(smem + L.ctx, &a.xmap, a.A + a.D + rank * Mc, r0, bars + 8 * DB_IN);
+  } else if (tid == 128) {
+    mbar_expect_tx(bars + 8 * DB_IN, 16 * Du);
+    for (int q = 0; q < 4; ++q)
+      bulk_g2s(smem + L.bias + q * Du * 4, a.bias + q * a.D + rank * Du, Du * 4,
+               bars + 8 * DB_IN);
+  }
+  for (int r = tid; r < R; r += THREADS) cp4z(sseed + r, a.seeds + r0 + min(r, nv - 1), r < nv);
+  cp_arrive(bars + 8 * DB_IN);
   T2_MARK(1, 2);
-  for (int i = tid; i < ROWS * O; i += THREADS) {
-    const int r = i / O, o = i - r * O, b = r0 + r;
-    if (b >= B) continue;
-    if (o < NM)
-      mel[((size_t)b * T + t) * NM + o] = so[r * OS + o];
-    else
-      gate[(size_t)b * T + t] = so[r * OS + o];
-  }
 
-  // the next step's prenet: ReLU, then the inference dropout's hashed mask
-  matvec_rows<ROWS, 1, 8>(w1, NM, P, so, OS, sy, P, nullptr);
-  __syncthreads();
+  // the cell's update for this CTA's units → x's first Du columns; the context
+  // columns after them (zero past B)
+  mbar_wait(bars + 8 * DB_IN, 0);
   T2_MARK(1, 3);
-  for (int i = tid; i < ROWS * P; i += THREADS) {
-    const int r = i / P, u = i - r * P, b = r0 + r;
-    const bool keep = b < B && (mask_hash(t + 1, u, (uint32_t)seeds[b], 0) & 0xFFFFFFu) >= thresh;
-    sy[i] = keep ? fmaxf(sy[i], 0.f) * scale : 0.f;
+  {
+    const int D4 = Du / 4;
+    for (int i = tid; i < R * D4; i += THREADS) {
+      const int r = i / D4, j = (i - r * D4) * 4, b = r0 + r;
+      float* xr = sx + r * KP;
+      if (r >= nv) {
+        *reinterpret_cast<float4*>(xr + j) = make_float4(0.f, 0.f, 0.f, 0.f);
+        continue;
+      }
+      const float* gr = sg + r * 4 * Du;
+      float4 x[4], bb[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        x[q] = *reinterpret_cast<const float4*>(gr + q * Du + j);
+        bb[q] = *reinterpret_cast<const float4*>(sbias + q * Du + j);
+      }
+      const float4 cv = *reinterpret_cast<const float4*>(sc + r * Du + j);
+      float cc[4] = {cv.x, cv.y, cv.z, cv.w}, h[4];
+      lstm4(x, bb, cc, h);
+      *reinterpret_cast<float4*>(a.c + (size_t)b * a.D + rank * Du + j) =
+          make_float4(cc[0], cc[1], cc[2], cc[3]);
+      *reinterpret_cast<float4*>(xr + j) = make_float4(h[0], h[1], h[2], h[3]);
+      *reinterpret_cast<uint2*>(a.dbuf + (size_t)b * LD + a.A + rank * Du + j) =
+          pack4(h[0], h[1], h[2], h[3]);
+    }
+    for (int i = tid; i < R * Mc; i += THREADS) {
+      const int r = i / Mc, m = i - r * Mc;
+      sx[r * KP + Du + m] = r < nv ? __bfloat162float(sctx[r * Mc + m]) : 0.f;
+    }
   }
-  __syncthreads();
-  matvec_rows<ROWS, 1, 8>(w2, P, P, sy, P, sz, P, nullptr);
   __syncthreads();
   T2_MARK(1, 4);
-  for (int i = tid; i < ROWS * P; i += THREADS) {
-    const int r = i / P, u = i - r * P, b = r0 + r;
-    if (b >= B) continue;
-    const bool keep = (mask_hash(t + 1, u, (uint32_t)seeds[b], 1) & 0xFFFFFFu) >= thresh;
-    abuf[(size_t)b * LA + u] = __float2bfloat16(keep ? fmaxf(sz[i], 0.f) * scale : 0.f);
-  }
+
+  // the projection and gate's partial sums over this CTA's inputs, to every CTA
+  mbar_wait(bars + 8 * DB_W, 0);
   T2_MARK(1, 5);
+  mv_tiles<4, 8>(swp, OS, KP, OS / 8, sx, KP, R,
+                 [&](int r, int o, float s) { spsend[r * OS + o] = s; });
+  T2_MARK(1, 6);
+  fence_proxy_async();
+  __syncthreads();
+  cluster_wait();   // every CTA's barriers are made
+  send_all(spsend, sprecv + rank * R * OS, R * OS * 4, bars + 8 * DB_P, C);
+  T2_MARK(1, 7);
+
+  // the frame and its stop logit, summed in rank order in every CTA; the CTA
+  // of rank r % C stores the row's
+  block_wait_cluster(bars + 8 * DB_P, 0);
+  T2_MARK(1, 8);
+  for (int r = warp; r < R; r += WARPS)
+    for (int o = lane; o < OS; o += 32) {
+      float f = 0.f;
+#pragma unroll
+      for (int s = 0; s < C_MAX; ++s)
+        if (s < C) f += sprecv[(s * R + r) * OS + o];
+      f += sbp[o];
+      sframe[r * OS + o] = f;
+      if (r < nv && r % C == rank && o <= NM) {
+        const int b = r0 + r;
+        if (o < NM)
+          a.mel[((size_t)b * a.T + a.t) * NM + o] = f;
+        else
+          a.gate[(size_t)b * a.T + a.t] = f;
+      }
+    }
+  __syncthreads();
+  T2_MARK(1, 9);
+
+  // the next step's prenet, this CTA's units: ReLU, then the inference
+  // dropout's hashed mask; the first layer's units to every CTA
+  mv_tiles<4, 32>(sw1, Pu + 8, NM, Pu / 8, sframe, OS, R, [&](int r, int o, float s) {
+    const bool keep = r < nv && (mask_hash(a.t + 1, rank * Pu + o, (uint32_t)sseed[r], 0) &
+                                 0xFFFFFFu) >= a.thresh;
+    sysend[r * Pu + o] = keep ? fmaxf(s, 0.f) * a.scale : 0.f;
+  });
+  __syncthreads();
+  {   // into every CTA's x2 at this CTA's columns, 16 bytes a store
+    const int per = R * Pu / 4;
+    for (int i = tid; i < C * per; i += THREADS) {
+      const int d = i / per, rq = i - d * per, r = rq / (Pu / 4), q = rq - r * (Pu / 4);
+      st_async_v4(remote(smem_addr(sx2 + r * a.P + rank * Pu + 4 * q), d),
+                  *reinterpret_cast<const float4*>(sysend + r * Pu + 4 * q),
+                  remote(bars + 8 * DB_Y, d));
+    }
+  }
+  T2_MARK(1, 10);
+
+  block_wait_cluster(bars + 8 * DB_Y, 0);
+  T2_MARK(1, 11);
+  cluster_arrive();   // every byte sent to this CTA has arrived
+  T2_MARK(1, 12);
+  mv_tiles<4, 32>(sw2, Pu + 8, a.P, Pu / 8, sx2, a.P, R, [&](int r, int o, float s) {
+    if (r >= nv) return;
+    const int u = rank * Pu + o;
+    const bool keep = (mask_hash(a.t + 1, u, (uint32_t)sseed[r], 1) & 0xFFFFFFu) >= a.thresh;
+    a.abuf[(size_t)(r0 + r) * LA + u] = __float2bfloat16(keep ? fmaxf(s, 0.f) * a.scale : 0.f);
+  });
+  T2_MARK(1, 13);
+  cluster_wait();   // no CTA leaves while a copy from it may still be in flight
+  T2_MARK(1, 14);
+  T2_SPAN(1, 1);
 }
 
-// the largest dynamic shared memory each kernel has been allowed so far
-size_t att_smem_set = 48 * 1024, dec_smem_set = 48 * 1024;
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+
+bool att_set = false, dec_set = false;
+
+template <typename Kern>
+cudaError_t prepare(Kern kern, bool& set) {
+  if (set) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  if (e == cudaSuccess) set = true;
+  return e;
+}
+
+// a launch of `blocks` blocks in clusters of C
+void fill_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, int C, int blocks,
+                 size_t smem, cudaStream_t s) {
+  cfg = {};
+  cfg.gridDim = dim3(blocks, 1, 1);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+}
+
+bool cluster_ok(int C) { return C == 1 || C == 2 || C == 4 || C == 8; }
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// A tensor map over `base` (rank dims, innermost first; the byte strides of
+// dims 1..; the box), zeros past its edges; false where the encoder is
+// missing or refuses the shape (box dims at most 256, the innermost a
+// multiple of 16 bytes)
+bool tensor_map(CUtensorMap* m, CUtensorMapDataType type, cuuint32_t rank, const void* base,
+                const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess) {
+      (void)cudaGetLastError();
+      return false;
+    }
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(m, type, rank, const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the (B, 4, H) gate sums and (B, H) cell state of a cell of H units, boxes of
+// R rows × H/C units
+bool cell_maps(CUtensorMap* gmap, CUtensorMap* cmap, const void* g, const void* c, int B, int H,
+               int R, int C) {
+  const cuuint64_t gd[3] = {(cuuint64_t)H, 4, (cuuint64_t)B};
+  const cuuint64_t gs[2] = {(cuuint64_t)H * 4, (cuuint64_t)H * 16};
+  const cuuint32_t gb[3] = {(cuuint32_t)(H / C), 4, (cuuint32_t)R};
+  const cuuint64_t cd[2] = {(cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t cs[1] = {(cuuint64_t)H * 4};
+  const cuuint32_t cb[2] = {(cuuint32_t)(H / C), (cuuint32_t)R};
+  return tensor_map(gmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, g, gd, gs, gb) &&
+         tensor_map(cmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, c, cd, cs, cb);
+}
 
 }  // namespace
 
 extern "C" {
 
-int spoofsv_t2_att_step(void* g, void* bias, void* c, void* abuf, void* dbuf, void* wq,
-                        void* wloc_t, void* wdense_t, void* v, void* pm, void* mem, void* lengths,
-                        void* w, void* cum, void* att_out, int B, int N, int T, int t, int A,
-                        int P, int M, int D, int AT, int NF_in, int K, void* stream) {
-  if (NF_in != NF || M > M_MAX) return (int)cudaErrorInvalidValue;
-  const size_t smem = att_smem_floats(N, A, AT, K) * sizeof(float);
-  if (smem > att_smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        t2_att_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    att_smem_set = smem;
+// The plan's shared memory, as the kernels lay it out (ops/t2_kernel.py checks its own)
+int spoofsv_t2_att_smem(int R, int C, int N, int chunk, int A, int AT, int M, int K) {
+  const int nbuf = (N + chunk - 1) / chunk > 1 ? 2 : 1;
+  return att_layout(R, C, N, chunk, nbuf, A, AT, M, K).total;
+}
+
+int spoofsv_t2_dec_smem(int R, int C, int D, int M, int P, int NM) {
+  return dec_layout(R, C, D, M, P, NM).total;
+}
+
+// Clusters of C one-CTA-an-SM blocks of a kernel (0 attention, 1 decoder)
+// that the card holds at once; a negative CUDA error on failure
+int spoofsv_t2_resident_clusters(int kernel, int C) {
+  cudaError_t e = kernel == 0 ? prepare(t2_att_step_kernel, att_set)
+                              : prepare(t2_dec_step_kernel, dec_set);
+  if (e != cudaSuccess) return -(int)e;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  fill_config(cfg, attr, C, C * 64, SMEM_MAX, 0);
+  int n = 0;
+  e = kernel == 0 ? cudaOccupancyMaxActiveClusters(&n, t2_att_step_kernel, &cfg)
+                  : cudaOccupancyMaxActiveClusters(&n, t2_dec_step_kernel, &cfg);
+  if (e != cudaSuccess) {
+    (void)cudaGetLastError();
+    return -(int)e;
   }
-  t2_att_step_kernel<<<(B + ROWS_ATT - 1) / ROWS_ATT, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)g, (const float*)bias, (float*)c, (bf16*)abuf, (bf16*)dbuf,
-      (const bf16*)wq, (const float*)wloc_t, (const float*)wdense_t, (const float*)v,
-      (const bf16*)pm, (const bf16*)mem, (const int*)lengths, (float*)w, (float*)cum,
-      (float*)att_out, B, N, T, t, A, P, M, D, AT, K);
+  return n;
+}
+
+int spoofsv_t2_att_step(void* g, void* bias, void* c, void* abuf, void* dbuf, void* wq, void* u,
+                        void* v, void* pm, void* mem, void* lengths, void* w, void* cum,
+                        void* att_out, int B, int N, int T, int t, int A, int P, int M, int D,
+                        int AT, int K, int R, int C, int chunk, int smem, void* stream) {
+  if (!cluster_ok(C) || R < 1 || R > 256 || B < 1 || N < 1 || chunk < 1 || chunk > N ||
+      chunk > 256 || A % (4 * C) || A / C > 256 || M % (8 * C) || M / C > 256 || AT % (8 * C) ||
+      K < 1 || K % 2 == 0)
+    return (int)cudaErrorInvalidValue;
+  if (smem != spoofsv_t2_att_smem(R, C, N, chunk, A, AT, M, K) || smem > SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = prepare(t2_att_step_kernel, att_set);
+  if (e != cudaSuccess) return (int)e;
+  AttArgs a{{}, {}, {}, (const float*)bias, (float*)c, (bf16*)abuf, (bf16*)dbuf,
+            (const bf16*)wq, (const float*)u, (const float*)v, (const bf16*)pm,
+            (const int*)lengths, (float*)w, (float*)cum, (float*)att_out,
+            B, N, T, t, A, P, M, D, AT, K, R, C, chunk};
+  const cuuint64_t md[3] = {(cuuint64_t)M, (cuuint64_t)N, (cuuint64_t)B};
+  const cuuint64_t ms[2] = {(cuuint64_t)M * 2, (cuuint64_t)N * M * 2};
+  const cuuint32_t mb[3] = {(cuuint32_t)(M / C), (cuuint32_t)chunk, (cuuint32_t)R};
+  if (!cell_maps(&a.gmap, &a.cmap, g, c, B, A, R, C) ||
+      !tensor_map(&a.mmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, mem, md, ms, mb))
+    return (int)cudaErrorNotSupported;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  fill_config(cfg, attr, C, C * ((B + R - 1) / R), smem, (cudaStream_t)stream);
+  cudaLaunchKernelEx(&cfg, t2_att_step_kernel, a);
   return (int)cudaGetLastError();
 }
 
-int spoofsv_t2_dec_step(void* g, void* bias, void* c, void* dbuf, void* abuf, void* wproj,
-                        void* bproj, void* w1, void* w2, void* seeds, void* mel, void* gate,
-                        int B, int T, int t, int A, int P, int M, int D, int NM, int thresh,
-                        float scale, void* stream) {
-  const size_t smem = dec_smem_floats(D, M, P, NM) * sizeof(float);
-  if (smem > dec_smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        t2_dec_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    dec_smem_set = smem;
-  }
-  t2_dec_step_kernel<<<(B + ROWS_DEC - 1) / ROWS_DEC, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)g, (const float*)bias, (float*)c, (bf16*)dbuf, (bf16*)abuf,
-      (const bf16*)wproj, (const float*)bproj, (const bf16*)w1, (const bf16*)w2,
-      (const int*)seeds, (float*)mel, (float*)gate, B, T, t, A, P, M, D, NM,
-      (uint32_t)thresh, scale);
+int spoofsv_t2_dec_step(void* g, void* bias, void* c, void* dbuf, void* abuf, void* wp, void* bp,
+                        void* w1, void* w2, void* seeds, void* mel, void* gate, int B, int T,
+                        int t, int A, int P, int M, int D, int NM, int thresh, int R, int C,
+                        int smem, float scale, void* stream) {
+  if (!cluster_ok(C) || R < 1 || R > 256 || B < 1 || D % (4 * C) || D / C > 256 ||
+      M % (8 * C) || M / C > 256 || P % (8 * C) || NM < 1)
+    return (int)cudaErrorInvalidValue;
+  if (smem != spoofsv_t2_dec_smem(R, C, D, M, P, NM) || smem > SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = prepare(t2_dec_step_kernel, dec_set);
+  if (e != cudaSuccess) return (int)e;
+  DecArgs a{{}, {}, {}, (const float*)bias, (float*)c, (bf16*)dbuf, (bf16*)abuf,
+            (const bf16*)wp, (const float*)bp, (const bf16*)w1, (const bf16*)w2,
+            (const int*)seeds, (float*)mel, (float*)gate, B, T, t, A, P, M, D, NM, R, C,
+            (uint32_t)thresh, scale};
+  const int LD = A + D + M;
+  const cuuint64_t xd[2] = {(cuuint64_t)LD, (cuuint64_t)B};
+  const cuuint64_t xs[1] = {(cuuint64_t)LD * 2};
+  const cuuint32_t xb[2] = {(cuuint32_t)(M / C), (cuuint32_t)R};
+  if (!cell_maps(&a.gmap, &a.cmap, g, c, B, D, R, C) ||
+      !tensor_map(&a.xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, dbuf, xd, xs, xb))
+    return (int)cudaErrorNotSupported;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  fill_config(cfg, attr, C, C * ((B + R - 1) / R), smem, (cudaStream_t)stream);
+  cudaLaunchKernelEx(&cfg, t2_dec_step_kernel, a);
   return (int)cudaGetLastError();
 }
 
@@ -538,7 +1213,7 @@ const char* spoofsv_t2_rollout_error_string(int e) {
 }
 
 #ifdef SPOOFSV_T2_PROBE
-// the phase clocks of the last launches (2 × 16 int64) into host memory
+// the phase clocks and spans of the last launches (2 × 48 int64) into host memory
 int spoofsv_t2_probe_read(void* out) {
   return (int)cudaMemcpyFromSymbol(out, g_t2_probe, sizeof(g_t2_probe));
 }

@@ -76,13 +76,19 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         "spoofsv_hconv_pair_error_string": (ctypes.c_char_p, [_I]),
     },
     "t2_rollout": {
-        "spoofsv_t2_att_step": (_I, [_P] * 15 + [_I] * 11 + [_P]),
-        "spoofsv_t2_dec_step": (_I, [_P] * 12 + [_I] * 9 + [_F, _P]),
+        "spoofsv_t2_att_step": (_I, [_P] * 14 + [_I] * 14 + [_P]),
+        "spoofsv_t2_dec_step": (_I, [_P] * 12 + [_I] * 12 + [_F, _P]),
+        "spoofsv_t2_att_smem": (_I, [_I] * 8),
+        "spoofsv_t2_dec_smem": (_I, [_I] * 6),
+        "spoofsv_t2_resident_clusters": (_I, [_I, _I]),
         "spoofsv_t2_rollout_error_string": (ctypes.c_char_p, [_I]),
     },
     "t2_rollout_probe": {
-        "spoofsv_t2_att_step": (_I, [_P] * 15 + [_I] * 11 + [_P]),
-        "spoofsv_t2_dec_step": (_I, [_P] * 12 + [_I] * 9 + [_F, _P]),
+        "spoofsv_t2_att_step": (_I, [_P] * 14 + [_I] * 14 + [_P]),
+        "spoofsv_t2_dec_step": (_I, [_P] * 12 + [_I] * 12 + [_F, _P]),
+        "spoofsv_t2_att_smem": (_I, [_I] * 8),
+        "spoofsv_t2_dec_smem": (_I, [_I] * 6),
+        "spoofsv_t2_resident_clusters": (_I, [_I, _I]),
         "spoofsv_t2_probe_read": (_I, [_P]),
         "spoofsv_t2_rollout_error_string": (ctypes.c_char_p, [_I]),
     },

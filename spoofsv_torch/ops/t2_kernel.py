@@ -6,8 +6,8 @@ sums, ``torch.mm(..., out_dtype=torch.float32)``) and what lies between
 them, in two hand-written kernels of ``csrc/t2_rollout.cu``:
 
 * ``t2_att_step_kernel``: the attention LSTM cell's pointwise update (cell
-  state in f32), the query (``query_layer``), the location features (the
-  31-tap convolution over [weights, cumulative weights] and its dense layer),
+  state in f32), the query (``query_layer``), the location term (the 31-tap
+  convolution over [weights, cumulative weights] through its dense layer),
   the energies ``v·tanh(query + location + processed memory)``, the masked
   softmax in f32, the cumulative weights' update and the context over the
   memory; it writes h and the context into the next products' operands.
@@ -22,9 +22,17 @@ decoder h | context] for the decoder cell, whose weights are permuted to
 that order; the projection reads ``d_buf``'s last two parts. So a step is
 four launches and no copies, and the 1000 steps of a call are captured once
 per (B, N, steps) into a CUDA graph (:class:`Rollout`), replayed with no
-host work a step. The step's weights (20.3 M parameters, 40.6 MB in bf16)
-stay in the 50 MB L2 at best; the rollout is bound by the latency of its
-4000 dependent launches and by L2 bandwidth, not by its 6.6 GFLOP a step.
+host work a step.
+
+Each kernel runs as thread-block clusters: a cluster of ``ctas`` CTAs serves
+``rows`` batch rows, each CTA a slice of every matrix, its bytes staged into
+shared memory by asynchronous copies (tensor-map and bulk copies) issued as
+the launch starts, the partial results crossing the cluster through
+distributed shared memory.
+:func:`step_plan` chooses the rows, the CTAs and the memory's staging from
+(B, N) and the widths; :class:`StepWeights` lays the weights out slice by
+slice; :func:`staged_bytes` counts what a launch's copies bring in (counter
+``t2_step_staged_bytes``).
 
 CPU tensors take :func:`rollout_plain`, the same steps over the same
 operand layout in float32 torch.
@@ -33,7 +41,7 @@ operand layout in float32 torch.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -88,6 +96,135 @@ def prenet_mask_plain(seeds: torch.Tensor, step: int, layer: int, units: int, p:
 
 
 # ---------------------------------------------------------------------------
+# the kernels' plan: rows and CTAs a cluster, shared memory, the memory's staging
+# ---------------------------------------------------------------------------
+
+SMEM_MAX = 232448         # bytes of shared memory a block may use (sm_90)
+RESIDENT_CLUSTERS = 15    # clusters of 8 one-CTA-an-SM blocks an H100 SXM holds at once
+#                           (cudaOccupancyMaxActiveClusters); the plan's default off the card
+MIN_CHUNK = 8             # positions a streamed chunk of the memory holds at least
+MAX_BOX = 256             # the most a tensor copy's box spans in a dimension
+
+
+def _a128(n: int) -> int:
+    return (n + 127) & ~127
+
+
+def _round4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def _round8(n: int) -> int:
+    return (n + 7) & ~7
+
+
+def cluster_ctas(widths: Tuple[int, ...]) -> int:
+    """CTAs a cluster (8, 4, 2 or 1): the most whose slices of the units, the
+    attention width, the memory's columns and the prenet's units are whole
+    16-byte rows, the attention slice a power of two of 8-unit groups, and
+    the slices of the units and columns within one tensor copy's box.
+    ``widths`` = (A, D, M, P, attention, K, n_mel)."""
+    A, D, M, P, AT, _, _ = widths
+    for C in (8, 4, 2, 1):
+        ag = AT // C // 8
+        if (A % (4 * C) == 0 and D % (4 * C) == 0 and M % (8 * C) == 0 and AT % (8 * C) == 0
+                and P % (8 * C) == 0 and ag & (ag - 1) == 0
+                and max(A, D, M) // C <= MAX_BOX):
+            return C
+    raise ValueError(f"t2 rollout kernels: no cluster fits the widths {widths}")
+
+
+def att_smem(R: int, C: int, N: int, chunk: int, widths: Tuple[int, ...]) -> int:
+    """Bytes of shared memory a CTA of ``t2_att_step_kernel`` lays out for R
+    rows a cluster of C CTAs, the memory in chunks of ``chunk`` positions (one
+    buffer when a chunk holds all N, else two): ``csrc/t2_rollout.cu``'s
+    ``att_layout``, part for part."""
+    A, _, M, _, AT, K, _ = widths
+    Au, Aa, Mc, N4 = A // C, AT // C, M // C, _round4(N)
+    nbuf = 1 if chunk >= N else 2
+    wcw = _round4(N4 + K - 1)
+    erecv = 0 if C * N4 <= 4 * Au else 4 * C * R * N4   # else in the gate sums' place
+    parts = (64, 16 * R * Au, 16 * Au, 4 * R * Au, 2 * Au * (AT + 8), 8 * K * Aa, 4 * Aa,
+             8 * R * wcw, 2 * R * Aa * N, 4 * C * R * Aa, 4 * R * Aa, 4 * R * N4, erecv,
+             4 * R * N4, 4 * R, 4 * R * Mc, 2 * nbuf * R * chunk * Mc)
+    return sum(_a128(p) for p in parts)
+
+
+def dec_smem(R: int, C: int, widths: Tuple[int, ...]) -> int:
+    """Bytes of shared memory a CTA of ``t2_dec_step_kernel`` lays out:
+    ``dec_layout``, part for part."""
+    _, D, M, P, _, _, NM = widths
+    Du, Mc, Pu, OS = D // C, M // C, P // C, _round8(NM + 1)
+    KP = Du + Mc
+    parts = (64, 16 * R * Du, 16 * Du, 4 * R * Du, 2 * R * Mc, 4 * R * KP, 2 * KP * OS, 4 * OS,
+             4 * R * OS, 4 * C * R * OS, 4 * R * OS, 2 * NM * (Pu + 8), 2 * P * (Pu + 8),
+             4 * R * Pu, 4 * R * P, 4 * R)
+    return sum(_a128(p) for p in parts)
+
+
+class Plan(NamedTuple):
+    """How a step kernel covers a batch: ``clusters`` clusters of ``ctas``
+    CTAs, ``rows`` batch rows each (the last one's rows past B idle), ``smem``
+    bytes of shared memory a CTA; the attention kernel's memory in chunks of
+    ``chunk`` positions, ``streamed`` through two buffers where a row's
+    columns do not fit whole (``chunk`` is N when they do)."""
+    rows: int
+    ctas: int
+    clusters: int
+    smem: int
+    chunk: int
+    streamed: bool
+
+
+def step_plan(kernel: str, B: int, N: int, widths: Tuple[int, ...],
+              resident: int = RESIDENT_CLUSTERS) -> Plan:
+    """The plan of ``kernel`` (``"att"`` or ``"dec"``) for B rows of texts of N
+    ids: as many clusters as the card holds at once (``resident``), fewer
+    where B is smaller, their rows spread evenly; the memory staged whole where
+    it fits in :data:`SMEM_MAX`, else streamed in the longest chunks that
+    fit (:data:`MIN_CHUNK` positions at least); fewer rows a cluster (and more
+    clusters) only where neither fits."""
+    C = cluster_ctas(widths)
+    target = min(MAX_BOX, -(-B // max(1, min(resident, B))))
+    for R in range(target, 0, -1):
+        clusters = -(-B // R)
+        if kernel == "dec":
+            smem = dec_smem(R, C, widths)
+            if smem <= SMEM_MAX:
+                return Plan(R, C, clusters, smem, 0, False)
+            continue
+        smem = att_smem(R, C, N, N, widths)
+        if smem <= SMEM_MAX and N <= MAX_BOX:
+            return Plan(R, C, clusters, smem, N, False)
+        for chunk in range(min(N - 1, MAX_BOX), min(N - 1, MIN_CHUNK) - 1, -1):
+            smem = att_smem(R, C, N, chunk, widths)
+            if smem <= SMEM_MAX:
+                return Plan(R, C, clusters, smem, chunk, True)
+    raise ValueError(f"t2 rollout kernels: no plan fits {SMEM_MAX} bytes of shared memory "
+                     f"for B={B} N={N} widths={widths}")
+
+
+def staged_bytes(kernel: str, plan: Plan, B: int, N: int, widths: Tuple[int, ...]) -> int:
+    """Bytes one launch of ``kernel`` (``"att"`` or ``"dec"``) of B rows brings
+    from device memory into shared memory by asynchronous copies, as it issues
+    them: per CTA its biases and weight slices, and boxes of its cluster's
+    rows (past B too) of the gate sums and cell state of its units, of the
+    memory's columns (the attention kernel, every chunk's) and of the context
+    columns (the decoder); per row and CTA the attention kernel's processed
+    memory, [w, Σw] and length, the decoder's seed."""
+    A, D, M, P, AT, K, NM = widths
+    C, ctas = plan.ctas, plan.clusters * plan.ctas
+    slots = plan.clusters * plan.rows * C   # (row, CTA) pairs the boxes cover
+    Au, Aa, Du, Mc, Pu, OS = A // C, AT // C, D // C, M // C, P // C, _round8(NM + 1)
+    if kernel == "att":
+        chunks = -(-N // plan.chunk)
+        return (slots * (20 * Au + 2 * chunks * plan.chunk * Mc) + B * C * (2 * Aa * N + 8 * N + 4)
+                + ctas * (16 * Au + 2 * Au * (AT + 8) + 8 * K * Aa + 4 * Aa))
+    return (slots * (20 * Du + 2 * Mc) + B * C * 4
+            + ctas * (16 * Du + 2 * (Du + Mc) * OS + 4 * OS + 2 * NM * (Pu + 8) + 2 * P * (Pu + 8)))
+
+
+# ---------------------------------------------------------------------------
 # the step's weights, in the operands' order
 # ---------------------------------------------------------------------------
 
@@ -98,7 +235,17 @@ class StepWeights:
     buffers' order (attention cell [prenet | context | h], decoder cell
     [attention h | h | context]); the biases summed in f32; the query,
     projection+gate and prenet matrices in the model's dtype; the location
-    layer and ``v`` in f32."""
+    layer and ``v`` in f32.
+
+    The kernels' copies (``k_*``), laid out by the cluster's CTAs
+    (:func:`cluster_ctas`, ``C``) so that a CTA's slice is one block, each
+    block's rows padded to an odd multiple of 16 bytes: ``k_wq`` W_q^T
+    (C, A/C, att + 8); ``k_u`` the location convolution folded into its dense
+    layer, U = dense · conv in float64 stored f32, as (C, 2K, att/C);
+    ``k_proj`` the projection and gate transposed, a CTA's rows its decoder
+    units then its context columns, (C, D/C + M/C, round8(n_mel + 1));
+    ``k_bproj`` their biases padded; ``k_pre1`` / ``k_pre2`` the prenet's
+    layers transposed, a CTA's units, (C, inputs, P/C + 8)."""
 
     def __init__(self, model):
         cfg = model.cfg
@@ -127,6 +274,34 @@ class StepWeights:
                                      dec.gate_layer.linear_layer.bias], 0).float()
             self.w_pre1 = dec.prenet.layers[0].linear_layer.weight.clone()
             self.w_pre2 = dec.prenet.layers[1].linear_layer.weight.clone()
+            self.widths = (A, self.D, self.M, self.P, self.att, self.w_loc_t.shape[1],
+                           self.n_mel)
+            self._kernel_layouts()
+
+    def _kernel_layouts(self) -> None:
+        A, D, M, P, AT, K, NM = self.widths
+        C = self.C = cluster_ctas(self.widths)
+        Au, Aa, Du, Mc, Pu, OS = A // C, AT // C, D // C, M // C, P // C, _round8(NM + 1)
+        dt, dev = self.w_q.dtype, self.w_q.device
+        self.k_wq = torch.zeros(A, AT + 8, dtype=dt, device=dev)
+        self.k_wq[:, :AT] = self.w_q.t()
+        self.k_wq = self.k_wq.reshape(C, Au, AT + 8)
+        conv = self.w_loc_t.double().permute(2, 0, 1).reshape(-1, 2 * K)   # (filters, 2K)
+        u = self.w_dense_t.double().t() @ conv                               # (AT, 2K)
+        self.k_u = u.float().reshape(C, Aa, 2 * K).transpose(1, 2).contiguous()
+        proj = torch.zeros(D + M, OS, dtype=dt, device=dev)
+        proj[:, :NM + 1] = self.w_proj.t()
+        self.k_proj = torch.cat([proj[:D].reshape(C, Du, OS), proj[D:].reshape(C, Mc, OS)],
+                                1).contiguous()
+        self.k_bproj = torch.zeros(OS, dtype=torch.float32, device=dev)
+        self.k_bproj[:NM + 1] = self.b_proj
+
+        def units(wl: torch.Tensor) -> torch.Tensor:   # (P, inputs) → (C, inputs, Pu + 8)
+            out = torch.zeros(C, wl.shape[1], Pu + 8, dtype=dt, device=dev)
+            out[:, :, :Pu] = wl.reshape(C, Pu, wl.shape[1]).transpose(1, 2)
+            return out
+
+        self.k_pre1, self.k_pre2 = units(self.w_pre1), units(self.w_pre2)
 
 
 CHECKPOINT_EVERY = 25   # steps between two kept states (a run of the steps resumes there)
@@ -233,16 +408,45 @@ def _lib() -> ctypes.CDLL:
 BUILD = LIB   # the library the wrappers launch (t2_probe sets its clocked build)
 
 
+_RESIDENT: Dict[Tuple[int, int], Dict[str, int]] = {}   # (device, C) → resident clusters a kernel
+_PLANS: Dict[tuple, Tuple[Plan, Plan]] = {}              # (device, widths, B, N) → both plans
+
+
+def kernel_plans(w: StepWeights, B: int, N: int, device: torch.device) -> Tuple[Plan, Plan]:
+    """Both kernels' plans for (B, N) on ``device``: :func:`step_plan` with the
+    clusters the card holds at once (asked of it once a device)."""
+    plan_key = (device.index or 0, w.widths, B, N)
+    if plan_key in _PLANS:
+        return _PLANS[plan_key]
+    key = (device.index or 0, w.C)
+    if key not in _RESIDENT:
+        lib = _lib()
+        got = {}
+        for i, name in enumerate(("att", "dec")):
+            n = lib.spoofsv_t2_resident_clusters(i, w.C)
+            if n < 0:
+                _build.check(lib, LIB, -n, f"t2 {name} kernel's resident clusters")
+            if n < 1:
+                raise RuntimeError(f"t2 {name} kernel: the card holds no cluster of {w.C} CTAs")
+            got[name] = n
+        _RESIDENT[key] = got
+    res = _RESIDENT[key]
+    _PLANS[plan_key] = (step_plan("att", B, N, w.widths, res["att"]),
+                        step_plan("dec", B, N, w.widths, res["dec"]))
+    return _PLANS[plan_key]
+
+
 def att_step_kernel(g: torch.Tensor, w: StepWeights, s: Buffers, t: int) -> None:
     lib = _lib()
     dev = g.device
+    p = kernel_plans(w, s.B, s.N, dev)[0]
     err = lib.spoofsv_t2_att_step(
         g.data_ptr(), w.b_att.data_ptr(), s.c_att.data_ptr(), s.a_buf.data_ptr(),
-        s.d_buf.data_ptr(), w.w_q.data_ptr(), w.w_loc_t.data_ptr(), w.w_dense_t.data_ptr(),
-        w.v.data_ptr(), s.pm.data_ptr(), s.memory.data_ptr(), s.lengths.data_ptr(),
-        s.w.data_ptr(), s.cum.data_ptr(), s.att.data_ptr(),
-        s.B, s.N, s.T, t, w.A, w.P, w.M, w.D, w.att, w.w_loc_t.shape[2], w.w_loc_t.shape[1],
-        _build.stream_ptr(dev))
+        s.d_buf.data_ptr(), w.k_wq.data_ptr(), w.k_u.data_ptr(), w.v.data_ptr(),
+        s.pm.data_ptr(), s.memory.data_ptr(), s.lengths.data_ptr(), s.w.data_ptr(),
+        s.cum.data_ptr(), s.att.data_ptr(),
+        s.B, s.N, s.T, t, w.A, w.P, w.M, w.D, w.att, w.w_loc_t.shape[1],
+        p.rows, p.ctas, p.chunk, p.smem, _build.stream_ptr(dev))
     _build.check(lib, LIB, err, "t2_att_step_kernel")
     if not torch.cuda.is_current_stream_capturing():   # a replay counts its own
         LAUNCHES["t2_att_step"].launches += 1
@@ -251,28 +455,27 @@ def att_step_kernel(g: torch.Tensor, w: StepWeights, s: Buffers, t: int) -> None
 def dec_step_kernel(g: torch.Tensor, w: StepWeights, s: Buffers, t: int) -> None:
     lib = _lib()
     dev = g.device
+    p = kernel_plans(w, s.B, s.N, dev)[1]
     err = lib.spoofsv_t2_dec_step(
         g.data_ptr(), w.b_dec.data_ptr(), s.c_dec.data_ptr(), s.d_buf.data_ptr(),
-        s.a_buf.data_ptr(), w.w_proj.data_ptr(), w.b_proj.data_ptr(), w.w_pre1.data_ptr(),
-        w.w_pre2.data_ptr(), s.seeds.data_ptr(), s.mel.data_ptr(), s.gate.data_ptr(),
+        s.a_buf.data_ptr(), w.k_proj.data_ptr(), w.k_bproj.data_ptr(), w.k_pre1.data_ptr(),
+        w.k_pre2.data_ptr(), s.seeds.data_ptr(), s.mel.data_ptr(), s.gate.data_ptr(),
         s.B, s.T, t, w.A, w.P, w.M, w.D, w.n_mel, keep_threshold(w.drop),
-        1.0 / (1.0 - w.drop), _build.stream_ptr(dev))
+        p.rows, p.ctas, p.smem, 1.0 / (1.0 - w.drop), _build.stream_ptr(dev))
     _build.check(lib, LIB, err, "t2_dec_step_kernel")
     if not torch.cuda.is_current_stream_capturing():
         LAUNCHES["t2_dec_step"].launches += 1
 
 
-def _check(w: StepWeights, N: int, dtype: torch.dtype) -> None:
+def _check(w: StepWeights, B: int, N: int, dtype: torch.dtype) -> None:
     if dtype != torch.bfloat16 or w.w_att.dtype != torch.bfloat16:
         raise ValueError(f"t2 rollout kernels: bf16 operands only, got {dtype}")
-    filters = w.w_loc_t.shape[2]
-    widths = (w.A, w.D, w.M, w.P, w.n_mel, filters)
-    if (any(x % 8 for x in widths) or w.att % 16 or w.A > 1024 or w.M > 1024
-            or w.D + w.M > 2048 or w.P > 256 or w.n_mel > 256 or filters != 32 or N < 1):
-        raise ValueError(f"t2 rollout kernels: unsupported widths A={w.A} D={w.D} M={w.M} "
-                         f"P={w.P} n_mel={w.n_mel} attention={w.att} filters={filters} N={N} "
-                         f"(multiples of 8, the attention width of 16; A, M <= 1024, D + M <= "
-                         f"2048, P and n_mel <= 256, 32 filters)")
+    A, D, M, P, AT, K, NM = w.widths
+    if any(x % 8 for x in (A, D, M, P, NM)) or AT % 16 or K % 2 == 0 or N < 1:
+        raise ValueError(f"t2 rollout kernels: unsupported widths A={A} D={D} M={M} P={P} "
+                         f"n_mel={NM} attention={AT} taps={K} N={N} (multiples of 8, the "
+                         f"attention width of 16, an odd number of taps)")
+    step_plan("att", B, N, w.widths)   # raises where no plan fits
 
 
 def run_steps(w: StepWeights, s: Buffers, plain: bool) -> None:
@@ -287,6 +490,28 @@ def run_steps(w: StepWeights, s: Buffers, plain: bool) -> None:
         else:
             att_step_kernel(torch.mm(s.a_buf, w.w_att.t(), out_dtype=torch.float32), w, s, t)
             dec_step_kernel(torch.mm(s.d_buf, w.w_dec.t(), out_dtype=torch.float32), w, s, t)
+
+
+def restore_state(w: StepWeights, s: Buffers, state: dict, mel_prev: torch.Tensor, t: int
+                  ) -> None:
+    """The decoder's state kept before step ``t`` (one entry of the rollout's
+    ``states``) into the buffers ``s``: the operand rows, c, w, Σw, and the
+    prenet's output for step ``t`` from the frame emitted before it
+    (``mel_prev``; the go frame's prenet is 0), its masks hashed as the
+    kernel hashes them."""
+    A, D, P, M = w.A, w.D, w.P, w.M
+    for k in ("c_att", "c_dec", "w", "cum"):
+        getattr(s, k).copy_(state[k])
+    s.d_buf[:, :A] = state["h_att"]
+    s.d_buf[:, A:A + D] = state["h_dec"]
+    s.d_buf[:, A + D:] = state["ctx"]
+    s.a_buf[:, P:P + M] = state["ctx"]
+    s.a_buf[:, P + M:] = state["h_att"]
+    y = mel_prev.float() if t else torch.zeros_like(mel_prev, dtype=torch.float32)
+    for layer, wl in enumerate((w.w_pre1, w.w_pre2)):
+        y = torch.relu(y @ wl.float().t()) * prenet_mask_plain(s.seeds, t, layer, wl.shape[0],
+                                                               w.drop)
+    s.a_buf[:, :P] = y.to(s.a_buf.dtype)
 
 
 def rollout_plain(w: StepWeights, memory, pm, lengths, seeds, steps: int):
@@ -314,7 +539,9 @@ class Rollout:
     then captures them into a CUDA graph (counter ``t2_graph_captures``);
     each call copies its inputs into the graph's buffers, replays it and
     returns copies of mel, gate and attention (counter ``t2_rollout_steps``;
-    each kernel's :data:`LAUNCHES` grows by ``steps`` a replay). ``states``
+    counter ``t2_step_staged_bytes``: what the kernels' bulk copies bring in
+    over the call's steps, :func:`staged_bytes`; each kernel's
+    :data:`LAUNCHES` grows by ``steps`` a replay). ``states``
     are the graph's own buffers, valid until the next call of the same (B,
     N): a caller that keeps them clones them. CPU tensors run
     :func:`rollout_plain`."""
@@ -326,7 +553,7 @@ class Rollout:
 
     def _capture(self, B: int, N: int, dtype, device) -> Tuple[torch.cuda.CUDAGraph, Buffers]:
         w = self.weights
-        _check(w, N, dtype)
+        _check(w, B, N, dtype)
         s = Buffers(w, B, N, self.steps, dtype, device)
         run_steps(w, s, plain=False)      # cuBLAS and the kernels loaded, outside the capture
         torch.cuda.synchronize(device)
@@ -356,5 +583,8 @@ class Rollout:
         graph.replay()
         for k in LAUNCHES.values():
             k.launches += self.steps
+        count("t2_step_staged_bytes", self.steps * sum(
+            staged_bytes(k, p, B, N, self.weights.widths)
+            for k, p in zip(("att", "dec"), kernel_plans(self.weights, B, N, memory.device))))
         states = dict(s.ckpt, step=s.ckpt_steps)
         return s.mel.clone(), s.gate.clone(), s.att.clone(), states
